@@ -1,0 +1,309 @@
+"""SOL device backends and the per-op dispatch table (counterpart of
+``repro.backends.registry``).
+
+Each (backend, OpKind) pair maps to a list of :class:`Impl` entries and the
+executor resolves ``node → impl`` through a fallback chain:
+
+  tier 0  backend-specific kernel   (``register_impl(backend, op, fn)``)
+  tier 1  shared hand-written kernel (``register_shared_impl`` — admitted
+                                     only when the impl's ``requires``
+                                     capabilities are a subset of the
+                                     backend's; the Hopper kernels sit here,
+                                     gated on ``"cuda"``)
+  tier 2  PyTorch reference         (``register_reference_impl`` — always
+                                     available; registered by core.executor)
+
+Two backends: ``torch_ref`` (capabilities ``{"torch"}``, the reference tier
+only — the counterpart of ``xla``; it runs wherever its tensors are) and
+``h100`` (``{"torch", "cuda"}`` — the counterpart of ``pallas_tpu``).
+Backward (grad) tables come with the training slice.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+
+from ..core.autotune import Tunable
+from ..core.ir import Node, OpKind
+
+
+@dataclasses.dataclass(frozen=True)
+class HardwareSpec:
+    """Roofline constants of one device.  The TPU spec's ``vmem_bytes``,
+    ``mxu_dim``, ``lanes`` and ``sublanes`` become what bounds a CUDA block
+    here: shared memory per block, the wgmma tile, the warp and the SM
+    count."""
+
+    name: str
+    peak_flops_bf16: float        # FLOP/s, dense tensor cores
+    peak_flops_f32: float         # FLOP/s, f32 outside the tensor cores
+    hbm_bandwidth: float          # bytes/s
+    link_bandwidth: float         # bytes/s per NVLink direction
+    hbm_bytes: int                # device memory
+    smem_bytes: int               # shared memory one block may use
+    mma_dim: int = 64             # wgmma tile rows
+    warp: int = 32                # threads per warp
+    sms: int = 132                # streaming multiprocessors
+
+    def compute_s(self, flops: float) -> float:
+        return flops / self.peak_flops_bf16
+
+    def memory_s(self, nbytes: float) -> float:
+        return nbytes / self.hbm_bandwidth
+
+    def collective_s(self, nbytes: float) -> float:
+        return nbytes / self.link_bandwidth
+
+    def roofline_s(self, flops: float, nbytes: float,
+                   link_bytes: float = 0.0) -> float:
+        """Time lower bound: the dominant of compute / memory / links."""
+        return max(self.compute_s(flops), self.memory_s(nbytes),
+                   self.collective_s(link_bytes))
+
+
+# NVIDIA H100 data sheet, dense rates.  SXM5: 989 TFLOP/s bf16, 67 TFLOP/s
+# f32 (no tensor cores), 3.35 TB/s HBM3, 80 GB, 132 SMs, 227 KiB of shared
+# memory per block, NVLink 900 GB/s (450 each way).
+H100_SXM = HardwareSpec(
+    name="h100_sxm", peak_flops_bf16=989e12, peak_flops_f32=67e12,
+    hbm_bandwidth=3.35e12, link_bandwidth=450e9, hbm_bytes=80 * 1024 ** 3,
+    smem_bytes=227 * 1024, sms=132)
+
+# PCIe card: 756 TFLOP/s bf16, 51 TFLOP/s f32, 2.0 TB/s HBM2e, 114 SMs.
+H100_PCIE = HardwareSpec(
+    name="h100_pcie", peak_flops_bf16=756e12, peak_flops_f32=51e12,
+    hbm_bandwidth=2.0e12, link_bandwidth=300e9, hbm_bytes=80 * 1024 ** 3,
+    smem_bytes=227 * 1024, sms=114)
+
+
+def h100_spec(device_name: str) -> HardwareSpec:
+    """The spec matching a CUDA device name (PCIe values when it says so)."""
+    return H100_PCIE if "pcie" in device_name.lower() else H100_SXM
+
+
+# ---------------------------------------------------------------------------
+# per-op implementations
+# ---------------------------------------------------------------------------
+
+# fn(node, vals, backend) -> Tensor; vals are the lowered inputs of the node
+# (for FUSED nodes: the side inputs, in node.inputs order).
+ImplFn = Callable[[Node, Sequence[Any], "Backend"], Any]
+
+TIER_BACKEND = 0      # backend-specific kernel
+TIER_SHARED = 1       # shared hand-written kernel (capability-gated)
+TIER_REFERENCE = 2    # PyTorch reference lowering
+
+
+@dataclasses.dataclass(frozen=True)
+class Impl:
+    """One implementation 'flavour' of an op."""
+
+    name: str                                    # e.g. "cuda.dfp_fused"
+    op: OpKind
+    fn: ImplFn
+    tier: int
+    requires: frozenset = frozenset()            # backend capabilities needed
+    supports: Optional[Callable[[Node], bool]] = None   # per-node capability
+    backend: Optional[str] = None                # tier-0 owner; None = any
+    # 'streamed' impls touch memory once per input/output (depth-first);
+    # 'roundtrip' impls materialize every intermediate
+    memory: str = "streamed"
+    tunable: Optional[Tunable] = None
+
+    def admissible(self, backend: "Backend", node: Node) -> bool:
+        if self.backend is not None and self.backend != backend.name:
+            return False
+        if not self.requires <= backend.capabilities:
+            return False
+        if self.supports is not None and not self.supports(node):
+            return False
+        return True
+
+
+_BACKEND_IMPLS: Dict[Tuple[str, OpKind], List[Impl]] = {}
+_SHARED_IMPLS: Dict[OpKind, List[Impl]] = {}
+_REFERENCE_IMPLS: Dict[OpKind, Impl] = {}
+_IMPLS_BY_NAME: Dict[str, Impl] = {}
+
+
+def _index(impl: Impl) -> Impl:
+    _IMPLS_BY_NAME[impl.name] = impl
+    return impl
+
+
+def register_impl(backend: str, op: OpKind, fn: ImplFn, *,
+                  name: Optional[str] = None,
+                  supports: Optional[Callable[[Node], bool]] = None,
+                  memory: str = "streamed",
+                  tunable: Optional[Tunable] = None) -> Impl:
+    """Register a backend-specific implementation (tier 0); newest wins."""
+    impl = _index(Impl(name or f"{backend}.{op.value}", op, fn, TIER_BACKEND,
+                       supports=supports, backend=backend, memory=memory,
+                       tunable=tunable))
+    _BACKEND_IMPLS.setdefault((backend, op), []).insert(0, impl)
+    return impl
+
+
+def register_shared_impl(op: OpKind, fn: ImplFn, *, name: str,
+                         requires: Sequence[str] = (),
+                         supports: Optional[Callable[[Node], bool]] = None,
+                         memory: str = "streamed",
+                         tunable: Optional[Tunable] = None) -> Impl:
+    """Register a shared kernel (tier 1), admitted for any backend whose
+    capabilities cover ``requires``."""
+    impl = _index(Impl(name, op, fn, TIER_SHARED,
+                       requires=frozenset(requires), supports=supports,
+                       memory=memory, tunable=tunable))
+    _SHARED_IMPLS.setdefault(op, []).insert(0, impl)
+    return impl
+
+
+def register_reference_impl(op: OpKind, fn: ImplFn, *,
+                            name: Optional[str] = None,
+                            memory: str = "streamed") -> Impl:
+    """Register the always-available PyTorch reference (tier 2)."""
+    impl = _index(Impl(name or f"ref.{op.value}", op, fn, TIER_REFERENCE,
+                       memory=memory))
+    _REFERENCE_IMPLS[op] = impl
+    return impl
+
+
+def get_impl(name: str) -> Optional[Impl]:
+    _load_entry_points()
+    return _IMPLS_BY_NAME.get(name)
+
+
+_ENTRY_POINTS_STATE = "unloaded"     # unloaded | loading | loaded
+
+
+def _load_entry_points() -> None:
+    """Import the modules that populate the dispatch table: the executor's
+    reference lowerings and the kernel entry points (each ops.py registers
+    its own impls at import).  A failed import resets the state so the real
+    error resurfaces on the next dispatch call."""
+    global _ENTRY_POINTS_STATE
+    if _ENTRY_POINTS_STATE != "unloaded":
+        return
+    _ENTRY_POINTS_STATE = "loading"
+    try:
+        from ..core import executor
+        executor._register_reference_impls()
+        from ..kernels.decode_attention import ops as _da    # noqa: F401
+        from ..kernels.dfp_fused import ops as _d            # noqa: F401
+        from ..kernels.flash_attention import ops as _f      # noqa: F401
+        from ..kernels.matmul import ops as _m               # noqa: F401
+    except BaseException:
+        _ENTRY_POINTS_STATE = "unloaded"
+        raise
+    _ENTRY_POINTS_STATE = "loaded"
+
+
+def tunables_for(op: OpKind) -> List[Tunable]:
+    """Every Tunable any impl (any backend, any tier) declares for ``op`` —
+    the election pass clears all of them before pinning."""
+    _load_entry_points()
+    out: List[Tunable] = []
+    for (_b, o), impls in _BACKEND_IMPLS.items():
+        if o is op:
+            out += [i.tunable for i in impls if i.tunable is not None]
+    out += [i.tunable for i in _SHARED_IMPLS.get(op, ())
+            if i.tunable is not None]
+    return out
+
+
+def candidates(backend: "Backend", node: Node) -> List[Impl]:
+    """All admissible impls for (backend, node) in fallback-chain order:
+    backend-specific → shared → reference."""
+    _load_entry_points()
+    out: List[Impl] = []
+    for impl in _BACKEND_IMPLS.get((backend.name, node.op), []):
+        if impl.admissible(backend, node):
+            out.append(impl)
+    for impl in _SHARED_IMPLS.get(node.op, []):
+        if impl.admissible(backend, node):
+            out.append(impl)
+    ref = _REFERENCE_IMPLS.get(node.op)
+    if ref is not None and ref.admissible(backend, node):
+        out.append(ref)
+    return out
+
+
+def resolve(backend: "Backend", node: Node) -> Impl:
+    """First admissible impl in the fallback chain."""
+    cands = candidates(backend, node)
+    if not cands:
+        raise NotImplementedError(
+            f"no implementation of {node.op} for backend {backend.name!r}")
+    return cands[0]
+
+
+# ---------------------------------------------------------------------------
+# backends
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class Backend:
+    name: str
+    hw: HardwareSpec
+    # layout preferences — the paper's per-device layout election
+    linear_weight_layout: str     # 'oi' (out,in) vs 'io' (in,out)
+    conv_layout: str              # 'nchw' vs 'nhwc'
+    capabilities: frozenset = frozenset({"torch"})
+    # mesh qualifier for the autotune cache (set by the mesh slice)
+    shard_tag: str = ""
+
+    @property
+    def cache_name(self) -> str:
+        """The autotune-cache backend key: ``name`` on one device,
+        ``name@shard_tag`` under a mesh."""
+        return f"{self.name}@{self.shard_tag}" if self.shard_tag else self.name
+
+    def preferred_layout(self, node: Node) -> str:
+        if node.op in (OpKind.LINEAR, OpKind.MATMUL):
+            return self.linear_weight_layout
+        return self.conv_layout   # convs and DFP ops follow the data layout
+
+    def candidates(self, node: Node) -> List[Impl]:
+        return candidates(self, node)
+
+    def resolve(self, node: Node) -> Impl:
+        return resolve(self, node)
+
+
+_REGISTRY: Dict[str, Backend] = {}
+
+
+def register_backend(b: Backend) -> Backend:
+    _REGISTRY[b.name] = b
+    return b
+
+
+def get_backend(name: str) -> Backend:
+    if name not in _REGISTRY:
+        raise KeyError(f"unknown backend {name!r}; have {sorted(_REGISTRY)}")
+    return _REGISTRY[name]
+
+
+def available_backends() -> Dict[str, Backend]:
+    return dict(_REGISTRY)
+
+
+# The reference backend: every node runs as PyTorch ops on whatever device
+# its tensors are on (the counterpart of ``xla``).
+register_backend(Backend(
+    name="torch_ref",
+    hw=H100_SXM,
+    linear_weight_layout="oi",   # paper: (out,in) — torch's own layout
+    conv_layout="nchw",
+    capabilities=frozenset({"torch"}),
+))
+
+# The Hopper backend: the hand-written CUDA/Triton kernels at the shared
+# tier (the counterpart of ``pallas_tpu``).
+register_backend(Backend(
+    name="h100",
+    hw=H100_SXM,
+    linear_weight_layout="io",   # kernels contract K-major; the wrapper
+    conv_layout="nhwc",          # reads (out,in) weights through strides
+    capabilities=frozenset({"torch", "cuda"}),
+))

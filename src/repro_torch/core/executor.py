@@ -1,0 +1,203 @@
+"""SOL execution (counterpart of ``repro.core.executor``, forward only).
+
+``lower_graph`` turns an elected graph into a Python function over tensors:
+each node runs the impl the election pass annotated on ``node.impl`` (or the
+first admissible one in the fallback chain backend kernel → shared kernel →
+the PyTorch reference lowerings below).  This module registers the
+**reference tier** for every op it can lower; it knows nothing about which
+backends exist.  PyTorch runs eagerly, so the lowered function is the
+compiled program: there is no tracing step.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, List, Sequence
+
+import torch
+import torch.nn.functional as F
+
+from ..backends import registry
+from .ir import Graph, Node, OpKind
+
+Tensor = torch.Tensor
+
+TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+                "float16": torch.float16, "int32": torch.int32,
+                "int64": torch.int64, "float64": torch.float64}
+
+
+# ---------------------------------------------------------------------------
+# individual op lowerings (the reference tier)
+# ---------------------------------------------------------------------------
+
+def linear_weight_kn(n: Node, w: Tensor) -> Tensor:
+    """A Linear weight in the (K=in, N=out) contraction orientation, as a
+    view (no copy).  Params are stored (out,in) framework-style; the single
+    home of the orientation heuristic, shared with the CUDA matmul impl."""
+    return w.T if w.shape[0] == n.attrs["out_features"] else w
+
+
+def _lower_linear(n: Node, x: Tensor, w: Tensor, b: Tensor | None,
+                  backend: "registry.Backend") -> Tensor:
+    # 'io' contracts against the (in,out) view; 'oi' keeps (out,in) and
+    # contracts on the last dim of both (F.linear)
+    if n.layout == "io":
+        y = torch.matmul(x, linear_weight_kn(n, w))
+    else:
+        wt = w if w.shape[0] == n.attrs["out_features"] else w.T
+        y = F.linear(x, wt)
+    if b is not None:
+        y = y + b
+    return y
+
+
+def _layernorm(x: Tensor, g: Tensor, b: Tensor, eps: float) -> Tensor:
+    mu = x.mean(-1, keepdim=True)
+    var = ((x - mu) ** 2).mean(-1, keepdim=True)
+    return (x - mu) * torch.rsqrt(var + eps) * g + b
+
+
+_ELEMENTWISE: Dict[OpKind, Callable[..., Tensor]] = {
+    OpKind.RELU: lambda x: torch.clamp_min(x, 0.0),
+    OpKind.GELU: lambda x: F.gelu(x, approximate="tanh"),
+    OpKind.SILU: F.silu,
+    OpKind.SIGMOID: torch.sigmoid,
+    OpKind.TANH: torch.tanh,
+    OpKind.EXP: torch.exp,
+    OpKind.IDENTITY: lambda x: x,
+}
+
+
+def _lower_node(n: Node, vals: List[Tensor], backend: "registry.Backend"
+                ) -> Tensor:
+    op = n.op
+    if op in _ELEMENTWISE:
+        return _ELEMENTWISE[op](vals[0])
+    if op is OpKind.ADD:
+        return vals[0] + vals[1]
+    if op is OpKind.SUB:
+        return vals[0] - vals[1]
+    if op is OpKind.MUL:
+        return vals[0] * vals[1]
+    if op is OpKind.DIV:
+        return vals[0] / vals[1]
+    if op is OpKind.BIAS_ADD:
+        x, b = vals
+        shape = [1] * x.dim()
+        shape[n.attrs.get("axis", -1)] = b.shape[0]
+        return x + b.reshape(shape)
+    if op is OpKind.SCALE:
+        return vals[0] * n.attrs["value"]
+    if op is OpKind.SOFTCAP:
+        c = n.attrs["cap"]
+        return torch.tanh(vals[0] / c) * c
+    if op is OpKind.LAYERNORM:
+        x, g, b = vals
+        return _layernorm(x, g, b, n.attrs.get("eps", 1e-5))
+    if op is OpKind.RMSNORM:
+        x, g = vals
+        ms = (x.float() ** 2).mean(-1, keepdim=True)
+        return (x * torch.rsqrt(ms + n.attrs.get("eps", 1e-6)).to(x.dtype)) * g
+    if op is OpKind.DROPOUT:
+        return vals[0]
+    if op is OpKind.RESHAPE:
+        return vals[0].reshape(n.attrs["shape"])
+    if op is OpKind.LINEAR:
+        return _lower_linear(n, vals[0], vals[1],
+                             vals[2] if len(vals) > 2 else None, backend)
+    if op is OpKind.MATMUL:
+        return torch.matmul(vals[0], vals[1])
+    raise NotImplementedError(f"lowering for {op}")
+
+
+# ---------------------------------------------------------------------------
+# DFP fusion-group reference: compose op-at-a-time
+# ---------------------------------------------------------------------------
+
+def compose_fused(n: Node, vals: Sequence[Tensor],
+                  backend: "registry.Backend") -> Tensor:
+    """Lower a FUSED node op-at-a-time; vals are the group's side inputs in
+    node.inputs order.  Body ops resolve through the dispatch table too, so a
+    backend's tier-0 override of a fusable op still applies."""
+    local: Dict[int, Tensor] = {id(i): v for i, v in zip(n.inputs, vals)}
+    out = None
+    for b in n.body:
+        out = _impl_for(b, backend).fn(b, [local[id(i)] for i in b.inputs],
+                                       backend)
+        local[id(b)] = out
+    return out
+
+
+# what the serving slice's extraction emits, plus every op a DFP program
+# covers (so ``ref.compose`` can run any group); the CNN and recurrent ops
+# arrive with their modules
+_REFERENCE_OPS = (
+    list(_ELEMENTWISE)
+    + [OpKind.ADD, OpKind.SUB, OpKind.MUL, OpKind.DIV, OpKind.BIAS_ADD,
+       OpKind.SCALE, OpKind.SOFTCAP, OpKind.LAYERNORM, OpKind.RMSNORM,
+       OpKind.DROPOUT, OpKind.RESHAPE, OpKind.LINEAR, OpKind.MATMUL]
+)
+
+
+def _register_reference_impls() -> None:
+    """Invoked by ``registry._load_entry_points`` (not at import), so the
+    executor↔registry import cycle stays one-directional."""
+    for _op in _REFERENCE_OPS:
+        registry.register_reference_impl(_op, _lower_node)
+    registry.register_reference_impl(OpKind.FUSED, compose_fused,
+                                     name="ref.compose", memory="roundtrip")
+
+
+# ---------------------------------------------------------------------------
+# graph → callable
+# ---------------------------------------------------------------------------
+
+def _impl_for(n: Node, backend: "registry.Backend") -> registry.Impl:
+    """Honour the election's annotation when it is still admissible for this
+    backend, else resolve through the fallback chain."""
+    if n.impl:
+        impl = registry.get_impl(n.impl)
+        if impl is not None and impl.op is n.op \
+                and impl.admissible(backend, n):
+            return impl
+    return registry.resolve(backend, n)
+
+
+def lower_graph(g: Graph, backend: "registry.Backend"
+                ) -> Callable[..., Any]:
+    """Return fn(params: dict, *inputs) -> outputs evaluating the graph.
+    CONST sources are materialized once per device, on the device of the
+    first input."""
+    order = g.topo()
+    input_ids = [id(i) for i in g.inputs]
+    param_items = sorted(g.params.items())
+    impls: Dict[int, registry.Impl] = {
+        id(n): _impl_for(n, backend) for n in order
+        if n.op not in (OpKind.INPUT, OpKind.PARAM, OpKind.CONST,
+                        OpKind.OUTPUT)
+    }
+    consts = [n for n in order if n.op is OpKind.CONST]
+    const_cache: Dict[torch.device, Dict[int, Tensor]] = {}
+
+    def fn(params: Dict[str, Tensor], *inputs: Tensor):
+        dev = inputs[0].device if inputs else torch.device("cpu")
+        if dev not in const_cache:
+            const_cache[dev] = {
+                id(n): torch.full(n.spec.shape, n.attrs.get("fill", 0.0),
+                                  dtype=TORCH_DTYPES[n.spec.dtype],
+                                  device=dev) for n in consts}
+        env: Dict[int, Tensor] = dict(const_cache[dev])
+        for nid, x in zip(input_ids, inputs):
+            env[nid] = x
+        for name, node in param_items:
+            env[id(node)] = params[name]
+        for n in order:
+            if id(n) in env:
+                continue
+            if n.op in (OpKind.INPUT, OpKind.PARAM):
+                raise ValueError(f"unbound source node {n}")
+            env[id(n)] = impls[id(n)].fn(n, [env[id(i)] for i in n.inputs],
+                                         backend)
+        outs = tuple(env[id(o)] for o in g.outputs)
+        return outs[0] if len(outs) == 1 else outs
+
+    return fn

@@ -1,0 +1,316 @@
+"""Graph extraction: ``torch.nn`` modules → SOL IR (paper Sec. III-A;
+counterpart of ``repro.frontends.extract``).
+
+Extraction is driven by an emitter registry keyed on module types, looked up
+by exact type then MRO, so new layer kinds plug in without touching the
+walk.  Emitters key on torch's own classes (``torch.nn.Linear`` ...), so a
+plain torch module extracts as well as the port's subclasses.  Containers
+(``Sequential``, ``Residual``) recurse, so transformer blocks extract as
+genuine multi-input graphs.
+
+Parameters are registered under their dotted ``named_parameters`` names, so
+the SolModel reads the framework's own parameter storage (paper Listing 2).
+"""
+from __future__ import annotations
+
+from typing import Callable, Dict, List, Tuple, Type
+
+import numpy as np
+from torch import nn as tnn
+
+from ..core import ir
+from ..core.ir import Graph, Node, OpKind, TensorSpec
+from . import nn
+
+
+class UnsupportedModuleError(TypeError):
+    """No emitter is registered for a module type (or the module computes
+    something the IR op does not)."""
+
+
+# fn(module, ctx, x: Node, path: str) -> Node  (path is the dotted prefix of
+# the module in the tree, '' for the root)
+EmitterFn = Callable[[tnn.Module, "EmitContext", Node, str], Node]
+
+_EMITTERS: Dict[Type[tnn.Module], EmitterFn] = {}
+# decode-mode overrides (MultiHeadAttention → DECODE_ATTENTION), looked up
+# before _EMITTERS when ctx.mode == 'decode'
+_DECODE_EMITTERS: Dict[Type[tnn.Module], EmitterFn] = {}
+# modules that mix information across positions: decode extraction refuses
+# them unless they have a decode emitter
+_SEQUENCE_MODULES: set = set()
+
+
+def register_emitter(*module_types: Type[tnn.Module]
+                     ) -> Callable[[EmitterFn], EmitterFn]:
+    """Register an extraction emitter for one or more module types."""
+    def deco(fn: EmitterFn) -> EmitterFn:
+        for t in module_types:
+            _EMITTERS[t] = fn
+        return fn
+    return deco
+
+
+def register_decode_emitter(*module_types: Type[tnn.Module]
+                            ) -> Callable[[EmitterFn], EmitterFn]:
+    """Register a single-token decode emitter (implies the module is
+    sequence-dependent)."""
+    def deco(fn: EmitterFn) -> EmitterFn:
+        for t in module_types:
+            _DECODE_EMITTERS[t] = fn
+            _SEQUENCE_MODULES.add(t)
+        return fn
+    return deco
+
+
+def registered_emitters() -> List[str]:
+    return sorted(t.__name__ for t in _EMITTERS)
+
+
+def _emitter_for(m: tnn.Module) -> EmitterFn | None:
+    for t in type(m).__mro__:
+        if t in _EMITTERS:
+            return _EMITTERS[t]
+    return None
+
+
+def _where(path: str) -> str:
+    return path.rstrip(".") or "<root>"
+
+
+class EmitContext:
+    """Per-extraction state: the parameter table plus node builders.
+
+    ``mode`` is ``'forward'``, ``'prefill'`` (attention layers also record
+    their (k, v) projections in ``kv_outputs``) or ``'decode'`` (attention
+    layers read a cache input and emit ``DECODE_ATTENTION``)."""
+
+    def __init__(self, dtype: str = "float32", mode: str = "forward",
+                 max_seq: int = 0):
+        self.dtype = dtype
+        self.mode = mode
+        self.max_seq = max_seq
+        self.params: Dict[str, Node] = {}
+        self.kv_inputs: List[Node] = []
+        self.kv_outputs: List[Node] = []
+        self.lens: Node | None = None
+
+    def emit(self, m: tnn.Module, x: Node, path: str = "") -> Node:
+        if self.mode == "decode":
+            for t in type(m).__mro__:
+                if t in _DECODE_EMITTERS:
+                    return _DECODE_EMITTERS[t](m, self, x, path)
+            if any(t in _SEQUENCE_MODULES for t in type(m).__mro__):
+                raise UnsupportedModuleError(
+                    f"{type(m).__name__} at {_where(path)} mixes information "
+                    f"across sequence positions and has no decode emitter; "
+                    f"serve this model with decode=False.")
+        fn = _emitter_for(m)
+        if fn is None:
+            raise UnsupportedModuleError(
+                f"no emitter registered for {type(m).__name__} at "
+                f"{_where(path)}; registered emitters: "
+                f"{', '.join(registered_emitters())}.  Add one with "
+                f"frontends.extract.register_emitter({type(m).__name__}).")
+        return fn(m, self, x, path)
+
+    def kv_input(self, shape: Tuple[int, ...], name: str) -> Node:
+        n = ir.input_node(shape, self.dtype, name=name)
+        self.kv_inputs.append(n)
+        return n
+
+    def param(self, name: str, tensor) -> Node:
+        if name in self.params:        # same framework storage → same node
+            return self.params[name]
+        n = ir.param_node(tuple(tensor.shape), self.dtype, name=name)
+        self.params[name] = n
+        return n
+
+    def matmul(self, x: Node, w: Node) -> Node:
+        """x @ w with w in (in, out) layout."""
+        shape = x.spec.shape[:-1] + (w.spec.shape[-1],)
+        return Node(OpKind.MATMUL, [x, w], TensorSpec(shape, self.dtype))
+
+    def reshape(self, x: Node, shape: Tuple[int, ...]) -> Node:
+        return Node(OpKind.RESHAPE, [x], TensorSpec(tuple(shape), self.dtype),
+                    attrs={"shape": tuple(shape)})
+
+    def unary(self, op: OpKind, x: Node, **attrs) -> Node:
+        return Node(op, [x], TensorSpec(x.spec.shape, self.dtype),
+                    attrs=attrs)
+
+    def binary(self, op: OpKind, a: Node, b: Node) -> Node:
+        shape = np.broadcast_shapes(a.spec.shape, b.spec.shape)
+        return Node(op, [a, b], TensorSpec(tuple(shape), self.dtype))
+
+
+# ---------------------------------------------------------------------------
+# containers
+# ---------------------------------------------------------------------------
+
+@register_emitter(tnn.Sequential)
+def _emit_sequential(m: tnn.Sequential, ctx: EmitContext, x: Node,
+                     path: str) -> Node:
+    cur = x
+    for name, child in m.named_children():
+        cur = ctx.emit(child, cur, f"{path}{name}.")
+    return cur
+
+
+@register_emitter(nn.Residual)
+def _emit_residual(m: nn.Residual, ctx: EmitContext, x: Node,
+                   path: str) -> Node:
+    return ctx.binary(OpKind.ADD, x, _emit_sequential(m, ctx, x, path))
+
+
+# ---------------------------------------------------------------------------
+# layers
+# ---------------------------------------------------------------------------
+
+@register_emitter(tnn.Linear)
+def _emit_linear(m: tnn.Linear, ctx: EmitContext, x: Node,
+                 path: str) -> Node:
+    w = ctx.param(path + "weight", m.weight)
+    shape = x.spec.shape[:-1] + (m.out_features,)
+    cur = Node(OpKind.LINEAR, [x, w], TensorSpec(shape, ctx.dtype),
+               attrs={"out_features": m.out_features})
+    if m.bias is not None:
+        b = ctx.param(path + "bias", m.bias)
+        cur = Node(OpKind.BIAS_ADD, [cur, b], TensorSpec(shape, ctx.dtype),
+                   attrs={"axis": -1})
+    return cur
+
+
+@register_emitter(tnn.ReLU)
+def _emit_relu(m, ctx, x, path):
+    return ctx.unary(OpKind.RELU, x)
+
+
+@register_emitter(tnn.GELU)
+def _emit_gelu(m: tnn.GELU, ctx, x, path):
+    if m.approximate != "tanh":
+        raise UnsupportedModuleError(
+            f"GELU at {_where(path)} is the erf form; the IR's GELU is the "
+            f"tanh form (frontends.nn.GELU)")
+    return ctx.unary(OpKind.GELU, x)
+
+
+@register_emitter(tnn.LayerNorm)
+def _emit_layernorm(m: tnn.LayerNorm, ctx, x, path):
+    if len(m.normalized_shape) != 1 or m.weight is None or m.bias is None:
+        raise UnsupportedModuleError(
+            f"LayerNorm at {_where(path)}: only an affine norm over the "
+            f"last dim extracts")
+    g = ctx.param(path + "weight", m.weight)
+    b = ctx.param(path + "bias", m.bias)
+    return Node(OpKind.LAYERNORM, [x, g, b],
+                TensorSpec(x.spec.shape, ctx.dtype), attrs={"eps": m.eps})
+
+
+@register_emitter(tnn.Dropout)
+def _emit_dropout(m: tnn.Dropout, ctx, x, path):
+    return ctx.unary(OpKind.DROPOUT, x, p=m.p)
+
+
+# ---------------------------------------------------------------------------
+# attention: ATTENTION (forward, prefill) and DECODE_ATTENTION (decode)
+# ---------------------------------------------------------------------------
+
+def _qkv(m: nn.MultiHeadAttention, ctx: EmitContext, x: Node, path: str,
+         s: int) -> Tuple[Node, Node, Node]:
+    b = x.spec.shape[0]
+    hd = m.head_dim
+    q = ctx.reshape(ctx.matmul(x, ctx.param(path + "wq", m.wq)),
+                    (b, s, m.n_heads, hd))
+    k = ctx.reshape(ctx.matmul(x, ctx.param(path + "wk", m.wk)),
+                    (b, s, m.n_kv_heads, hd))
+    v = ctx.reshape(ctx.matmul(x, ctx.param(path + "wv", m.wv)),
+                    (b, s, m.n_kv_heads, hd))
+    return q, k, v
+
+
+@register_emitter(nn.MultiHeadAttention)
+def _emit_attention(m: nn.MultiHeadAttention, ctx: EmitContext, x: Node,
+                    path: str) -> Node:
+    b, s, _ = x.spec.shape
+    q, k, v = _qkv(m, ctx, x, path, s)
+    att = Node(OpKind.ATTENTION, [q, k, v],
+               TensorSpec((b, s, m.n_heads, m.head_dim), ctx.dtype),
+               attrs={"causal": m.causal, "window": m.window, "cap": m.cap})
+    if ctx.mode == "prefill":       # expose this layer's cache rows
+        ctx.kv_outputs += [k, v]
+    o = ctx.reshape(att, (b, s, m.n_heads * m.head_dim))
+    return ctx.matmul(o, ctx.param(path + "wo", m.wo))
+
+
+@register_decode_emitter(nn.MultiHeadAttention)
+def _emit_attention_decode(m: nn.MultiHeadAttention, ctx: EmitContext,
+                           x: Node, path: str) -> Node:
+    """Single-token step: project q/k/v for the new position, attend the
+    query against this layer's cache input plus the new (k, v) pair, and
+    record the pair in ``kv_outputs`` for the server to append at
+    ``lens[b]``."""
+    if not m.causal:
+        raise UnsupportedModuleError(
+            f"MultiHeadAttention at {_where(path)} is non-causal and cannot "
+            f"be decoded incrementally; serve with decode=False.")
+    b, s, _ = x.spec.shape
+    if s != 1:
+        raise ValueError(f"decode extraction expects a single-token step, "
+                         f"got sequence length {s}")
+    q, k_new, v_new = _qkv(m, ctx, x, path, 1)
+    cshape = (b, ctx.max_seq, m.n_kv_heads, m.head_dim)
+    k_cache = ctx.kv_input(cshape, name=f"{path}k_cache")
+    v_cache = ctx.kv_input(cshape, name=f"{path}v_cache")
+    att = Node(OpKind.DECODE_ATTENTION,
+               [q, k_cache, v_cache, k_new, v_new, ctx.lens],
+               TensorSpec((b, 1, m.n_heads, m.head_dim), ctx.dtype),
+               attrs={"window": m.window, "cap": m.cap})
+    ctx.kv_outputs += [k_new, v_new]
+    o = ctx.reshape(att, (b, 1, m.n_heads * m.head_dim))
+    return ctx.matmul(o, ctx.param(path + "wo", m.wo))
+
+
+# ---------------------------------------------------------------------------
+# entry points
+# ---------------------------------------------------------------------------
+
+def extract(model: tnn.Module, input_shape: Tuple[int, ...],
+            dtype: str = "float32") -> Graph:
+    dims = {4: ir.NCHW(), 3: ir.BSD(), 2: ir.NF()}.get(len(input_shape), ())
+    x = ir.input_node(input_shape, dtype, dims, name="input")
+    ctx = EmitContext(dtype)
+    out = ctx.emit(model, x, "")
+    g = Graph(inputs=[x], outputs=[out], params=ctx.params)
+    g.validate()
+    return g
+
+
+def extract_prefill(model: tnn.Module, input_shape: Tuple[int, ...],
+                    dtype: str = "float32") -> Graph:
+    """The serving prefill program: ``outputs = [logits, k_0, v_0, k_1, ...]``
+    so one prompt forward produces next-token logits and seeds the KV
+    cache."""
+    x = ir.input_node(input_shape, dtype, ir.BSD(), name="input")
+    ctx = EmitContext(dtype, mode="prefill")
+    out = ctx.emit(model, x, "")
+    g = Graph(inputs=[x], outputs=[out] + ctx.kv_outputs, params=ctx.params)
+    g.validate()
+    return g
+
+
+def extract_decode(model: tnn.Module, batch: int, max_seq: int,
+                   d_model: int, dtype: str = "float32") -> Graph:
+    """The serving decode program: one token per resident sequence.
+
+    ``inputs  = [x (B, 1, D), lens (B,) int32, k_cache_0, v_cache_0, ...]``
+    ``outputs = [logits (B, 1, V), k_new_0, v_new_0, ...]``"""
+    x = ir.input_node((batch, 1, d_model), dtype, ir.BSD(), name="step")
+    lens = ir.input_node((batch,), "int32", name="lens")
+    ctx = EmitContext(dtype, mode="decode", max_seq=max_seq)
+    ctx.lens = lens
+    out = ctx.emit(model, x, "")
+    g = Graph(inputs=[x, lens] + ctx.kv_inputs,
+              outputs=[out] + ctx.kv_outputs, params=ctx.params)
+    g.validate()
+    return g

@@ -1,0 +1,67 @@
+"""Public entry + dispatch-table entries for DECODE_ATTENTION.
+
+The node carries six model-layout operands — q (B,1,H,hd), the cache k, v
+(B,S,KV,hd), the step's k_new, v_new (B,1,KV,hd) and lens (B,) int32 — and
+produces (B,1,H,hd).  ``cuda.decode_attention`` sits at the shared tier
+gated on ``"cuda"``; ``ref.decode_attention`` is the reference tier."""
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+
+from ...backends import registry
+from ...core.ir import Node, OpKind
+from .kernel import HEAD_DIMS, MAX_GROUP, decode_attention_cuda
+from .ref import decode_attention_ref
+
+
+def _ref_model_layout(q, k, v, k_new, v_new, lens, window, cap):
+    o = decode_attention_ref(q[:, 0], k.transpose(1, 2), v.transpose(1, 2),
+                             k_new[:, 0], v_new[:, 0], lens, window=window,
+                             cap=cap)
+    return o[:, None]
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     k_new: torch.Tensor, v_new: torch.Tensor,
+                     lens: torch.Tensor, *, window: int = 0,
+                     cap: float = 0.0) -> torch.Tensor:
+    """Model-layout decode attention.  A CPU tensor takes the plain version;
+    a CUDA tensor the kernel."""
+    if q.device.type == "cpu":
+        return _ref_model_layout(q, k, v, k_new, v_new, lens, window, cap)
+    return decode_attention_cuda(q, k, v, k_new, v_new, lens, window=window,
+                                 cap=cap)
+
+
+def _attrs(n: Node) -> dict:
+    return dict(window=n.attrs.get("window", 0), cap=n.attrs.get("cap", 0.0))
+
+
+def _decode_cuda_impl(n: Node, vals: Sequence[torch.Tensor],
+                      backend: "registry.Backend") -> torch.Tensor:
+    return decode_attention(*vals, **_attrs(n))
+
+
+def _decode_ref_impl(n: Node, vals: Sequence[torch.Tensor],
+                     backend: "registry.Backend") -> torch.Tensor:
+    a = _attrs(n)
+    return _ref_model_layout(*vals, a["window"], a["cap"])
+
+
+def _supports(n: Node) -> bool:
+    if len(n.spec.shape) != 4 or n.spec.dtype != "float32" \
+            or len(n.inputs) != 6:
+        return False
+    h, hd = n.spec.shape[2], n.spec.shape[3]
+    kv = n.inputs[1].spec.shape[2]
+    return hd in HEAD_DIMS and h // kv <= MAX_GROUP
+
+
+registry.register_shared_impl(
+    OpKind.DECODE_ATTENTION, _decode_cuda_impl,
+    name="cuda.decode_attention", requires=("cuda",), supports=_supports)
+registry.register_reference_impl(
+    OpKind.DECODE_ATTENTION, _decode_ref_impl, name="ref.decode_attention",
+    memory="roundtrip")   # materializes the (B, H, S) score rows

@@ -1,0 +1,68 @@
+"""Launching wrapper of the flash-attention forward in
+``csrc/flash_attention.cu``.
+
+Replaces ``repro/kernels/flash_attention/kernel.py::flash_attention_call``.
+The kernel reads the node's BSHD tensors through their strides (the JAX
+wrapper transposes to BHSD first); see the source note for its design.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .. import build
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+_ARGTYPES = ([_P] * 4 + [_I] * 5 + [_L] * 12 + [_I, _I, ctypes.c_float, _P])
+HEAD_DIMS = (16, 32, 64, 128)
+
+
+def _lib() -> ctypes.CDLL:
+    lib = build.library("flash_attention")
+    fn = lib.sol_flash_attention_f32
+    if fn.argtypes is None:
+        fn.argtypes = _ARGTYPES
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, causal: bool = True, window: int = 0,
+                         cap: float = 0.0) -> torch.Tensor:
+    """q: (B, S, H, hd); k, v: (B, S, KV, hd) → (B, S, H, hd), float32, on
+    the card.  Every operand needs a unit stride along hd."""
+    ts = (q, k, v)
+    if not all(t.is_cuda and t.device == q.device for t in ts):
+        raise ValueError("flash_attention_cuda wants q, k, v on one CUDA "
+                         "device")
+    if any(t.dtype != torch.float32 for t in ts):
+        raise TypeError("flash_attention_cuda takes float32")
+    if any(t.dim() != 4 for t in ts) or k.shape != v.shape:
+        raise ValueError("flash_attention_cuda wants q (B,S,H,hd) and k, v "
+                         "(B,S,KV,hd)")
+    b, s, h, hd = q.shape
+    kv = k.shape[2]
+    if k.shape[0] != b or k.shape[1] != s or k.shape[3] != hd or h % kv:
+        raise ValueError(f"incompatible shapes q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"flash_attention_cuda has no kernel for head "
+                         f"dim {hd}; it takes {HEAD_DIMS}")
+    if any(t.stride(3) != 1 for t in ts):
+        raise ValueError("flash_attention_cuda wants a unit stride along hd")
+    o = torch.empty((b, s, h, hd), device=q.device, dtype=torch.float32)
+    lib = _lib()
+    err = lib.sol_flash_attention_f32(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, s, h, kv,
+        hd, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+        *o.stride()[:3], int(bool(causal)), int(window), float(cap),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(lib, err, "sol_flash_attention_f32")
+    flash_attention_cuda.launches += 1
+    return o
+
+
+flash_attention_cuda.launches = 0

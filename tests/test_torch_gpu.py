@@ -1,0 +1,174 @@
+"""The port's hand-written kernels on the card, each held to its plain
+PyTorch version, and a small served model on the card held to the plain
+path.  Every test here is marked ``gpu`` and skips without a CUDA card.
+
+This file imports neither JAX nor the JAX package, so it also runs where
+only PyTorch is installed (the suite's ``conftest.py`` imports the JAX
+package, hence ``--noconftest``):
+
+    PYTHONPATH=src python -m pytest -q --noconftest -m gpu tests/test_torch_gpu.py
+
+Tolerance: 1e-4 absolute and relative.  The kernels sum in another order
+than the plain versions (tiles, online softmax, split K) on O(1) values,
+which leaves ~1e-6 of rounding; 1e-4 keeps a wide margin over that while
+any indexing or masking fault shows as an O(1) error.
+"""
+import numpy as np
+import pytest
+import torch
+from torch import nn as tnn
+
+from repro_torch.frontends import nn
+from repro_torch.kernels.decode_attention import ops as dops
+from repro_torch.kernels.decode_attention.kernel import decode_attention_cuda
+from repro_torch.kernels.dfp_fused.kernel import dfp_fused_triton
+from repro_torch.kernels.dfp_fused.program import Program
+from repro_torch.kernels.dfp_fused.ref import dfp_fused_ref
+from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.kernels.matmul.kernel import matmul_cuda
+from repro_torch.kernels.matmul.ref import matmul_ref
+from repro_torch.launch import serve
+
+TOL = dict(rtol=1e-4, atol=1e-4)
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels run only there)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _randn(dev, seed, *shape):
+    g = torch.Generator(dev).manual_seed(seed)
+    return torch.randn(*shape, device=dev, generator=g)
+
+
+@pytest.mark.parametrize("m,k,n,oi", [
+    (1, 1536, 256, False),          # decode row, split K
+    (4, 1536, 1536, True),          # decode, (out, in) weight read in place
+    (37, 130, 70, True),            # ragged edges on every dim
+    (256, 512, 384, False),         # prefill tile
+])
+def test_matmul_kernel_matches_plain(dev, m, k, n, oi):
+    x = _randn(dev, 0, m, k)
+    w = (_randn(dev, 1, n, k).T if oi else _randn(dev, 1, k, n)) * k ** -0.5
+    torch.testing.assert_close(matmul_cuda(x, w), matmul_ref(x, w), **TOL)
+
+
+@pytest.mark.parametrize("s,hd,causal,window,cap", [
+    (128, 128, True, 0, 0.0),       # the serving prefill
+    (77, 128, True, 16, 0.0),       # ragged S, window
+    (64, 128, True, 0, 5.0),        # softcap
+    (33, 64, False, 0, 0.0),        # non-causal
+    (40, 16, True, 0, 0.0),         # the small serving smoke's head dim
+])
+def test_flash_kernel_matches_plain(dev, s, hd, causal, window, cap):
+    q = _randn(dev, 2, 2, s, 12, hd)
+    k, v = _randn(dev, 3, 2, s, 2, hd), _randn(dev, 4, 2, s, 2, hd)
+    attrs = dict(causal=causal, window=window, cap=cap)
+    want = flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                               v.transpose(1, 2), **attrs).transpose(1, 2)
+    torch.testing.assert_close(flash_attention_cuda(q, k, v, **attrs), want,
+                               **TOL)
+
+
+@pytest.mark.parametrize("hd,window,cap", [(128, 0, 0.0), (128, 24, 0.0),
+                                           (128, 0, 4.0), (16, 0, 0.0)])
+def test_decode_kernel_matches_plain(dev, hd, window, cap):
+    q = _randn(dev, 5, 4, 1, 12, hd)
+    kc, vc = _randn(dev, 6, 4, 128, 2, hd), _randn(dev, 7, 4, 128, 2, hd)
+    kn, vn = _randn(dev, 8, 4, 1, 2, hd), _randn(dev, 9, 4, 1, 2, hd)
+    lens = torch.tensor([0, 1, 64, 128], dtype=torch.int32, device=dev)
+    got = decode_attention_cuda(q, kc, vc, kn, vn, lens, window=window,
+                                cap=cap)
+    torch.testing.assert_close(
+        got, dops._ref_model_layout(q, kc, vc, kn, vn, lens, window, cap),
+        **TOL)
+    # lens 0 (batch padding) attends only the step's own pair
+    torch.testing.assert_close(got[0, 0], vn[0, 0].repeat_interleave(6, 0),
+                               rtol=0, atol=1e-6)
+
+
+# every instruction of the DFP program set, in one chain
+_ALL_INSTRS = Program((
+    ("bias", 0, ("op", 0), 1, None),
+    ("gelu", 1, ("reg", 0), None),
+    ("silu", 2, ("reg", 1), None),
+    ("sigmoid", 3, ("reg", 2), None),
+    ("tanh", 4, ("op", 0), None),
+    ("exp", 5, ("reg", 4), None),
+    ("copy", 6, ("reg", 5), None),
+    ("add", 7, ("reg", 3), ("reg", 6), None),
+    ("sub", 8, ("reg", 7), ("op", 3), None),
+    ("mul", 9, ("reg", 8), ("reg", 4), None),
+    ("div", 10, ("reg", 9), ("reg", 5), None),
+    ("scale", 11, ("reg", 10), 0.5),
+    ("softcap", 12, ("reg", 11), 3.0),
+    ("relu", 13, ("reg", 12), None),
+    ("rmsnorm", 14, ("reg", 13), 2, 1e-6),
+    ("layernorm", 15, ("reg", 14), 2, 1, 1e-5),
+), ("full", "vec", "vec", "full"), 15)
+
+_SERVING = {
+    "bias_add+gelu": Program((("bias", 0, ("op", 0), 1, None),
+                              ("gelu", 1, ("reg", 0), None)),
+                             ("full", "vec"), 1),
+    "bias_add+add": Program((("bias", 0, ("op", 0), 1, None),
+                             ("add", 1, ("reg", 0), ("op", 2), None)),
+                            ("full", "vec", "full"), 1),
+    "all_instructions": _ALL_INSTRS,
+}
+
+
+@pytest.mark.parametrize("name,rows,d", [
+    ("bias_add+gelu", 512, 6144), ("bias_add+add", 512, 1536),
+    ("all_instructions", 64, 1536), ("all_instructions", 7, 40),
+])
+def test_dfp_kernel_matches_plain(dev, name, rows, d):
+    prog = _SERVING[name]
+    ops = [_randn(dev, 10 + i, *((rows, d) if kind == "full" else (d,)))
+           for i, kind in enumerate(prog.operand_kinds)]
+    torch.testing.assert_close(
+        dfp_fused_triton(prog, ops, (rows, d), torch.float32),
+        dfp_fused_ref(prog, ops, (rows, d), torch.float32), **TOL)
+
+
+def test_served_tokens_on_the_card_match_the_plain_path(dev):
+    """A small LM served on the card through the kernels gives the plain
+    path's greedy tokens, and every kernel's launch count moves."""
+    d, heads, kv, layers, vocab = 64, 4, 2, 2, 128
+    g = torch.Generator(dev).manual_seed(0)
+    model = tnn.Sequential(
+        *[nn.transformer_block(d, heads, kv, device=dev, generator=g)
+          for _ in range(layers)],
+        nn.Linear(d, vocab, device=dev, generator=g))
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, vocab, n, dtype=np.int32)
+               for n in (3, 9, 14, 20)]
+    counters = (matmul_cuda, flash_attention_cuda, decode_attention_cuda,
+                dfp_fused_triton)
+    tokens = {}
+    for backend in ("torch_ref", "h100"):
+        cfg = serve.ServeConfig(d_model=d, n_heads=heads, n_layers=layers,
+                                vocab=vocab, max_seq=32, max_batch=4,
+                                slots=4, backend=backend)
+        server = serve.SolServer(cfg, model=model)      # device=None: cuda
+        before = [c.launches for c in counters]
+        reqs = [server.submit(p, 8) for p in prompts]
+        summary = server.run()
+        server.close()
+        launched = [c.launches - b for c, b in zip(counters, before)]
+        assert summary["device"].startswith("cuda")
+        assert summary["dmas"] == summary["forwards"]
+        if backend == "h100":
+            assert all(n > 0 for n in launched), launched
+        else:
+            assert launched == [0, 0, 0, 0]
+        tokens[backend] = [r.generated for r in reqs]
+    assert tokens["h100"] == tokens["torch_ref"]
