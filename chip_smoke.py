@@ -1,22 +1,26 @@
 #!/usr/bin/env python3
 """Quickest proof that the PyTorch/CUDA port (``src/repro_torch``) runs on
 an NVIDIA H100: it builds the hand-written kernels from this checkout,
-holds each one against its plain PyTorch version at the serving path's
+holds each one against its plain PyTorch version at the main paths'
 shapes, serves a few requests at full Qwen2-1.5B attention width through
-``SolServer``, and checks the served tokens against the plain path.
+``SolServer``, runs the Griffin and RWKV6 block stacks at full width
+through ``optimize()``, and checks both paths against the plain path.
 
     python3 chip_smoke.py          # one CUDA card, run from the repo root
 
 Phases, each failing loudly:
 
 1. device — ``nvidia-smi`` name and power limit; kernel build time.
-2. kernels — matmul, flash attention, decode attention and the generated
-   DFP programs against their plain versions (max |error| against the
-   stated tolerance) with their device times (cold L2, the host ahead of
-   the device), the plain version's, one PyTorch library call's where one
-   computes the same function, and the roofline bound of the same work on
-   this card; beside them the back-to-back launch time, which host launch
-   cost can push above the device time.
+2. kernels — matmul (serving and LoRA shapes), flash attention, decode
+   attention, the generated DFP programs (serving groups and the
+   recurrent graphs' gate, mix and group-norm programs), the RG-LRU scan
+   and the RWKV6 scan (full width and edge cases) against their plain
+   versions (max |error| against the stated tolerance) with their device
+   times (cold L2, the host ahead of the device), the plain version's, one
+   PyTorch library call's where one computes the same function, and the
+   roofline bound of the same work on this card; beside them the
+   back-to-back launch time, which host launch cost can push above the
+   device time.
 3. serve — 28 × ``transformer_block(1536, 12, n_kv_heads=2)`` + a
    Linear(1536, 151936) head with random weights from a seeded generator
    (build_lm's block: pre-norm LayerNorm, 4·d tanh-GELU MLP, no RoPE — not
@@ -30,11 +34,23 @@ Phases, each failing loudly:
    (a position where the reference's top-2 gap is below the tolerance is a
    near tie and is reported, not failed); at 2 layers, the decode program's
    tokens equal the ``decode=False`` re-forward's.
+5. recurrent forward — 24 × ``rwkv6_block(2048, 32, mlp_mult=3)``
+   (RWKV6-1.6B width) and 26 × ``griffin_block(4096, mlp_mult=3)``
+   (RecurrentGemma-9B width, its 26 RG-LRU layers) on a (4, 512, d) f32
+   input, random weights from a seeded generator: every node a ``cuda.*``
+   impl admits must elect one, and each kernel of the graph must launch in
+   one forward.  Against ``backend="torch_ref"`` on the same weights: each
+   block, compiled alone and fed the same input, within 1e-4 of its
+   output's scale; the stack's output within the larger of 1e-4 and the
+   f32 floor (how far torch_ref's own output moves when its input moves by
+   f32 rounding: a deep random stack amplifies rounding).  Warm forward
+   times of both backends and one profiled forward.
 
 The second-to-last lines are the card's ``nvidia-smi`` line and a JSON
 ``kernels`` line; the last line is ``{"ok": true, "device": ...}``.  The
-script imports nothing of JAX or of the JAX package ``src/repro``; it exits
-non-zero, printing no result, without a CUDA card or without the package.
+full record goes to ``chiprun_out/chip_smoke.json``.  The script imports
+nothing of JAX or of the JAX package ``src/repro``; it exits non-zero,
+printing no result, without a CUDA card or without the package.
 """
 from __future__ import annotations
 
@@ -52,7 +68,8 @@ OUT_DIR = ROOT / "chiprun_out"
 # are O(1), so agreement to 1e-4 absolute leaves ~100x margin over the
 # expected ~1e-6 rounding while catching any indexing or masking fault.
 KERNEL_TOL = {"matmul": 1e-4, "flash_attention": 1e-4,
-              "decode_attention": 1e-4, "dfp_fused": 1e-4}
+              "decode_attention": 1e-4, "dfp_fused": 1e-4,
+              "rglru_scan": 1e-4, "rwkv6_scan": 1e-4}
 # end-to-end logits through 28 layers: relative to the logits' scale
 LOGIT_RTOL = 1e-4
 
@@ -150,6 +167,10 @@ def phase_kernels(gen) -> dict:
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     from repro_torch.kernels.matmul.kernel import matmul_cuda
     from repro_torch.kernels.matmul.ref import matmul_ref
+    from repro_torch.kernels.rglru_scan.kernel import rglru_scan_cuda
+    from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
+    from repro_torch.kernels.rwkv6_scan.kernel import rwkv6_scan_cuda
+    from repro_torch.kernels.rwkv6_scan.ref import rwkv6_scan_ref
 
     dev = torch.device("cuda")
 
@@ -288,7 +309,106 @@ def phase_kernels(gen) -> dict:
                library, 10.0 * rows_n * d,
                4.0 * ((n_full + 1) * rows_n * d + n_vec * d),
                dfp_rep, dfp_src, "triton")
+
+    # the recurrent slice: LoRA products, the groups its graphs add, scans
+    for m, k, n in ((2048, 2048, 4), (2048, 4, 2048)):
+        x, w = randn(m, k), randn(k, n, scale=k ** -0.5)
+        y = matmul_cuda(x, w)
+        torch.cuda.synchronize()
+        record("matmul", f"{m}x{k}x{n} (LoRA)", max_err(y, matmul_ref(x, w)),
+               lambda: matmul_cuda(x, w), lambda: matmul_ref(x, w),
+               lambda: torch.matmul(x, w), 2.0 * m * k * n,
+               4.0 * (m * k + k * n + m * n), mm_rep, mm_src, "cuda")
+    for label, rows_n, d, prog in recurrent_programs():
+        ops = [randn(rows_n, d) if kd == "full" else randn(d)
+               for kd in prog.operand_kinds]
+        y = dfp_fused_triton(prog, ops, (rows_n, d), torch.float32)
+        torch.cuda.synchronize()
+        err = max_err(y, dfp_fused_ref(prog, ops, (rows_n, d),
+                                       torch.float32))
+        n_full = prog.operand_kinds.count("full")
+        n_vec = prog.operand_kinds.count("vec")
+        record("dfp_fused", f"{label} rows{rows_n} d{d}", err,
+               lambda: dfp_fused_triton(prog, ops, (rows_n, d),
+                                        torch.float32),
+               lambda: dfp_fused_ref(prog, ops, (rows_n, d), torch.float32),
+               None, 10.0 * rows_n * d,
+               4.0 * ((n_full + 1) * rows_n * d + n_vec * d),
+               dfp_rep, dfp_src, "triton")
+
+    # RG-LRU scan: Griffin's width (B 4, T 512, D 4096) and an edge case
+    # (T 1, D not a multiple of 32); a in (0.5, 1), h0 nonzero
+    for b_, t_, d_ in ((4, 512, 4096), (3, 1, 24)):
+        a = torch.rand(b_, t_, d_, device=dev, generator=gen) * 0.5 + 0.5
+        bb, h0 = randn(b_, t_, d_), randn(b_, d_)
+        h, last = rglru_scan_cuda(a, bb, h0)
+        torch.cuda.synchronize()
+        want_h, want_last = rglru_scan_ref(a, bb, h0)
+        err = max(max_err(h, want_h), max_err(last, want_last))
+        n = b_ * t_ * d_
+        record("rglru_scan", f"B{b_} T{t_} D{d_}, h0 nonzero", err,
+               lambda: rglru_scan_cuda(a, bb, h0),
+               lambda: rglru_scan_ref(a, bb, h0), None, 2.0 * n,
+               4.0 * (3 * n + 2 * b_ * d_),
+               "src/repro/kernels/rglru_scan/kernel.py:36",
+               "src/repro_torch/kernels/csrc/rglru_scan.cu", "cuda")
+
+    # RWKV6 scan: RWKV6-1.6B's heads (B 4, T 512, H 32, hd 64) and an edge
+    # case with log decays 0 (no decay) and -50 (exp underflows to 0)
+    for b_, t_, h_, hd, extremes in ((4, 512, 32, 64, False),
+                                     (1, 3, 2, 8, True)):
+        r, k_, v = (randn(b_, t_, h_, hd, scale=0.5) for _ in range(3))
+        if extremes:
+            logw = torch.where(randn(b_, t_, h_, hd) > 0, 0.0, -50.0)
+        else:
+            logw = -torch.exp(randn(b_, t_, h_, hd, scale=0.5) - 1.0)
+        u, s0 = randn(h_, hd, scale=0.5), randn(b_, h_, hd, hd, scale=0.5)
+        o, s_last = rwkv6_scan_cuda(r, k_, v, logw, u, s0)
+        torch.cuda.synchronize()
+        want_o, want_s = rwkv6_scan_ref(r, k_, v, logw, u, s0)
+        err = max(max_err(o, want_o), max_err(s_last, want_s))
+        n = b_ * t_ * h_ * hd
+        record("rwkv6_scan", f"B{b_} T{t_} H{h_} hd{hd}, s0 nonzero"
+               + (", logw in {0, -50}" if extremes else ""), err,
+               lambda: rwkv6_scan_cuda(r, k_, v, logw, u, s0),
+               lambda: rwkv6_scan_ref(r, k_, v, logw, u, s0), None,
+               5.0 * n * hd,
+               4.0 * (5 * n + h_ * hd + 2 * b_ * h_ * hd * hd),
+               "src/repro/kernels/rwkv6_scan/kernel.py:55",
+               "src/repro_torch/kernels/csrc/rwkv6_scan.cu", "cuda")
     return {"cases": cases}
+
+
+def recurrent_programs():
+    """(label, rows, d, Program) of the DFP groups the recurrent graphs
+    add, encoded from the extracted graphs of small blocks (a program does
+    not depend on the sizes), at the full-width stacks' rows and widths:
+    the RG-LRU gate chain, RWKV6's token-shift mix, and RWKV6's per-head
+    group norm over hd 64 on B·T·H rows (the node is a lone LAYERNORM in
+    the graph; this is its program)."""
+    from repro_torch.backends import get_backend
+    from repro_torch.core import passes
+    from repro_torch.frontends import extract, nn
+    from repro_torch.kernels.dfp_fused.program import (Program,
+                                                       encode_program)
+    from repro_torch.models.recurrent import GN_EPS
+
+    def group(model, name):
+        g = passes.run_pipeline(extract.extract(model, (1, 4, 64)),
+                                get_backend("h100"))
+        node = next(n for n in g.topo() if n.name == name)
+        return encode_program(node, {id(i): i.spec for i in node.inputs})[0]
+
+    rows = 4 * 512
+    return [
+        ("rglru gate sigmoid+mul+exp", rows, 4096,
+         group(nn.griffin_block(64, device="cpu"), "fused[sigmoid+mul+exp]")),
+        ("rwkv6 mix add+mul+add", rows, 2048,
+         group(nn.rwkv6_block(64, 4, device="cpu"), "fused[add+mul+add]")),
+        ("rwkv6 group norm", rows * 32, 64,
+         Program((("layernorm", 0, ("op", 0), 1, 2, GN_EPS),),
+                 ("full", "vec", "vec"), 0)),
+    ]
 
 
 # ---------------------------------------------------------------------------
@@ -349,6 +469,8 @@ def measured_serve(server, prompts, on_measure=None):
 FAMILIES = (("sgemm_kernel", "matmul"), ("reduce_splits", "matmul"),
             ("flash_fwd_kernel", "flash_attention"),
             ("decode_kernel", "decode_attention"), ("dfp_", "dfp_fused"),
+            ("rglru_scan_kernel", "rglru_scan"),
+            ("rwkv6_scan_kernel", "rwkv6_scan"),
             ("Memcpy HtoD", "copy to card"), ("Memcpy DtoH", "copy to host"),
             ("Memcpy", "copy on card"), ("Memset", "memset"))
 
@@ -524,6 +646,208 @@ def phase_serve(torch, counters, dev) -> dict:
             "decode_vs_reforward_near_ties": ties2}
 
 
+# ---------------------------------------------------------------------------
+# phase 5: the recurrent block stacks through optimize()
+# ---------------------------------------------------------------------------
+
+# RWKV6-1.6B width (src/repro/configs/rwkv6_1_6b.py, arXiv:2404.05892) and
+# RecurrentGemma-9B width (src/repro/configs/recurrentgemma_9b.py,
+# arXiv:2402.19427): nn.py's blocks, full depth for RWKV6, and for Griffin
+# the 26 RG-LRU layers of the model's 38 (pattern rglru, rglru, local)
+STACKS = (
+    ("rwkv6", dict(d_model=2048, n_heads=32, mlp_mult=3, layers=24)),
+    ("griffin", dict(d_model=4096, mlp_mult=3, layers=26)),
+)
+REC_SHAPE_BT = (4, 512)
+REC_RTOL = 1e-4         # h100 vs torch_ref, relative to the output's scale
+REC_REPEATS = 3
+SCAN_KIND = {"rwkv6": "rwkv6_scan", "griffin": "rglru_scan"}
+# the graph kinds each kernel serves, so a kernel must launch where they are
+KERNEL_KINDS = {"matmul": ("matmul", "linear"), "dfp_fused": ("fused",),
+                "rglru_scan": ("rglru_scan",), "rwkv6_scan": ("rwkv6_scan",)}
+
+
+def _build_stack(name: str, cfg: dict, dev, gen):
+    from repro_torch.frontends import nn
+    from torch import nn as tnn
+    if name == "rwkv6":
+        blocks = [nn.rwkv6_block(cfg["d_model"], cfg["n_heads"],
+                                 cfg["mlp_mult"], device=dev, generator=gen)
+                  for _ in range(cfg["layers"])]
+    else:
+        blocks = [nn.griffin_block(cfg["d_model"], cfg["mlp_mult"],
+                                   device=dev, generator=gen)
+                  for _ in range(cfg["layers"])]
+    return tnn.Sequential(*blocks)
+
+
+def check_elections(sol, name: str) -> dict:
+    """Every node that a ``cuda.*`` impl admits must have elected one (an
+    unencodable FUSED group admits none and composes); the scan must have
+    elected its kernel."""
+    from repro_torch.backends import registry
+    from repro_torch.core.ir import SOURCE_OPS, OpKind
+    for n in sol.graph.topo():
+        if n.op in SOURCE_OPS or n.op is OpKind.OUTPUT:
+            continue
+        cuda = [c.name for c in registry.candidates(sol.backend, n)
+                if c.name.startswith("cuda.")]
+        if cuda and not (n.impl or "").startswith("cuda."):
+            fail(f"{name}: {n.name or n.op.value} elected {n.impl} though "
+                 f"{cuda} admit it")
+    by_kind = sol.impl_report(by_kind=True)
+    scan = SCAN_KIND[name]
+    if set(by_kind.get(scan, {})) != {f"cuda.{scan}"}:
+        fail(f"{name}: {scan} elected {by_kind.get(scan)}")
+    return by_kind
+
+
+def rel_err(got, want) -> float:
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def per_layer_errors(torch, model, shape, x, optimize) -> list:
+    """Each block compiled alone on both backends and fed the same input,
+    torch_ref's output of the block before: the h100 output's error
+    relative to its scale, layer by layer.  This holds every layer's
+    kernels to the plain path at full width without the stack's own
+    amplification of rounding."""
+    out, cur = [], x
+    for blk in model:
+        h = optimize(blk, shape, backend="h100")(cur)
+        cur = optimize(blk, shape, backend="torch_ref")(cur)
+        out.append(rel_err(h, cur))
+    torch.cuda.synchronize()
+    return out
+
+
+def f32_floor(torch, ref, x, want, samples: int = 2) -> float:
+    """How far torch_ref's own output moves, relative to its scale, when
+    the input moves by f32 rounding (each element × (1 + 2⁻²³·n), n
+    standard normal): the largest of ``samples`` draws.  A deep random
+    stack amplifies rounding, so two correct f32 paths can differ by this
+    much at its output."""
+    gen = torch.Generator(x.device).manual_seed(7)
+    worst = 0.0
+    for _ in range(samples):
+        xp = x * (1 + 2.0 ** -23 * torch.randn(*x.shape, device=x.device,
+                                               generator=gen))
+        worst = max(worst, rel_err(ref(xp), want))
+    return worst
+
+
+def timed_forwards(torch, sol, x, repeats: int) -> list:
+    out = []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sol(x)
+        torch.cuda.synchronize()
+        out.append(1e3 * (time.perf_counter() - t0))
+    return out
+
+
+def phase_recurrent(torch, counters, dev) -> dict:
+    """Each stack at full width through ``optimize(..., backend="h100")``:
+    elections, launch counts of one forward, agreement with ``torch_ref``
+    on the same weights layer by layer and at the output, warm forward
+    times of both backends, and one profiled forward."""
+    import gc
+    import statistics
+    from repro_torch.frontends.optimize import optimize
+
+    results = {}
+    for i, (name, cfg) in enumerate(STACKS):
+        t0 = time.perf_counter()
+        gen = torch.Generator(dev).manual_seed(100 + i)
+        model = _build_stack(name, cfg, dev, gen)
+        shape = REC_SHAPE_BT + (cfg["d_model"],)
+        x = torch.randn(*shape, device=dev, generator=gen)
+        n_params = sum(p.numel() for p in model.parameters())
+        log(f"[recurrent] {name}: {cfg['layers']} blocks at d "
+            f"{cfg['d_model']}, {n_params / 1e9:.3f} B parameters "
+            f"({4 * n_params / 1e9:.2f} GB f32), input {shape}, built in "
+            f"{time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        sol = optimize(model, shape, backend="h100")
+        compile_s = time.perf_counter() - t0
+        by_kind = check_elections(sol, name)
+        log(f"[recurrent] {name} h100 elections (optimize {compile_s:.2f} "
+            f"s): {by_kind}")
+
+        # the main path's run: counts from 0, one forward, counts read
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        y = sol(x)
+        torch.cuda.synchronize()
+        first_ms = 1e3 * (time.perf_counter() - t0)
+        launches = {k: c.launches for k, c in counters.items()}
+        for kernel, kinds in KERNEL_KINDS.items():
+            if any(k in by_kind for k in kinds) and launches[kernel] <= 0:
+                fail(f"{name}: kernel {kernel} was not launched though the "
+                     f"graph has {kinds}")
+        if tuple(y.shape) != shape or not bool(torch.isfinite(y).all()):
+            fail(f"{name}: output {tuple(y.shape)} not finite or not "
+                 f"{shape}")
+        log(f"[recurrent] {name} kernel launches in one h100 forward: "
+            f"{launches}; first forward {first_ms:.1f} ms")
+
+        ref = optimize(model, shape, backend="torch_ref")
+        want = ref(x)
+        layers = per_layer_errors(torch, model, shape, x, optimize)
+        worst_layer = max(layers)
+        if not worst_layer <= REC_RTOL:
+            fail(f"{name}: layer {layers.index(worst_layer)} on h100 differs "
+                 f"from torch_ref on the same input by {worst_layer:.3g} of "
+                 f"its output's scale (rtol {REC_RTOL})")
+        floor = f32_floor(torch, ref, x, want)
+        err = rel_err(y, want)
+        if not err <= max(REC_RTOL, floor):
+            fail(f"{name}: h100 output differs from torch_ref by {err:.3g} "
+                 f"of its scale, above both rtol {REC_RTOL} and the f32 "
+                 f"floor {floor:.3g}")
+        log(f"[recurrent] {name} vs torch_ref: each layer on the same input "
+            f"within {worst_layer:.3g} of its scale (rtol {REC_RTOL}); the "
+            f"stack's output within {err:.3g} of max|y| "
+            f"{float(want.abs().max()):.3g}; torch_ref's own output moves "
+            f"{floor:.3g} under an f32-rounding-sized input perturbation")
+
+        # warm forwards, the two backends in turns: h100, ref, ref, h100
+        h_ms = timed_forwards(torch, sol, x, REC_REPEATS)
+        r_ms = timed_forwards(torch, ref, x, 2 * REC_REPEATS)
+        h_ms += timed_forwards(torch, sol, x, REC_REPEATS)
+        h_med, r_med = statistics.median(h_ms), statistics.median(r_ms)
+        log(f"[recurrent] {name} warm forward ms, median of "
+            f"{len(h_ms)}: h100 {h_med:.2f} {[round(v, 2) for v in h_ms]}, "
+            f"torch_ref {r_med:.2f} {[round(v, 2) for v in r_ms]}")
+        breakdown = device_breakdown(torch, lambda: sol(x))
+        if breakdown["measured"]:
+            fams = ", ".join(f"{k} {v:.2f}" for k, v in
+                             breakdown["device_ms_by_family"].items())
+            log(f"[profile] {name} h100 forward: device busy "
+                f"{breakdown['busy_ms']:.2f} of {breakdown['span_ms']:.2f} "
+                f"ms ({100 * breakdown['busy_share']:.1f}%); device ms by "
+                f"family: {fams}")
+        else:
+            log(f"[profile] {name}: torch.profiler recorded no device "
+                f"events: device busy share not measured")
+        results[name] = {
+            "config": cfg, "shape": shape, "parameters": n_params,
+            "optimize_s": compile_s, "elections": by_kind,
+            "launches": launches, "first_forward_ms": first_ms,
+            "rel_err": err, "f32_floor": floor,
+            "per_layer_rel_err": layers,
+            "output_scale": float(want.abs().max()),
+            "h100_ms": h_ms, "h100_ms_median": h_med,
+            "torch_ref_ms": r_ms, "torch_ref_ms_median": r_med,
+            "device_breakdown": breakdown}
+        del model, sol, ref, x, y, want
+        gc.collect()
+        torch.cuda.empty_cache()
+    return results
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "__init__.py").is_file():
         print("chip_smoke: src/repro_torch not found next to this script; "
@@ -544,6 +868,8 @@ def main() -> int:
     from repro_torch.kernels.flash_attention.kernel import \
         flash_attention_cuda
     from repro_torch.kernels.matmul.kernel import matmul_cuda
+    from repro_torch.kernels.rglru_scan.kernel import rglru_scan_cuda
+    from repro_torch.kernels.rwkv6_scan.kernel import rwkv6_scan_cuda
 
     t_start = time.perf_counter()
     smi = nvidia_smi()
@@ -565,15 +891,23 @@ def main() -> int:
                 "decode_attention": decode_attention_cuda,
                 "dfp_fused": dfp_fused_triton}
     serve = phase_serve(torch, counters, torch.device("cuda"))
+    rec_counters = {"matmul": matmul_cuda, "dfp_fused": dfp_fused_triton,
+                    "rglru_scan": rglru_scan_cuda,
+                    "rwkv6_scan": rwkv6_scan_cuda}
+    recurrent = phase_recurrent(torch, rec_counters, torch.device("cuda"))
 
+    # launches per main path: the served set and one forward of each stack
+    by_path = {"serve": serve["launches"]}
+    by_path.update({name: r["launches"] for name, r in recurrent.items()})
     line = []
-    for name in counters:
+    for name in list(counters) + ["rglru_scan", "rwkv6_scan"]:
         rows = [c for c in kern["cases"] if c["name"] == name]
         rep = rows[0]
+        paths = {p: n[name] for p, n in by_path.items() if n.get(name)}
         line.append({
             "name": name, "route": rep["route"], "source": rep["source"],
             "replaces": rep["replaces"],
-            "launches": serve["launches"][name],
+            "launches": sum(paths.values()), "launches_by_path": paths,
             "max_abs_err": max(c["max_abs_err"] for c in rows),
             "ms": rep["ms"], "plain_ms": rep["plain_ms"],
             "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
@@ -582,7 +916,8 @@ def main() -> int:
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
         {"nvidia_smi": smi, "kernels": kern["cases"], "serve": serve,
-         "seconds": time.perf_counter() - t_start}, indent=1, default=str))
+         "recurrent": recurrent, "seconds": time.perf_counter() - t_start},
+        indent=1, default=str))
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     log(nvidia_smi())
     print(json.dumps({"kernels": line}))

@@ -192,6 +192,8 @@ def _load_entry_points() -> None:
         from ..kernels.dfp_fused import ops as _d            # noqa: F401
         from ..kernels.flash_attention import ops as _f      # noqa: F401
         from ..kernels.matmul import ops as _m               # noqa: F401
+        from ..kernels.rglru_scan import ops as _rg          # noqa: F401
+        from ..kernels.rwkv6_scan import ops as _rw          # noqa: F401
     except BaseException:
         _ENTRY_POINTS_STATE = "unloaded"
         raise

@@ -1,10 +1,11 @@
 """Carry parameters from the JAX package into the port's modules.
 
 The JAX frontend's ``named_parameters()`` and the port's ``state_dict()``
-use the same dotted names and layouts (Linear weights (out, in), attention
-projections (in, out)), so a checkpoint moves over name for name.  The
-caller turns the JAX arrays into numpy first (``np.asarray``); this module
-imports neither JAX nor the JAX package.
+use the same dotted names and layouts (Linear weights (out, in); attention,
+RG-LRU and RWKV6 projections and LoRA factors (in, out)), so a checkpoint
+moves over name for name.  The caller turns the JAX arrays into numpy
+first (``np.asarray``); this module imports neither JAX nor the JAX
+package.
 """
 from __future__ import annotations
 

@@ -63,6 +63,7 @@ _ELEMENTWISE: Dict[OpKind, Callable[..., Tensor]] = {
     OpKind.SIGMOID: torch.sigmoid,
     OpKind.TANH: torch.tanh,
     OpKind.EXP: torch.exp,
+    OpKind.SOFTPLUS: F.softplus,
     OpKind.IDENTITY: lambda x: x,
 }
 
@@ -87,6 +88,13 @@ def _lower_node(n: Node, vals: List[Tensor], backend: "registry.Backend"
         return x + b.reshape(shape)
     if op is OpKind.SCALE:
         return vals[0] * n.attrs["value"]
+    if op is OpKind.SQRT:
+        mv = n.attrs.get("min")
+        return torch.sqrt(vals[0] if mv is None else torch.clamp_min(
+            vals[0], mv))
+    if op is OpKind.TIME_SHIFT:
+        x = vals[0]
+        return torch.cat([torch.zeros_like(x[:, :1]), x[:, :-1]], dim=1)
     if op is OpKind.SOFTCAP:
         c = n.attrs["cap"]
         return torch.tanh(vals[0] / c) * c
@@ -127,13 +135,15 @@ def compose_fused(n: Node, vals: Sequence[Tensor],
     return out
 
 
-# what the serving slice's extraction emits, plus every op a DFP program
-# covers (so ``ref.compose`` can run any group); the CNN and recurrent ops
-# arrive with their modules
+# what the transformer and recurrent emitters produce, plus every op a DFP
+# program covers (so ``ref.compose`` can run any group); the CNN ops arrive
+# with their modules.  RGLRU_SCAN and RWKV6_SCAN register their reference
+# impls in their kernel packages' ops.py, as in the JAX package.
 _REFERENCE_OPS = (
     list(_ELEMENTWISE)
     + [OpKind.ADD, OpKind.SUB, OpKind.MUL, OpKind.DIV, OpKind.BIAS_ADD,
-       OpKind.SCALE, OpKind.SOFTCAP, OpKind.LAYERNORM, OpKind.RMSNORM,
+       OpKind.SCALE, OpKind.SQRT, OpKind.TIME_SHIFT, OpKind.SOFTCAP,
+       OpKind.LAYERNORM, OpKind.RMSNORM,
        OpKind.DROPOUT, OpKind.RESHAPE, OpKind.LINEAR, OpKind.MATMUL]
 )
 

@@ -5,8 +5,8 @@ Extraction is driven by an emitter registry keyed on module types, looked up
 by exact type then MRO, so new layer kinds plug in without touching the
 walk.  Emitters key on torch's own classes (``torch.nn.Linear`` ...), so a
 plain torch module extracts as well as the port's subclasses.  Containers
-(``Sequential``, ``Residual``) recurse, so transformer blocks extract as
-genuine multi-input graphs.
+(``Sequential``, ``Residual``) recurse, so transformer and recurrent blocks
+extract as genuine multi-input graphs.
 
 Parameters are registered under their dotted ``named_parameters`` names, so
 the SolModel reads the framework's own parameter storage (paper Listing 2).
@@ -61,6 +61,13 @@ def register_decode_emitter(*module_types: Type[tnn.Module]
             _SEQUENCE_MODULES.add(t)
         return fn
     return deco
+
+
+def mark_sequence_module(*module_types: Type[tnn.Module]) -> None:
+    """Declare module types position-dependent without a decode emitter:
+    decode extraction refuses them instead of reusing the forward emitter,
+    which would silently drop history in a one-token step."""
+    _SEQUENCE_MODULES.update(module_types)
 
 
 def registered_emitters() -> List[str]:
@@ -125,6 +132,9 @@ class EmitContext:
         n = ir.param_node(tuple(tensor.shape), self.dtype, name=name)
         self.params[name] = n
         return n
+
+    def const(self, shape: Tuple[int, ...], fill: float = 0.0) -> Node:
+        return ir.const_node(shape, fill, self.dtype)
 
     def matmul(self, x: Node, w: Node) -> Node:
         """x @ w with w in (in, out) layout."""
@@ -269,6 +279,86 @@ def _emit_attention_decode(m: nn.MultiHeadAttention, ctx: EmitContext,
     ctx.kv_outputs += [k_new, v_new]
     o = ctx.reshape(att, (b, 1, m.n_heads * m.head_dim))
     return ctx.matmul(o, ctx.param(path + "wo", m.wo))
+
+
+# ---------------------------------------------------------------------------
+# recurrent layers: RGLRU_SCAN and RWKV6_SCAN (forward and prefill only)
+# ---------------------------------------------------------------------------
+
+@register_emitter(nn.RGLRU)
+def _emit_rglru(m: nn.RGLRU, ctx: EmitContext, x: Node, path: str) -> Node:
+    """models.recurrent.rglru_gates + the RGLRU_SCAN kernel node:
+    a = exp(-c·softplus(λ)·sigmoid(x·wa)); b = √(1-a²)·sigmoid(x·wx)·x."""
+    from ..models.recurrent import RGLRU_C
+    bsz, s, d = x.spec.shape
+    wa = ctx.param(path + "wa", m.wa)
+    wx = ctx.param(path + "wx", m.wx)
+    lam = ctx.param(path + "lam", m.lam)
+    r = ctx.unary(OpKind.SIGMOID, ctx.matmul(x, wa))
+    i = ctx.unary(OpKind.SIGMOID, ctx.matmul(x, wx))
+    decay = ctx.unary(OpKind.SCALE, ctx.unary(OpKind.SOFTPLUS, lam),
+                      value=-RGLRU_C)
+    a = ctx.unary(OpKind.EXP, ctx.binary(OpKind.MUL, r, decay))
+    one_minus_a2 = ctx.binary(OpKind.SUB, ctx.const((1,), 1.0),
+                              ctx.binary(OpKind.MUL, a, a))
+    gate = ctx.unary(OpKind.SQRT, one_minus_a2, min=1e-12)
+    bb = ctx.binary(OpKind.MUL, ctx.binary(OpKind.MUL, gate, i), x)
+    h0 = ctx.const((bsz, d), 0.0)
+    return Node(OpKind.RGLRU_SCAN, [a, bb, h0],
+                TensorSpec((bsz, s, d), ctx.dtype))
+
+
+@register_emitter(nn.RWKV6TimeMix)
+def _emit_rwkv6(m: nn.RWKV6TimeMix, ctx: EmitContext, x: Node,
+                path: str) -> Node:
+    """models.recurrent.rwkv_time_mix_seq as a graph: token-shift lerp with
+    per-target LoRA mixes → r/k/v/decay projections → RWKV6_SCAN → per-head
+    group norm → silu gate → output projection."""
+    from ..models.recurrent import GN_EPS
+    bsz, s, d = x.spec.shape
+    h, hd = m.n_heads, d // m.n_heads
+
+    def P(name: str) -> Node:
+        return ctx.param(path + name, getattr(m, name))
+
+    xs = ctx.unary(OpKind.TIME_SHIFT, x)
+    dx = ctx.binary(OpKind.SUB, xs, x)
+    xm = ctx.binary(OpKind.ADD, x, ctx.binary(OpKind.MUL, dx, P("mu_x")))
+
+    def lora(src: Node, t: str) -> Node:
+        inner = ctx.unary(OpKind.TANH, ctx.matmul(src, P(f"lora_a_{t}")))
+        return ctx.matmul(inner, P(f"lora_b_{t}"))
+
+    def mixed(t: str) -> Node:
+        mix = ctx.binary(OpKind.ADD, P(f"mu_{t}"), lora(xm, t))
+        return ctx.binary(OpKind.ADD, x, ctx.binary(OpKind.MUL, dx, mix))
+
+    r = ctx.reshape(ctx.matmul(mixed("r"), P("wr")), (bsz, s, h, hd))
+    k = ctx.reshape(ctx.matmul(mixed("k"), P("wk")), (bsz, s, h, hd))
+    v = ctx.reshape(ctx.matmul(mixed("v"), P("wv")), (bsz, s, h, hd))
+    g = ctx.unary(OpKind.SILU, ctx.matmul(mixed("g"), P("wg")))
+    # decay: logw = -exp(w0 + lora_w(m_w)) ≤ 0
+    wsum = ctx.binary(OpKind.ADD, P("w0"), lora(mixed("w"), "w"))
+    logw = ctx.reshape(ctx.unary(OpKind.SCALE, ctx.unary(OpKind.EXP, wsum),
+                                 value=-1.0), (bsz, s, h, hd))
+    u = ctx.reshape(P("u"), (h, hd))
+    s0 = ctx.const((bsz, h, hd, hd), 0.0)
+    o = Node(OpKind.RWKV6_SCAN, [r, k, v, logw, u, s0],
+             TensorSpec((bsz, s, h, hd), ctx.dtype))
+    # per-head group norm == layernorm over the trailing head dim
+    gn = Node(OpKind.LAYERNORM, [o, ctx.const((hd,), 1.0),
+                                 ctx.const((hd,), 0.0)],
+              TensorSpec((bsz, s, h, hd), ctx.dtype), attrs={"eps": GN_EPS})
+    flat = ctx.reshape(gn, (bsz, s, d))
+    scaled = ctx.binary(OpKind.ADD,
+                        ctx.binary(OpKind.MUL, flat, P("gn_gain")),
+                        P("gn_bias"))
+    return ctx.matmul(ctx.binary(OpKind.MUL, scaled, g), P("wo"))
+
+
+# the recurrent layers have no decode emitter (their state would need its
+# own arena region): decode extraction refuses them loudly
+mark_sequence_module(nn.RGLRU, nn.RWKV6TimeMix)
 
 
 # ---------------------------------------------------------------------------

@@ -14,8 +14,10 @@ themselves.  The subclasses below only fix the defaults the JAX frontend
   ``GELU()`` defaults to erf);
 * ``LayerNorm`` has eps 1e-5 with gain ones and bias zeros.
 
-``Residual`` and ``MultiHeadAttention`` are port-owned and keep the JAX
-parameter names and layouts: MHA's ``wq``/``wk``/``wv``/``wo`` are stored
+``Residual``, ``MultiHeadAttention``, ``RGLRU`` and ``RWKV6TimeMix`` are
+port-owned and keep the JAX parameter names and layouts: MHA's
+``wq``/``wk``/``wv``/``wo``, RG-LRU's ``wa``/``wx`` and RWKV6's
+``wr``/``wk``/``wv``/``wg``/``wo`` and ``lora_a_*`` (d, r) are stored
 (in, out).  Dotted ``state_dict`` names equal the JAX ``named_parameters``.
 Every constructor takes an explicit ``device`` and ``generator``.
 """
@@ -114,6 +116,92 @@ class MultiHeadAttention(tnn.Module):
         return o.transpose(1, 2).reshape(b, s, -1) @ self.wo
 
 
+def _uniform_(t: torch.Tensor, generator: Optional[torch.Generator]
+              ) -> torch.Tensor:
+    with torch.no_grad():
+        return t.uniform_(generator=generator)
+
+
+def _normal_(t: torch.Tensor, std: float, mean: float,
+             generator: Optional[torch.Generator]) -> torch.Tensor:
+    with torch.no_grad():
+        return t.normal_(generator=generator).mul_(std).add_(mean)
+
+
+class RGLRU(tnn.Module):
+    """Griffin's real-gated linear recurrent unit (the recurrence only):
+    h_t = a_t·h_{t-1} + b_t with input/recurrence gates over x: (B, S, D).
+    The eager forward is ``models.recurrent.rglru_seq``."""
+
+    def __init__(self, dim: int, *, device=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.dim = dim
+        self.wa = tnn.Parameter(_kaiming_(
+            torch.empty(dim, dim, device=device), dim, generator))
+        self.wx = tnn.Parameter(_kaiming_(
+            torch.empty(dim, dim, device=device), dim, generator))
+        # softplus(lam) ∈ ~(0.7, 1.3) → decay a well inside (0, 1)
+        self.lam = tnn.Parameter(_uniform_(torch.empty(dim, device=device),
+                                           generator))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        from ..models.recurrent import rglru_seq
+        return rglru_seq(dict(self.named_parameters()), x)[0]
+
+
+class RWKV6TimeMix(tnn.Module):
+    """RWKV6 (Finch) time mix: data-dependent token-shift lerp + LoRA decay
+    feeding the WKV linear recurrence, per-head group norm, silu gate.  The
+    eager forward is ``models.recurrent.rwkv_time_mix_seq``."""
+
+    def __init__(self, dim: int, n_heads: int, lora_rank: int = 4, *,
+                 device=None, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if dim % n_heads:
+            raise ValueError(f"dim {dim} not divisible by {n_heads} heads")
+        self.dim = dim
+        self.n_heads = n_heads
+        self.lora_rank = lora_rank
+
+        def u01(*shape: int) -> tnn.Parameter:
+            return tnn.Parameter(_uniform_(
+                torch.empty(*shape, device=device), generator))
+
+        def nrm(std: float, *shape: int, mean: float = 0.0) -> tnn.Parameter:
+            return tnn.Parameter(_normal_(
+                torch.empty(*shape, device=device), std, mean, generator))
+
+        self.mu_x = u01(dim)
+        for t in ("r", "k", "v", "w", "g"):
+            setattr(self, f"mu_{t}", u01(dim))
+            setattr(self, f"lora_a_{t}", nrm(0.1, dim, lora_rank))
+            setattr(self, f"lora_b_{t}", nrm(0.1, lora_rank, dim))
+        self.w0 = nrm(0.3, dim, mean=-2.0)        # decay exp(-e^{w0}) ≈ .9
+        self.u = nrm(0.5, dim)
+        for t in ("r", "k", "v", "g", "o"):
+            setattr(self, f"w{t}", tnn.Parameter(_kaiming_(
+                torch.empty(dim, dim, device=device), dim, generator)))
+        self.gn_gain = nrm(0.1, dim, mean=1.0)
+        self.gn_bias = nrm(0.1, dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        from ..models.recurrent import rwkv_time_mix_seq
+        return rwkv_time_mix_seq(dict(self.named_parameters()), x,
+                                 self.n_heads)
+
+
+def _mlp(d_model: int, mlp_mult: int, device,
+         generator: Optional[torch.Generator]) -> Residual:
+    """Pre-norm MLP: LayerNorm → Linear → tanh-GELU → Linear, residual."""
+    return Residual(LayerNorm(d_model, device=device),
+                    Linear(d_model, mlp_mult * d_model, device=device,
+                           generator=generator),
+                    GELU(),
+                    Linear(mlp_mult * d_model, d_model, device=device,
+                           generator=generator))
+
+
 def transformer_block(d_model: int = 64, n_heads: int = 4,
                       n_kv_heads: Optional[int] = None, mlp_mult: int = 4,
                       causal: bool = True, *, device=None,
@@ -125,10 +213,29 @@ def transformer_block(d_model: int = 64, n_heads: int = 4,
                  MultiHeadAttention(d_model, n_heads, n_kv_heads,
                                     causal=causal, device=device,
                                     generator=generator)),
+        _mlp(d_model, mlp_mult, device, generator),
+    )
+
+
+def griffin_block(d_model: int = 64, mlp_mult: int = 2, *, device=None,
+                  generator: Optional[torch.Generator] = None
+                  ) -> tnn.Sequential:
+    """RecurrentGemma/Griffin-style block: RG-LRU recurrence + MLP, both
+    residual."""
+    return tnn.Sequential(
         Residual(LayerNorm(d_model, device=device),
-                 Linear(d_model, mlp_mult * d_model, device=device,
-                        generator=generator),
-                 GELU(),
-                 Linear(mlp_mult * d_model, d_model, device=device,
-                        generator=generator)),
+                 RGLRU(d_model, device=device, generator=generator)),
+        _mlp(d_model, mlp_mult, device, generator),
+    )
+
+
+def rwkv6_block(d_model: int = 64, n_heads: int = 4, mlp_mult: int = 2, *,
+                device=None, generator: Optional[torch.Generator] = None
+                ) -> tnn.Sequential:
+    """RWKV6 (Finch) block: time mix + MLP, both residual."""
+    return tnn.Sequential(
+        Residual(LayerNorm(d_model, device=device),
+                 RWKV6TimeMix(d_model, n_heads, device=device,
+                              generator=generator)),
+        _mlp(d_model, mlp_mult, device, generator),
     )

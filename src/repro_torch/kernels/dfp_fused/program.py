@@ -9,6 +9,12 @@ Register model: r0..rk hold values of the chain's output shape.
 Operands:
   kind 'full' — a tensor shaped like the chain output (residual inputs)
   kind 'vec'  — a last-dim vector broadcast over rows (bias / norm gains)
+
+One difference from the JAX encoder: a 'vec' operand may also be a value
+source of an elementwise instruction (``mul(x, mu)``, ``add(w0, y)``),
+broadcast over rows.  The JAX encoder refuses such a group and its Pallas
+impl composes it op by op at run time; the recurrent blocks' mixes and
+gates are such groups, and the port runs them through the kernel.
 """
 from __future__ import annotations
 
@@ -73,13 +79,11 @@ def encode_program(fused: Node, env: Dict[int, Any]):
         return kind, op_index[id(node)]
 
     def src_of(node: Node) -> Tuple[str, int]:
-        """('reg', r) if produced in-chain else ('op', operand_idx)."""
+        """('reg', r) if produced in-chain else ('op', operand_idx); a 'vec'
+        operand broadcasts over rows, like a bias."""
         if id(node) in in_chain:
             return ("reg", regs[id(node)])
-        kind, i = operand_for(node)
-        if kind != "full":
-            raise NotImplementedError("non-full operand as value source")
-        return ("op", i)
+        return ("op", operand_for(node)[1])
 
     for b in body:
         dst = next_reg

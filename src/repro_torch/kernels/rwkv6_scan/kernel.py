@@ -1,0 +1,67 @@
+"""Launching wrapper of the RWKV6 WKV scan in ``csrc/rwkv6_scan.cu``.
+
+Replaces ``repro/kernels/rwkv6_scan/kernel.py::rwkv6_scan_call``.  The
+source note in ``rwkv6_scan.cu`` says what bounds the kernel and why each
+thread keeps one column of the state.  The library builds at first use
+(``kernels/build.py``).
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .. import build
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_ARGTYPES = [_P] * 8 + [_I] * 4 + [_P]
+MAX_HEAD_DIM = 128      # one thread per state column, the column in registers
+
+
+def _lib() -> ctypes.CDLL:
+    lib = build.library("rwkv6_scan")
+    fn = lib.sol_rwkv6_scan_f32
+    if fn.argtypes is None:
+        fn.argtypes = _ARGTYPES
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def rwkv6_scan_cuda(r, k, v, logw, u, s0):
+    """r, k, v, logw: (B, T, H, hd); u: (H, hd); s0: (B, H, hd, hd); all
+    float32, contiguous, on one CUDA device, hd ≤ 128 → (o (B, T, H, hd),
+    s_last (B, H, hd, hd))."""
+    ts = (r, k, v, logw, u, s0)
+    if not all(t.is_cuda and t.device == r.device for t in ts):
+        raise ValueError("rwkv6_scan_cuda wants every operand on one CUDA "
+                         "device")
+    if any(t.dtype != torch.float32 for t in ts):
+        raise TypeError(f"rwkv6_scan_cuda takes float32, got "
+                        f"{[str(t.dtype) for t in ts]}")
+    if r.dim() != 4:
+        raise ValueError(f"rwkv6_scan_cuda wants (B,T,H,hd), got "
+                         f"{tuple(r.shape)}")
+    bsz, t_len, h, hd = r.shape
+    if any(t.shape != r.shape for t in (k, v, logw)) or \
+            u.shape != (h, hd) or s0.shape != (bsz, h, hd, hd):
+        raise ValueError(f"rwkv6_scan_cuda: incompatible shapes "
+                         f"{[tuple(t.shape) for t in ts]}")
+    if not 1 <= hd <= MAX_HEAD_DIM:
+        raise ValueError(f"rwkv6_scan_cuda takes hd ≤ {MAX_HEAD_DIM}, "
+                         f"got {hd}")
+    if not all(t.is_contiguous() for t in ts):
+        raise ValueError("rwkv6_scan_cuda wants contiguous operands")
+    o = torch.empty_like(r)
+    s_last = torch.empty_like(s0)
+    lib = _lib()
+    err = lib.sol_rwkv6_scan_f32(
+        r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(),
+        u.data_ptr(), s0.data_ptr(), o.data_ptr(), s_last.data_ptr(),
+        bsz, t_len, h, hd, torch.cuda.current_stream(r.device).cuda_stream)
+    build.check(lib, err, "sol_rwkv6_scan_f32")
+    rwkv6_scan_cuda.launches += 1
+    return o, s_last
+
+
+rwkv6_scan_cuda.launches = 0

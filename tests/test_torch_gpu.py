@@ -1,6 +1,6 @@
 """The port's hand-written kernels on the card, each held to its plain
-PyTorch version, and a small served model on the card held to the plain
-path.  Every test here is marked ``gpu`` and skips without a CUDA card.
+PyTorch version, a small served model and small recurrent stacks on the
+card held to the plain path.  Every test here is marked ``gpu`` and skips without a CUDA card.
 
 This file imports neither JAX nor the JAX package, so it also runs where
 only PyTorch is installed (the suite's ``conftest.py`` imports the JAX
@@ -19,6 +19,7 @@ import torch
 from torch import nn as tnn
 
 from repro_torch.frontends import nn
+from repro_torch.frontends.optimize import optimize
 from repro_torch.kernels.decode_attention import ops as dops
 from repro_torch.kernels.decode_attention.kernel import decode_attention_cuda
 from repro_torch.kernels.dfp_fused.kernel import dfp_fused_triton
@@ -28,6 +29,10 @@ from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.matmul.kernel import matmul_cuda
 from repro_torch.kernels.matmul.ref import matmul_ref
+from repro_torch.kernels.rglru_scan.kernel import rglru_scan_cuda
+from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
+from repro_torch.kernels.rwkv6_scan.kernel import rwkv6_scan_cuda
+from repro_torch.kernels.rwkv6_scan.ref import rwkv6_scan_ref
 from repro_torch.launch import serve
 
 TOL = dict(rtol=1e-4, atol=1e-4)
@@ -172,3 +177,54 @@ def test_served_tokens_on_the_card_match_the_plain_path(dev):
             assert launched == [0, 0, 0, 0]
         tokens[backend] = [r.generated for r in reqs]
     assert tokens["h100"] == tokens["torch_ref"]
+
+
+@pytest.mark.parametrize("b,t,d", [(4, 512, 4096), (3, 1, 24), (2, 37, 200)])
+def test_rglru_kernel_matches_plain(dev, b, t, d):
+    a = torch.rand(b, t, d, device=dev,
+                   generator=torch.Generator(dev).manual_seed(20)) * 0.5 + 0.5
+    x, h0 = _randn(dev, 21, b, t, d), _randn(dev, 22, b, d)
+    h, last = rglru_scan_cuda(a, x, h0)
+    want_h, want_last = rglru_scan_ref(a, x, h0)
+    torch.testing.assert_close(h, want_h, **TOL)
+    torch.testing.assert_close(last, want_last, **TOL)
+
+
+@pytest.mark.parametrize("b,t,h,hd,extremes", [
+    (4, 512, 32, 64, False), (1, 3, 2, 8, True), (2, 20, 3, 128, False),
+    (1, 9, 2, 40, False)])
+def test_rwkv6_kernel_matches_plain(dev, b, t, h, hd, extremes):
+    r, k, v = (_randn(dev, 30 + i, b, t, h, hd) * 0.5 for i in range(3))
+    if extremes:            # no decay, and a decay whose exp underflows
+        logw = torch.where(_randn(dev, 33, b, t, h, hd) > 0, 0.0, -50.0)
+    else:
+        logw = -torch.exp(_randn(dev, 33, b, t, h, hd) * 0.5 - 1.0)
+    u, s0 = _randn(dev, 34, h, hd) * 0.5, _randn(dev, 35, b, h, hd, hd) * 0.5
+    o, s_last = rwkv6_scan_cuda(r, k, v, logw, u, s0)
+    want_o, want_s = rwkv6_scan_ref(r, k, v, logw, u, s0)
+    torch.testing.assert_close(o, want_o, **TOL)
+    torch.testing.assert_close(s_last, want_s, **TOL)
+
+
+@pytest.mark.parametrize("name", ["griffin", "rwkv6"])
+def test_recurrent_stack_on_the_card_matches_the_plain_path(dev, name):
+    """Two small blocks through optimize() on the card: the h100 backend's
+    output equals torch_ref's, and every kernel of the path launched."""
+    g = torch.Generator(dev).manual_seed(1)
+    if name == "griffin":
+        blocks = [nn.griffin_block(64, device=dev, generator=g)
+                  for _ in range(2)]
+        scan = rglru_scan_cuda
+    else:
+        blocks = [nn.rwkv6_block(64, 4, device=dev, generator=g)
+                  for _ in range(2)]
+        scan = rwkv6_scan_cuda
+    model = tnn.Sequential(*blocks)
+    shape = (2, 48, 64)
+    x = _randn(dev, 40, *shape)
+    counters = (matmul_cuda, dfp_fused_triton, scan)
+    before = [c.launches for c in counters]
+    got = optimize(model, shape, backend="h100")(x)
+    assert all(c.launches > n for c, n in zip(counters, before))
+    want = optimize(model, shape, backend="torch_ref")(x)
+    torch.testing.assert_close(got, want, **TOL)
