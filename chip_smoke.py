@@ -41,10 +41,11 @@ Phases, each failing loudly:
    impl admits must elect one, and each kernel of the graph must launch in
    one forward.  Against ``backend="torch_ref"`` on the same weights: each
    block, compiled alone and fed the same input, within 1e-4 of its
-   output's scale; the stack's output within the larger of 1e-4 and the
-   f32 floor (how far torch_ref's own output moves when its input moves by
-   f32 rounding: a deep random stack amplifies rounding).  Warm forward
-   times of both backends and one profiled forward.
+   output's scale; the stack's output within a fixed limit per stack of
+   its scale (1e-4 Griffin, 1e-2 RWKV6, whose random 24-layer stack
+   amplifies f32 rounding; ``tools/torch_recurrent_agreement.py`` reads
+   both).  Warm forward times of both backends and one profiled
+   forward.
 
 The second-to-last lines are the card's ``nvidia-smi`` line and a JSON
 ``kernels`` line; the last line is ``{"ok": true, "device": ...}``.  The
@@ -180,7 +181,7 @@ def phase_kernels(gen) -> dict:
     cases = []
 
     def record(name, shape, err, fn, plain, library, flops, nbytes,
-               replaces, source, route):
+               replaces, source, route, on_path=True):
         t = {"": time_ms(fn), "plain_": time_ms(plain)}
         if library is not None:
             t["library_"] = time_ms(library)
@@ -188,12 +189,13 @@ def phase_kernels(gen) -> dict:
         row = {"name": name, "shape": shape, "route": route,
                "source": source, "replaces": replaces, "max_abs_err": err,
                "tol": KERNEL_TOL[name], "library_ms": None,
-               "bound_ms": b_ms, "bound_by": b_by}
+               "bound_ms": b_ms, "bound_by": b_by, "on_path": on_path}
         for pre, v in t.items():
             row[f"{pre}ms"] = v["device"]
             row[f"{pre}launch_ms"] = v["launch"]
         ms, p_ms, lib_ms = row["ms"], row["plain_ms"], row["library_ms"]
-        log(f"[kernels] {name} {shape}: max|err| {err:.3g} (tol "
+        log(f"[kernels] {name} {shape}{'' if on_path else ' (off path)'}: "
+            f"max|err| {err:.3g} (tol "
             f"{KERNEL_TOL[name]:g}) device ms: kernel {ms:.4f}, plain "
             f"{p_ms:.4f}, library "
             f"{lib_ms if lib_ms is None else round(lib_ms, 4)}, bound "
@@ -319,7 +321,7 @@ def phase_kernels(gen) -> dict:
                lambda: matmul_cuda(x, w), lambda: matmul_ref(x, w),
                lambda: torch.matmul(x, w), 2.0 * m * k * n,
                4.0 * (m * k + k * n + m * n), mm_rep, mm_src, "cuda")
-    for label, rows_n, d, prog in recurrent_programs():
+    for label, rows_n, d, prog, on_path in recurrent_programs():
         ops = [randn(rows_n, d) if kd == "full" else randn(d)
                for kd in prog.operand_kinds]
         y = dfp_fused_triton(prog, ops, (rows_n, d), torch.float32)
@@ -334,7 +336,7 @@ def phase_kernels(gen) -> dict:
                lambda: dfp_fused_ref(prog, ops, (rows_n, d), torch.float32),
                None, 10.0 * rows_n * d,
                4.0 * ((n_full + 1) * rows_n * d + n_vec * d),
-               dfp_rep, dfp_src, "triton")
+               dfp_rep, dfp_src, "triton", on_path)
 
     # RG-LRU scan: Griffin's width (B 4, T 512, D 4096) and an edge case
     # (T 1, D not a multiple of 32); a in (0.5, 1), h0 nonzero
@@ -380,12 +382,14 @@ def phase_kernels(gen) -> dict:
 
 
 def recurrent_programs():
-    """(label, rows, d, Program) of the DFP groups the recurrent graphs
-    add, encoded from the extracted graphs of small blocks (a program does
-    not depend on the sizes), at the full-width stacks' rows and widths:
-    the RG-LRU gate chain, RWKV6's token-shift mix, and RWKV6's per-head
-    group norm over hd 64 on B·T·H rows (the node is a lone LAYERNORM in
-    the graph; this is its program)."""
+    """(label, rows, d, Program, on_path) of the DFP groups the recurrent
+    graphs add, encoded from the extracted graphs of small blocks (a
+    program does not depend on the sizes), at the full-width stacks' rows
+    and widths: the RG-LRU gate chain, RWKV6's token-shift mix, and
+    RWKV6's per-head group norm over hd 64 on B·T·H rows.  The group norm
+    is off the main path: its node is a lone 4-D LAYERNORM, which elects
+    ``ref.layernorm`` as in the JAX package; the case holds the program
+    such a node would run."""
     from repro_torch.backends import get_backend
     from repro_torch.core import passes
     from repro_torch.frontends import extract, nn
@@ -402,12 +406,14 @@ def recurrent_programs():
     rows = 4 * 512
     return [
         ("rglru gate sigmoid+mul+exp", rows, 4096,
-         group(nn.griffin_block(64, device="cpu"), "fused[sigmoid+mul+exp]")),
+         group(nn.griffin_block(64, device="cpu"), "fused[sigmoid+mul+exp]"),
+         True),
         ("rwkv6 mix add+mul+add", rows, 2048,
-         group(nn.rwkv6_block(64, 4, device="cpu"), "fused[add+mul+add]")),
+         group(nn.rwkv6_block(64, 4, device="cpu"), "fused[add+mul+add]"),
+         True),
         ("rwkv6 group norm", rows * 32, 64,
          Program((("layernorm", 0, ("op", 0), 1, 2, GN_EPS),),
-                 ("full", "vec", "vec"), 0)),
+                 ("full", "vec", "vec"), 0), False),
     ]
 
 
@@ -659,7 +665,15 @@ STACKS = (
     ("griffin", dict(d_model=4096, mlp_mult=3, layers=26)),
 )
 REC_SHAPE_BT = (4, 512)
-REC_RTOL = 1e-4         # h100 vs torch_ref, relative to the output's scale
+# h100 vs torch_ref, relative to the output's scale: each block alone, and
+# each stack's output at these weights (seed 100 + its index).  Read by
+# tools/torch_recurrent_agreement.py (PERF.md): Griffin's output reads
+# ≤ 2.1e-6 over 6 seeds, a wrong scan ≥ 5.0e-4; RWKV6's reads 3.7e-4 and
+# moves up to 2.2e-3 under f32 rounding of its input at this seed (up to
+# 7.2e-2 at other seeds), a gross scan fault ≥ 0.83, while its subtle
+# faults show only in the per-layer reading.
+REC_LAYER_RTOL = 1e-4
+REC_STACK_RTOL = {"rwkv6": 1e-2, "griffin": 1e-4}
 REC_REPEATS = 3
 SCAN_KIND = {"rwkv6": "rwkv6_scan", "griffin": "rglru_scan"}
 # the graph kinds each kernel serves, so a kernel must launch where they are
@@ -719,21 +733,6 @@ def per_layer_errors(torch, model, shape, x, optimize) -> list:
         out.append(rel_err(h, cur))
     torch.cuda.synchronize()
     return out
-
-
-def f32_floor(torch, ref, x, want, samples: int = 2) -> float:
-    """How far torch_ref's own output moves, relative to its scale, when
-    the input moves by f32 rounding (each element × (1 + 2⁻²³·n), n
-    standard normal): the largest of ``samples`` draws.  A deep random
-    stack amplifies rounding, so two correct f32 paths can differ by this
-    much at its output."""
-    gen = torch.Generator(x.device).manual_seed(7)
-    worst = 0.0
-    for _ in range(samples):
-        xp = x * (1 + 2.0 ** -23 * torch.randn(*x.shape, device=x.device,
-                                               generator=gen))
-        worst = max(worst, rel_err(ref(xp), want))
-    return worst
 
 
 def timed_forwards(torch, sol, x, repeats: int) -> list:
@@ -797,21 +796,18 @@ def phase_recurrent(torch, counters, dev) -> dict:
         want = ref(x)
         layers = per_layer_errors(torch, model, shape, x, optimize)
         worst_layer = max(layers)
-        if not worst_layer <= REC_RTOL:
+        if not worst_layer <= REC_LAYER_RTOL:
             fail(f"{name}: layer {layers.index(worst_layer)} on h100 differs "
                  f"from torch_ref on the same input by {worst_layer:.3g} of "
-                 f"its output's scale (rtol {REC_RTOL})")
-        floor = f32_floor(torch, ref, x, want)
-        err = rel_err(y, want)
-        if not err <= max(REC_RTOL, floor):
+                 f"its output's scale (rtol {REC_LAYER_RTOL})")
+        err, limit = rel_err(y, want), REC_STACK_RTOL[name]
+        if not err <= limit:
             fail(f"{name}: h100 output differs from torch_ref by {err:.3g} "
-                 f"of its scale, above both rtol {REC_RTOL} and the f32 "
-                 f"floor {floor:.3g}")
+                 f"of its scale (rtol {limit})")
         log(f"[recurrent] {name} vs torch_ref: each layer on the same input "
-            f"within {worst_layer:.3g} of its scale (rtol {REC_RTOL}); the "
-            f"stack's output within {err:.3g} of max|y| "
-            f"{float(want.abs().max()):.3g}; torch_ref's own output moves "
-            f"{floor:.3g} under an f32-rounding-sized input perturbation")
+            f"within {worst_layer:.3g} of its scale (rtol {REC_LAYER_RTOL});"
+            f" the stack's output within {err:.3g} of max|y| "
+            f"{float(want.abs().max()):.3g} (rtol {limit})")
 
         # warm forwards, the two backends in turns: h100, ref, ref, h100
         h_ms = timed_forwards(torch, sol, x, REC_REPEATS)
@@ -836,7 +832,7 @@ def phase_recurrent(torch, counters, dev) -> dict:
             "config": cfg, "shape": shape, "parameters": n_params,
             "optimize_s": compile_s, "elections": by_kind,
             "launches": launches, "first_forward_ms": first_ms,
-            "rel_err": err, "f32_floor": floor,
+            "rel_err": err, "rel_err_limit": limit,
             "per_layer_rel_err": layers,
             "output_scale": float(want.abs().max()),
             "h100_ms": h_ms, "h100_ms_median": h_med,

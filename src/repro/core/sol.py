@@ -34,7 +34,6 @@ from __future__ import annotations
 
 import dataclasses
 import math
-import sys
 from typing import Dict, List, Optional, Sequence, Tuple
 
 from .ir import OpKind, SOURCE_OPS
@@ -83,14 +82,12 @@ def sol_bound_us(hw, flops: float, nbytes: float) -> Tuple[float, str]:
 def sol_ratio(us: float, bound_us: float) -> float:
     """measured ÷ bound, guarded to be finite and ≥ 0 for ANY cache entry:
     a missing bound (0.0) or non-finite measurement yields 0.0 — such a
-    row ranks as 'no known gap', never as an infinite one.  A quotient that
-    overflows (huge time over a subnormal bound) saturates at the largest
-    finite float: the widest gap there is, still finite."""
+    row ranks as 'no known gap', never as an infinite one."""
     if bound_us <= 0.0 or not math.isfinite(bound_us):
         return 0.0
     if us < 0.0 or not math.isfinite(us):
         return 0.0
-    return min(us / bound_us, sys.float_info.max)
+    return us / bound_us
 
 
 def cache_rows(cache, *, backends: Optional[Sequence[str]] = None,
