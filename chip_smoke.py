@@ -3,8 +3,9 @@
 an NVIDIA H100: it builds the hand-written kernels from this checkout,
 holds each one against its plain PyTorch version at the main paths'
 shapes, serves a few requests at full Qwen2-1.5B attention width through
-``SolServer``, runs the Griffin and RWKV6 block stacks at full width
-through ``optimize()``, and checks both paths against the plain path.
+``SolServer``, runs the Griffin and RWKV6 block stacks at full width and
+three CNNs at ImageNet resolution through ``optimize()``, and checks every
+path against the plain path.
 
     python3 chip_smoke.py          # one CUDA card, run from the repo root
 
@@ -13,14 +14,14 @@ Phases, each failing loudly:
 1. device — ``nvidia-smi`` name and power limit; kernel build time.
 2. kernels — matmul (serving and LoRA shapes), flash attention, decode
    attention, the generated DFP programs (serving groups and the
-   recurrent graphs' gate, mix and group-norm programs), the RG-LRU scan
-   and the RWKV6 scan (full width and edge cases) against their plain
-   versions (max |error| against the stated tolerance) with their device
-   times (cold L2, the host ahead of the device), the plain version's, one
-   PyTorch library call's where one computes the same function, and the
-   roofline bound of the same work on this card; beside them the
-   back-to-back launch time, which host launch cost can push above the
-   device time.
+   recurrent graphs' gate, mix and group-norm programs), the RG-LRU scan,
+   the RWKV6 scan and the average pooling (full width and edge cases)
+   against their plain versions (max |error| against the stated
+   tolerance) with their device times (cold L2, the host ahead of the
+   device), the plain version's, one PyTorch library call's where one
+   computes the same function, and the roofline bound of the same work on
+   this card; beside them the back-to-back launch time, which host launch
+   cost can push above the device time.
 3. serve — 28 × ``transformer_block(1536, 12, n_kv_heads=2)`` + a
    Linear(1536, 151936) head with random weights from a seeded generator
    (build_lm's block: pre-norm LayerNorm, 4·d tanh-GELU MLP, no RoPE — not
@@ -46,6 +47,15 @@ Phases, each failing loudly:
    amplifies f32 rounding; ``tools/torch_recurrent_agreement.py`` reads
    both).  Warm forward times of both backends and one profiled
    forward.
+6. CNN forward — ``small_cnn``, ``depthwise_cnn`` and the Listing-3 CNN
+   (``depthwise_cnn`` with ``AvgPool2d(3, stride=1)`` after each
+   depthwise conv) with 1000 classes on a (64, 3, 224, 224) f32 input,
+   random weights and nonzero biases from a seeded generator: every
+   AVGPOOL elects ``cuda.avgpool`` (two launches per Listing-3 forward),
+   every LINEAR ``cuda.linear``, every group holding a conv bias
+   ``ref.compose``; each output within 1e-4 of ``torch_ref``'s scale on
+   the same weights.  Warm forward times of both backends and one
+   profiled forward.
 
 The second-to-last lines are the card's ``nvidia-smi`` line and a JSON
 ``kernels`` line; the last line is ``{"ok": true, "device": ...}``.  The
@@ -68,9 +78,10 @@ OUT_DIR = ROOT / "chiprun_out"
 # f32 products accumulate in another order than the plain version; outputs
 # are O(1), so agreement to 1e-4 absolute leaves ~100x margin over the
 # expected ~1e-6 rounding while catching any indexing or masking fault.
+# The pooling sums the plain version's taps in its order: 1e-5.
 KERNEL_TOL = {"matmul": 1e-4, "flash_attention": 1e-4,
               "decode_attention": 1e-4, "dfp_fused": 1e-4,
-              "rglru_scan": 1e-4, "rwkv6_scan": 1e-4}
+              "rglru_scan": 1e-4, "rwkv6_scan": 1e-4, "avgpool": 1e-5}
 # end-to-end logits through 28 layers: relative to the logits' scale
 LOGIT_RTOL = 1e-4
 
@@ -157,6 +168,8 @@ def max_err(a, b) -> float:
 def phase_kernels(gen) -> dict:
     import torch
     import torch.nn.functional as F
+    from repro_torch.kernels.avgpool.kernel import avgpool_cuda
+    from repro_torch.kernels.avgpool.ref import avgpool_ref
     from repro_torch.kernels.decode_attention.kernel import \
         decode_attention_cuda
     from repro_torch.kernels.decode_attention.ops import _ref_model_layout
@@ -378,6 +391,26 @@ def phase_kernels(gen) -> dict:
                4.0 * (5 * n + h_ * hd + 2 * b_ * h_ * hd * hd),
                "src/repro/kernels/rwkv6_scan/kernel.py:55",
                "src/repro_torch/kernels/csrc/rwkv6_scan.cu", "cuda")
+
+    # average pooling: the Listing-3 CNN's two pools at (64, 3, 224, 224),
+    # then edge cases (k 2 and 3, kh != kw, H or W equal to k, N·C 1,
+    # widths no multiple of a warp); F.avg_pool2d is the library call
+    for n_, c_, h_, w_, kh, kw, on_path in (
+            (64, 32, 224, 224, 3, 3, True), (64, 64, 111, 111, 3, 3, True),
+            (3, 5, 17, 45, 2, 2, False), (1, 1, 3, 3, 3, 3, False),
+            (2, 3, 9, 40, 2, 3, False), (1, 1, 70, 33, 3, 1, False)):
+        x = randn(n_, c_, h_, w_)
+        y = avgpool_cuda(x, kh, kw)
+        torch.cuda.synchronize()
+        out = y.numel()
+        record("avgpool", f"({n_}, {c_}, {h_}, {w_}) k{kh}x{kw}",
+               max_err(y, avgpool_ref(x, kh, kw)),
+               lambda: avgpool_cuda(x, kh, kw),
+               lambda: avgpool_ref(x, kh, kw),
+               lambda: F.avg_pool2d(x, (kh, kw), stride=1),
+               float(kh * kw) * out, 4.0 * (x.numel() + out),
+               "src/repro/kernels/avgpool/kernel.py:34",
+               "src/repro_torch/kernels/csrc/avgpool.cu", "cuda", on_path)
     return {"cases": cases}
 
 
@@ -477,6 +510,8 @@ FAMILIES = (("sgemm_kernel", "matmul"), ("reduce_splits", "matmul"),
             ("decode_kernel", "decode_attention"), ("dfp_", "dfp_fused"),
             ("rglru_scan_kernel", "rglru_scan"),
             ("rwkv6_scan_kernel", "rwkv6_scan"),
+            ("avgpool_kernel", "avgpool"),
+            ("conv", "conv"), ("fprop", "conv"),
             ("Memcpy HtoD", "copy to card"), ("Memcpy DtoH", "copy to host"),
             ("Memcpy", "copy on card"), ("Memset", "memset"))
 
@@ -695,10 +730,9 @@ def _build_stack(name: str, cfg: dict, dev, gen):
     return tnn.Sequential(*blocks)
 
 
-def check_elections(sol, name: str) -> dict:
+def check_cuda_elected(sol, name: str) -> dict:
     """Every node that a ``cuda.*`` impl admits must have elected one (an
-    unencodable FUSED group admits none and composes); the scan must have
-    elected its kernel."""
+    unencodable FUSED group admits none and composes)."""
     from repro_torch.backends import registry
     from repro_torch.core.ir import SOURCE_OPS, OpKind
     for n in sol.graph.topo():
@@ -709,7 +743,13 @@ def check_elections(sol, name: str) -> dict:
         if cuda and not (n.impl or "").startswith("cuda."):
             fail(f"{name}: {n.name or n.op.value} elected {n.impl} though "
                  f"{cuda} admit it")
-    by_kind = sol.impl_report(by_kind=True)
+    return sol.impl_report(by_kind=True)
+
+
+def check_elections(sol, name: str) -> dict:
+    """``check_cuda_elected``, and the scan must have elected its
+    kernel."""
+    by_kind = check_cuda_elected(sol, name)
     scan = SCAN_KIND[name]
     if set(by_kind.get(scan, {})) != {f"cuda.{scan}"}:
         fail(f"{name}: {scan} elected {by_kind.get(scan)}")
@@ -844,6 +884,165 @@ def phase_recurrent(torch, counters, dev) -> dict:
     return results
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the CNNs through optimize()
+# ---------------------------------------------------------------------------
+
+CNN_SHAPE = (64, 3, 224, 224)       # ImageNet resolution, batch 64
+CNN_CLASSES = 1000
+CNN_RTOL = 1e-4
+CNN_REPEATS = 3
+
+
+def listing3_cnn(nn, **kw):
+    """``depthwise_cnn`` with ``AvgPool2d(3, stride=1)`` after each of its
+    two bias-free depthwise convs: the paper's Listing 3 pooling."""
+    from torch import nn as tnn
+    mods = list(nn.depthwise_cnn(**kw))
+    mods.insert(3, nn.AvgPool2d(3, stride=1))
+    mods.insert(8, nn.AvgPool2d(3, stride=1))
+    return tnn.Sequential(*mods)
+
+
+def _build_cnn(torch, name: str, dev, gen):
+    """The network with seeded weights, nonzero biases and running stats,
+    in eval mode."""
+    from repro_torch.frontends import nn
+    kw = dict(classes=CNN_CLASSES, device=dev, generator=gen)
+    model = (listing3_cnn(nn, **kw) if name == "listing3_cnn"
+             else getattr(nn, name)(**kw)).eval()
+    with torch.no_grad():
+        for pname, t in list(model.named_parameters()) + list(
+                model.named_buffers()):
+            if pname.endswith("bias") or pname.endswith("running_mean"):
+                t.copy_(0.1 * torch.randn(t.shape, device=dev,
+                                          generator=gen))
+            elif pname.endswith("running_var"):
+                t.copy_(0.5 + torch.rand(t.shape, device=dev,
+                                         generator=gen))
+    return model
+
+
+def conv_bias_group(n) -> bool:
+    return n.op.value == "fused" and any(
+        b.op.value == "bias_add" and b.attrs.get("axis") == 1 for b in n.body)
+
+
+def host_enqueue_ms(torch, sol, x) -> float:
+    """Host time from an idle device until ``sol(x)`` returns, before the
+    device has finished: the forward's Python and launch cost."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sol(x)
+    ms = 1e3 * (time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return ms
+
+
+def phase_cnn(torch, counters, dev) -> dict:
+    """Each CNN through ``optimize(..., backend="h100")``: elections, the
+    launch counts of one forward, agreement with ``torch_ref`` on the same
+    weights, warm forward times of both backends in turns, and one
+    profiled forward."""
+    import gc
+    import statistics
+    from repro_torch.frontends.optimize import optimize
+
+    results = {}
+    for i, name in enumerate(("small_cnn", "depthwise_cnn",
+                              "listing3_cnn")):
+        gen = torch.Generator(dev).manual_seed(200 + i)
+        model = _build_cnn(torch, name, dev, gen)
+        x = torch.randn(*CNN_SHAPE, device=dev, generator=gen)
+        t0 = time.perf_counter()
+        sol = optimize(model, CNN_SHAPE, backend="h100")
+        compile_s = time.perf_counter() - t0
+        by_kind = check_cuda_elected(sol, name)
+        nodes = sol.graph.topo()
+        pools = sum(n.op.value == "avgpool" for n in nodes)
+        if pools != (2 if name == "listing3_cnn" else 0) or \
+                by_kind.get("avgpool", {}) != (
+                    {"cuda.avgpool": pools} if pools else {}):
+            fail(f"{name}: {pools} AVGPOOL nodes elected "
+                 f"{by_kind.get('avgpool')}")
+        if set(by_kind.get("linear", {})) != {"cuda.linear"}:
+            fail(f"{name}: linear elected {by_kind.get('linear')}")
+        for n in nodes:
+            if conv_bias_group(n) and n.impl != "ref.compose":
+                fail(f"{name}: conv bias group {n.name} elected {n.impl}")
+        log(f"[cnn] {name} h100 elections (optimize {compile_s:.2f} s): "
+            f"{by_kind}")
+
+        # the main path's run: counts from 0, one forward, counts read
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        y = sol(x)
+        torch.cuda.synchronize()
+        first_ms = 1e3 * (time.perf_counter() - t0)
+        launches = {k: c.launches for k, c in counters.items()}
+        if launches["avgpool"] != pools:
+            fail(f"{name}: {launches['avgpool']} avgpool launches in one "
+                 f"forward, {pools} AVGPOOL nodes")
+        if launches["matmul"] < by_kind["linear"]["cuda.linear"]:
+            fail(f"{name}: matmul launched {launches['matmul']} times")
+        if "cuda.dfp_fused" in by_kind.get("fused", {}) and \
+                launches["dfp_fused"] <= 0:
+            fail(f"{name}: dfp_fused elected but not launched")
+        want_shape = (CNN_SHAPE[0], CNN_CLASSES)
+        if tuple(y.shape) != want_shape or not bool(torch.isfinite(y).all()):
+            fail(f"{name}: output {tuple(y.shape)} not finite or not "
+                 f"{want_shape}")
+        ref = optimize(model, CNN_SHAPE, backend="torch_ref")
+        want = ref(x)
+        err = rel_err(y, want)
+        if not err <= CNN_RTOL:
+            fail(f"{name}: h100 output differs from torch_ref by {err:.3g} "
+                 f"of its scale (rtol {CNN_RTOL})")
+        log(f"[cnn] {name}: launches in one h100 forward {launches}; first "
+            f"forward {first_ms:.1f} ms; output within {err:.3g} of "
+            f"torch_ref's max|y| {float(want.abs().max()):.3g} (rtol "
+            f"{CNN_RTOL})")
+
+        # warm forwards, the two backends in turns: h100, ref, ref, h100;
+        # then the host's share: how long a call takes to return
+        h_ms = timed_forwards(torch, sol, x, CNN_REPEATS)
+        r_ms = timed_forwards(torch, ref, x, 2 * CNN_REPEATS)
+        h_ms += timed_forwards(torch, sol, x, CNN_REPEATS)
+        h_med, r_med = statistics.median(h_ms), statistics.median(r_ms)
+        enqueue_ms = statistics.median(
+            host_enqueue_ms(torch, sol, x) for _ in range(CNN_REPEATS))
+        log(f"[cnn] {name} warm forward ms, median of {len(h_ms)}: h100 "
+            f"{h_med:.3f} {[round(v, 3) for v in h_ms]}, torch_ref "
+            f"{r_med:.3f} {[round(v, 3) for v in r_ms]}; an h100 call "
+            f"returns to the host after {enqueue_ms:.3f} ms")
+        breakdown = device_breakdown(torch, lambda: sol(x))
+        if breakdown["measured"]:
+            fams = ", ".join(f"{k} {v:.3f}" for k, v in
+                             breakdown["device_ms_by_family"].items())
+            log(f"[profile] {name} h100 forward: device busy "
+                f"{breakdown['busy_ms']:.3f} of {breakdown['span_ms']:.3f} "
+                f"ms ({100 * breakdown['busy_share']:.1f}%); device ms by "
+                f"family: {fams}")
+        else:
+            log(f"[profile] {name}: torch.profiler recorded no device "
+                f"events: device busy share not measured")
+        results[name] = {
+            "shape": CNN_SHAPE, "classes": CNN_CLASSES,
+            "parameters": sum(p.numel() for p in model.parameters()),
+            "optimize_s": compile_s, "elections": by_kind,
+            "launches": launches, "first_forward_ms": first_ms,
+            "rel_err": err, "rel_err_limit": CNN_RTOL,
+            "output_scale": float(want.abs().max()),
+            "h100_ms": h_ms, "h100_ms_median": h_med,
+            "torch_ref_ms": r_ms, "torch_ref_ms_median": r_med,
+            "h100_enqueue_ms": enqueue_ms, "device_breakdown": breakdown}
+        del model, sol, ref, x, y, want
+        gc.collect()
+        torch.cuda.empty_cache()
+    return results
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "__init__.py").is_file():
         print("chip_smoke: src/repro_torch not found next to this script; "
@@ -858,6 +1057,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from repro_torch.kernels import build
+    from repro_torch.kernels.avgpool.kernel import avgpool_cuda
     from repro_torch.kernels.decode_attention.kernel import \
         decode_attention_cuda
     from repro_torch.kernels.dfp_fused.kernel import dfp_fused_triton
@@ -891,12 +1091,17 @@ def main() -> int:
                     "rglru_scan": rglru_scan_cuda,
                     "rwkv6_scan": rwkv6_scan_cuda}
     recurrent = phase_recurrent(torch, rec_counters, torch.device("cuda"))
+    cnn_counters = {"matmul": matmul_cuda, "dfp_fused": dfp_fused_triton,
+                    "avgpool": avgpool_cuda}
+    cnn = phase_cnn(torch, cnn_counters, torch.device("cuda"))
 
     # launches per main path: the served set and one forward of each stack
+    # and each CNN
     by_path = {"serve": serve["launches"]}
     by_path.update({name: r["launches"] for name, r in recurrent.items()})
+    by_path.update({name: r["launches"] for name, r in cnn.items()})
     line = []
-    for name in list(counters) + ["rglru_scan", "rwkv6_scan"]:
+    for name in list(counters) + ["rglru_scan", "rwkv6_scan", "avgpool"]:
         rows = [c for c in kern["cases"] if c["name"] == name]
         rep = rows[0]
         paths = {p: n[name] for p, n in by_path.items() if n.get(name)}
@@ -912,7 +1117,8 @@ def main() -> int:
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
         {"nvidia_smi": smi, "kernels": kern["cases"], "serve": serve,
-         "recurrent": recurrent, "seconds": time.perf_counter() - t_start},
+         "recurrent": recurrent, "cnn": cnn,
+         "seconds": time.perf_counter() - t_start},
         indent=1, default=str))
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     log(nvidia_smi())

@@ -188,6 +188,7 @@ def _load_entry_points() -> None:
     try:
         from ..core import executor
         executor._register_reference_impls()
+        from ..kernels.avgpool import ops as _ap             # noqa: F401
         from ..kernels.decode_attention import ops as _da    # noqa: F401
         from ..kernels.dfp_fused import ops as _d            # noqa: F401
         from ..kernels.flash_attention import ops as _f      # noqa: F401

@@ -50,6 +50,23 @@ def _lower_linear(n: Node, x: Tensor, w: Tensor, b: Tensor | None,
     return y
 
 
+def _lower_conv2d(n: Node, x: Tensor, w: Tensor) -> Tensor:
+    """NCHW × OIHW in full f32: cuDNN would run an f32 conv in TF32."""
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        return F.conv2d(x, w, stride=n.attrs.get("stride", 1),
+                        padding=n.attrs.get("padding", 0),
+                        groups=n.attrs.get("groups", 1))
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+
+
+def _window(n: Node):
+    k = n.attrs.get("kernel", 2)
+    return k, n.attrs.get("stride", k)
+
+
 def _layernorm(x: Tensor, g: Tensor, b: Tensor, eps: float) -> Tensor:
     mu = x.mean(-1, keepdim=True)
     var = ((x - mu) ** 2).mean(-1, keepdim=True)
@@ -98,15 +115,30 @@ def _lower_node(n: Node, vals: List[Tensor], backend: "registry.Backend"
     if op is OpKind.SOFTCAP:
         c = n.attrs["cap"]
         return torch.tanh(vals[0] / c) * c
+    if op is OpKind.MAXPOOL:
+        y = F.max_pool2d(vals[0], *_window(n))
+        mv = n.attrs.get("min_value")
+        return y if mv is None else torch.clamp_min(y, mv)   # folded ReLU
+    if op is OpKind.AVGPOOL:
+        return F.avg_pool2d(vals[0], *_window(n))
+    if op is OpKind.GLOBALPOOL:
+        return vals[0].mean(dim=(2, 3))
     if op is OpKind.LAYERNORM:
         x, g, b = vals
         return _layernorm(x, g, b, n.attrs.get("eps", 1e-5))
+    if op is OpKind.BATCHNORM:
+        x, g, b, m, v = vals
+        shape = [1, -1] + [1] * (x.dim() - 2)
+        inv = torch.rsqrt(v + n.attrs.get("eps", 1e-5)) * g
+        return (x - m.reshape(shape)) * inv.reshape(shape) + b.reshape(shape)
     if op is OpKind.RMSNORM:
         x, g = vals
         ms = (x.float() ** 2).mean(-1, keepdim=True)
         return (x * torch.rsqrt(ms + n.attrs.get("eps", 1e-6)).to(x.dtype)) * g
     if op is OpKind.DROPOUT:
         return vals[0]
+    if op is OpKind.FLATTEN:
+        return vals[0].reshape(vals[0].shape[0], -1)
     if op is OpKind.RESHAPE:
         return vals[0].reshape(n.attrs["shape"])
     if op is OpKind.LINEAR:
@@ -114,6 +146,8 @@ def _lower_node(n: Node, vals: List[Tensor], backend: "registry.Backend"
                              vals[2] if len(vals) > 2 else None, backend)
     if op is OpKind.MATMUL:
         return torch.matmul(vals[0], vals[1])
+    if op is OpKind.CONV2D:
+        return _lower_conv2d(n, vals[0], vals[1])
     raise NotImplementedError(f"lowering for {op}")
 
 
@@ -135,16 +169,19 @@ def compose_fused(n: Node, vals: Sequence[Tensor],
     return out
 
 
-# what the transformer and recurrent emitters produce, plus every op a DFP
-# program covers (so ``ref.compose`` can run any group); the CNN ops arrive
-# with their modules.  RGLRU_SCAN and RWKV6_SCAN register their reference
-# impls in their kernel packages' ops.py, as in the JAX package.
+# what the transformer, recurrent and CNN emitters produce, plus every op a
+# DFP program covers (so ``ref.compose`` can run any group).  CONV2D stays
+# on this tier, as it stays with XLA in the JAX package.  RGLRU_SCAN and
+# RWKV6_SCAN register their reference impls in their kernel packages'
+# ops.py, as in the JAX package.
 _REFERENCE_OPS = (
     list(_ELEMENTWISE)
     + [OpKind.ADD, OpKind.SUB, OpKind.MUL, OpKind.DIV, OpKind.BIAS_ADD,
        OpKind.SCALE, OpKind.SQRT, OpKind.TIME_SHIFT, OpKind.SOFTCAP,
-       OpKind.LAYERNORM, OpKind.RMSNORM,
-       OpKind.DROPOUT, OpKind.RESHAPE, OpKind.LINEAR, OpKind.MATMUL]
+       OpKind.MAXPOOL, OpKind.AVGPOOL, OpKind.GLOBALPOOL,
+       OpKind.LAYERNORM, OpKind.RMSNORM, OpKind.BATCHNORM,
+       OpKind.DROPOUT, OpKind.FLATTEN, OpKind.RESHAPE, OpKind.LINEAR,
+       OpKind.MATMUL, OpKind.CONV2D]
 )
 
 

@@ -6,7 +6,9 @@ by exact type then MRO, so new layer kinds plug in without touching the
 walk.  Emitters key on torch's own classes (``torch.nn.Linear`` ...), so a
 plain torch module extracts as well as the port's subclasses.  Containers
 (``Sequential``, ``Residual``) recurse, so transformer and recurrent blocks
-extract as genuine multi-input graphs.
+extract as genuine multi-input graphs.  A torch module that computes more
+than the IR op (a padded pool, a dilated conv) raises
+:class:`UnsupportedModuleError` instead of extracting as something else.
 
 Parameters are registered under their dotted ``named_parameters`` names, so
 the SolModel reads the framework's own parameter storage (paper Listing 2).
@@ -220,6 +222,135 @@ def _emit_layernorm(m: tnn.LayerNorm, ctx, x, path):
 @register_emitter(tnn.Dropout)
 def _emit_dropout(m: tnn.Dropout, ctx, x, path):
     return ctx.unary(OpKind.DROPOUT, x, p=m.p)
+
+
+# ---------------------------------------------------------------------------
+# the paper's CNN layers: CONV2D, pools, BATCHNORM, FLATTEN
+# ---------------------------------------------------------------------------
+
+def _pair(v) -> Tuple[int, int]:
+    return (v, v) if isinstance(v, int) else (int(v[0]), int(v[1]))
+
+
+def _attr(p: Tuple[int, int]):
+    """An (h, w) pair as the JAX frontend's int when square, else the
+    pair."""
+    return p[0] if p[0] == p[1] else p
+
+
+def _out_shape_conv(x: Tuple[int, ...], out_ch: int, k: Tuple[int, int],
+                    s: Tuple[int, int], p: Tuple[int, int]
+                    ) -> Tuple[int, ...]:
+    return (x[0], out_ch, (x[2] + 2 * p[0] - k[0]) // s[0] + 1,
+            (x[3] + 2 * p[1] - k[1]) // s[1] + 1)
+
+
+def _out_shape_pool(x: Tuple[int, ...], k: Tuple[int, int],
+                    s: Tuple[int, int]) -> Tuple[int, ...]:
+    return (x[0], x[1], (x[2] - k[0]) // s[0] + 1, (x[3] - k[1]) // s[1] + 1)
+
+
+@register_emitter(tnn.Conv2d)
+def _emit_conv2d(m: tnn.Conv2d, ctx: EmitContext, x: Node,
+                 path: str) -> Node:
+    """CONV2D (NCHW input, OIHW weight) plus a BIAS_ADD over axis 1."""
+    if isinstance(m.padding, str):
+        if m.padding != "valid":
+            raise UnsupportedModuleError(
+                f"Conv2d at {_where(path)}: padding {m.padding!r}; give the "
+                f"padding as numbers")
+        pad = (0, 0)
+    else:
+        pad = _pair(m.padding)
+    if _pair(m.dilation) != (1, 1) or m.padding_mode != "zeros":
+        raise UnsupportedModuleError(
+            f"Conv2d at {_where(path)}: dilation {m.dilation} and padding "
+            f"mode {m.padding_mode!r}; the IR's CONV2D has dilation 1 and "
+            f"zero padding")
+    stride = _pair(m.stride)
+    w = ctx.param(path + "weight", m.weight)
+    shape = _out_shape_conv(x.spec.shape, m.out_channels,
+                            _pair(m.kernel_size), stride, pad)
+    cur = Node(OpKind.CONV2D, [x, w], TensorSpec(shape, ctx.dtype),
+               attrs={"stride": _attr(stride), "padding": _attr(pad),
+                      "groups": m.groups, "out_channels": m.out_channels})
+    if m.bias is not None:
+        b = ctx.param(path + "bias", m.bias)
+        cur = Node(OpKind.BIAS_ADD, [cur, b], TensorSpec(shape, ctx.dtype),
+                   attrs={"axis": 1})
+    return cur
+
+
+def _pool_window(m, path: str) -> Tuple[Tuple[int, int], Tuple[int, int]]:
+    """(kernel, stride) of a torch pool that the IR's VALID pool computes;
+    raises for what the JAX modules lack."""
+    what = []
+    if _pair(m.padding) != (0, 0):
+        what.append(f"padding {m.padding}")
+    if m.ceil_mode:
+        what.append("ceil_mode")
+    if _pair(getattr(m, "dilation", 1)) != (1, 1):
+        what.append(f"dilation {m.dilation}")
+    if getattr(m, "return_indices", False):
+        what.append("return_indices")
+    if getattr(m, "divisor_override", None) is not None:
+        what.append(f"divisor_override {m.divisor_override}")
+    if what:
+        raise UnsupportedModuleError(
+            f"{type(m).__name__} at {_where(path)}: {', '.join(what)}; the "
+            f"IR's pools are VALID windows")
+    k = _pair(m.kernel_size)
+    return k, _pair(m.stride if m.stride is not None else m.kernel_size)
+
+
+@register_emitter(tnn.MaxPool2d)
+def _emit_maxpool(m: tnn.MaxPool2d, ctx, x, path):
+    k, s = _pool_window(m, path)
+    return Node(OpKind.MAXPOOL, [x],
+                TensorSpec(_out_shape_pool(x.spec.shape, k, s), ctx.dtype),
+                attrs={"kernel": _attr(k), "stride": _attr(s)})
+
+
+@register_emitter(tnn.AvgPool2d)
+def _emit_avgpool(m: tnn.AvgPool2d, ctx, x, path):
+    k, s = _pool_window(m, path)
+    return Node(OpKind.AVGPOOL, [x],
+                TensorSpec(_out_shape_pool(x.spec.shape, k, s), ctx.dtype),
+                attrs={"kernel": _attr(k), "stride": _attr(s)})
+
+
+@register_emitter(nn.GlobalAvgPool)
+def _emit_globalpool(m, ctx, x, path):
+    return Node(OpKind.GLOBALPOOL, [x],
+                TensorSpec(x.spec.shape[:2], ctx.dtype))
+
+
+@register_emitter(tnn.Flatten)
+def _emit_flatten(m: tnn.Flatten, ctx, x, path):
+    rank = len(x.spec.shape)
+    if m.start_dim % rank != 1 or m.end_dim % rank != rank - 1:
+        raise UnsupportedModuleError(
+            f"Flatten at {_where(path)}: dims ({m.start_dim}, {m.end_dim}); "
+            f"the IR's FLATTEN keeps dim 0 and flattens the rest")
+    flat = 1
+    for d in x.spec.shape[1:]:
+        flat *= d
+    return Node(OpKind.FLATTEN, [x],
+                TensorSpec((x.spec.shape[0], flat), ctx.dtype))
+
+
+@register_emitter(tnn.BatchNorm2d)
+def _emit_batchnorm(m: tnn.BatchNorm2d, ctx, x, path):
+    """Inference batch norm over axis 1 with the running stats, as the JAX
+    module always computes."""
+    if not m.affine or m.running_mean is None:
+        raise UnsupportedModuleError(
+            f"BatchNorm2d at {_where(path)}: only an affine norm with "
+            f"running stats extracts")
+    ps = [ctx.param(path + n, getattr(m, n)) for n in
+          ("weight", "bias", "running_mean", "running_var")]
+    return Node(OpKind.BATCHNORM, [x] + ps,
+                TensorSpec(x.spec.shape, ctx.dtype), attrs={"eps": m.eps})
 
 
 # ---------------------------------------------------------------------------

@@ -4,7 +4,8 @@ The paper built SOL for PyTorch: it extracts the graph from the framework's
 own modules and injects an optimized module back, without touching the
 framework's source.  So extraction (``frontends/extract.py``) keys on
 ``torch.nn.Linear``, ``torch.nn.LayerNorm``, ``torch.nn.GELU``,
-``torch.nn.ReLU``, ``torch.nn.Dropout`` and ``torch.nn.Sequential``
+``torch.nn.ReLU``, ``torch.nn.Dropout``, ``torch.nn.Conv2d``, the pools,
+``torch.nn.BatchNorm2d``, ``torch.nn.Flatten`` and ``torch.nn.Sequential``
 themselves.  The subclasses below only fix the defaults the JAX frontend
 (``repro.frontends.nn``) uses, so both packages describe the same model:
 
@@ -12,14 +13,22 @@ themselves.  The subclasses below only fix the defaults the JAX frontend
   N(0, 2/fan_in) with a zero bias;
 * ``GELU`` is the tanh form (``jax.nn.gelu`` defaults to it; torch's
   ``GELU()`` defaults to erf);
-* ``LayerNorm`` has eps 1e-5 with gain ones and bias zeros.
+* ``LayerNorm`` has eps 1e-5 with gain ones and bias zeros;
+* ``Conv2d`` stores ``weight`` as (out, in/groups, kh, kw), as both
+  frameworks do, initialized N(0, 2/fan_in) with a zero bias.
 
-``Residual``, ``MultiHeadAttention``, ``RGLRU`` and ``RWKV6TimeMix`` are
+The pools and ``BatchNorm2d`` are torch's own, whose defaults are the
+JAX frontend's.  The JAX batch norm always normalizes with its running
+stats, so compare against the port's models in ``eval()`` mode.
+
+``Residual``, ``GlobalAvgPool`` (torch has no module with an (N, C)
+output), ``MultiHeadAttention``, ``RGLRU`` and ``RWKV6TimeMix`` are
 port-owned and keep the JAX parameter names and layouts: MHA's
 ``wq``/``wk``/``wv``/``wo``, RG-LRU's ``wa``/``wx`` and RWKV6's
 ``wr``/``wk``/``wv``/``wg``/``wo`` and ``lora_a_*`` (d, r) are stored
 (in, out).  Dotted ``state_dict`` names equal the JAX ``named_parameters``.
-Every constructor takes an explicit ``device`` and ``generator``.
+Every constructor of a module with parameters takes an explicit
+``device``, and of one with random parameters a ``generator``.
 """
 from __future__ import annotations
 
@@ -29,8 +38,15 @@ from typing import Optional
 import torch
 from torch import nn as tnn
 
+# torch's own defaults are the JAX frontend's: a pool's stride defaults to
+# its kernel, a batch norm has eps 1e-5, gain ones, bias zeros and running
+# stats 0 and 1
 ReLU = tnn.ReLU
 Dropout = tnn.Dropout
+Flatten = tnn.Flatten
+MaxPool2d = tnn.MaxPool2d
+AvgPool2d = tnn.AvgPool2d
+BatchNorm2d = tnn.BatchNorm2d
 Sequential = tnn.Sequential
 
 
@@ -51,6 +67,28 @@ class Linear(tnn.Linear):
         if bias:
             with torch.no_grad():
                 self.bias.zero_()
+
+
+class Conv2d(tnn.Conv2d):
+    """``torch.nn.Conv2d`` with the JAX frontend's arguments and init."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel: int, stride: int = 1,
+                 padding: int = 0, groups: int = 1, bias: bool = True, *,
+                 device=None, generator: Optional[torch.Generator] = None):
+        super().__init__(in_ch, out_ch, kernel, stride=stride,
+                         padding=padding, groups=groups, bias=bias,
+                         device=device)
+        _kaiming_(self.weight, in_ch // groups * kernel * kernel, generator)
+        if bias:
+            with torch.no_grad():
+                self.bias.zero_()
+
+
+class GlobalAvgPool(tnn.Module):
+    """Mean over H and W: (N, C, H, W) → (N, C)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x.mean(dim=(2, 3))
 
 
 class LayerNorm(tnn.LayerNorm):
@@ -238,4 +276,50 @@ def rwkv6_block(d_model: int = 64, n_heads: int = 4, mlp_mult: int = 2, *,
                  RWKV6TimeMix(d_model, n_heads, device=device,
                               generator=generator)),
         _mlp(d_model, mlp_mult, device, generator),
+    )
+
+
+# -- the paper's MLP and CNNs ------------------------------------------------
+
+def mlp_8192(n_layers: int = 3, features: int = 8192,
+             in_features: int = 8192, classes: int = 1000, *, device=None,
+             generator: Optional[torch.Generator] = None) -> tnn.Sequential:
+    """The paper's MLP: 3 layers, 8192 features, ReLU."""
+    mods = []
+    d = in_features
+    for _ in range(n_layers - 1):
+        mods += [Linear(d, features, device=device, generator=generator),
+                 ReLU()]
+        d = features
+    mods.append(Linear(d, classes, device=device, generator=generator))
+    return tnn.Sequential(*mods)
+
+
+def small_cnn(in_ch: int = 3, classes: int = 10, *, device=None,
+              generator: Optional[torch.Generator] = None) -> tnn.Sequential:
+    """VGG-flavoured small CNN (conv-relu-pool blocks → MLP head)."""
+    kw = dict(device=device, generator=generator)
+    return tnn.Sequential(
+        Conv2d(in_ch, 32, 3, padding=1, **kw), ReLU(), MaxPool2d(2),
+        Conv2d(32, 64, 3, padding=1, **kw), ReLU(), MaxPool2d(2),
+        Conv2d(64, 128, 3, padding=1, **kw), BatchNorm2d(128, device=device),
+        ReLU(), GlobalAvgPool(), Flatten(),
+        Linear(128, 256, **kw), ReLU(), Dropout(0.1),
+        Linear(256, classes, **kw),
+    )
+
+
+def depthwise_cnn(in_ch: int = 3, classes: int = 10, *, device=None,
+                  generator: Optional[torch.Generator] = None
+                  ) -> tnn.Sequential:
+    """MobileNet-flavoured: depthwise convs (groups == channels) — the
+    paper's special case that routes to the DFP module as WeightedPooling."""
+    kw = dict(device=device, generator=generator)
+    return tnn.Sequential(
+        Conv2d(in_ch, 32, 3, padding=1, **kw), ReLU(),
+        Conv2d(32, 32, 3, padding=1, groups=32, bias=False, **kw),
+        Conv2d(32, 64, 1, **kw), ReLU(), MaxPool2d(2),
+        Conv2d(64, 64, 3, padding=1, groups=64, bias=False, **kw),
+        Conv2d(64, 128, 1, **kw), ReLU(),
+        GlobalAvgPool(), Flatten(), Linear(128, classes, **kw),
     )

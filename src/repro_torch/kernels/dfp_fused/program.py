@@ -8,7 +8,8 @@ every group with the same ``Program.key()``.
 Register model: r0..rk hold values of the chain's output shape.
 Operands:
   kind 'full' — a tensor shaped like the chain output (residual inputs)
-  kind 'vec'  — a last-dim vector broadcast over rows (bias / norm gains)
+  kind 'vec'  — a last-dim vector broadcast over rows (bias / norm gains);
+                a BIAS_ADD over another axis does not encode
 
 One difference from the JAX encoder: a 'vec' operand may also be a value
 source of an elementwise instruction (``mul(x, mu)``, ``add(w0, y)``),
@@ -100,6 +101,11 @@ def encode_program(fused: Node, env: Dict[int, Any]):
             instrs.append(("softcap", dst, src_of(b.inputs[0]),
                            float(b.attrs["cap"])))
         elif b.op is OpKind.BIAS_ADD:
+            # a vec broadcasts over the last axis only: a conv bias (NCHW,
+            # axis 1) is per channel, which no operand kind expresses
+            axis = b.attrs.get("axis", -1)
+            if axis % len(out_shape) != len(out_shape) - 1:
+                raise NotImplementedError(f"bias over axis {axis}")
             kind, i = operand_for(b.inputs[1])
             if kind != "vec":
                 raise NotImplementedError("bias must be a vector")

@@ -1,6 +1,6 @@
 """The port's hand-written kernels on the card, each held to its plain
-PyTorch version, a small served model and small recurrent stacks on the
-card held to the plain path.  Every test here is marked ``gpu`` and skips without a CUDA card.
+PyTorch version, a small served model, small recurrent stacks and a small
+Listing-3 CNN on the card held to the plain path.  Every test here is marked ``gpu`` and skips without a CUDA card.
 
 This file imports neither JAX nor the JAX package, so it also runs where
 only PyTorch is installed (the suite's ``conftest.py`` imports the JAX
@@ -20,6 +20,8 @@ from torch import nn as tnn
 
 from repro_torch.frontends import nn
 from repro_torch.frontends.optimize import optimize
+from repro_torch.kernels.avgpool.kernel import avgpool_cuda
+from repro_torch.kernels.avgpool.ref import avgpool_ref
 from repro_torch.kernels.decode_attention import ops as dops
 from repro_torch.kernels.decode_attention.kernel import decode_attention_cuda
 from repro_torch.kernels.dfp_fused.kernel import dfp_fused_triton
@@ -226,5 +228,44 @@ def test_recurrent_stack_on_the_card_matches_the_plain_path(dev, name):
     before = [c.launches for c in counters]
     got = optimize(model, shape, backend="h100")(x)
     assert all(c.launches > n for c, n in zip(counters, before))
+    want = optimize(model, shape, backend="torch_ref")(x)
+    torch.testing.assert_close(got, want, **TOL)
+
+
+@pytest.mark.parametrize("n,c,h,w,kh,kw", [
+    (2, 32, 224, 224, 3, 3),        # the Listing-3 CNN's first pool, N 2
+    (2, 64, 111, 111, 3, 3),        # its second
+    (3, 5, 17, 45, 2, 2), (1, 1, 3, 3, 3, 3), (2, 3, 9, 40, 2, 3),
+    (1, 1, 70, 33, 3, 1),
+])
+def test_avgpool_kernel_matches_plain(dev, n, c, h, w, kh, kw):
+    """k 2 and 3, kh != kw, H or W equal to k, N·C = 1, sizes that are no
+    multiple of a warp: to 1e-5, as the kernel sums the plain version's
+    taps in its order."""
+    x = _randn(dev, 50, n, c, h, w)
+    torch.testing.assert_close(avgpool_cuda(x, kh, kw),
+                               avgpool_ref(x, kh, kw), rtol=1e-5, atol=1e-5)
+
+
+def test_listing3_cnn_on_the_card_matches_the_plain_path(dev):
+    """``depthwise_cnn`` with a stride-1 3×3 mean after each depthwise conv
+    through optimize() on the card: both pools launch the kernel, and the
+    output equals torch_ref's."""
+    g = torch.Generator(dev).manual_seed(2)
+    mods = list(nn.depthwise_cnn(device=dev, generator=g))
+    mods.insert(3, nn.AvgPool2d(3, stride=1))
+    mods.insert(8, nn.AvgPool2d(3, stride=1))
+    model = tnn.Sequential(*mods).eval()
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("bias"):
+                p.copy_(_randn(dev, 51, *p.shape) * 0.1)
+    shape = (4, 3, 64, 64)
+    x = _randn(dev, 52, *shape)
+    sol = optimize(model, shape, backend="h100")
+    assert sol.impl_report(by_kind=True)["avgpool"] == {"cuda.avgpool": 2}
+    before = avgpool_cuda.launches
+    got = sol(x)
+    assert avgpool_cuda.launches == before + 2
     want = optimize(model, shape, backend="torch_ref")(x)
     torch.testing.assert_close(got, want, **TOL)

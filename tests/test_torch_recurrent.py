@@ -11,7 +11,10 @@ seconds.
 
 Tolerances (README's conformance table): the scans rtol 1e-4, atol 1e-5
 (they sum over T in another order than the JAX oracles); the forwards
-1e-5, the f32 row.
+1e-5, the f32 row, except the 2-layer RWKV6 stack's, which are held to the
+scans' row: over weight seeds 0-7 and 11-13 its output reads up to 2.98×
+the f32 row between JAX's own ``optimize()`` and JAX's own eager forward
+(seed 0), so that row is below the stack's f32 floor.
 """
 import os
 
@@ -57,6 +60,12 @@ from repro_torch.models import recurrent as trec
 
 SCAN_TOL = dict(rtol=1e-4, atol=1e-5)     # README: rglru/rwkv6 f32 row
 TOL = dict(rtol=1e-5, atol=1e-5)          # README: f32 row
+
+
+def forward_tol(name: str, layers: int) -> dict:
+    """The 2-layer RWKV6 stack's forwards take the scans' row (module
+    docstring); every other forward the f32 row."""
+    return SCAN_TOL if (name, layers) == ("rwkv6", 2) else TOL
 IMPL_MAP = {"cuda.linear": "pallas.linear_mxu",
             "cuda.matmul": "pallas.matmul_mxu",
             "cuda.dfp_fused": "pallas.dfp_fused",
@@ -102,9 +111,32 @@ def _rwkv6_inputs(rng, b, t, h, hd, logw=None):
             _rand(rng, b, h, hd, hd) * 0.5)
 
 
+def _draw(name: str, shape, rng) -> np.ndarray:
+    """One parameter from the numpy generator alone, by its role: (in, out)
+    and (out, in) matrices at a fan-in scale, gains near 1, small biases,
+    and the recurrences' mixes, decays and bonus in the ranges the modules
+    initialize them to."""
+    leaf = name.rsplit(".", 1)[-1]
+    n = rng.standard_normal(shape)
+    if len(shape) == 2:
+        return n / np.sqrt(shape[1] if leaf == "weight" else shape[0])
+    if leaf == "lam" or leaf.startswith("mu_"):
+        return rng.uniform(0.0, 1.0, shape)
+    if leaf == "w0":
+        return n * 0.3 - 2.0
+    if leaf == "u":
+        return n * 0.5
+    if leaf in ("weight", "gn_gain"):
+        return 1.0 + 0.1 * n
+    return 0.1 * n                                  # biases, gn_bias
+
+
 def models(name: str, layers: int = 1, seed: int = 0):
-    """The same block stack in both packages: random numpy weights loaded
-    into the JAX modules, then carried over name for name."""
+    """The same block stack in both packages, its weights a function of
+    (name, layers, seed) alone: each parameter is drawn from the seed in
+    name order (the JAX modules' own init depends on how many modules the
+    process built before), loaded into the JAX modules and carried over
+    name for name."""
     jb, tb, shape = BLOCKS[name]
     if layers == 1:
         jm, tm = jb(), tb()
@@ -112,10 +144,8 @@ def models(name: str, layers: int = 1, seed: int = 0):
         jm = jnn.Sequential(*[jb() for _ in range(layers)])
         tm = tnn.Sequential(*[tb() for _ in range(layers)])
     rng = np.random.default_rng(seed)
-    sd = {}
-    for k, v in jm.named_parameters().items():
-        a = np.asarray(v)
-        sd[k] = (a + 0.1 * rng.standard_normal(a.shape)).astype(np.float32)
+    sd = {k: _draw(k, np.shape(v), rng).astype(np.float32)
+          for k, v in sorted(jm.named_parameters().items())}
     jm.load_state_dict({k: jnp.asarray(v) for k, v in sd.items()})
     load_numpy_state_dict(tm, sd)
     return jm, tm, shape
@@ -262,7 +292,8 @@ def test_eager_forward_matches_jax(name, layers):
     x = _rand(np.random.default_rng(1), *shape)
     with torch.no_grad():
         got = tm(_t(x)).numpy()
-    np.testing.assert_allclose(got, np.asarray(jm(jnp.asarray(x))), **TOL)
+    np.testing.assert_allclose(got, np.asarray(jm(jnp.asarray(x))),
+                               **forward_tol(name, layers))
 
 
 @pytest.mark.parametrize("backend", ["h100", "torch_ref"])
@@ -273,7 +304,40 @@ def test_optimize_forward_matches_jax(name, layers, backend):
     x = _rand(np.random.default_rng(2), *shape)
     want = np.asarray(j_optimize(jm, shape, backend="xla")(x))
     sol = optimize(tm, shape, backend=backend, device="cpu")
-    np.testing.assert_allclose(sol(_t(x)).numpy(), want, **TOL)
+    np.testing.assert_allclose(sol(_t(x)).numpy(), want,
+                               **forward_tol(name, layers))
+
+
+def test_models_are_a_function_of_the_seed():
+    """The same (name, layers, seed) gives the same weights however many
+    JAX modules the process built in between."""
+    first = models("rwkv6", 2, seed=12)
+    jnn.rwkv6_block(32, 4), jnn.griffin_block(24), jnn.Linear(8, 8)
+    second = models("rwkv6", 2, seed=12)
+    for a, b in zip(first[:2], second[:2]):
+        sa, sb = a.state_dict(), b.state_dict()
+        assert sorted(sa) == sorted(sb)
+        for k in sa:
+            np.testing.assert_array_equal(np.asarray(sa[k]),
+                                          np.asarray(sb[k]))
+    other = models("rwkv6", 2, seed=13)[1].state_dict()
+    assert not np.array_equal(other["0.0.1.wr"].numpy(),
+                              first[1].state_dict()["0.0.1.wr"].numpy())
+
+
+def test_stack_tolerance_still_fails_a_wrong_stack():
+    """At the 2-layer RWKV6 stack's limit, a stack whose bonus ``u`` is
+    zeroed on the port's side still fails."""
+    jm, tm, shape = models("rwkv6", 2, seed=12)
+    x = _rand(np.random.default_rng(2), *shape)
+    want = np.asarray(j_optimize(jm, shape, backend="xla")(x))
+    with torch.no_grad():
+        for k, p in tm.named_parameters():
+            if k.endswith(".u"):
+                p.zero_()
+    got = optimize(tm, shape, backend="h100", device="cpu")(_t(x)).numpy()
+    with pytest.raises(AssertionError):
+        np.testing.assert_allclose(got, want, **forward_tol("rwkv6", 2))
 
 
 # ---------------------------------------------------------------------------
