@@ -12,16 +12,19 @@ path against the plain path.
 Phases, each failing loudly:
 
 1. device — ``nvidia-smi`` name and power limit; kernel build time.
-2. kernels — matmul (serving and LoRA shapes), flash attention, decode
-   attention, the generated DFP programs (serving groups and the
+2. kernels — matmul (serving, LoRA and the recurrent stacks' dense
+   shapes, each on the kernel its plan picks: 3xTF32 tensor cores or the
+   skinny kernel; one K = 12288 row held to 1e-5 of the output's scale),
+   flash attention, decode attention, the generated DFP programs (serving groups and the
    recurrent graphs' gate, mix and group-norm programs), the RG-LRU scan,
    the RWKV6 scan and the average pooling (full width and edge cases)
    against their plain versions (max |error| against the stated
    tolerance) with their device times (cold L2, the host ahead of the
    device), the plain version's, one PyTorch library call's where one
    computes the same function, and the roofline bound of the same work on
-   this card; beside them the back-to-back launch time, which host launch
-   cost can push above the device time.
+   this card (matmul rows also against the tensor cores' 3xTF32 rate);
+   beside them the back-to-back launch time, which host launch cost can
+   push above the device time.
 3. serve — 28 × ``transformer_block(1536, 12, n_kv_heads=2)`` + a
    Linear(1536, 151936) head with random weights from a seeded generator
    (build_lm's block: pre-norm LayerNorm, 4·d tanh-GELU MLP, no RoPE — not
@@ -82,10 +85,14 @@ OUT_DIR = ROOT / "chiprun_out"
 KERNEL_TOL = {"matmul": 1e-4, "flash_attention": 1e-4,
               "decode_attention": 1e-4, "dfp_fused": 1e-4,
               "rglru_scan": 1e-4, "rwkv6_scan": 1e-4, "avgpool": 1e-5}
+# a long f32 product (K 12288) relative to its output's scale: an f32
+# product keeps ~1e-6, one TF32 pass ~1e-4
+MATMUL_ACCURACY_RTOL = 1e-5
 # end-to-end logits through 28 layers: relative to the logits' scale
 LOGIT_RTOL = 1e-4
 
 PEAK_F32 = 67e12        # FLOP/s, f32 outside the tensor cores (H100 SXM)
+PEAK_3XTF32 = 495e12 / 3    # FLOP/s, f32-accurate products as 3 TF32 passes
 HBM = 3.35e12           # bytes/s
 
 FULL = dict(d_model=1536, n_heads=12, n_kv_heads=2, n_layers=28,
@@ -151,8 +158,8 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> dict:
     return {"device": device, "launch": start.elapsed_time(end) / iters}
 
 
-def bound(flops: float, nbytes: float):
-    t_ops, t_bytes = flops / PEAK_F32, nbytes / HBM
+def bound(flops: float, nbytes: float, peak: float = PEAK_F32):
+    t_ops, t_bytes = flops / peak, nbytes / HBM
     return (1e3 * max(t_ops, t_bytes),
             "operations" if t_ops >= t_bytes else "bytes")
 
@@ -179,7 +186,7 @@ def phase_kernels(gen) -> dict:
     from repro_torch.kernels.flash_attention.kernel import \
         flash_attention_cuda
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
-    from repro_torch.kernels.matmul.kernel import matmul_cuda
+    from repro_torch.kernels.matmul.kernel import matmul_cuda, plan
     from repro_torch.kernels.matmul.ref import matmul_ref
     from repro_torch.kernels.rglru_scan.kernel import rglru_scan_cuda
     from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
@@ -194,47 +201,67 @@ def phase_kernels(gen) -> dict:
     cases = []
 
     def record(name, shape, err, fn, plain, library, flops, nbytes,
-               replaces, source, route, on_path=True):
+               replaces, source, route, on_path=True, peak=PEAK_F32,
+               extra=None):
         t = {"": time_ms(fn), "plain_": time_ms(plain)}
         if library is not None:
             t["library_"] = time_ms(library)
-        b_ms, b_by = bound(flops, nbytes)
+        b_ms, b_by = bound(flops, nbytes, peak)
         row = {"name": name, "shape": shape, "route": route,
                "source": source, "replaces": replaces, "max_abs_err": err,
                "tol": KERNEL_TOL[name], "library_ms": None,
-               "bound_ms": b_ms, "bound_by": b_by, "on_path": on_path}
+               "bound_ms": b_ms, "bound_by": b_by, "on_path": on_path,
+               **(extra or {})}
         for pre, v in t.items():
             row[f"{pre}ms"] = v["device"]
             row[f"{pre}launch_ms"] = v["launch"]
         ms, p_ms, lib_ms = row["ms"], row["plain_ms"], row["library_ms"]
+        note = "".join(f"; {k} {v:.4g}" if isinstance(v, float)
+                       else f"; {k} {v}" for k, v in (extra or {}).items())
         log(f"[kernels] {name} {shape}{'' if on_path else ' (off path)'}: "
             f"max|err| {err:.3g} (tol "
             f"{KERNEL_TOL[name]:g}) device ms: kernel {ms:.4f}, plain "
             f"{p_ms:.4f}, library "
             f"{lib_ms if lib_ms is None else round(lib_ms, 4)}, bound "
             f"{b_ms:.4f} ({b_by}); back-to-back launch ms: kernel "
-            f"{row['launch_ms']:.4f}, plain {row['plain_launch_ms']:.4f}")
+            f"{row['launch_ms']:.4f}, plain {row['plain_launch_ms']:.4f}"
+            f"{note}")
         if not err <= KERNEL_TOL[name]:
             fail(f"{name} {shape} disagrees with its plain version: "
                  f"{err} > {KERNEL_TOL[name]}")
         cases.append(row)
 
-    # matmul: (M, K) @ (K, N); 'oi' cases read an (N, K) weight transposed
-    mm_src = "src/repro_torch/kernels/csrc/matmul.cu"
-    mm_rep = "src/repro/kernels/matmul/kernel.py:85"
-    for m, k, n, oi in ((4, 1536, 151936, True), (256, 1536, 1536, False),
-                        (256, 1536, 6144, False), (256, 1536, 6144, True),
-                        (4, 1536, 1536, False), (4, 6144, 1536, True)):
+    # matmul: (M, K) @ (K, N); 'oi' cases read an (N, K) weight transposed.
+    # Each row names the kernel its plan picks, and its bound takes that
+    # kernel's peak: 3xTF32 on the tensor cores, else f32 outside them
+    def matmul_case(m, k, n, oi, label="", rtol=None):
         x = randn(m, k)
         w = (randn(n, k, scale=k ** -0.5).T if oi
              else randn(k, n, scale=k ** -0.5))
         y = matmul_cuda(x, w)
         torch.cuda.synchronize()
-        err = max_err(y, matmul_ref(x, w))
-        record("matmul", f"{m}x{k}x{n}{' (out,in)' if oi else ''}", err,
-               lambda: matmul_cuda(x, w), lambda: matmul_ref(x, w),
-               lambda: torch.matmul(x, w), 2.0 * m * k * n,
-               4.0 * (m * k + k * n + m * n), mm_rep, mm_src, "cuda")
+        want = matmul_ref(x, w)
+        err = max_err(y, want)
+        rel = err / float(want.abs().max())
+        p = plan(m, n, k, x.stride(0), w.stride(0), w.stride(1),
+                 x.data_ptr(), w.data_ptr())
+        flops, nbytes = 2.0 * m * k * n, 4.0 * (m * k + k * n + m * n)
+        shape = f"{m}x{k}x{n}{' (out,in)' if oi else ''}{label}"
+        record("matmul", shape, err, lambda: matmul_cuda(x, w),
+               lambda: matmul_ref(x, w), lambda: torch.matmul(x, w), flops,
+               nbytes, "src/repro/kernels/matmul/kernel.py:85",
+               "src/repro_torch/kernels/csrc/matmul.cu", "cuda",
+               peak=PEAK_3XTF32 if p.kernel == "tensor_core" else PEAK_F32,
+               extra={"kernel": p.kernel, "splits": p.splits,
+                      "rel_err": rel})
+        if rtol is not None and not rel <= rtol:
+            fail(f"matmul {shape}: max |error| {rel:.3g} of the output's "
+                 f"scale > {rtol}")
+
+    for m, k, n, oi in ((4, 1536, 151936, True), (256, 1536, 1536, False),
+                        (256, 1536, 6144, False), (256, 1536, 6144, True),
+                        (4, 1536, 1536, False), (4, 6144, 1536, True)):
+        matmul_case(m, k, n, oi)
 
     # flash attention at the prefill bucket: B 4, S 128, H 12, KV 2, hd 128
     b, s, h, kv, hd = 4, 128, 12, 2, 128
@@ -325,15 +352,17 @@ def phase_kernels(gen) -> dict:
                4.0 * ((n_full + 1) * rows_n * d + n_vec * d),
                dfp_rep, dfp_src, "triton")
 
-    # the recurrent slice: LoRA products, the groups its graphs add, scans
+    # the recurrent slice: LoRA products, the dense products of the RWKV6
+    # (d 2048, MLP 6144) and Griffin (d 4096, MLP 12288) forwards on their
+    # 2048 rows, a K = 12288 accuracy row, the groups its graphs add, scans
     for m, k, n in ((2048, 2048, 4), (2048, 4, 2048)):
-        x, w = randn(m, k), randn(k, n, scale=k ** -0.5)
-        y = matmul_cuda(x, w)
-        torch.cuda.synchronize()
-        record("matmul", f"{m}x{k}x{n} (LoRA)", max_err(y, matmul_ref(x, w)),
-               lambda: matmul_cuda(x, w), lambda: matmul_ref(x, w),
-               lambda: torch.matmul(x, w), 2.0 * m * k * n,
-               4.0 * (m * k + k * n + m * n), mm_rep, mm_src, "cuda")
+        matmul_case(m, k, n, False, " (LoRA)")
+    for m, k, n, oi in ((2048, 2048, 2048, False), (2048, 2048, 6144, True),
+                        (2048, 6144, 2048, True), (2048, 4096, 4096, False),
+                        (2048, 4096, 12288, True), (2048, 12288, 4096, True)):
+        matmul_case(m, k, n, oi)
+    matmul_case(256, 12288, 1024, True, " (accuracy)",
+                rtol=MATMUL_ACCURACY_RTOL)
     for label, rows_n, d, prog, on_path in recurrent_programs():
         ops = [randn(rows_n, d) if kd == "full" else randn(d)
                for kd in prog.operand_kinds]
@@ -505,7 +534,8 @@ def measured_serve(server, prompts, on_measure=None):
 
 # kernel-name fragments → the family a device event belongs to; the rest are
 # PyTorch's own kernels (reference-tier ops, gathers, casts)
-FAMILIES = (("sgemm_kernel", "matmul"), ("reduce_splits", "matmul"),
+FAMILIES = (("tc_kernel", "matmul"), ("skinny_kernel", "matmul"),
+            ("reduce_splits", "matmul"),
             ("flash_fwd_kernel", "flash_attention"),
             ("decode_kernel", "decode_attention"), ("dfp_", "dfp_fused"),
             ("rglru_scan_kernel", "rglru_scan"),
@@ -613,6 +643,7 @@ def phase_serve(torch, counters, dev) -> dict:
     log(f"[serve] kernel launches in the second pass: {launches}")
     if s["dmas"] != s["forwards"]:
         fail("more than one packed copy per forward")
+    check_matmul_kernels("serve", launches)
     for name, n in launches.items():
         if n <= 0:
             fail(f"kernel {name} was not launched on the serving path")
@@ -714,6 +745,23 @@ SCAN_KIND = {"rwkv6": "rwkv6_scan", "griffin": "rglru_scan"}
 # the graph kinds each kernel serves, so a kernel must launch where they are
 KERNEL_KINDS = {"matmul": ("matmul", "linear"), "dfp_fused": ("fused",),
                 "rglru_scan": ("rglru_scan",), "rwkv6_scan": ("rwkv6_scan",)}
+# the matmul kernels each stack's products run on: RWKV6's LoRA A (N 4)
+# is skinny, every other product of both stacks (LoRA B's K 4 included)
+# takes the tensor cores
+STACK_MATMUL_KERNELS = {"rwkv6": ("matmul_tc", "matmul_skinny"),
+                        "griffin": ("matmul_tc",)}
+
+
+def check_matmul_kernels(name: str, launches: dict, want=()) -> None:
+    """Every matmul launch ran one of the two kernels, and each kernel in
+    ``want`` launched."""
+    split = launches["matmul_tc"] + launches["matmul_skinny"]
+    if split != launches["matmul"]:
+        fail(f"{name}: {launches['matmul']} matmul launches, {split} by the "
+             f"tensor-core and skinny kernels")
+    for k in want:
+        if launches[k] <= 0:
+            fail(f"{name}: {k} was not launched")
 
 
 def _build_stack(name: str, cfg: dict, dev, gen):
@@ -826,6 +874,7 @@ def phase_recurrent(torch, counters, dev) -> dict:
             if any(k in by_kind for k in kinds) and launches[kernel] <= 0:
                 fail(f"{name}: kernel {kernel} was not launched though the "
                      f"graph has {kinds}")
+        check_matmul_kernels(name, launches, STACK_MATMUL_KERNELS[name])
         if tuple(y.shape) != shape or not bool(torch.isfinite(y).all()):
             fail(f"{name}: output {tuple(y.shape)} not finite or not "
                  f"{shape}")
@@ -986,6 +1035,7 @@ def phase_cnn(torch, counters, dev) -> dict:
                  f"forward, {pools} AVGPOOL nodes")
         if launches["matmul"] < by_kind["linear"]["cuda.linear"]:
             fail(f"{name}: matmul launched {launches['matmul']} times")
+        check_matmul_kernels(name, launches, ("matmul_tc",))
         if "cuda.dfp_fused" in by_kind.get("fused", {}) and \
                 launches["dfp_fused"] <= 0:
             fail(f"{name}: dfp_fused elected but not launched")
@@ -1063,7 +1113,7 @@ def main() -> int:
     from repro_torch.kernels.dfp_fused.kernel import dfp_fused_triton
     from repro_torch.kernels.flash_attention.kernel import \
         flash_attention_cuda
-    from repro_torch.kernels.matmul.kernel import matmul_cuda
+    from repro_torch.kernels.matmul.kernel import KERNELS, matmul_cuda
     from repro_torch.kernels.rglru_scan.kernel import rglru_scan_cuda
     from repro_torch.kernels.rwkv6_scan.kernel import rwkv6_scan_cuda
 
@@ -1076,6 +1126,7 @@ def main() -> int:
     log(f"[device] built {sorted(built)} in {time.perf_counter() - t0:.1f} s "
         f"(parallel nvcc)")
     for name, text in sorted(build.BUILD_LOG.items()):
+        log(f"[device] source {name}.cu digest {build.digest(name)}")
         regs = [ln.strip() for ln in text.splitlines()
                 if "registers" in ln or "spill" in ln]
         for ln in regs:
@@ -1083,15 +1134,19 @@ def main() -> int:
 
     gen = torch.Generator("cuda").manual_seed(1234)
     kern = phase_kernels(gen)
-    counters = {"matmul": matmul_cuda, "flash_attention": flash_attention_cuda,
+    # matmul_cuda counts every product; each of its two kernels counts its
+    # own launches
+    mm = {"matmul": matmul_cuda, "matmul_tc": KERNELS["tensor_core"],
+          "matmul_skinny": KERNELS["skinny"]}
+    counters = {**mm, "flash_attention": flash_attention_cuda,
                 "decode_attention": decode_attention_cuda,
                 "dfp_fused": dfp_fused_triton}
     serve = phase_serve(torch, counters, torch.device("cuda"))
-    rec_counters = {"matmul": matmul_cuda, "dfp_fused": dfp_fused_triton,
+    rec_counters = {**mm, "dfp_fused": dfp_fused_triton,
                     "rglru_scan": rglru_scan_cuda,
                     "rwkv6_scan": rwkv6_scan_cuda}
     recurrent = phase_recurrent(torch, rec_counters, torch.device("cuda"))
-    cnn_counters = {"matmul": matmul_cuda, "dfp_fused": dfp_fused_triton,
+    cnn_counters = {**mm, "dfp_fused": dfp_fused_triton,
                     "avgpool": avgpool_cuda}
     cnn = phase_cnn(torch, cnn_counters, torch.device("cuda"))
 
@@ -1101,11 +1156,18 @@ def main() -> int:
     by_path.update({name: r["launches"] for name, r in recurrent.items()})
     by_path.update({name: r["launches"] for name, r in cnn.items()})
     line = []
-    for name in list(counters) + ["rglru_scan", "rwkv6_scan", "avgpool"]:
-        rows = [c for c in kern["cases"] if c["name"] == name]
+    # one entry per kernel: the matmul rows by the kernel their plan picked
+    kernel_rows = {"matmul_tc": ("matmul", "tensor_core"),
+                   "matmul_skinny": ("matmul", "skinny")}
+    for name in ["matmul_tc", "matmul_skinny", "flash_attention",
+                 "decode_attention", "dfp_fused", "rglru_scan", "rwkv6_scan",
+                 "avgpool"]:
+        case, kernel = kernel_rows.get(name, (name, None))
+        rows = [c for c in kern["cases"] if c["name"] == case
+                and c.get("kernel") == kernel]
         rep = rows[0]
         paths = {p: n[name] for p, n in by_path.items() if n.get(name)}
-        line.append({
+        entry = {
             "name": name, "route": rep["route"], "source": rep["source"],
             "replaces": rep["replaces"],
             "launches": sum(paths.values()), "launches_by_path": paths,
@@ -1113,10 +1175,13 @@ def main() -> int:
             "ms": rep["ms"], "plain_ms": rep["plain_ms"],
             "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
             "library_ms": rep["library_ms"], "shape": rep["shape"],
-            "launch_ms": rep["launch_ms"]})
+            "launch_ms": rep["launch_ms"]}
+        line.append(entry)
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
-        {"nvidia_smi": smi, "kernels": kern["cases"], "serve": serve,
+        {"nvidia_smi": smi, "build_log": build.BUILD_LOG,
+         "build_digest": {n: build.digest(n) for n in build.BUILD_LOG},
+         "kernels": kern["cases"], "serve": serve,
          "recurrent": recurrent, "cnn": cnn,
          "seconds": time.perf_counter() - t_start},
         indent=1, default=str))

@@ -52,7 +52,9 @@ def _nvcc() -> str:
                        "toolkit")
 
 
-def _digest(name: str) -> str:
+def digest(name: str) -> str:
+    """Hash of the flags, the shared headers and ``csrc/<name>.cu``: it
+    names the library, so a log can say which source a run built."""
     h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
     for p in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
         h.update(p.name.encode())
@@ -61,7 +63,7 @@ def _digest(name: str) -> str:
 
 
 def _lib_path(name: str) -> Path:
-    return BUILD_DIR / f"lib{name}-{_digest(name)}.so"
+    return BUILD_DIR / f"lib{name}-{digest(name)}.so"
 
 
 def _spawn(name: str) -> subprocess.Popen:

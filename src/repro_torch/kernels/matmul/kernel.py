@@ -1,48 +1,163 @@
-"""Launching wrapper of the f32 tiled GEMM in ``csrc/matmul.cu``.
+"""Launching wrapper of the f32 matrix products in ``csrc/matmul.cu``.
 
-Replaces ``repro/kernels/matmul/kernel.py::matmul_call``.  The source note
-in ``matmul.cu`` says what bounds the kernel and how its tiles cope with
-decode's M = 1..4.  The library builds at first use (``kernels/build.py``).
+Replaces ``repro/kernels/matmul/kernel.py::matmul_call`` with two kernels:
+a 3xTF32 tensor-core kernel for the large products and a bandwidth-bound
+kernel for the skinny ones (M or N up to ``SKINNY``).  The source note in
+``matmul.cu`` says what bounds each and how it is built.  Which kernel
+runs, with which split of K, grid and copy width, is decided here, in
+``plan``, from the shapes, the strides and the pointers' alignment, so the
+CPU tests can reach it.  The library builds at first use
+(``kernels/build.py``).
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+from dataclasses import dataclass
+from typing import Tuple
 
 import torch
 
 from .. import build
 
-_P = ctypes.c_void_p
-_ARGTYPES = [_P, _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-             ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
-             ctypes.c_int, ctypes.c_int, _P]
-SMALL_M = 16            # rows up to which the 16-row tile and split-K apply
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_TC_ARGS = [_P, _P, _P, _P, _I, _I, _I, _L, _L, _I, _I, _I, _I, _I, _P]
+_SKINNY_ARGS = [_P, _L, _L, _I, _P, _L, _L, _I, _P, _P, _L, _L, _I, _I, _I,
+                _I, _I, _I, _I, _I, _I, _P]
+
 SM_COUNT = 132
-MIN_K_CHUNK = 256
+SKINNY = 16             # M or N up to which the skinny kernel runs
+TC_TILE = (128, 128, 32)    # BM, BN, BK of the tensor-core kernel
+TC_MIN_K_CHUNK = 256    # K per split of the tensor-core kernel, at least
+SKINNY_ROWS = (1, 2, 4, 8, 16)  # the small operand's rows, padded
+SKINNY_S_FLOATS = 8192  # the small operand's K range in shared memory
+SKINNY_BLOCKS = 8 * SM_COUNT    # skinny blocks in flight, at most
+# K per split of the skinny kernel, at least: a K-contiguous operand is
+# read 128 floats a warp step, a column-contiguous one a row per warp
+SKINNY_MIN_K_CHUNK = {True: 256, False: 64}
+
+
+@dataclass(frozen=True)
+class Plan:
+    """How one product runs.  ``kernel`` is ``"tensor_core"`` or
+    ``"skinny"``; ``vec`` the floats per copy, 4 (16-byte) or 1 (4-byte);
+    K is cut in ``splits`` chunks of ``k_chunk``; the grid is ``grid``.
+    Tensor core: ``b_kmajor`` reads w K-contiguous (an (out,in) weight).
+    Skinny: ``small`` is the operand held in shared memory (``"x"``, or
+    ``"w"`` for N <= SKINNY, which runs as the transposed product),
+    ``rows`` its rows padded to one of ``SKINNY_ROWS``, and
+    ``big_kmajor`` says whether the streamed operand is K-contiguous."""
+    kernel: str
+    vec: int
+    splits: int
+    k_chunk: int
+    grid: Tuple[int, int]
+    b_kmajor: bool = False
+    small: str = ""
+    rows: int = 0
+    big_kmajor: bool = False
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _unit(stride: int, size: int) -> bool:
+    return stride == 1 or size == 1
+
+
+def _aligned(ptr: int, row_stride: int, rows: int) -> bool:
+    """16-byte copies: the base and, with more than one row, the row
+    stride in floats aligned to 16 bytes."""
+    return ptr % 16 == 0 and (rows == 1 or row_stride % 4 == 0)
+
+
+def plan(m: int, n: int, k: int, lda: int, ldb_k: int, ldb_n: int,
+         x_ptr: int = 0, w_ptr: int = 0, sms: int = SM_COUNT) -> Plan:
+    """The launch plan of x (M, K; row stride ``lda``, unit column stride)
+    @ w (K, N; element (k, n) at ``k*ldb_k + n*ldb_n``) with x and w at
+    the addresses ``x_ptr`` and ``w_ptr``.  w must be K- or N-contiguous.
+    """
+    return _plan(m, n, k, lda, ldb_k, ldb_n, x_ptr % 16, w_ptr % 16, sms)
+
+
+@functools.lru_cache(maxsize=4096)
+def _plan(m, n, k, lda, ldb_k, ldb_n, x_mod, w_mod, sms) -> Plan:
+    w_nmajor, w_kmajor = _unit(ldb_n, n), _unit(ldb_k, k)
+    if not (w_nmajor or w_kmajor):
+        raise ValueError(f"matmul: w needs a unit stride along K or N, got "
+                         f"strides ({ldb_k}, {ldb_n})")
+    # an N-contiguous w is read so where its stride is really 1
+    b_kmajor = w_kmajor and not (ldb_n == 1 and n > 1)
+    w_row_stride, w_rows = (ldb_n, n) if b_kmajor else (ldb_k, k)
+    if m <= SKINNY or n <= SKINNY:
+        return _skinny_plan(m, n, k, lda, b_kmajor, w_row_stride, w_rows,
+                            x_mod, w_mod, sms)
+    bm, bn, bk = TC_TILE
+    vec = 4 if (_aligned(x_mod, lda, m)
+                and _aligned(w_mod, w_row_stride, w_rows)) else 1
+    tiles = _cdiv(m, bm) * _cdiv(n, bn)
+    splits = 1
+    if tiles < sms:             # tiles alone leave SMs idle: split K
+        splits = max(1, min(sms // tiles, k // TC_MIN_K_CHUNK))
+    k_chunk = max(bk, _cdiv(_cdiv(k, splits), bk) * bk)
+    splits = max(1, _cdiv(k, k_chunk))
+    return Plan("tensor_core", vec, splits, k_chunk, (tiles, splits),
+                b_kmajor=b_kmajor)
+
+
+def _skinny_plan(m, n, k, lda, b_kmajor, w_row_stride, w_rows, x_mod,
+                 w_mod, sms) -> Plan:
+    if m <= SKINNY:             # x in shared memory, w streamed
+        small, rows, cols, big_kmajor = "x", m, n, b_kmajor
+        vec = 4 if _aligned(w_mod, w_row_stride, w_rows) else 1
+    else:                       # C^T = w^T x^T: w in shared memory
+        small, rows, cols, big_kmajor = "w", n, m, True
+        vec = 4 if _aligned(x_mod, lda, m) else 1
+    r_pad = next(r for r in SKINNY_ROWS if r >= rows)
+    # columns per block step: 8 warps of 1-4 columns each on K-contiguous
+    # L, else 32 lanes of ``vec`` columns each
+    per_group = 8 * max(1, r_pad // 4) if big_kmajor else 32 * vec
+    groups = max(1, _cdiv(cols, per_group))
+    kc_max = SKINNY_S_FLOATS // r_pad
+    splits = _cdiv(k, kc_max) if k else 1      # S's K range must fit
+    if groups < sms:            # the columns alone leave SMs idle: split K
+        splits = max(splits, min(_cdiv(2 * sms, groups),
+                                 k // SKINNY_MIN_K_CHUNK[big_kmajor]))
+    step = 32 if big_kmajor else 8     # K per lane step, or per 8 warps
+    k_chunk = min(kc_max, max(step, _cdiv(_cdiv(k, splits), step) * step))
+    splits = max(1, _cdiv(k, k_chunk))
+    grid_x = max(1, min(groups, _cdiv(SKINNY_BLOCKS, splits)))
+    return Plan("skinny", vec, splits, k_chunk, (grid_x, splits),
+                small=small, rows=r_pad, big_kmajor=big_kmajor)
+
+
+class _Count:
+    """Launches of one kernel: a run reads it to show it went through the
+    kernel."""
+
+    def __init__(self) -> None:
+        self.launches = 0
+
+
+KERNELS = {"tensor_core": _Count(), "skinny": _Count()}
 
 
 def _lib() -> ctypes.CDLL:
     lib = build.library("matmul")
-    fn = lib.sol_matmul_f32
-    if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES
-        fn.restype = ctypes.c_int
+    for fn, args in ((lib.sol_matmul_tc, _TC_ARGS),
+                     (lib.sol_matmul_skinny, _SKINNY_ARGS)):
+        if fn.argtypes is None:
+            fn.argtypes = args
+            fn.restype = ctypes.c_int
     return lib
-
-
-def split_k(m: int, n: int, k: int, sms: int = SM_COUNT) -> int:
-    """K splits for a small-M product: enough blocks for two per SM, with
-    at least MIN_K_CHUNK of K per split.  Large M gets one split."""
-    if m > SMALL_M:
-        return 1
-    tiles = -(-n // 64) * -(-m // 16)
-    return max(1, min(-(-2 * sms // tiles), k // MIN_K_CHUNK))
 
 
 def matmul_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x (M, K) @ w (K, N) → (M, N), f32, on the card.  ``x`` must have a
-    unit column stride; ``w`` may have any strides (a transposed (N, K)
-    weight is read in place)."""
+    unit column stride.  ``w`` is read in place where it has a unit stride
+    along K (a transposed (N, K) weight) or along N; a view with neither (a
+    strided slice) is made contiguous first."""
     if not (x.is_cuda and w.is_cuda and x.device == w.device):
         raise ValueError("matmul_cuda wants x and w on one CUDA device")
     if x.dtype != torch.float32 or w.dtype != torch.float32:
@@ -50,21 +165,44 @@ def matmul_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[0]:
         raise ValueError(f"matmul_cuda wants (M,K) @ (K,N), got "
                          f"{tuple(x.shape)} @ {tuple(w.shape)}")
-    if x.stride(1) != 1 and x.shape[1] > 1:
+    if not _unit(x.stride(1), x.shape[1]):
         raise ValueError("matmul_cuda wants x with unit column stride")
     m, k = x.shape
     n = w.shape[1]
+    if not (_unit(w.stride(0), k) or _unit(w.stride(1), n)):
+        w = w.contiguous()
     out = torch.empty((m, n), device=x.device, dtype=torch.float32)
-    splits = split_k(m, n, k)
-    ws = (torch.empty((splits, m, n), device=x.device, dtype=torch.float32)
-          if splits > 1 else None)
+    if m == 0 or n == 0:
+        return out
+    lda, ldb_k, ldb_n = x.stride(0), w.stride(0), w.stride(1)
+    p = plan(m, n, k, lda, ldb_k, ldb_n, x.data_ptr(), w.data_ptr())
+    ws = (torch.empty((p.splits, m, n), device=x.device, dtype=torch.float32)
+          if p.splits > 1 else None)
+    ws_ptr = ws.data_ptr() if ws is not None else None
+    stream = torch.cuda.current_stream(x.device).cuda_stream
     lib = _lib()
-    err = lib.sol_matmul_f32(
-        x.data_ptr(), w.data_ptr(), out.data_ptr(),
-        ws.data_ptr() if ws is not None else None, m, n, k, x.stride(0),
-        w.stride(0), w.stride(1), splits, int(m <= SMALL_M),
-        torch.cuda.current_stream(x.device).cuda_stream)
-    build.check(lib, err, "sol_matmul_f32")
+    if p.kernel == "tensor_core":
+        err = lib.sol_matmul_tc(
+            x.data_ptr(), w.data_ptr(), out.data_ptr(), ws_ptr, m, n, k, lda,
+            ldb_n if p.b_kmajor else ldb_k, int(p.b_kmajor), p.vec, p.splits,
+            p.k_chunk, p.grid[0], stream)
+        what = "sol_matmul_tc"
+    else:
+        if p.small == "x":      # S = x (M rows), L = w (N columns)
+            s_args = (x.data_ptr(), lda, 1, m)
+            l_args = (w.data_ptr(), ldb_n, ldb_k, n)
+            o_strides = (n, 1)
+        else:                   # S = w^T (N rows), L = x (M columns)
+            s_args = (w.data_ptr(), ldb_n, ldb_k, n)
+            l_args = (x.data_ptr(), lda, 1, m)
+            o_strides = (1, n)
+        err = lib.sol_matmul_skinny(
+            *s_args, *l_args, out.data_ptr(), ws_ptr, *o_strides, m, n, k,
+            p.rows, p.vec, int(p.big_kmajor), p.splits, p.k_chunk, p.grid[0],
+            stream)
+        what = "sol_matmul_skinny"
+    build.check(lib, err, what)
+    KERNELS[p.kernel].launches += 1
     matmul_cuda.launches += 1
     return out
 

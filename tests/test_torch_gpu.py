@@ -56,16 +56,81 @@ def _randn(dev, seed, *shape):
     return torch.randn(*shape, device=dev, generator=g)
 
 
+def _weight(dev, seed, k, n, oi):
+    """(K, N) weight scaled to O(1) outputs; ``oi`` reads an (N, K) one
+    through its transposed view."""
+    if oi:
+        return (_randn(dev, seed, n, k) * k ** -0.5).T
+    return _randn(dev, seed, k, n) * k ** -0.5
+
+
 @pytest.mark.parametrize("m,k,n,oi", [
     (1, 1536, 256, False),          # decode row, split K
     (4, 1536, 1536, True),          # decode, (out, in) weight read in place
     (37, 130, 70, True),            # ragged edges on every dim
     (256, 512, 384, False),         # prefill tile
+    (2048, 2048, 4, False),         # LoRA A: N 4, x streamed
+    (2048, 4, 2048, False),         # LoRA B: K 4
+    (4, 1536, 5000, True),          # LM-head-like, ragged N
+    (300, 1000, 260, False),        # ragged tiles, split K
+    (300, 1000, 260, True),
+    (16, 6144, 1536, True),         # 16 rows, K split to fit
+    (16, 2000, 1100, False),
+    (200, 64, 10, True),            # N 10, x streamed
 ])
 def test_matmul_kernel_matches_plain(dev, m, k, n, oi):
     x = _randn(dev, 0, m, k)
-    w = (_randn(dev, 1, n, k).T if oi else _randn(dev, 1, k, n)) * k ** -0.5
+    w = _weight(dev, 1, k, n, oi)
     torch.testing.assert_close(matmul_cuda(x, w), matmul_ref(x, w), **TOL)
+
+
+@pytest.mark.parametrize("oi", [False, True])
+@pytest.mark.parametrize("k", [4, 8, 9, 130])
+@pytest.mark.parametrize("n", [1, 4, 16, 17])
+@pytest.mark.parametrize("m", [1, 4, 16, 17])
+def test_matmul_kernel_small_shapes(dev, m, n, k, oi):
+    """Both kernels at the skinny threshold (M or N of 16 and 17) with K
+    below, at and off a copy's width."""
+    x = _randn(dev, 2, m, k)
+    w = _weight(dev, 3, k, n, oi)
+    torch.testing.assert_close(matmul_cuda(x, w), matmul_ref(x, w), **TOL)
+
+
+@pytest.mark.parametrize("m,k,n,oi", [
+    (300, 256, 260, False), (300, 256, 260, True),      # tensor cores
+    (4, 512, 700, False), (4, 512, 700, True),          # skinny, x small
+    (700, 512, 4, False),                               # skinny, w small
+])
+def test_matmul_kernel_reads_views_at_a_4_byte_offset(dev, m, k, n, oi):
+    """Operands that start 4 bytes into their storage, with row strides of
+    K + 1 floats: the 4-byte copy variant, no copy of either operand."""
+    x = _randn(dev, 4, m, k + 1)[:, 1:]
+    wide = (_randn(dev, 5, n, k + 1) if oi
+            else _randn(dev, 5, k, n + 1)) * k ** -0.5
+    w = wide[:, 1:].T if oi else wide[:, 1:]
+    assert x.data_ptr() % 16 == 4 and w.data_ptr() % 16 == 4
+    torch.testing.assert_close(matmul_cuda(x, w), matmul_ref(x, w), **TOL)
+
+
+@pytest.mark.parametrize("m,k,n", [(300, 256, 260), (4, 512, 700)])
+def test_matmul_kernel_takes_a_weight_with_no_unit_stride(dev, m, k, n):
+    """A weight view strided along both K and N (every other column of a
+    wider one) still computes, on either kernel."""
+    x = _randn(dev, 8, m, k)
+    w = (_randn(dev, 9, k, 2 * n) * k ** -0.5)[:, ::2]
+    assert w.stride() == (2 * n, 2)
+    torch.testing.assert_close(matmul_cuda(x, w), matmul_ref(x, w), **TOL)
+
+
+def test_matmul_kernel_keeps_f32_accuracy_at_k_12288(dev):
+    """K = 12288 (Griffin's MLP down projection): max |error| relative to
+    the output's max |value| within 1e-5, as an f32 product.  One TF32
+    pass reads ≈ 1e-4 here; the three-pass split keeps ≈ 1e-6."""
+    x = _randn(dev, 6, 256, 12288)
+    w = _weight(dev, 7, 12288, 1024, True)
+    got, want = matmul_cuda(x, w), matmul_ref(x, w)
+    rel = float((got - want).abs().max() / want.abs().max())
+    assert rel <= 1e-5, rel
 
 
 @pytest.mark.parametrize("s,hd,causal,window,cap", [

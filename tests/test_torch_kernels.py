@@ -43,7 +43,8 @@ from repro_torch.kernels.flash_attention import ops as aops
 from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.matmul import ops as mops
-from repro_torch.kernels.matmul.kernel import matmul_cuda, split_k
+from repro_torch.kernels.matmul import kernel as mkernel
+from repro_torch.kernels.matmul.kernel import matmul_cuda, plan
 from repro_torch.kernels.matmul.ref import matmul_ref
 
 TOL = dict(rtol=1e-5, atol=1e-5)        # README: f32 row of the table
@@ -91,13 +92,93 @@ def test_matmul_ops_folds_leading_dims_and_reads_transposed_weight():
     np.testing.assert_allclose(got.numpy(), x @ w_oi.T, **TOL)
 
 
-def test_matmul_split_k_policy():
-    # decode rows split K until the N tiles fill the card; prefill does not
-    assert split_k(256, 1536, 1536) == 1
-    assert split_k(4, 151936, 1536) == 1                  # enough N tiles
-    assert split_k(4, 1536, 1536) == 6                    # K // 256 caps it
-    assert split_k(4, 1536, 6144) == 11                   # 2·132 / 24 tiles
-    assert split_k(1, 64, 100) == 1                       # tiny K
+def _plan_of(m, k, n, oi, x_off=0, w_off=0, pad=0):
+    """The plan of x (M, K) @ w (K, N) laid out as the port lays them out:
+    x row-major with row stride K + pad, w (K, N) row-major or, with
+    ``oi``, an (N, K) weight's transposed view, each at a byte offset."""
+    ldb_k, ldb_n = (1, k + pad) if oi else (n + pad, 1)
+    return plan(m, n, k, k + pad, ldb_k, ldb_n, 256 + x_off, 512 + w_off)
+
+
+# (M, K, N, (out,in) weight, x / w byte offset, row padding) → the fields
+# of the plan that must hold
+@pytest.mark.parametrize("m,k,n,oi,x_off,w_off,pad,want", [
+    # the path at M or N of 1, 4, 16 and 17
+    (1, 1536, 1536, True, 0, 0, 0, dict(kernel="skinny", small="x", rows=1)),
+    (4, 1536, 151936, True, 0, 0, 0,
+     dict(kernel="skinny", small="x", rows=4, big_kmajor=True, splits=1)),
+    (16, 1536, 6144, False, 0, 0, 0,
+     dict(kernel="skinny", small="x", rows=16, big_kmajor=False)),
+    (17, 1536, 6144, False, 0, 0, 0, dict(kernel="tensor_core")),
+    (2048, 2048, 1, False, 0, 0, 0, dict(kernel="skinny", small="w", rows=1)),
+    (2048, 2048, 4, False, 0, 0, 0,
+     dict(kernel="skinny", small="w", rows=4, big_kmajor=True, splits=1)),
+    (2048, 2048, 16, True, 0, 0, 0, dict(kernel="skinny", small="w",
+                                         rows=16)),
+    (2048, 2048, 17, True, 0, 0, 0, dict(kernel="tensor_core")),
+    (2048, 4, 2048, False, 0, 0, 0,                  # LoRA B: K 4
+     dict(kernel="tensor_core", splits=1, k_chunk=32)),
+    # split counts: few output tiles or columns split K, many do not
+    (256, 1536, 1536, False, 0, 0, 0,
+     dict(kernel="tensor_core", splits=5, k_chunk=320, grid=(24, 5))),
+    (256, 1536, 6144, True, 0, 0, 0,
+     dict(kernel="tensor_core", splits=1, b_kmajor=True, grid=(96, 1))),
+    (4, 1536, 1536, False, 0, 0, 0, dict(kernel="skinny", splits=22)),
+    (4, 6144, 1536, True, 0, 0, 0,                   # K 2048 a split at most
+     dict(kernel="skinny", splits=3, k_chunk=2048)),
+    (16, 6144, 1536, True, 0, 0, 0, dict(splits=12, k_chunk=512)),
+    (1, 64, 100, False, 0, 0, 0, dict(splits=1)),    # tiny K
+    # no split at the recurrent stacks' 2048-row shapes
+    (2048, 2048, 2048, False, 0, 0, 0, dict(kernel="tensor_core", splits=1)),
+    (2048, 2048, 6144, True, 0, 0, 0, dict(kernel="tensor_core", splits=1)),
+    (2048, 6144, 2048, True, 0, 0, 0, dict(kernel="tensor_core", splits=1)),
+    (2048, 4096, 4096, False, 0, 0, 0, dict(kernel="tensor_core", splits=1)),
+    (2048, 4096, 12288, True, 0, 0, 0,
+     dict(kernel="tensor_core", splits=1, grid=(1536, 1))),
+    (2048, 12288, 4096, True, 0, 0, 0, dict(kernel="tensor_core", splits=1)),
+    # copy width: 16-byte copies only from aligned bases and row strides
+    (256, 512, 384, False, 0, 0, 0, dict(kernel="tensor_core", vec=4)),
+    (37, 130, 70, True, 0, 0, 0, dict(kernel="tensor_core", vec=1)),
+    (256, 512, 384, False, 4, 0, 0, dict(kernel="tensor_core", vec=1)),
+    (256, 512, 384, True, 0, 4, 0, dict(kernel="tensor_core", vec=1)),
+    (256, 512, 384, False, 0, 0, 1, dict(kernel="tensor_core", vec=1)),
+    (256, 512, 384, False, 16, 32, 4, dict(kernel="tensor_core", vec=4)),
+    (4, 512, 700, True, 0, 0, 0, dict(kernel="skinny", vec=4)),
+    (4, 512, 700, True, 0, 4, 0, dict(kernel="skinny", vec=1)),
+    (4, 512, 700, True, 4, 0, 0, dict(kernel="skinny", vec=4)),  # x small
+    (700, 512, 4, False, 4, 0, 0, dict(kernel="skinny", vec=1)),  # x big
+])
+def test_matmul_split_k_policy(m, k, n, oi, x_off, w_off, pad, want):
+    p = _plan_of(m, k, n, oi, x_off, w_off, pad)
+    assert {f: getattr(p, f) for f in want} == want, p
+
+
+@pytest.mark.parametrize("m,k,n,oi", [
+    (1, 1, 1, False), (4, 1536, 151936, True), (3, 100000, 5, True),
+    (16, 12288, 7, False), (17, 12288, 3000, True), (300, 1000, 260, False),
+    (64, 12288, 64, False), (2048, 4, 2048, True), (5000, 33, 9, True),
+])
+def test_matmul_plan_covers_k_within_the_kernels_limits(m, k, n, oi):
+    """Whatever the shapes, the splits cover K exactly once, each chunk is
+    a whole number of the kernel's steps, the skinny kernel's small
+    operand fits its shared memory and the tensor-core grid is its
+    tiles."""
+    p = _plan_of(m, k, n, oi)
+    assert (p.splits - 1) * p.k_chunk < max(k, 1) <= p.splits * p.k_chunk
+    assert p.grid[1] == p.splits
+    if p.kernel == "tensor_core":
+        bm, bn, bk = mkernel.TC_TILE
+        assert p.k_chunk % bk == 0
+        assert p.grid[0] == -(-m // bm) * -(-n // bn)
+    else:
+        assert p.k_chunk % 4 == 0 and p.rows in mkernel.SKINNY_ROWS
+        assert p.rows * p.k_chunk <= mkernel.SKINNY_S_FLOATS
+        assert p.rows >= (m if p.small == "x" else n)
+
+
+def test_matmul_plan_refuses_a_weight_with_no_unit_stride():
+    with pytest.raises(ValueError):
+        plan(64, 64, 64, 64, 2, 128)
 
 
 # ---------------------------------------------------------------------------
