@@ -2,10 +2,11 @@
 """Quickest proof that the PyTorch/CUDA port (``src/repro_torch``) runs on
 an NVIDIA H100: it builds the hand-written kernels from this checkout,
 holds each one against its plain PyTorch version at the main paths'
-shapes, serves a few requests at full Qwen2-1.5B attention width through
-``SolServer``, runs the Griffin and RWKV6 block stacks at full width and
-three CNNs at ImageNet resolution through ``optimize()``, and checks every
-path against the plain path.
+shapes in float32, bfloat16 and float16, serves a few requests at full
+Qwen2-1.5B attention width through ``SolServer``, runs the Griffin and
+RWKV6 block stacks at full width and three CNNs at ImageNet resolution
+through ``optimize()``, runs the transformer, both stacks and the Listing-3
+CNN again in bf16, and checks every path against the plain path.
 
     python3 chip_smoke.py          # one CUDA card, run from the repo root
 
@@ -24,7 +25,11 @@ Phases, each failing loudly:
    computes the same function, and the roofline bound of the same work on
    this card (matmul rows also against the tensor cores' 3xTF32 rate);
    beside them the back-to-back launch time, which host launch cost can
-   push above the device time.
+   push above the device time.  Then every kernel in bf16 at the f32
+   rows' shapes and in f16 at one shape each, held to its plain version
+   on the same rounded values within one rounding step of the storage
+   type, bytes counted at the storage size and tensor-core matmul rows
+   bound at the TF32 rate.
 3. serve — 28 × ``transformer_block(1536, 12, n_kv_heads=2)`` + a
    Linear(1536, 151936) head with random weights from a seeded generator
    (build_lm's block: pre-norm LayerNorm, 4·d tanh-GELU MLP, no RoPE — not
@@ -59,9 +64,25 @@ Phases, each failing loudly:
    ``ref.compose``; each output within 1e-4 of ``torch_ref``'s scale on
    the same weights.  Warm forward times of both backends and one
    profiled forward.
+7. bf16 — the phase-3 model's 28 blocks and head, the phase-5 stacks and
+   the Listing-3 CNN with their weights cast to bf16, through
+   ``optimize(..., dtype="bfloat16", backend="h100")`` on bf16 inputs: the
+   transformer's full program at (4, 256, 1536) and one decode step
+   against a bf16 cache with lens 0/37/100/127, the stacks at (4, 512, d),
+   the CNN at (64, 3, 224, 224).  Every node a ``cuda.*`` impl admits
+   elects it and each path's kernels launch.  Gates, relative to the
+   output's scale: logits, each recurrent block alone and the CNN's output
+   within README's bf16 row (3e-2, RWKV6 5e-2) of ``torch_ref`` bf16 on
+   the same module; a stack's output no further from ``torch_ref`` in f32
+   on the same bf16-rounded weights than twice ``torch_ref`` bf16's own
+   distance (its bf16 floor).  Warm times in turns with ``torch_ref``
+   bf16, beside the same path's f32 h100 time, and one profiled call per
+   path.
 
 The second-to-last lines are the card's ``nvidia-smi`` line and a JSON
-``kernels`` line; the last line is ``{"ok": true, "device": ...}``.  The
+``kernels`` line (an entry per kernel in f32, and one per kernel in bf16
+named ``<kernel>_bf16`` with its launches on the bf16 paths); the last line
+is ``{"ok": true, "device": ...}``.  The
 full record goes to ``chiprun_out/chip_smoke.json``.  The script imports
 nothing of JAX or of the JAX package ``src/repro``; it exits non-zero,
 printing no result, without a CUDA card or without the package.
@@ -91,8 +112,19 @@ MATMUL_ACCURACY_RTOL = 1e-5
 # end-to-end logits through 28 layers: relative to the logits' scale
 LOGIT_RTOL = 1e-4
 
+# bf16 and f16 kernel rows: kernel and plain version both compute in f32
+# and round once to the storage type, so they may differ by one rounding
+# step of it: rtol one unit in the last place, atol 1e-4 near zero.  A DFP
+# program rounds every instruction in both versions; where an
+# instruction's two f32 results straddle a rounding boundary, the one-unit
+# step is carried on by later instructions, so DFP rows also allow one unit
+# at the output's scale
+HALF_DTYPES = ("bfloat16", "float16")
+HALF_TOL = {"bfloat16": (2.0 ** -7, 1e-4), "float16": (2.0 ** -10, 1e-4)}
+
 PEAK_F32 = 67e12        # FLOP/s, f32 outside the tensor cores (H100 SXM)
 PEAK_3XTF32 = 495e12 / 3    # FLOP/s, f32-accurate products as 3 TF32 passes
+PEAK_TF32 = 495e12      # FLOP/s, one TF32 pass (bf16 and f16 products)
 HBM = 3.35e12           # bytes/s
 
 FULL = dict(d_model=1536, n_heads=12, n_kv_heads=2, n_layers=28,
@@ -173,6 +205,13 @@ def max_err(a, b) -> float:
 # ---------------------------------------------------------------------------
 
 def phase_kernels(gen) -> dict:
+    """Every kernel against its plain version: in f32 at the main paths'
+    shapes and edge cases, then in bf16 at the f32 rows' shapes (the
+    matmul: serving, LoRA, the 2048-row products and the K = 12288 row) and
+    in f16 at one shape per kernel.  A half-precision row runs the same
+    random values rounded to its storage type, counts bytes at the storage
+    size, and takes a tensor-core matmul row's operations at the TF32
+    rate; its library call runs in the same dtype."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.avgpool.kernel import avgpool_cuda
@@ -181,7 +220,6 @@ def phase_kernels(gen) -> dict:
         decode_attention_cuda
     from repro_torch.kernels.decode_attention.ops import _ref_model_layout
     from repro_torch.kernels.dfp_fused.kernel import dfp_fused_triton
-    from repro_torch.kernels.dfp_fused.program import Program
     from repro_torch.kernels.dfp_fused.ref import dfp_fused_ref
     from repro_torch.kernels.flash_attention.kernel import \
         flash_attention_cuda
@@ -194,22 +232,34 @@ def phase_kernels(gen) -> dict:
     from repro_torch.kernels.rwkv6_scan.ref import rwkv6_scan_ref
 
     dev = torch.device("cuda")
+    tdt = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float16": torch.float16}
+    csrc = "src/repro_torch/kernels/csrc/"
 
-    def randn(*shape, scale=1.0):
-        return torch.randn(*shape, device=dev, generator=gen) * scale
+    def randn(*shape, scale=1.0, dt="float32"):
+        return (torch.randn(*shape, device=dev, generator=gen) * scale
+                ).to(tdt[dt])
+
+    def verdict(got, want, dt, chain=False):
+        """(max |error|, the half-precision check's verdict; None in f32,
+        whose rows compare the error with KERNEL_TOL)."""
+        if dt == "float32":
+            return max_err(got, want), None
+        return half_check(got, want, dt, chain)
 
     cases = []
 
     def record(name, shape, err, fn, plain, library, flops, nbytes,
                replaces, source, route, on_path=True, peak=PEAK_F32,
-               extra=None):
+               extra=None, dtype="float32", within=None):
         t = {"": time_ms(fn), "plain_": time_ms(plain)}
         if library is not None:
             t["library_"] = time_ms(library)
         b_ms, b_by = bound(flops, nbytes, peak)
-        row = {"name": name, "shape": shape, "route": route,
+        tol = KERNEL_TOL[name] if within is None else HALF_TOL[dtype]
+        row = {"name": name, "dtype": dtype, "shape": shape, "route": route,
                "source": source, "replaces": replaces, "max_abs_err": err,
-               "tol": KERNEL_TOL[name], "library_ms": None,
+               "tol": tol, "library_ms": None,
                "bound_ms": b_ms, "bound_by": b_by, "on_path": on_path,
                **(extra or {})}
         for pre, v in t.items():
@@ -218,105 +268,281 @@ def phase_kernels(gen) -> dict:
         ms, p_ms, lib_ms = row["ms"], row["plain_ms"], row["library_ms"]
         note = "".join(f"; {k} {v:.4g}" if isinstance(v, float)
                        else f"; {k} {v}" for k, v in (extra or {}).items())
-        log(f"[kernels] {name} {shape}{'' if on_path else ' (off path)'}: "
-            f"max|err| {err:.3g} (tol "
-            f"{KERNEL_TOL[name]:g}) device ms: kernel {ms:.4f}, plain "
+        tag = "" if dtype == "float32" else f" {dtype}"
+        log(f"[kernels] {name}{tag} {shape}"
+            f"{'' if on_path else ' (off path)'}: max|err| {err:.3g} (tol "
+            f"{tol}) device ms: kernel {ms:.4f}, plain "
             f"{p_ms:.4f}, library "
             f"{lib_ms if lib_ms is None else round(lib_ms, 4)}, bound "
             f"{b_ms:.4f} ({b_by}); back-to-back launch ms: kernel "
             f"{row['launch_ms']:.4f}, plain {row['plain_launch_ms']:.4f}"
             f"{note}")
-        if not err <= KERNEL_TOL[name]:
-            fail(f"{name} {shape} disagrees with its plain version: "
-                 f"{err} > {KERNEL_TOL[name]}")
+        if not (err <= tol if within is None else within):
+            fail(f"{name}{tag} {shape} disagrees with its plain version: "
+                 f"max |error| {err}, tolerance {tol}")
         cases.append(row)
 
     # matmul: (M, K) @ (K, N); 'oi' cases read an (N, K) weight transposed.
     # Each row names the kernel its plan picks, and its bound takes that
-    # kernel's peak: 3xTF32 on the tensor cores, else f32 outside them
-    def matmul_case(m, k, n, oi, label="", rtol=None):
-        x = randn(m, k)
-        w = (randn(n, k, scale=k ** -0.5).T if oi
-             else randn(k, n, scale=k ** -0.5))
+    # kernel's peak: on the tensor cores 3xTF32 (f32) or one TF32 pass
+    # (bf16, f16), else f32 outside them
+    def matmul_case(m, k, n, oi, label="", rtol=None, dt="float32"):
+        x = randn(m, k, dt=dt)
+        w = (randn(n, k, scale=k ** -0.5, dt=dt).T if oi
+             else randn(k, n, scale=k ** -0.5, dt=dt))
         y = matmul_cuda(x, w)
         torch.cuda.synchronize()
         want = matmul_ref(x, w)
-        err = max_err(y, want)
-        rel = err / float(want.abs().max())
+        err, within = verdict(y, want, dt)
+        rel = max_err(y, want) / float(want.float().abs().max())
+        size = x.element_size()
         p = plan(m, n, k, x.stride(0), w.stride(0), w.stride(1),
-                 x.data_ptr(), w.data_ptr())
-        flops, nbytes = 2.0 * m * k * n, 4.0 * (m * k + k * n + m * n)
+                 x.data_ptr(), w.data_ptr(), itemsize=size)
+        peak = PEAK_F32
+        if p.kernel == "tensor_core":
+            peak = PEAK_3XTF32 if dt == "float32" else PEAK_TF32
         shape = f"{m}x{k}x{n}{' (out,in)' if oi else ''}{label}"
         record("matmul", shape, err, lambda: matmul_cuda(x, w),
-               lambda: matmul_ref(x, w), lambda: torch.matmul(x, w), flops,
-               nbytes, "src/repro/kernels/matmul/kernel.py:85",
-               "src/repro_torch/kernels/csrc/matmul.cu", "cuda",
-               peak=PEAK_3XTF32 if p.kernel == "tensor_core" else PEAK_F32,
-               extra={"kernel": p.kernel, "splits": p.splits,
-                      "rel_err": rel})
+               lambda: matmul_ref(x, w), lambda: torch.matmul(x, w),
+               2.0 * m * k * n, float(size) * (m * k + k * n + m * n),
+               "src/repro/kernels/matmul/kernel.py:85", csrc + "matmul.cu",
+               "cuda", peak=peak,
+               extra={"kernel": p.kernel, "splits": p.splits, "vec": p.vec,
+                      "rel_err": rel}, dtype=dt, within=within)
         if rtol is not None and not rel <= rtol:
             fail(f"matmul {shape}: max |error| {rel:.3g} of the output's "
                  f"scale > {rtol}")
 
-    for m, k, n, oi in ((4, 1536, 151936, True), (256, 1536, 1536, False),
-                        (256, 1536, 6144, False), (256, 1536, 6144, True),
-                        (4, 1536, 1536, False), (4, 6144, 1536, True)):
-        matmul_case(m, k, n, oi)
-
     # flash attention at the prefill bucket: B 4, S 128, H 12, KV 2, hd 128
-    b, s, h, kv, hd = 4, 128, 12, 2, 128
-    q, k_, v = randn(b, s, h, hd), randn(b, s, kv, hd), randn(b, s, kv, hd)
-    o = flash_attention_cuda(q, k_, v, causal=True)
-    torch.cuda.synchronize()
+    def flash_case(dt="float32"):
+        b, s, h, kv, hd = 4, 128, 12, 2, 128
+        q, k_ = randn(b, s, h, hd, dt=dt), randn(b, s, kv, hd, dt=dt)
+        v = randn(b, s, kv, hd, dt=dt)
+        o = flash_attention_cuda(q, k_, v, causal=True)
+        torch.cuda.synchronize()
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k_, v))
 
-    def fa_plain():
-        return flash_attention_ref(q.transpose(1, 2), k_.transpose(1, 2),
-                                   v.transpose(1, 2)).transpose(1, 2)
+        def fa_plain():
+            return flash_attention_ref(qt, kt, vt).transpose(1, 2)
 
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k_, v))
-    try:
-        F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                       enable_gqa=True)
-        sdpa = lambda: F.scaled_dot_product_attention(     # noqa: E731
-            qt, kt, vt, is_causal=True, enable_gqa=True)
-    except TypeError:       # an older torch without GQA in SDPA
-        ke, ve = (t.repeat_interleave(h // kv, 1) for t in (kt, vt))
-        sdpa = lambda: F.scaled_dot_product_attention(     # noqa: E731
-            qt, ke, ve, is_causal=True)
-    pairs = b * h * s * (s + 1) / 2                        # causal (q, k)
-    record("flash_attention", f"B{b} S{s} H{h} KV{kv} hd{hd} causal",
-           max_err(o, fa_plain()),
-           lambda: flash_attention_cuda(q, k_, v, causal=True), fa_plain,
-           sdpa, 4.0 * pairs * hd, 4.0 * (2 * b * s * h * hd
+        try:
+            F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                           enable_gqa=True)
+            sdpa = lambda: F.scaled_dot_product_attention(     # noqa: E731
+                qt, kt, vt, is_causal=True, enable_gqa=True)
+        except TypeError:   # an older torch without GQA in SDPA
+            ke, ve = (t.repeat_interleave(h // kv, 1) for t in (kt, vt))
+            sdpa = lambda: F.scaled_dot_product_attention(     # noqa: E731
+                qt, ke, ve, is_causal=True)
+        err, within = verdict(o, fa_plain(), dt)
+        pairs = b * h * s * (s + 1) / 2                    # causal (q, k)
+        record("flash_attention", f"B{b} S{s} H{h} KV{kv} hd{hd} causal",
+               err, lambda: flash_attention_cuda(q, k_, v, causal=True),
+               fa_plain, sdpa, 4.0 * pairs * hd,
+               float(q.element_size()) * (2 * b * s * h * hd
                                           + 2 * b * s * kv * hd),
-           "src/repro/kernels/flash_attention/kernel.py:82",
-           "src/repro_torch/kernels/csrc/flash_attention.cu", "cuda")
+               "src/repro/kernels/flash_attention/kernel.py:82",
+               csrc + "flash_attention.cu", "cuda", dtype=dt, within=within)
 
     # decode attention at the decode bucket: cache 128, mixed lens incl. 0
-    cache = 128
-    lens = torch.tensor([0, 37, 100, 127], dtype=torch.int32, device=dev)
-    qd = randn(b, 1, h, hd)
-    kc, vc = randn(b, cache, kv, hd), randn(b, cache, kv, hd)
-    kn, vn = randn(b, 1, kv, hd), randn(b, 1, kv, hd)
-    od = decode_attention_cuda(qd, kc, vc, kn, vn, lens)
-    torch.cuda.synchronize()
-    plain_d = lambda: _ref_model_layout(qd, kc, vc, kn, vn, lens, 0, 0.0)  # noqa: E731
-    if max_err(od[0], vn[0].repeat_interleave(h // kv, 1)) != 0.0:
-        fail("decode attention with lens 0 is not exactly v_new")
-    rows = int(lens.sum())
-    record("decode_attention", f"B{b} cache{cache} H{h} KV{kv} hd{hd} "
-           f"lens{lens.tolist()}", max_err(od, plain_d()),
-           lambda: decode_attention_cuda(qd, kc, vc, kn, vn, lens), plain_d,
-           None, 4.0 * h * hd * (rows + b),
-           4.0 * (2 * b * h * hd + 2 * rows * kv * hd + 2 * b * kv * hd)
-           + 4.0 * b, "src/repro/kernels/decode_attention/kernel.py:94",
-           "src/repro_torch/kernels/csrc/decode_attention.cu", "cuda")
+    def decode_case(dt="float32"):
+        b, h, kv, hd, cache = 4, 12, 2, 128, 128
+        lens = torch.tensor([0, 37, 100, 127], dtype=torch.int32, device=dev)
+        qd = randn(b, 1, h, hd, dt=dt)
+        kc, vc = randn(b, cache, kv, hd, dt=dt), randn(b, cache, kv, hd, dt=dt)
+        kn, vn = randn(b, 1, kv, hd, dt=dt), randn(b, 1, kv, hd, dt=dt)
+        od = decode_attention_cuda(qd, kc, vc, kn, vn, lens)
+        torch.cuda.synchronize()
+        plain = lambda: _ref_model_layout(qd, kc, vc, kn, vn, lens, 0, 0.0)  # noqa: E731
+        if max_err(od[0], vn[0].repeat_interleave(h // kv, 1)) != 0.0:
+            fail(f"decode attention {dt} with lens 0 is not exactly v_new")
+        err, within = verdict(od, plain(), dt)
+        rows = int(lens.sum())
+        record("decode_attention", f"B{b} cache{cache} H{h} KV{kv} hd{hd} "
+               f"lens{lens.tolist()}", err,
+               lambda: decode_attention_cuda(qd, kc, vc, kn, vn, lens), plain,
+               None, 4.0 * h * hd * (rows + b),
+               float(qd.element_size()) * (2 * b * h * hd + 2 * rows * kv * hd
+                                           + 2 * b * kv * hd) + 4.0 * b,
+               "src/repro/kernels/decode_attention/kernel.py:94",
+               csrc + "decode_attention.cu", "cuda", dtype=dt, within=within)
 
-    # DFP programs: the two serving groups and a layernorm group
-    dfp_src = "src/repro_torch/kernels/dfp_fused/kernel.py"
-    dfp_rep = "src/repro/kernels/dfp_fused/kernel.py:117"
-    rows_n = 4 * 128
-    programs = [
+    # a generated DFP program on random operands
+    def dfp_case(label, rows_n, d, prog, on_path=True, dt="float32"):
+        ops = [randn(rows_n, d, dt=dt) if kd == "full" else randn(d, dt=dt)
+               for kd in prog.operand_kinds]
+        t0 = time.perf_counter()
+        y = dfp_fused_triton(prog, ops, (rows_n, d), tdt[dt])
+        torch.cuda.synchronize()
+        log(f"[kernels] dfp_fused {label} {dt}: Triton compile + first "
+            f"launch {time.perf_counter() - t0:.2f} s")
+        err, within = verdict(y, dfp_fused_ref(prog, ops, (rows_n, d),
+                                               tdt[dt]), dt, chain=True)
+        n_full = prog.operand_kinds.count("full")
+        n_vec = prog.operand_kinds.count("vec")
+        library = None
+        if label == "bias_add+gelu":
+            library = lambda: F.gelu(ops[0] + ops[1], approximate="tanh")  # noqa: E731
+        record("dfp_fused", f"{label} rows{rows_n} d{d}", err,
+               lambda: dfp_fused_triton(prog, ops, (rows_n, d), tdt[dt]),
+               lambda: dfp_fused_ref(prog, ops, (rows_n, d), tdt[dt]),
+               library, 10.0 * rows_n * d,
+               float(ops[0].element_size()) * ((n_full + 1) * rows_n * d
+                                               + n_vec * d),
+               "src/repro/kernels/dfp_fused/kernel.py:117",
+               "src/repro_torch/kernels/dfp_fused/kernel.py", "triton",
+               on_path, dtype=dt, within=within)
+
+    # RG-LRU scan: a in (0.5, 1), h0 nonzero
+    def rglru_case(b_, t_, d_, dt="float32"):
+        a = (torch.rand(b_, t_, d_, device=dev, generator=gen) * 0.5
+             + 0.5).to(tdt[dt])
+        bb, h0 = randn(b_, t_, d_, dt=dt), randn(b_, d_, dt=dt)
+        h, last = rglru_scan_cuda(a, bb, h0)
+        torch.cuda.synchronize()
+        want_h, want_last = rglru_scan_ref(a, bb, h0)
+        e1, w1 = verdict(h, want_h, dt)
+        e2, w2 = verdict(last, want_last, dt)
+        n = b_ * t_ * d_
+        record("rglru_scan", f"B{b_} T{t_} D{d_}, h0 nonzero", max(e1, e2),
+               lambda: rglru_scan_cuda(a, bb, h0),
+               lambda: rglru_scan_ref(a, bb, h0), None, 2.0 * n,
+               float(a.element_size()) * (3 * n + 2 * b_ * d_),
+               "src/repro/kernels/rglru_scan/kernel.py:36",
+               csrc + "rglru_scan.cu", "cuda", dtype=dt,
+               within=None if w1 is None else w1 and w2)
+
+    # RWKV6 scan; ``extremes``: log decays 0 (no decay) and -50 (exp
+    # underflows to 0).  The state comes back in f32 in every dtype
+    def rwkv6_case(b_, t_, h_, hd, extremes=False, dt="float32"):
+        r, k_, v = (randn(b_, t_, h_, hd, scale=0.5, dt=dt) for _ in range(3))
+        if extremes:
+            logw = torch.where(randn(b_, t_, h_, hd) > 0, 0.0, -50.0)
+        else:
+            logw = -torch.exp(randn(b_, t_, h_, hd, scale=0.5) - 1.0)
+        logw = logw.to(tdt[dt])
+        u = randn(h_, hd, scale=0.5, dt=dt)
+        s0 = randn(b_, h_, hd, hd, scale=0.5, dt=dt)
+        o, s_last = rwkv6_scan_cuda(r, k_, v, logw, u, s0)
+        torch.cuda.synchronize()
+        want_o, want_s = rwkv6_scan_ref(r, k_, v, logw, u, s0)
+        err, within = verdict(o, want_o, dt)
+        s_err = max_err(s_last, want_s)
+        if within is not None:
+            within = within and s_err <= KERNEL_TOL["rwkv6_scan"]
+        n, state = b_ * t_ * h_ * hd, b_ * h_ * hd * hd
+        record("rwkv6_scan", f"B{b_} T{t_} H{h_} hd{hd}, s0 nonzero"
+               + (", logw in {0, -50}" if extremes else ""), max(err, s_err),
+               lambda: rwkv6_scan_cuda(r, k_, v, logw, u, s0),
+               lambda: rwkv6_scan_ref(r, k_, v, logw, u, s0), None,
+               5.0 * n * hd,
+               float(r.element_size()) * (5 * n + h_ * hd + state)
+               + 4.0 * state,
+               "src/repro/kernels/rwkv6_scan/kernel.py:55",
+               csrc + "rwkv6_scan.cu", "cuda", dtype=dt, within=within,
+               extra={"s_last_max_abs_err": s_err})
+
+    # average pooling; F.avg_pool2d is the library call
+    def avgpool_case(n_, c_, h_, w_, kh=3, kw=3, on_path=True, dt="float32"):
+        x = randn(n_, c_, h_, w_, dt=dt)
+        y = avgpool_cuda(x, kh, kw)
+        torch.cuda.synchronize()
+        err, within = verdict(y, avgpool_ref(x, kh, kw), dt)
+        out = y.numel()
+        record("avgpool", f"({n_}, {c_}, {h_}, {w_}) k{kh}x{kw}", err,
+               lambda: avgpool_cuda(x, kh, kw),
+               lambda: avgpool_ref(x, kh, kw),
+               lambda: F.avg_pool2d(x, (kh, kw), stride=1),
+               float(kh * kw) * out,
+               float(x.element_size()) * (x.numel() + out),
+               "src/repro/kernels/avgpool/kernel.py:34", csrc + "avgpool.cu",
+               "cuda", on_path, dtype=dt, within=within)
+
+    serving = [(4, 1536, 151936, True), (256, 1536, 1536, False),
+               (256, 1536, 6144, False), (256, 1536, 6144, True),
+               (4, 1536, 1536, False), (4, 6144, 1536, True)]
+    lora = [(2048, 2048, 4), (2048, 4, 2048)]
+    dense = [(2048, 2048, 2048, False), (2048, 2048, 6144, True),
+             (2048, 6144, 2048, True), (2048, 4096, 4096, False),
+             (2048, 4096, 12288, True), (2048, 12288, 4096, True)]
+    listing3_pools = [(64, 32, 224, 224), (64, 64, 111, 111)]
+
+    # f32: the serving shapes, then the recurrent slice's (LoRA products,
+    # the RWKV6 (d 2048, MLP 6144) and Griffin (d 4096, MLP 12288) dense
+    # products on their 2048 rows, a K = 12288 accuracy row, the groups its
+    # graphs add, the scans), then the Listing-3 pools and edge cases
+    for m, k, n, oi in serving:
+        matmul_case(m, k, n, oi)
+    flash_case()
+    decode_case()
+    for label, d, prog in serving_programs():
+        dfp_case(label, 4 * 128, d, prog)
+    for m, k, n in lora:
+        matmul_case(m, k, n, False, " (LoRA)")
+    for m, k, n, oi in dense:
+        matmul_case(m, k, n, oi)
+    matmul_case(256, 12288, 1024, True, " (accuracy)",
+                rtol=MATMUL_ACCURACY_RTOL)
+    for label, rows_n, d, prog, on_path in recurrent_programs():
+        dfp_case(label, rows_n, d, prog, on_path)
+    for shape in ((4, 512, 4096), (3, 1, 24)):      # Griffin's; T 1, D 24
+        rglru_case(*shape)
+    rwkv6_case(4, 512, 32, 64)                      # RWKV6-1.6B's heads
+    rwkv6_case(1, 3, 2, 8, extremes=True)
+    for n_, c_, h_, w_ in listing3_pools:
+        avgpool_case(n_, c_, h_, w_)
+    # k 2 and 3, kh != kw, H or W equal to k, N·C 1, widths no multiple of
+    # a warp
+    for n_, c_, h_, w_, kh, kw in ((3, 5, 17, 45, 2, 2), (1, 1, 3, 3, 3, 3),
+                                   (2, 3, 9, 40, 2, 3), (1, 1, 70, 33, 3, 1)):
+        avgpool_case(n_, c_, h_, w_, kh, kw, on_path=False)
+
+    # bf16 at the f32 rows' shapes, then f16 at one shape per kernel
+    bf = "bfloat16"
+    for m, k, n, oi in serving:
+        matmul_case(m, k, n, oi, dt=bf)
+    for m, k, n in lora:
+        matmul_case(m, k, n, False, " (LoRA)", dt=bf)
+    for m, k, n, oi in dense:
+        matmul_case(m, k, n, oi, dt=bf)
+    matmul_case(256, 12288, 1024, True, " (accuracy)", dt=bf)
+    for label, d, prog in serving_programs():
+        dfp_case(label, 4 * 128, d, prog, dt=bf)
+    for label, rows_n, d, prog, on_path in recurrent_programs():
+        dfp_case(label, rows_n, d, prog, on_path, dt=bf)
+    for n_, c_, h_, w_ in listing3_pools:
+        avgpool_case(n_, c_, h_, w_, dt=bf)
+    for dt in HALF_DTYPES:
+        flash_case(dt)
+        decode_case(dt)
+        rglru_case(4, 512, 4096, dt)
+        rwkv6_case(4, 512, 32, 64, dt=dt)
+    f16 = "float16"
+    matmul_case(4, 1536, 151936, True, dt=f16)
+    matmul_case(2048, 4096, 4096, False, dt=f16)
+    label, d, prog = serving_programs()[0]
+    dfp_case(label, 4 * 128, d, prog, dt=f16)
+    avgpool_case(*listing3_pools[0], dt=f16)
+    return {"cases": cases}
+
+
+def half_check(got, want, dtype: str, chain: bool = False):
+    """(max |error|, whether every element is within one rounding step of
+    ``dtype``: |got - want| <= rtol * |want| + atol, plus rtol * max |want|
+    for a DFP ``chain``)."""
+    rtol, atol = HALF_TOL[dtype]
+    g, w = got.float(), want.float()
+    if chain:
+        atol += rtol * float(w.abs().max())
+    return (max_err(g, w),
+            float(((g - w).abs() - rtol * w.abs()).max()) <= atol)
+
+
+def serving_programs():
+    """(label, d, Program) of the serving graphs' DFP groups timed in
+    phase 2, on 4 x 128 rows."""
+    from repro_torch.kernels.dfp_fused.program import Program
+    return [
         ("bias_add+gelu", 6144, Program(
             (("bias", 0, ("op", 0), 1, None),
              ("gelu", 1, ("reg", 0), None)), ("full", "vec"), 1)),
@@ -329,118 +555,6 @@ def phase_kernels(gen) -> dict:
              ("add", 1, ("reg", 0), ("op", 3), None)),
             ("full", "vec", "vec", "full"), 1)),
     ]
-    for label, d, prog in programs:
-        ops = [randn(rows_n, d) if kd == "full" else randn(d)
-               for kd in prog.operand_kinds]
-        t0 = time.perf_counter()
-        y = dfp_fused_triton(prog, ops, (rows_n, d), torch.float32)
-        torch.cuda.synchronize()
-        log(f"[kernels] dfp_fused {label}: Triton compile + first launch "
-            f"{time.perf_counter() - t0:.2f} s")
-        err = max_err(y, dfp_fused_ref(prog, ops, (rows_n, d),
-                                       torch.float32))
-        n_full = prog.operand_kinds.count("full")
-        n_vec = prog.operand_kinds.count("vec")
-        library = None
-        if label == "bias_add+gelu":
-            library = lambda: F.gelu(ops[0] + ops[1], approximate="tanh")  # noqa: E731
-        record("dfp_fused", f"{label} rows{rows_n} d{d}", err,
-               lambda: dfp_fused_triton(prog, ops, (rows_n, d),
-                                        torch.float32),
-               lambda: dfp_fused_ref(prog, ops, (rows_n, d), torch.float32),
-               library, 10.0 * rows_n * d,
-               4.0 * ((n_full + 1) * rows_n * d + n_vec * d),
-               dfp_rep, dfp_src, "triton")
-
-    # the recurrent slice: LoRA products, the dense products of the RWKV6
-    # (d 2048, MLP 6144) and Griffin (d 4096, MLP 12288) forwards on their
-    # 2048 rows, a K = 12288 accuracy row, the groups its graphs add, scans
-    for m, k, n in ((2048, 2048, 4), (2048, 4, 2048)):
-        matmul_case(m, k, n, False, " (LoRA)")
-    for m, k, n, oi in ((2048, 2048, 2048, False), (2048, 2048, 6144, True),
-                        (2048, 6144, 2048, True), (2048, 4096, 4096, False),
-                        (2048, 4096, 12288, True), (2048, 12288, 4096, True)):
-        matmul_case(m, k, n, oi)
-    matmul_case(256, 12288, 1024, True, " (accuracy)",
-                rtol=MATMUL_ACCURACY_RTOL)
-    for label, rows_n, d, prog, on_path in recurrent_programs():
-        ops = [randn(rows_n, d) if kd == "full" else randn(d)
-               for kd in prog.operand_kinds]
-        y = dfp_fused_triton(prog, ops, (rows_n, d), torch.float32)
-        torch.cuda.synchronize()
-        err = max_err(y, dfp_fused_ref(prog, ops, (rows_n, d),
-                                       torch.float32))
-        n_full = prog.operand_kinds.count("full")
-        n_vec = prog.operand_kinds.count("vec")
-        record("dfp_fused", f"{label} rows{rows_n} d{d}", err,
-               lambda: dfp_fused_triton(prog, ops, (rows_n, d),
-                                        torch.float32),
-               lambda: dfp_fused_ref(prog, ops, (rows_n, d), torch.float32),
-               None, 10.0 * rows_n * d,
-               4.0 * ((n_full + 1) * rows_n * d + n_vec * d),
-               dfp_rep, dfp_src, "triton", on_path)
-
-    # RG-LRU scan: Griffin's width (B 4, T 512, D 4096) and an edge case
-    # (T 1, D not a multiple of 32); a in (0.5, 1), h0 nonzero
-    for b_, t_, d_ in ((4, 512, 4096), (3, 1, 24)):
-        a = torch.rand(b_, t_, d_, device=dev, generator=gen) * 0.5 + 0.5
-        bb, h0 = randn(b_, t_, d_), randn(b_, d_)
-        h, last = rglru_scan_cuda(a, bb, h0)
-        torch.cuda.synchronize()
-        want_h, want_last = rglru_scan_ref(a, bb, h0)
-        err = max(max_err(h, want_h), max_err(last, want_last))
-        n = b_ * t_ * d_
-        record("rglru_scan", f"B{b_} T{t_} D{d_}, h0 nonzero", err,
-               lambda: rglru_scan_cuda(a, bb, h0),
-               lambda: rglru_scan_ref(a, bb, h0), None, 2.0 * n,
-               4.0 * (3 * n + 2 * b_ * d_),
-               "src/repro/kernels/rglru_scan/kernel.py:36",
-               "src/repro_torch/kernels/csrc/rglru_scan.cu", "cuda")
-
-    # RWKV6 scan: RWKV6-1.6B's heads (B 4, T 512, H 32, hd 64) and an edge
-    # case with log decays 0 (no decay) and -50 (exp underflows to 0)
-    for b_, t_, h_, hd, extremes in ((4, 512, 32, 64, False),
-                                     (1, 3, 2, 8, True)):
-        r, k_, v = (randn(b_, t_, h_, hd, scale=0.5) for _ in range(3))
-        if extremes:
-            logw = torch.where(randn(b_, t_, h_, hd) > 0, 0.0, -50.0)
-        else:
-            logw = -torch.exp(randn(b_, t_, h_, hd, scale=0.5) - 1.0)
-        u, s0 = randn(h_, hd, scale=0.5), randn(b_, h_, hd, hd, scale=0.5)
-        o, s_last = rwkv6_scan_cuda(r, k_, v, logw, u, s0)
-        torch.cuda.synchronize()
-        want_o, want_s = rwkv6_scan_ref(r, k_, v, logw, u, s0)
-        err = max(max_err(o, want_o), max_err(s_last, want_s))
-        n = b_ * t_ * h_ * hd
-        record("rwkv6_scan", f"B{b_} T{t_} H{h_} hd{hd}, s0 nonzero"
-               + (", logw in {0, -50}" if extremes else ""), err,
-               lambda: rwkv6_scan_cuda(r, k_, v, logw, u, s0),
-               lambda: rwkv6_scan_ref(r, k_, v, logw, u, s0), None,
-               5.0 * n * hd,
-               4.0 * (5 * n + h_ * hd + 2 * b_ * h_ * hd * hd),
-               "src/repro/kernels/rwkv6_scan/kernel.py:55",
-               "src/repro_torch/kernels/csrc/rwkv6_scan.cu", "cuda")
-
-    # average pooling: the Listing-3 CNN's two pools at (64, 3, 224, 224),
-    # then edge cases (k 2 and 3, kh != kw, H or W equal to k, N·C 1,
-    # widths no multiple of a warp); F.avg_pool2d is the library call
-    for n_, c_, h_, w_, kh, kw, on_path in (
-            (64, 32, 224, 224, 3, 3, True), (64, 64, 111, 111, 3, 3, True),
-            (3, 5, 17, 45, 2, 2, False), (1, 1, 3, 3, 3, 3, False),
-            (2, 3, 9, 40, 2, 3, False), (1, 1, 70, 33, 3, 1, False)):
-        x = randn(n_, c_, h_, w_)
-        y = avgpool_cuda(x, kh, kw)
-        torch.cuda.synchronize()
-        out = y.numel()
-        record("avgpool", f"({n_}, {c_}, {h_}, {w_}) k{kh}x{kw}",
-               max_err(y, avgpool_ref(x, kh, kw)),
-               lambda: avgpool_cuda(x, kh, kw),
-               lambda: avgpool_ref(x, kh, kw),
-               lambda: F.avg_pool2d(x, (kh, kw), stride=1),
-               float(kh * kw) * out, 4.0 * (x.numel() + out),
-               "src/repro/kernels/avgpool/kernel.py:34",
-               "src/repro_torch/kernels/csrc/avgpool.cu", "cuda", on_path)
-    return {"cases": cases}
 
 
 def recurrent_programs():
@@ -577,6 +691,23 @@ def device_breakdown(torch, run) -> dict:
                 by_family.items(), key=lambda kv: -kv[1]))}
 
 
+def profiled(torch, label: str, run, digits: int = 2) -> dict:
+    """``device_breakdown`` of ``run()``, logged under ``label``."""
+    breakdown = device_breakdown(torch, run)
+    if breakdown["measured"]:
+        fams = ", ".join(f"{k} {v:.{digits}f}" for k, v in
+                         breakdown["device_ms_by_family"].items())
+        log(f"[profile] {label}: device busy "
+            f"{breakdown['busy_ms']:.{digits}f} of "
+            f"{breakdown['span_ms']:.{digits}f} ms "
+            f"({100 * breakdown['busy_share']:.1f}%); device ms by family: "
+            f"{fams}")
+    else:
+        log(f"[profile] {label}: torch.profiler recorded no device events: "
+            f"device busy share not measured")
+    return breakdown
+
+
 def compare_tokens(name: str, got, ref, tol_of) -> list:
     """Greedy tokens must match; at the first mismatch of a request the
     reference's top-2 gap must be below its tolerance (a near tie)."""
@@ -659,19 +790,9 @@ def phase_serve(torch, counters, dev) -> dict:
 
     # a third pass under the profiler: where the device time goes, and how
     # much of the run the device is idle
-    breakdown = device_breakdown(
-        torch, lambda: serve_trace(server, prompts, GEN))
+    breakdown = profiled(torch, "h100 serve",
+                         lambda: serve_trace(server, prompts, GEN))
     server.close()
-    if breakdown["measured"]:
-        fams = ", ".join(f"{k} {v:.2f}" for k, v in
-                         breakdown["device_ms_by_family"].items())
-        log(f"[profile] h100 serve: device busy {breakdown['busy_ms']:.2f} "
-            f"of {breakdown['span_ms']:.2f} ms "
-            f"({100 * breakdown['busy_share']:.1f}%); device ms by family: "
-            f"{fams}")
-    else:
-        log("[profile] torch.profiler recorded no device events: device "
-            "busy share not measured")
 
     # phase 4: the plain path on the card, same weights, same requests
     ref_server = SolServer(dataclasses.replace(cfg, backend="torch_ref"),
@@ -805,10 +926,13 @@ def check_elections(sol, name: str) -> dict:
 
 
 def rel_err(got, want) -> float:
+    """max |got - want| over max |want|, taken in f32."""
+    got, want = got.float(), want.float()
     return float((got - want).abs().max() / want.abs().max())
 
 
-def per_layer_errors(torch, model, shape, x, optimize) -> list:
+def per_layer_errors(torch, model, shape, x, optimize,
+                     dtype: str = "float32") -> list:
     """Each block compiled alone on both backends and fed the same input,
     torch_ref's output of the block before: the h100 output's error
     relative to its scale, layer by layer.  This holds every layer's
@@ -816,22 +940,28 @@ def per_layer_errors(torch, model, shape, x, optimize) -> list:
     amplification of rounding."""
     out, cur = [], x
     for blk in model:
-        h = optimize(blk, shape, backend="h100")(cur)
-        cur = optimize(blk, shape, backend="torch_ref")(cur)
+        h = optimize(blk, shape, backend="h100", dtype=dtype)(cur)
+        cur = optimize(blk, shape, backend="torch_ref", dtype=dtype)(cur)
         out.append(rel_err(h, cur))
     torch.cuda.synchronize()
     return out
 
 
-def timed_forwards(torch, sol, x, repeats: int) -> list:
+def timed_calls(torch, fn, repeats: int) -> list:
+    """Host ms of ``fn()`` from an idle device to its end on the device,
+    ``repeats`` times."""
     out = []
     for _ in range(repeats):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        sol(x)
+        fn()
         torch.cuda.synchronize()
         out.append(1e3 * (time.perf_counter() - t0))
     return out
+
+
+def timed_forwards(torch, sol, x, repeats: int) -> list:
+    return timed_calls(torch, lambda: sol(x), repeats)
 
 
 def phase_recurrent(torch, counters, dev) -> dict:
@@ -906,17 +1036,7 @@ def phase_recurrent(torch, counters, dev) -> dict:
         log(f"[recurrent] {name} warm forward ms, median of "
             f"{len(h_ms)}: h100 {h_med:.2f} {[round(v, 2) for v in h_ms]}, "
             f"torch_ref {r_med:.2f} {[round(v, 2) for v in r_ms]}")
-        breakdown = device_breakdown(torch, lambda: sol(x))
-        if breakdown["measured"]:
-            fams = ", ".join(f"{k} {v:.2f}" for k, v in
-                             breakdown["device_ms_by_family"].items())
-            log(f"[profile] {name} h100 forward: device busy "
-                f"{breakdown['busy_ms']:.2f} of {breakdown['span_ms']:.2f} "
-                f"ms ({100 * breakdown['busy_share']:.1f}%); device ms by "
-                f"family: {fams}")
-        else:
-            log(f"[profile] {name}: torch.profiler recorded no device "
-                f"events: device busy share not measured")
+        breakdown = profiled(torch, f"{name} h100 forward", lambda: sol(x))
         results[name] = {
             "config": cfg, "shape": shape, "parameters": n_params,
             "optimize_s": compile_s, "elections": by_kind,
@@ -1066,17 +1186,8 @@ def phase_cnn(torch, counters, dev) -> dict:
             f"{h_med:.3f} {[round(v, 3) for v in h_ms]}, torch_ref "
             f"{r_med:.3f} {[round(v, 3) for v in r_ms]}; an h100 call "
             f"returns to the host after {enqueue_ms:.3f} ms")
-        breakdown = device_breakdown(torch, lambda: sol(x))
-        if breakdown["measured"]:
-            fams = ", ".join(f"{k} {v:.3f}" for k, v in
-                             breakdown["device_ms_by_family"].items())
-            log(f"[profile] {name} h100 forward: device busy "
-                f"{breakdown['busy_ms']:.3f} of {breakdown['span_ms']:.3f} "
-                f"ms ({100 * breakdown['busy_share']:.1f}%); device ms by "
-                f"family: {fams}")
-        else:
-            log(f"[profile] {name}: torch.profiler recorded no device "
-                f"events: device busy share not measured")
+        breakdown = profiled(torch, f"{name} h100 forward", lambda: sol(x),
+                             digits=3)
         results[name] = {
             "shape": CNN_SHAPE, "classes": CNN_CLASSES,
             "parameters": sum(p.numel() for p in model.parameters()),
@@ -1090,6 +1201,298 @@ def phase_cnn(torch, counters, dev) -> dict:
         del model, sol, ref, x, y, want
         gc.collect()
         torch.cuda.empty_cache()
+    return results
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the bf16 paths
+# ---------------------------------------------------------------------------
+
+# Gates, relative to the output's scale, written before the first run of
+# this phase: each recurrent block alone, the transformer's logits (full
+# program and decode step) and the CNN's output against torch_ref on the
+# same bf16 module, at README's bf16 row; a recurrent stack's output
+# against torch_ref in f32 on the same bf16-rounded weights and input,
+# within BF16_FLOOR_FACTOR times torch_ref bf16's own error there (the
+# stack's bf16 floor).
+BF16_ROW = {"transformer": 3e-2, "rwkv6": 5e-2, "griffin": 3e-2,
+            "listing3_cnn": 3e-2}
+BF16_FLOOR_FACTOR = 2.0
+BF16_LM_SHAPE = (4, 256, 1536)       # the full program: 4 x 256 tokens
+BF16_DECODE_CACHE = 128
+BF16_DECODE_LENS = (0, 37, 100, 127)
+BF16_REPEATS = 3
+# what each bf16 path must launch, beside check_cuda_elected's elections
+BF16_KERNELS = {
+    "transformer": ("matmul", "matmul_tc", "flash_attention", "dfp_fused"),
+    "transformer decode": ("matmul", "matmul_skinny", "decode_attention",
+                           "dfp_fused"),
+    "rwkv6": ("matmul", "dfp_fused", "rwkv6_scan"),
+    "griffin": ("matmul", "dfp_fused", "rglru_scan"),
+    "listing3_cnn": ("matmul", "avgpool"),
+}
+
+
+def _bf16_run(torch, counters, name, fn):
+    """The path's run: counts from 0, one call, counts read; every kernel
+    of BF16_KERNELS[name] must have launched."""
+    for c in counters.values():
+        c.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    launches = {k: c.launches for k, c in counters.items()}
+    check_matmul_kernels(f"{name} bf16", launches)
+    for k in BF16_KERNELS[name]:
+        if launches[k] <= 0:
+            fail(f"{name} bf16: {k} was not launched")
+    return out, launches
+
+
+def _check_finite(torch, name, y, shape) -> None:
+    if tuple(y.shape) != tuple(shape) or y.dtype != torch.bfloat16 or \
+            not bool(torch.isfinite(y.float()).all()):
+        fail(f"{name} bf16: output {tuple(y.shape)} {y.dtype} not finite "
+             f"bf16 of shape {tuple(shape)}")
+
+
+def _gate(name: str, what: str, err: float, limit: float) -> None:
+    if not err <= limit:
+        fail(f"{name} bf16: {what} {err:.3g} of its scale > {limit}")
+
+
+def _in_turns(torch, h100, ref):
+    """Warm calls of both backends in turns (h100, ref, ref, h100): the
+    h100 and torch_ref ms lists."""
+    h_ms = timed_calls(torch, h100, BF16_REPEATS)
+    r_ms = timed_calls(torch, ref, 2 * BF16_REPEATS)
+    h_ms += timed_calls(torch, h100, BF16_REPEATS)
+    return h_ms, r_ms
+
+
+def bf16_transformer(torch, counters, dev) -> dict:
+    """build_lm's 28 blocks and head at Qwen2-1.5B width, cast to bf16: the
+    full program at BF16_LM_SHAPE and one decode step against a bf16 cache
+    with lens BF16_DECODE_LENS, each against torch_ref bf16, timed beside
+    the same program in f32 on h100."""
+    import statistics
+    from repro_torch.frontends import extract
+    from repro_torch.frontends.optimize import compile_graph, optimize
+    from repro_torch.launch.serve import ServeConfig, build_lm
+
+    cfg = ServeConfig(**{k: v for k, v in FULL.items() if k != "n_kv_heads"},
+                      backend="h100")
+    gen = torch.Generator(dev).manual_seed(300)
+    model = build_lm(cfg, n_kv_heads=FULL["n_kv_heads"], device=dev,
+                     generator=gen)
+    shape = BF16_LM_SHAPE
+    b, d = shape[0], FULL["d_model"]
+    x = torch.randn(*shape, device=dev, generator=gen)
+    lens = torch.tensor(BF16_DECODE_LENS, dtype=torch.int32, device=dev)
+
+    def decode_graph(dtype):
+        return extract.extract_decode(model, b, BF16_DECODE_CACHE, d, dtype)
+
+    step = torch.randn(b, 1, d, device=dev, generator=gen)
+    caches = [torch.randn(*n.spec.shape, device=dev, generator=gen)
+              for n in decode_graph("float32").inputs[2:]]
+
+    # the same programs in f32 on h100, for the times beside bf16's
+    sol32 = optimize(model, shape, backend="h100")
+    dec32 = compile_graph(model, decode_graph("float32"), "h100")
+    sol32(x)
+    dec32(step, lens, *caches)
+    f32_ms = timed_calls(torch, lambda: sol32(x), 2 * BF16_REPEATS)
+    f32_dec_ms = timed_calls(torch, lambda: dec32(step, lens, *caches),
+                             2 * BF16_REPEATS)
+    del sol32, dec32
+
+    model.to(torch.bfloat16)
+    x16, step16 = x.to(torch.bfloat16), step.to(torch.bfloat16)
+    caches16 = [c.to(torch.bfloat16) for c in caches]
+    sol = optimize(model, shape, backend="h100", dtype="bfloat16")
+    by_kind = check_cuda_elected(sol, "transformer bf16")
+    dec = compile_graph(model, decode_graph("bfloat16"), "h100")
+    by_kind_dec = check_cuda_elected(dec, "transformer decode bf16")
+    for kind, impl, rep in (("linear", "cuda.linear", by_kind),
+                            ("matmul", "cuda.matmul", by_kind),
+                            ("attention", "cuda.flash_attention", by_kind),
+                            ("fused", "cuda.dfp_fused", by_kind),
+                            ("decode_attention", "cuda.decode_attention",
+                             by_kind_dec)):
+        if set(rep.get(kind, {})) != {impl}:
+            fail(f"transformer bf16: {kind} elected {rep.get(kind)}")
+    y, launches = _bf16_run(torch, counters, "transformer", lambda: sol(x16))
+    _check_finite(torch, "transformer", y, shape[:2] + (FULL["vocab"],))
+    outs, dec_launches = _bf16_run(
+        torch, counters, "transformer decode",
+        lambda: dec(step16, lens, *caches16))
+    for o in outs:
+        _check_finite(torch, "transformer decode", o, o.shape)
+
+    ref = optimize(model, shape, backend="torch_ref", dtype="bfloat16")
+    dref = compile_graph(model, decode_graph("bfloat16"), "torch_ref")
+    err = rel_err(y, ref(x16))
+    _gate("transformer", "logits differ from torch_ref's by", err,
+          BF16_ROW["transformer"])
+    want_outs = dref(step16, lens, *caches16)
+    dec_err = max(rel_err(o, w) for o, w in zip(outs, want_outs))
+    _gate("transformer", "the decode step's outputs differ by", dec_err,
+          BF16_ROW["transformer"])
+    log(f"[bf16] transformer: elections {by_kind}; decode {by_kind_dec}; "
+        f"launches, full program {launches}, decode step {dec_launches}; "
+        f"logits within {err:.3g} of torch_ref bf16's scale, decode step "
+        f"{dec_err:.3g} (row {BF16_ROW['transformer']})")
+
+    h_ms, r_ms = _in_turns(torch, lambda: sol(x16), lambda: ref(x16))
+    hd_ms, rd_ms = _in_turns(torch, lambda: dec(step16, lens, *caches16),
+                             lambda: dref(step16, lens, *caches16))
+    med = statistics.median
+    log(f"[bf16] transformer full program {shape} warm ms: h100 bf16 "
+        f"{med(h_ms):.3f} {[round(v, 3) for v in h_ms]}, torch_ref bf16 "
+        f"{med(r_ms):.3f}, h100 f32 {med(f32_ms):.3f}; decode step: h100 "
+        f"bf16 {med(hd_ms):.3f}, torch_ref bf16 {med(rd_ms):.3f}, h100 f32 "
+        f"{med(f32_dec_ms):.3f}")
+    breakdown = profiled(torch, "transformer bf16 full program",
+                         lambda: sol(x16))
+    dec_breakdown = profiled(torch, "transformer bf16 decode step",
+                             lambda: dec(step16, lens, *caches16))
+    total = {k: launches[k] + dec_launches[k] for k in launches}
+    return {"shape": shape, "device_breakdown": breakdown,
+            "decode_device_breakdown": dec_breakdown, "decode_lens": BF16_DECODE_LENS,
+            "decode_cache": BF16_DECODE_CACHE, "elections": by_kind,
+            "decode_elections": by_kind_dec, "launches": total,
+            "launches_full": launches, "launches_decode": dec_launches,
+            "rel_err": err, "decode_rel_err": dec_err,
+            "rel_err_limit": BF16_ROW["transformer"],
+            "h100_ms": h_ms, "h100_ms_median": med(h_ms),
+            "torch_ref_ms": r_ms, "torch_ref_ms_median": med(r_ms),
+            "h100_f32_ms": f32_ms, "h100_f32_ms_median": med(f32_ms),
+            "decode_h100_ms": hd_ms, "decode_h100_ms_median": med(hd_ms),
+            "decode_torch_ref_ms": rd_ms,
+            "decode_torch_ref_ms_median": med(rd_ms),
+            "decode_h100_f32_ms": f32_dec_ms,
+            "decode_h100_f32_ms_median": med(f32_dec_ms)}
+
+
+def bf16_stack(torch, counters, dev, index: int, name: str, cfg: dict,
+               f32_ms: float) -> dict:
+    """The phase-5 stack (same seed, same weights) rounded to bf16: each
+    block alone and the stack's output held to the gates above, warm
+    forwards in turns with torch_ref bf16."""
+    import statistics
+    from repro_torch.frontends.optimize import optimize
+
+    gen = torch.Generator(dev).manual_seed(100 + index)
+    model = _build_stack(name, cfg, dev, gen)
+    shape = REC_SHAPE_BT + (cfg["d_model"],)
+    x = torch.randn(*shape, device=dev, generator=gen)
+    with torch.no_grad():       # the weights rounded to bf16, held in f32
+        model.to(torch.bfloat16).float()
+    want32 = optimize(model, shape, backend="torch_ref")(
+        x.to(torch.bfloat16).float())
+    model.to(torch.bfloat16)
+    x16 = x.to(torch.bfloat16)
+
+    sol = optimize(model, shape, backend="h100", dtype="bfloat16")
+    by_kind = check_elections(sol, name)
+    y, launches = _bf16_run(torch, counters, name, lambda: sol(x16))
+    _check_finite(torch, name, y, shape)
+    ref = optimize(model, shape, backend="torch_ref", dtype="bfloat16")
+    want = ref(x16)
+    layers = per_layer_errors(torch, model, shape, x16, optimize, "bfloat16")
+    worst = max(layers)
+    _gate(name, f"layer {layers.index(worst)} on h100 differs from "
+          f"torch_ref on the same input by", worst, BF16_ROW[name])
+    err_h, err_r = rel_err(y, want32), rel_err(want, want32)
+    _gate(name, f"the output's distance from torch_ref f32 (torch_ref "
+          f"bf16's: {err_r:.3g}) is", err_h, BF16_FLOOR_FACTOR * err_r)
+    h_ms, r_ms = _in_turns(torch, lambda: sol(x16), lambda: ref(x16))
+    med = statistics.median
+    log(f"[bf16] {name}: elections {by_kind}; launches {launches}; each "
+        f"layer within {worst:.3g} of torch_ref bf16 (row "
+        f"{BF16_ROW[name]}); output from torch_ref f32: h100 bf16 "
+        f"{err_h:.3g}, torch_ref bf16 {err_r:.3g} (limit "
+        f"{BF16_FLOOR_FACTOR:g}x); warm ms: h100 bf16 {med(h_ms):.2f} "
+        f"{[round(v, 2) for v in h_ms]}, torch_ref bf16 {med(r_ms):.2f}, "
+        f"h100 f32 (phase 5) {f32_ms:.2f}")
+    breakdown = profiled(torch, f"{name} bf16 h100 forward",
+                         lambda: sol(x16))
+    out = {"config": cfg, "shape": shape, "elections": by_kind,
+           "device_breakdown": breakdown,
+           "launches": launches, "per_layer_rel_err": layers,
+           "rel_err_f32_h100": err_h, "rel_err_f32_torch_ref": err_r,
+           "floor_factor": BF16_FLOOR_FACTOR, "layer_limit": BF16_ROW[name],
+           "h100_ms": h_ms, "h100_ms_median": med(h_ms),
+           "torch_ref_ms": r_ms, "torch_ref_ms_median": med(r_ms),
+           "h100_f32_ms_median": f32_ms}
+    del model, sol, ref, x, x16, y, want, want32
+    return out
+
+
+def bf16_cnn(torch, counters, dev, f32_ms: float) -> dict:
+    """The phase-6 Listing-3 CNN (same seed, same weights) cast to bf16."""
+    import statistics
+    from repro_torch.frontends.optimize import optimize
+
+    gen = torch.Generator(dev).manual_seed(202)
+    model = _build_cnn(torch, "listing3_cnn", dev, gen)
+    x = torch.randn(*CNN_SHAPE, device=dev, generator=gen)
+    model.to(torch.bfloat16)
+    x16 = x.to(torch.bfloat16)
+    sol = optimize(model, CNN_SHAPE, backend="h100", dtype="bfloat16")
+    by_kind = check_cuda_elected(sol, "listing3_cnn bf16")
+    if by_kind.get("avgpool") != {"cuda.avgpool": 2} or \
+            set(by_kind.get("linear", {})) != {"cuda.linear"}:
+        fail(f"listing3_cnn bf16: elections {by_kind}")
+    for n in sol.graph.topo():
+        if conv_bias_group(n) and n.impl != "ref.compose":
+            fail(f"listing3_cnn bf16: conv bias group {n.name} elected "
+                 f"{n.impl}")
+    y, launches = _bf16_run(torch, counters, "listing3_cnn",
+                            lambda: sol(x16))
+    if launches["avgpool"] != 2:
+        fail(f"listing3_cnn bf16: {launches['avgpool']} avgpool launches")
+    _check_finite(torch, "listing3_cnn", y, (CNN_SHAPE[0], CNN_CLASSES))
+    ref = optimize(model, CNN_SHAPE, backend="torch_ref", dtype="bfloat16")
+    err = rel_err(y, ref(x16))
+    _gate("listing3_cnn", "output differs from torch_ref's by", err,
+          BF16_ROW["listing3_cnn"])
+    h_ms, r_ms = _in_turns(torch, lambda: sol(x16), lambda: ref(x16))
+    med = statistics.median
+    log(f"[bf16] listing3_cnn: elections {by_kind}; launches {launches}; "
+        f"output within {err:.3g} of torch_ref bf16's scale (row "
+        f"{BF16_ROW['listing3_cnn']}); warm ms: h100 bf16 {med(h_ms):.3f} "
+        f"{[round(v, 3) for v in h_ms]}, torch_ref bf16 {med(r_ms):.3f}, "
+        f"h100 f32 (phase 6) {f32_ms:.3f}")
+    breakdown = profiled(torch, "listing3_cnn bf16 h100 forward",
+                         lambda: sol(x16), digits=3)
+    out = {"shape": CNN_SHAPE, "elections": by_kind, "launches": launches,
+           "device_breakdown": breakdown,
+           "rel_err": err, "rel_err_limit": BF16_ROW["listing3_cnn"],
+           "h100_ms": h_ms, "h100_ms_median": med(h_ms),
+           "torch_ref_ms": r_ms, "torch_ref_ms_median": med(r_ms),
+           "h100_f32_ms_median": f32_ms}
+    del model, sol, ref, x, x16, y
+    return out
+
+
+def phase_bf16(torch, counters, dev, recurrent, cnn) -> dict:
+    """The four paths with bf16 weights and inputs through
+    ``optimize(..., dtype="bfloat16", backend="h100")`` at the f32 phases'
+    widths."""
+    import gc
+    results = {"transformer": bf16_transformer(torch, counters, dev)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    for i, (name, cfg) in enumerate(STACKS):
+        results[name] = bf16_stack(torch, counters, dev, i, name, cfg,
+                                   recurrent[name]["h100_ms_median"])
+        gc.collect()
+        torch.cuda.empty_cache()
+    results["listing3_cnn"] = bf16_cnn(
+        torch, counters, dev, cnn["listing3_cnn"]["h100_ms_median"])
+    gc.collect()
+    torch.cuda.empty_cache()
     return results
 
 
@@ -1149,40 +1552,51 @@ def main() -> int:
     cnn_counters = {**mm, "dfp_fused": dfp_fused_triton,
                     "avgpool": avgpool_cuda}
     cnn = phase_cnn(torch, cnn_counters, torch.device("cuda"))
+    bf16_counters = {**mm, "flash_attention": flash_attention_cuda,
+                     "decode_attention": decode_attention_cuda,
+                     "dfp_fused": dfp_fused_triton,
+                     "rglru_scan": rglru_scan_cuda,
+                     "rwkv6_scan": rwkv6_scan_cuda, "avgpool": avgpool_cuda}
+    bf16 = phase_bf16(torch, bf16_counters, torch.device("cuda"), recurrent,
+                      cnn)
 
     # launches per main path: the served set and one forward of each stack
-    # and each CNN
+    # and each CNN in f32; the bf16 paths' runs for the bf16 entries
     by_path = {"serve": serve["launches"]}
     by_path.update({name: r["launches"] for name, r in recurrent.items()})
     by_path.update({name: r["launches"] for name, r in cnn.items()})
+    bf16_by_path = {name: r["launches"] for name, r in bf16.items()}
     line = []
-    # one entry per kernel: the matmul rows by the kernel their plan picked
+    # one entry per kernel and dtype (f32, and bf16 with the suffix _bf16):
+    # the matmul rows by the kernel their plan picked
     kernel_rows = {"matmul_tc": ("matmul", "tensor_core"),
                    "matmul_skinny": ("matmul", "skinny")}
-    for name in ["matmul_tc", "matmul_skinny", "flash_attention",
-                 "decode_attention", "dfp_fused", "rglru_scan", "rwkv6_scan",
-                 "avgpool"]:
-        case, kernel = kernel_rows.get(name, (name, None))
-        rows = [c for c in kern["cases"] if c["name"] == case
-                and c.get("kernel") == kernel]
-        rep = rows[0]
-        paths = {p: n[name] for p, n in by_path.items() if n.get(name)}
-        entry = {
-            "name": name, "route": rep["route"], "source": rep["source"],
-            "replaces": rep["replaces"],
-            "launches": sum(paths.values()), "launches_by_path": paths,
-            "max_abs_err": max(c["max_abs_err"] for c in rows),
-            "ms": rep["ms"], "plain_ms": rep["plain_ms"],
-            "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
-            "library_ms": rep["library_ms"], "shape": rep["shape"],
-            "launch_ms": rep["launch_ms"]}
-        line.append(entry)
+    for dtype, suffix, paths_of in (("float32", "", by_path),
+                                    ("bfloat16", "_bf16", bf16_by_path)):
+        for name in ["matmul_tc", "matmul_skinny", "flash_attention",
+                     "decode_attention", "dfp_fused", "rglru_scan",
+                     "rwkv6_scan", "avgpool"]:
+            case, kernel = kernel_rows.get(name, (name, None))
+            rows = [c for c in kern["cases"] if c["name"] == case
+                    and c.get("kernel") == kernel and c["dtype"] == dtype]
+            rep = rows[0]
+            paths = {p: n[name] for p, n in paths_of.items() if n.get(name)}
+            entry = {
+                "name": name + suffix, "dtype": dtype, "route": rep["route"],
+                "source": rep["source"], "replaces": rep["replaces"],
+                "launches": sum(paths.values()), "launches_by_path": paths,
+                "max_abs_err": max(c["max_abs_err"] for c in rows),
+                "ms": rep["ms"], "plain_ms": rep["plain_ms"],
+                "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
+                "library_ms": rep["library_ms"], "shape": rep["shape"],
+                "launch_ms": rep["launch_ms"]}
+            line.append(entry)
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
         {"nvidia_smi": smi, "build_log": build.BUILD_LOG,
          "build_digest": {n: build.digest(n) for n in build.BUILD_LOG},
          "kernels": kern["cases"], "serve": serve,
-         "recurrent": recurrent, "cnn": cnn,
+         "recurrent": recurrent, "cnn": cnn, "bf16": bf16,
          "seconds": time.perf_counter() - t_start},
         indent=1, default=str))
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")

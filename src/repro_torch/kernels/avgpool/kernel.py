@@ -10,29 +10,20 @@ import ctypes
 
 import torch
 
-from .. import build
+from .. import build, dtypes
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ARGTYPES = [_P, _P] + [_I] * 6 + [_P]
 
 
-def _lib() -> ctypes.CDLL:
-    lib = build.library("avgpool")
-    fn = lib.sol_avgpool_f32
-    if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES
-        fn.restype = ctypes.c_int
-    return lib
-
-
 def avgpool_cuda(x: torch.Tensor, kh: int = 3, kw: int = 3) -> torch.Tensor:
-    """Stride-1 VALID kh×kw mean.  x: (N, C, H, W) float32, contiguous, on
-    a CUDA device → (N, C, H-kh+1, W-kw+1)."""
+    """Stride-1 VALID kh×kw mean.  x: (N, C, H, W) in float32, bfloat16
+    or float16, contiguous, on a CUDA device → (N, C, H-kh+1, W-kw+1) in
+    x's dtype; the sum is taken in f32, divided, then rounded once."""
     if not x.is_cuda:
         raise ValueError("avgpool_cuda wants x on a CUDA device")
-    if x.dtype != torch.float32:
-        raise TypeError(f"avgpool_cuda takes float32, got {x.dtype}")
+    sfx = dtypes.suffix("avgpool_cuda", x)
     if x.dim() != 4:
         raise ValueError(f"avgpool_cuda wants (N, C, H, W), got "
                          f"{tuple(x.shape)}")
@@ -44,10 +35,11 @@ def avgpool_cuda(x: torch.Tensor, kh: int = 3, kw: int = 3) -> torch.Tensor:
                          f"{h}x{w}")
     y = torch.empty(n, c, h - kh + 1, w - kw + 1, dtype=x.dtype,
                     device=x.device)
-    lib = _lib()
-    err = lib.sol_avgpool_f32(x.data_ptr(), y.data_ptr(), n, c, h, w, kh, kw,
-                              torch.cuda.current_stream(x.device).cuda_stream)
-    build.check(lib, err, "sol_avgpool_f32")
+    name = f"sol_avgpool_{sfx}"
+    lib, fn = build.entry("avgpool", name, _ARGTYPES)
+    err = fn(x.data_ptr(), y.data_ptr(), n, c, h, w, kh, kw,
+             torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(lib, err, name)
     avgpool_cuda.launches += 1
     return y
 

@@ -3,8 +3,9 @@
 ``cuda.avgpool`` sits at the shared tier gated on ``"cuda"``, where
 ``pallas.avgpool`` sits in the JAX package; AVGPOOL's reference tier is the
 executor's ``F.avg_pool2d`` lowering.  The kernel covers rank-4 NCHW,
-stride 1, VALID, float32; ``supports`` refuses the rest, so such a node
-elects the reference tier visibly, in ``impl_report``.  The JAX impl's
+stride 1, VALID, in float32, bfloat16 or float16 (``kernels/dtypes.py``);
+``supports`` refuses the rest, so such a node elects the reference tier
+visibly, in ``impl_report``.  The JAX impl's
 ``avgpool_block`` Tunable waits for measured election on the card.
 """
 from __future__ import annotations
@@ -15,6 +16,7 @@ import torch
 
 from ...backends import registry
 from ...core.ir import Node, OpKind
+from ..dtypes import same_float
 from .kernel import avgpool_cuda
 from .ref import avgpool_ref
 
@@ -37,7 +39,7 @@ def _supports(n: Node) -> bool:
     s = n.attrs.get("stride", k)
     return (len(n.spec.shape) == 4 and s in (1, (1, 1))
             and (isinstance(k, int) or len(k) == 2)
-            and n.spec.dtype == "float32")
+            and same_float(n))
 
 
 def _avgpool_impl(n: Node, vals: Sequence[torch.Tensor],

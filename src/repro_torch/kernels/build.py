@@ -115,6 +115,17 @@ def library(name: str) -> ctypes.CDLL:
         return _libs[name]
 
 
+def entry(name: str, fn_name: str, argtypes) -> tuple:
+    """(library, function) of the export ``fn_name`` of ``csrc/<name>.cu``,
+    its argument types set at first use."""
+    lib = library(name)
+    fn = getattr(lib, fn_name)
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib, fn
+
+
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:
     """Raise on a non-zero ``cudaError_t`` returned by a launch."""
     if err != 0:

@@ -1,4 +1,5 @@
-// Single-token decode attention for Hopper, f32, SIMT.
+// Single-token decode attention for Hopper, SIMT; f32, bf16 and f16
+// storage.
 //
 // Replaces: src/repro/kernels/decode_attention/kernel.py,
 // decode_attention_call (the Pallas kernel behind pallas.decode_attention).
@@ -8,10 +9,13 @@
 // (k_new, v_new) pair at position lens[b] is folded into the softmax.  The
 // operands are the node's tensors, read through their strides: q (B,1,H,hd),
 // cache k/v (B,S,KV,hd), k_new/v_new (B,1,KV,hd), lens (B,) int32; the
-// output (B,1,H,hd) is contiguous.
+// output (B,1,H,hd) is contiguous.  q, the cache, k_new, v_new and o share
+// one storage type T, read in T and converted to f32 as they are staged;
+// scores, softmax and accumulator are f32, and o is rounded once to T at
+// its store (JAX's decode_attention/kernel.py:44-91).  lens is int32.
 //
 // What bounds it on this card: reading the valid cache rows once (2 * len
-// * hd floats per kv head) — a few FLOPs per byte, so memory-bound.
+// * hd elements of T per kv head) — a few FLOPs per byte, so memory-bound.
 // Design: one block per (b, kv head), 128 threads, covering the whole group
 // of H/KV query heads, so every cache row is read once for all of them.
 // The loop stops at lens[b]: bucket padding past it is never read, and
@@ -33,12 +37,12 @@ constexpr int BK = 64;      // cache rows per tile
 constexpr int NT = 128;     // threads: 4 warps
 constexpr int NW = NT / 32;
 
-template <int HD>
+template <typename T, int HD>
 __global__ void __launch_bounds__(NT)
-decode_kernel(const float* __restrict__ q, const float* __restrict__ k,
-              const float* __restrict__ v, const float* __restrict__ kn,
-              const float* __restrict__ vn, const int* __restrict__ lens,
-              float* __restrict__ o, int S, int H, int G, long long q_sb,
+decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
+              const T* __restrict__ v, const T* __restrict__ kn,
+              const T* __restrict__ vn, const int* __restrict__ lens,
+              T* __restrict__ o, int S, int H, int G, long long q_sb,
               long long q_sh, long long k_sb, long long k_ss, long long k_sh,
               long long v_sb, long long v_ss, long long v_sh,
               long long kn_sb, long long kn_sh, long long vn_sb,
@@ -58,12 +62,12 @@ decode_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int kvh = blockIdx.x, b = blockIdx.y;
   const int h0 = kvh * G;
   const int L = min(max(lens[b], 0), S);
-  const float* kb = k + b * k_sb + kvh * k_sh;
-  const float* vb = v + b * v_sb + kvh * v_sh;
+  const T* kb = k + b * k_sb + kvh * k_sh;
+  const T* vb = v + b * v_sb + kvh * v_sh;
 
   for (int e = tid; e < G * HD; e += NT) {
     const int g = e / HD, d = e % HD;
-    Qs[e] = q[b * q_sb + (h0 + g) * q_sh + d] * scale;
+    Qs[e] = to_f32(q[b * q_sb + (h0 + g) * q_sh + d]) * scale;
     Os[e] = 0.f;
   }
   if (tid < G) {
@@ -79,8 +83,8 @@ decode_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int e = tid; e < BK * HD; e += NT) {
       const int c = e / HD, d = e % HD;
       const bool in = k0 + c < L;
-      Ks[c * KP + d] = in ? kb[(k0 + c) * k_ss + d] : 0.f;
-      Vs[c * HD + d] = in ? vb[(k0 + c) * v_ss + d] : 0.f;
+      Ks[c * KP + d] = in ? to_f32(kb[(k0 + c) * k_ss + d]) : 0.f;
+      Vs[c * HD + d] = in ? to_f32(vb[(k0 + c) * v_ss + d]) : 0.f;
     }
     __syncthreads();
     for (int e = tid; e < G * BK; e += NT) {
@@ -135,11 +139,12 @@ decode_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 
   // fold in the new (k, v) pair at position L: distance 0, always visible
-  const float* knb = kn + b * kn_sb + kvh * kn_sh;
-  const float* vnb = vn + b * vn_sb + kvh * vn_sh;
+  const T* knb = kn + b * kn_sb + kvh * kn_sh;
+  const T* vnb = vn + b * vn_sb + kvh * vn_sh;
   for (int g = warp; g < G; g += NW) {
     float x = 0.f;
-    for (int d = lane; d < HD; d += 32) x = fmaf(Qs[g * HD + d], knb[d], x);
+    for (int d = lane; d < HD; d += 32)
+      x = fmaf(Qs[g * HD + d], to_f32(knb[d]), x);
 #pragma unroll
     for (int off = 16; off; off >>= 1)
       x += __shfl_xor_sync(0xffffffffu, x, off);
@@ -149,15 +154,15 @@ decode_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const float corr = expf(m - m_fin);       // 0 when m = -inf
     const float pn = expf(x - m_fin);
     const float inv = 1.f / fmaxf(Lrow[g] * corr + pn, 1e-30f);
-    float* ob = o + ((long long)b * H + h0 + g) * HD;
+    T* ob = o + ((long long)b * H + h0 + g) * HD;
     for (int d = lane; d < HD; d += 32)
-      ob[d] = (Os[g * HD + d] * corr + pn * vnb[d]) * inv;
+      ob[d] = from_f32<T>((Os[g * HD + d] * corr + pn * to_f32(vnb[d])) * inv);
   }
 }
 
-template <int HD>
-int launch(const float* q, const float* k, const float* v, const float* kn,
-           const float* vn, const int* lens, float* o, int B, int S, int H,
+template <typename T, int HD>
+int launch(const T* q, const T* k, const T* v, const T* kn, const T* vn,
+           const int* lens, T* o, int B, int S, int H,
            int KV, long long q_sb, long long q_sh, long long k_sb,
            long long k_ss, long long k_sh, long long v_sb, long long v_ss,
            long long v_sh, long long kn_sb, long long kn_sh,
@@ -167,30 +172,28 @@ int launch(const float* q, const float* k, const float* v, const float* kn,
   const size_t smem = sizeof(float) *
       (2 * G * HD + BK * (HD + 1) + BK * HD + G * BK + 3 * G);
   cudaError_t err = cudaFuncSetAttribute(
-      decode_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      decode_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid(KV, B);
-  decode_kernel<HD><<<grid, NT, smem, stream>>>(
+  decode_kernel<T, HD><<<grid, NT, smem, stream>>>(
       q, k, v, kn, vn, lens, o, S, H, G, q_sb, q_sh, k_sb, k_ss, k_sh, v_sb,
       v_ss, v_sh, kn_sb, kn_sh, vn_sb, vn_sh, window, cap,
       1.f / sqrtf((float)HD));
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
-
-SOL_EXPORT int sol_decode_attention_f32(
-    const float* q, const float* k, const float* v, const float* kn,
-    const float* vn, const int* lens, float* o, int B, int S, int H, int KV,
-    int hd, long long q_sb, long long q_sh, long long k_sb, long long k_ss,
-    long long k_sh, long long v_sb, long long v_ss, long long v_sh,
-    long long kn_sb, long long kn_sh, long long vn_sb, long long vn_sh,
-    int window, float cap, void* stream) {
+template <typename T>
+int dispatch(const T* q, const T* k, const T* v, const T* kn, const T* vn,
+             const int* lens, T* o, int B, int S, int H, int KV, int hd,
+             long long q_sb, long long q_sh, long long k_sb, long long k_ss,
+             long long k_sh, long long v_sb, long long v_ss, long long v_sh,
+             long long kn_sb, long long kn_sh, long long vn_sb,
+             long long vn_sh, int window, float cap, void* stream) {
   if (B == 0 || H == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define SOL_DECODE(HD_)                                                     \
-  return launch<HD_>(q, k, v, kn, vn, lens, o, B, S, H, KV, q_sb, q_sh,     \
+  return launch<T, HD_>(q, k, v, kn, vn, lens, o, B, S, H, KV, q_sb, q_sh,  \
                      k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, kn_sb, kn_sh,       \
                      vn_sb, vn_sh, window, cap, s)
   switch (hd) {
@@ -202,3 +205,22 @@ SOL_EXPORT int sol_decode_attention_f32(
   }
 #undef SOL_DECODE
 }
+
+}  // namespace
+
+// sol_decode_attention_f32, _bf16 and _f16: q, the cache, k_new, v_new and
+// o in that type, lens int32
+#define SOL_DECODE_ENTRY(T, SUFFIX)                                          \
+  SOL_EXPORT int sol_decode_attention_##SUFFIX(                              \
+      const T* q, const T* k, const T* v, const T* kn, const T* vn,          \
+      const int* lens, T* o, int B, int S, int H, int KV, int hd,            \
+      long long q_sb, long long q_sh, long long k_sb, long long k_ss,        \
+      long long k_sh, long long v_sb, long long v_ss, long long v_sh,        \
+      long long kn_sb, long long kn_sh, long long vn_sb, long long vn_sh,    \
+      int window, float cap, void* stream) {                                 \
+    return dispatch<T>(q, k, v, kn, vn, lens, o, B, S, H, KV, hd, q_sb,      \
+                       q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, kn_sb,      \
+                       kn_sh, vn_sb, vn_sh, window, cap, stream);            \
+  }
+SOL_FOR_EACH_DTYPE(SOL_DECODE_ENTRY)
+#undef SOL_DECODE_ENTRY

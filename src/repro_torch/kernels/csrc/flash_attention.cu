@@ -1,4 +1,5 @@
-// Causal GQA flash attention forward for Hopper, f32, SIMT.
+// Causal GQA flash attention forward for Hopper, SIMT; f32, bf16 and f16
+// storage.
 //
 // Replaces: src/repro/kernels/flash_attention/kernel.py,
 // flash_attention_call (the Pallas kernel behind pallas.flash_attention).
@@ -8,7 +9,12 @@
 // tensors, read and written through their strides, so no transpose or pad
 // copy is made.  The kv loop is bounded by causality (tiles past the last
 // query row of the block are never loaded) and by the window; padded keys
-// (position >= S) are masked; a tanh softcap applies when cap > 0.
+// (position >= S) are masked; a tanh softcap applies when cap > 0.  q, k, v
+// and o share one storage type T: each element is converted to f32 as it
+// is staged into shared memory, the scores, softmax and accumulator are
+// f32, and o is rounded once to T at its store (JAX's
+// flash_attention/kernel.py:38-79).  The tiles stay f32 in shared memory,
+// so one layout serves the three types.
 //
 // What bounds it on this card: 4*B*H*S^2*hd FLOPs against reading q, k, v
 // and writing o once — at the serving prefill (B 4, S 128, H 12, hd 128)
@@ -39,10 +45,10 @@ struct Strides {           // element strides of a BSHD tensor (d stride 1)
   long long b, s, h;
 };
 
-template <int HD>
+template <typename T, int HD>
 __global__ void __launch_bounds__(NT)
-flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ o,
+flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, T* __restrict__ o,
                  Strides qs, Strides ks, Strides vs, Strides os, int H,
                  int group, int S, int causal, int window, float cap,
                  float scale) {
@@ -62,13 +68,14 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int kvh = h / group;
   const int q0 = qt * BQ;
-  const float* qb = q + b * qs.b + h * qs.h;
-  const float* kb = k + b * ks.b + kvh * ks.h;
-  const float* vb = v + b * vs.b + kvh * vs.h;
+  const T* qb = q + b * qs.b + h * qs.h;
+  const T* kb = k + b * ks.b + kvh * ks.h;
+  const T* vb = v + b * vs.b + kvh * vs.h;
 
   for (int e = tid; e < BQ * HD; e += NT) {
     const int r = e / HD, d = e % HD;
-    Qs[r * QP + d] = (q0 + r < S) ? qb[(q0 + r) * qs.s + d] * scale : 0.f;
+    Qs[r * QP + d] =
+        (q0 + r < S) ? to_f32(qb[(q0 + r) * qs.s + d]) * scale : 0.f;
   }
   if (tid < BQ) {
     Mrow[tid] = -INFINITY;
@@ -93,8 +100,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int e = tid; e < BKV * HD; e += NT) {
       const int c = e / HD, d = e % HD;
       const bool in = k0 + c < S;
-      Ks[c * QP + d] = in ? kb[(k0 + c) * ks.s + d] : 0.f;
-      Vs[c * HD + d] = in ? vb[(k0 + c) * vs.s + d] : 0.f;
+      Ks[c * QP + d] = in ? to_f32(kb[(k0 + c) * ks.s + d]) : 0.f;
+      Vs[c * HD + d] = in ? to_f32(vb[(k0 + c) * vs.s + d]) : 0.f;
     }
     __syncthreads();
 
@@ -188,55 +195,76 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     __syncthreads();
   }
 
-  float* ob = o + b * os.b + h * os.h;
+  T* ob = o + b * os.b + h * os.h;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = ty + 16 * i;
     if (q0 + r >= S) continue;
     const float inv = 1.f / fmaxf(Lrow[r], 1e-30f);
 #pragma unroll
-    for (int j = 0; j < TD; ++j) ob[(q0 + r) * os.s + tx + 16 * j] = acc[i][j] * inv;
+    for (int j = 0; j < TD; ++j)
+      ob[(q0 + r) * os.s + tx + 16 * j] = from_f32<T>(acc[i][j] * inv);
   }
 }
 
-template <int HD>
-int launch(const float* q, const float* k, const float* v, float* o,
+template <typename T, int HD>
+int launch(const T* q, const T* k, const T* v, T* o,
            Strides qs, Strides ks, Strides vs, Strides os, int B, int H,
            int KV, int S, int causal, int window, float cap,
            cudaStream_t stream) {
   const size_t smem = sizeof(float) *
       (BQ * (HD + 1) + BKV * (HD + 1) + BKV * HD + BQ * (BKV + 1) + 3 * BQ);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid((S + BQ - 1) / BQ, H, B);
   const float scale = 1.f / sqrtf((float)HD);
-  flash_fwd_kernel<HD><<<grid, NT, smem, stream>>>(
+  flash_fwd_kernel<T, HD><<<grid, NT, smem, stream>>>(
       q, k, v, o, qs, ks, vs, os, H, H / KV, S, causal, window, cap, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
-
-// q (B,S,H,hd), k/v (B,S,KV,hd), o (B,S,H,hd); strides in elements, the
-// hd stride 1.  Returns a cudaError_t (cudaErrorInvalidValue for an hd the
-// kernel is not instantiated for).
-SOL_EXPORT int sol_flash_attention_f32(
-    const float* q, const float* k, const float* v, float* o, int B, int S,
-    int H, int KV, int hd, long long q_sb, long long q_ss, long long q_sh,
-    long long k_sb, long long k_ss, long long k_sh, long long v_sb,
-    long long v_ss, long long v_sh, long long o_sb, long long o_ss,
-    long long o_sh, int causal, int window, float cap, void* stream) {
+template <typename T>
+int dispatch(const T* q, const T* k, const T* v, T* o, int B, int S, int H,
+             int KV, int hd, long long q_sb, long long q_ss, long long q_sh,
+             long long k_sb, long long k_ss, long long k_sh, long long v_sb,
+             long long v_ss, long long v_sh, long long o_sb, long long o_ss,
+             long long o_sh, int causal, int window, float cap,
+             void* stream) {
   if (B == 0 || S == 0 || H == 0) return 0;
   const Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh},
       vs{v_sb, v_ss, v_sh}, os{o_sb, o_ss, o_sh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define SOL_HD(HD_) \
+  return launch<T, HD_>(q, k, v, o, qs, ks, vs, os, B, H, KV, S, causal, \
+                        window, cap, s)
   switch (hd) {
-    case 16: return launch<16>(q, k, v, o, qs, ks, vs, os, B, H, KV, S, causal, window, cap, s);
-    case 32: return launch<32>(q, k, v, o, qs, ks, vs, os, B, H, KV, S, causal, window, cap, s);
-    case 64: return launch<64>(q, k, v, o, qs, ks, vs, os, B, H, KV, S, causal, window, cap, s);
-    case 128: return launch<128>(q, k, v, o, qs, ks, vs, os, B, H, KV, S, causal, window, cap, s);
+    case 16: SOL_HD(16);
+    case 32: SOL_HD(32);
+    case 64: SOL_HD(64);
+    case 128: SOL_HD(128);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+#undef SOL_HD
 }
+
+}  // namespace
+
+// sol_flash_attention_f32, _bf16 and _f16: q (B,S,H,hd), k/v (B,S,KV,hd),
+// o (B,S,H,hd), all in that type; strides in elements, the hd stride 1.
+// Returns a cudaError_t (cudaErrorInvalidValue for an hd the kernel is not
+// instantiated for).
+#define SOL_FLASH(T, SUFFIX)                                                 \
+  SOL_EXPORT int sol_flash_attention_##SUFFIX(                               \
+      const T* q, const T* k, const T* v, T* o, int B, int S, int H, int KV, \
+      int hd, long long q_sb, long long q_ss, long long q_sh, long long k_sb, \
+      long long k_ss, long long k_sh, long long v_sb, long long v_ss,        \
+      long long v_sh, long long o_sb, long long o_ss, long long o_sh,        \
+      int causal, int window, float cap, void* stream) {                     \
+    return dispatch<T>(q, k, v, o, B, S, H, KV, hd, q_sb, q_ss, q_sh, k_sb,  \
+                       k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh,       \
+                       causal, window, cap, stream);                         \
+  }
+SOL_FOR_EACH_DTYPE(SOL_FLASH)
+#undef SOL_FLASH

@@ -1,11 +1,14 @@
-// f32 matrix products for Hopper: a tensor-core kernel for the large
-// products and a bandwidth-bound kernel for the skinny ones.
+// Matrix products for Hopper in f32, bf16 and f16 storage: a tensor-core
+// kernel for the large products and a bandwidth-bound kernel for the
+// skinny ones.
 //
 // Replaces: src/repro/kernels/matmul/kernel.py, matmul_call (the Pallas
 // MXU matmul behind pallas.linear_mxu and pallas.matmul_mxu).
 //
-// Computes C(M,N) = A(M,K) @ B(K,N), f32 in and out, to f32 accuracy.  A
-// is row-major with row stride lda.  B element (k,n) sits at
+// Computes C(M,N) = A(M,K) @ B(K,N) with A, B and C in one storage type T
+// and an f32 accumulator, rounded once to T at the store (JAX's
+// matmul/kernel.py:78,82).  In f32 the product is f32-accurate.  A is
+// row-major with row stride lda.  B element (k,n) sits at
 // B[k*ldb_k + n*ldb_n] with ldb_k == 1 (a Linear weight stored (out,in) =
 // (N,K), read in place as its transpose: the 233 M-float LM head is never
 // copied) or ldb_n == 1 (an (in,out) weight).  The host picks the kernel,
@@ -55,8 +58,29 @@
 // their partials in shared memory in a fixed order.  N <= 16 runs as the
 // transposed product C^T = B^T A^T, so x is the streamed operand.
 //
-// Split K writes partial sums to a workspace; reduce_splits adds them in
-// split order, so the result does not depend on scheduling.
+// bf16 and f16 (T of 2 bytes) take the same two kernels with one change
+// each.  The tensor-core kernel makes one TF32 pass instead of three: a
+// bf16 or f16 value is exact in TF32 (8 and 11 significant bits of TF32's
+// 11), so the small halves of 3xTF32 are zero, and each product of two
+// such values is exact in the f32 accumulator; the second accumulator tile
+// is still promoted every 4 slabs, since the tensor cores' accumulation
+// truncates as K grows.  The raw slabs hold T, so a 16-byte copy moves 8
+// values; A's fragments are read from them by plain loads and widened to
+// f32, and B is widened into the K-major TF32 tile (the "big" half) with
+// no split.  Its ceiling is TF32's 495 TFLOP/s, half the 989 of native
+// 16-bit wgmma, which would also read an (in,out) B without the widening
+// pass: later work.  The skinny kernel widens the small operand into its
+// f32 shared-memory copy and streams the large one in T, half the bytes of
+// f32; its 16-byte loads stay packed until their FMAs, and below 8 rows a
+// warp walks two columns at once, so a lane keeps as many bytes in flight
+// as in f32.  Copies move 16 bytes (8 values) where the base and row stride are
+// 16-byte aligned, else 4 (2 values) where they are 4-byte aligned, else 2
+// bytes, one value at a time: cp.async has no 2-byte form, so that path
+// loads and stores through registers.  plan() picks the width.
+//
+// Split K writes f32 partial sums to a workspace; reduce_splits adds them
+// in split order, so the result does not depend on scheduling, and rounds
+// the sum once to T.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -73,20 +97,56 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// VEC floats from src to dst; the first `valid` come from src, the rest
-// are zeros (valid 0 reads nothing)
-template <int VEC>
-__device__ __forceinline__ void cp_async(float* dst, const float* src,
-                                         int valid) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  const int bytes = 4 * valid;
-  if constexpr (VEC == 4) {
+// VEC values of T from src to dst; the first `valid` come from src, the
+// rest are zeros (valid 0 reads nothing).  16 and 4 bytes go through
+// cp.async; 2 bytes (one bf16 or f16 value) through a register, visible to
+// the block after the barrier that follows the copy's wait.
+template <typename T, int VEC>
+__device__ __forceinline__ void cp_async(T* dst, const T* src, int valid) {
+  constexpr int BYTES = VEC * static_cast<int>(sizeof(T));
+  const int bytes = static_cast<int>(sizeof(T)) * valid;
+  if constexpr (BYTES == 16) {
+    const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
                  "l"(src), "r"(bytes));
-  } else {
+  } else if constexpr (BYTES == 4) {
+    const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
     asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
                  "l"(src), "r"(bytes));
+  } else {
+    static_assert(BYTES == 2, "copies of 16, 4 or 2 bytes");
+    const unsigned short v =
+        valid > 0 ? *reinterpret_cast<const unsigned short*>(src) : 0;
+    *reinterpret_cast<unsigned short*>(dst) = v;
   }
+}
+
+// a bf16 or f16 value from its bits
+template <typename T>
+__device__ __forceinline__ float half_bits(unsigned short b);
+template <>
+__device__ __forceinline__ float half_bits<__nv_bfloat16>(unsigned short b) {
+  return __uint_as_float(static_cast<uint32_t>(b) << 16);
+}
+template <>
+__device__ __forceinline__ float half_bits<__half>(unsigned short b) {
+  return __half2float(__ushort_as_half(b));
+}
+
+// the two values of T packed in w, the one at the lower address first
+template <typename T>
+__device__ __forceinline__ void unpack2(uint32_t w, float& lo, float& hi) {
+  lo = half_bits<T>(static_cast<unsigned short>(w & 0xFFFFu));
+  hi = half_bits<T>(static_cast<unsigned short>(w >> 16));
+}
+
+// one value of T from global memory (read-only path), widened to f32
+template <typename T>
+__device__ __forceinline__ float ld1(const T* p) {
+  if constexpr (sizeof(T) == 4)
+    return __ldg(p);
+  else
+    return half_bits<T>(__ldg(reinterpret_cast<const unsigned short*>(p)));
 }
 
 // four 8x4 f32 matrices from shared memory, lane l giving the address of
@@ -115,86 +175,116 @@ namespace tc {
 constexpr int BM = 128, BN = 128, BK = 32, STAGES = 4, NT = 256;
 constexpr int PROMOTE = 4;            // slabs summed into `part` at a time
 constexpr int GROUP_M = 8;            // tile rows walked together
-constexpr int LDK = BK + 4;           // row stride of a K-contiguous tile
-constexpr int LDN = BN + 8;           // row stride of an N-contiguous tile
-constexpr int A_FLOATS = BM * LDK;
-// B's split halves for one slab, each in wgmma's K-major layout without
+// B's TF32 halves for one slab, each in wgmma's K-major layout without
 // swizzle: 8x4 "core matrices" of 128 contiguous bytes (8 n rows of 4 k),
 // the two k halves of a k step KHALF_BYTES apart, the 16 groups of 8 n
 // NGROUP_BYTES apart, the four k steps STEP_BYTES apart
 constexpr int SPLIT_FLOATS = BN * BK;
 constexpr int KHALF_BYTES = 128, NGROUP_BYTES = 256, STEP_BYTES = 4096;
 
-template <bool B_KMAJOR>
-__host__ __device__ constexpr int stage_floats() {
-  return A_FLOATS + (B_KMAJOR ? BN * LDK : BK * LDN);
+// The raw slab of one stage, in T: A (BM rows of BK, K-contiguous) and B
+// (BN rows of BK, or BK rows of BN).  Rows are padded by 16 bytes (4
+// floats or 8 half values; N-contiguous rows by 8 values), so reading them
+// is free of bank conflicts and every row starts 16-byte aligned.
+template <typename T>
+struct Raw {
+  static constexpr int LDK = BK + 16 / static_cast<int>(sizeof(T));
+  static constexpr int LDN = BN + 8;
+  static constexpr int A_ELEMS = BM * LDK;
+  template <bool B_KMAJOR>
+  __host__ __device__ static constexpr int stage_elems() {
+    return A_ELEMS + (B_KMAJOR ? BN * LDK : BK * LDN);
+  }
+};
+
+// f32 keeps B's big and small halves, bf16 and f16 the big one only; each
+// double-buffered
+template <typename T>
+__host__ __device__ constexpr int halves() {
+  return sizeof(T) == 4 ? 2 : 1;
 }
 
-template <bool B_KMAJOR>
+template <typename T, bool B_KMAJOR>
 __host__ __device__ constexpr int smem_bytes() {
-  return (STAGES * stage_floats<B_KMAJOR>() + 4 * SPLIT_FLOATS) * 4;
+  return STAGES * Raw<T>::template stage_elems<B_KMAJOR>() *
+             static_cast<int>(sizeof(T)) +
+         2 * halves<T>() * SPLIT_FLOATS * 4;
 }
 
 // 128 rows x BK of a K-contiguous operand: element (r, k) at G[r*ld + k]
-template <int VEC>
-__device__ __forceinline__ void load_k_tile(float* s, const float* G,
-                                            long long ld, int r0, int rows,
-                                            int k0, int k_end) {
+template <typename T, int VEC>
+__device__ __forceinline__ void load_k_tile(T* s, const T* G, long long ld,
+                                            int r0, int rows, int k0,
+                                            int k_end) {
   constexpr int PER_ROW = BK / VEC;
+  constexpr int LDK = Raw<T>::LDK;
   for (int e = threadIdx.x; e < 128 * PER_ROW; e += NT) {
     const int r = e / PER_ROW, kk = (e % PER_ROW) * VEC;
     const int gr = r0 + r, gk = k0 + kk;
     const int valid = gr < rows ? max(0, min(VEC, k_end - gk)) : 0;
-    cp_async<VEC>(s + r * LDK + kk,
-                  valid > 0 ? G + (long long)gr * ld + gk : G, valid);
+    cp_async<T, VEC>(s + r * LDK + kk,
+                     valid > 0 ? G + (long long)gr * ld + gk : G, valid);
   }
 }
 
 // BK x BN of B with unit column stride: element (k, n) at B[k*ldb_k + n]
-template <int VEC>
-__device__ __forceinline__ void load_n_tile(float* s, const float* B,
-                                            long long ldb_k, int n0, int N,
-                                            int k0, int k_end) {
+template <typename T, int VEC>
+__device__ __forceinline__ void load_n_tile(T* s, const T* B, long long ldb_k,
+                                            int n0, int N, int k0,
+                                            int k_end) {
   constexpr int PER_ROW = BN / VEC;
+  constexpr int LDN = Raw<T>::LDN;
   for (int e = threadIdx.x; e < BK * PER_ROW; e += NT) {
     const int kk = e / PER_ROW, nn = (e % PER_ROW) * VEC;
     const int gk = k0 + kk, gn = n0 + nn;
     const int valid = gk < k_end ? max(0, min(VEC, N - gn)) : 0;
-    cp_async<VEC>(s + kk * LDN + nn,
-                  valid > 0 ? B + (long long)gk * ldb_k + gn : B, valid);
+    cp_async<T, VEC>(s + kk * LDN + nn,
+                     valid > 0 ? B + (long long)gk * ldb_k + gn : B, valid);
   }
 }
 
-// Split the slab's B tile (raw f32, either layout) into its big and small
-// TF32 halves in wgmma's layout.  Each thread takes 4 runs of 4 k for one
-// n; neighbouring threads take neighbouring n, so a quarter warp writes
-// one whole core matrix.
-template <bool B_KMAJOR>
-__device__ __forceinline__ void split_b(const float* Bs, float* big,
+// Bring the slab's raw B tile (either layout) into wgmma's layout as TF32:
+// f32 splits into big and small halves, bf16 and f16 widen exactly into
+// the big half alone.  Each thread takes 4 runs of 4 k for one n;
+// neighbouring threads take neighbouring n, so a quarter warp writes one
+// whole core matrix.
+template <typename T, bool B_KMAJOR>
+__device__ __forceinline__ void split_b(const T* Bs, float* big,
                                         float* small) {
 #pragma unroll
   for (int q = threadIdx.x; q < BN * BK / 4; q += NT) {
     const int n = q % BN, k = (q / BN) * 4;
     float v[4];
-    if constexpr (B_KMAJOR) {
-      const float4 r = *reinterpret_cast<const float4*>(Bs + n * LDK + k);
+    if constexpr (B_KMAJOR && sizeof(T) == 4) {
+      const float4 r =
+          *reinterpret_cast<const float4*>(Bs + n * Raw<T>::LDK + k);
       v[0] = r.x;
       v[1] = r.y;
       v[2] = r.z;
       v[3] = r.w;
+    } else if constexpr (B_KMAJOR) {
+      const uint2 r =
+          *reinterpret_cast<const uint2*>(Bs + n * Raw<T>::LDK + k);
+      unpack2<T>(r.x, v[0], v[1]);
+      unpack2<T>(r.y, v[2], v[3]);
     } else {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) v[e] = Bs[(k + e) * LDN + n];
+      for (int e = 0; e < 4; ++e) v[e] = to_f32(Bs[(k + e) * Raw<T>::LDN + n]);
     }
-    uint32_t hi[4], lo[4];
-#pragma unroll
-    for (int e = 0; e < 4; ++e) split_tf32(v[e], hi[e], lo[e]);
     const int off = ((k / 8) * STEP_BYTES + (n / 8) * NGROUP_BYTES +
                      ((k / 4) % 2) * KHALF_BYTES + (n % 8) * 16) / 4;
-    *reinterpret_cast<uint4*>(big + off) =
-        make_uint4(hi[0], hi[1], hi[2], hi[3]);
-    *reinterpret_cast<uint4*>(small + off) =
-        make_uint4(lo[0], lo[1], lo[2], lo[3]);
+    if constexpr (sizeof(T) == 4) {
+      uint32_t hi[4], lo[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) split_tf32(v[e], hi[e], lo[e]);
+      *reinterpret_cast<uint4*>(big + off) =
+          make_uint4(hi[0], hi[1], hi[2], hi[3]);
+      *reinterpret_cast<uint4*>(small + off) =
+          make_uint4(lo[0], lo[1], lo[2], lo[3]);
+    } else {
+      *reinterpret_cast<float4*>(big + off) =
+          make_float4(v[0], v[1], v[2], v[3]);
+    }
   }
 }
 
@@ -246,17 +336,51 @@ __device__ __forceinline__ void fence_regs(float (&d)[64]) {
   for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// ldb: B's stride between n (B_KMAJOR) or between k (otherwise)
-template <bool B_KMAJOR, int VEC>
+// the warp's share of the 128x128 tile: accumulator i is row g (+8 for
+// i % 4 >= 2), column 8 * (i / 4) + 2t (+1 for odd i) of the warp's 16
+// rows, rounded to OutT (T, or f32 into the split-K workspace)
+template <typename OutT>
+__device__ __forceinline__ void store_tile(const float (&acc)[64],
+                                           OutT* out, int M, int N, int r0,
+                                           int c0, int g, int t) {
+  const bool pairs = (N % 2) == 0;    // (c, c+1) is one 8- or 4-byte store
+#pragma unroll
+  for (int i = 0; i < 64; i += 2) {
+    const int r = r0 + g + 8 * ((i / 2) % 2);
+    const int c = c0 + 8 * (i / 4) + 2 * t;
+    if (r >= M || c >= N) continue;
+    OutT* o = out + (long long)r * N + c;
+    if (pairs) {
+      if constexpr (sizeof(OutT) == 4) {
+        *reinterpret_cast<float2*>(o) = make_float2(acc[i], acc[i + 1]);
+      } else {
+        __align__(4) OutT two[2] = {from_f32<OutT>(acc[i]),
+                                    from_f32<OutT>(acc[i + 1])};
+        *reinterpret_cast<uint32_t*>(o) = *reinterpret_cast<uint32_t*>(two);
+      }
+    } else {
+      o[0] = from_f32<OutT>(acc[i]);
+      if (c + 1 < N) o[1] = from_f32<OutT>(acc[i + 1]);
+    }
+  }
+}
+
+// ldb: B's stride between n (B_KMAJOR) or between k (otherwise).  The
+// output goes to C in T, or, with a workspace W, as f32 to split
+// blockIdx.y of W.
+template <typename T, bool B_KMAJOR, int VEC>
 __global__ void __launch_bounds__(NT, 1)
-tc_kernel(const float* __restrict__ A, const float* __restrict__ B,
-          float* __restrict__ C, int M, int N, int K, long long lda,
-          long long ldb, int k_chunk) {
+tc_kernel(const T* __restrict__ A, const T* __restrict__ B,
+          T* __restrict__ C, float* __restrict__ W, int M, int N, int K,
+          long long lda, long long ldb, int k_chunk) {
   extern __shared__ __align__(128) float smem[];
-  constexpr int SF = stage_floats<B_KMAJOR>();
-  // split B, double-buffered: slab t's halves at split + (t % 2) * 2 *
+  using R = Raw<T>;
+  constexpr int SE = R::template stage_elems<B_KMAJOR>();
+  constexpr int H = halves<T>();
+  T* raw = reinterpret_cast<T*>(smem);
+  // B's TF32 halves, double-buffered: slab t's at split + (t % 2) * H *
   // SPLIT_FLOATS, big first
-  float* split = smem + STAGES * SF;
+  float* split = reinterpret_cast<float*>(raw + STAGES * SE);
   const int tiles_m = (M + BM - 1) / BM, tiles_n = (N + BN - 1) / BN;
   const int per_group = GROUP_M * tiles_n;
   const int first_m = (blockIdx.x / per_group) * GROUP_M;
@@ -269,18 +393,18 @@ tc_kernel(const float* __restrict__ A, const float* __restrict__ B,
   const int slabs = k_end > k_begin ? (k_end - k_begin + BK - 1) / BK : 0;
 
   auto load_slab = [&](int slab) {
-    float* s = smem + (slab % STAGES) * SF;
+    T* s = raw + (slab % STAGES) * SE;
     const int k0 = k_begin + slab * BK;
-    load_k_tile<VEC>(s, A, lda, m0, M, k0, k_end);
+    load_k_tile<T, VEC>(s, A, lda, m0, M, k0, k_end);
     if constexpr (B_KMAJOR)
-      load_k_tile<VEC>(s + A_FLOATS, B, ldb, n0, N, k0, k_end);
+      load_k_tile<T, VEC>(s + R::A_ELEMS, B, ldb, n0, N, k0, k_end);
     else
-      load_n_tile<VEC>(s + A_FLOATS, B, ldb, n0, N, k0, k_end);
+      load_n_tile<T, VEC>(s + R::A_ELEMS, B, ldb, n0, N, k0, k_end);
   };
   auto split_slab = [&](int slab) {
-    float* big = split + (slab % 2) * 2 * SPLIT_FLOATS;
-    split_b<B_KMAJOR>(smem + (slab % STAGES) * SF + A_FLOATS, big,
-                      big + SPLIT_FLOATS);
+    float* big = split + (slab % 2) * H * SPLIT_FLOATS;
+    split_b<T, B_KMAJOR>(raw + (slab % STAGES) * SE + R::A_ELEMS, big,
+                         big + SPLIT_FLOATS);
     // written by every thread, read by wgmma (the async proxy)
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   };
@@ -297,10 +421,11 @@ tc_kernel(const float* __restrict__ A, const float* __restrict__ B,
   for (int i = 0; i < 64; ++i) acc[i] = part[i] = 0.f;
 
   // The k steps of all slabs stream through the tensor cores: each step's
-  // three wgmmas are one group, each of a slab's four steps has its own A
-  // registers, and up to four groups are in flight.  After a slab's last
-  // step the block splits the next slab's B into the other buffer; the
-  // copies of the two slabs after it are in flight meanwhile.
+  // wgmmas (three for f32, one for bf16 and f16) are one group, each of a
+  // slab's four steps has its own A registers, and up to four groups are in
+  // flight.  After a slab's last step the block splits the next slab's B
+  // into the other buffer; the copies of the two slabs after it are in
+  // flight meanwhile.
 #pragma unroll
   for (int s = 0; s < STAGES - 1; ++s) {
     if (s < slabs) load_slab(s);
@@ -315,8 +440,8 @@ tc_kernel(const float* __restrict__ A, const float* __restrict__ B,
   uint32_t a_big[4][4], a_small[4][4];
   fence_regs(part);
   for (int slab = 0; slab < slabs; ++slab) {
-    const float* As = smem + (slab % STAGES) * SF;
-    const float* big = split + (slab % 2) * 2 * SPLIT_FLOATS;
+    const T* As = raw + (slab % STAGES) * SE;
+    const float* big = split + (slab % 2) * H * SPLIT_FLOATS;
     const int steps = min(BK, k_end - (k_begin + slab * BK) + 7) / 8;
     // PROMOTE slabs sum into `part`, which is then added to `acc` in f32
     if (slab > 0 && slab % PROMOTE == 0) {
@@ -329,20 +454,31 @@ tc_kernel(const float* __restrict__ A, const float* __restrict__ B,
 #pragma unroll
     for (int s = 0; s < 4; ++s) {
       if (s < steps) {
-        uint32_t r[4];
-        ldmatrix_x4(r, As + (wrow + lm_row) * LDK + s * 8 + lm_col);
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          split_tf32(__uint_as_float(r[e]), a_big[s][e],
-                     a_small[s][e]);
         const uint64_t d_big = b_desc(big + s * (STEP_BYTES / 4));
-        const uint64_t d_small =
-            b_desc(big + SPLIT_FLOATS + s * (STEP_BYTES / 4));
-        asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-        wgmma_tf32(part, a_small[s], d_big,
-                   slab % PROMOTE != 0 || s > 0);
-        wgmma_tf32(part, a_big[s], d_small, 1);
-        wgmma_tf32(part, a_big[s], d_big, 1);
+        const int first = slab % PROMOTE != 0 || s > 0;
+        if constexpr (sizeof(T) == 4) {
+          uint32_t r[4];
+          ldmatrix_x4(r, As + (wrow + lm_row) * R::LDK + s * 8 + lm_col);
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            split_tf32(__uint_as_float(r[e]), a_big[s][e], a_small[s][e]);
+          const uint64_t d_small =
+              b_desc(big + SPLIT_FLOATS + s * (STEP_BYTES / 4));
+          asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+          wgmma_tf32(part, a_small[s], d_big, first);
+          wgmma_tf32(part, a_big[s], d_small, 1);
+          wgmma_tf32(part, a_big[s], d_big, 1);
+        } else {
+          // the fragment ldmatrix gives in f32: (g, t), (g+8, t), (g, t+4),
+          // (g+8, t+4) of the warp's 16 rows and the step's 8 k
+          const T* ap = As + (wrow + g) * R::LDK + s * 8 + t;
+          a_big[s][0] = __float_as_uint(to_f32(ap[0]));
+          a_big[s][1] = __float_as_uint(to_f32(ap[8 * R::LDK]));
+          a_big[s][2] = __float_as_uint(to_f32(ap[4]));
+          a_big[s][3] = __float_as_uint(to_f32(ap[8 * R::LDK + 4]));
+          asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+          wgmma_tf32(part, a_big[s], d_big, first);
+        }
         asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
         // all but the newest 3 groups are done: the A slot of the next
         // step, last used 4 groups back, is free
@@ -368,41 +504,50 @@ tc_kernel(const float* __restrict__ A, const float* __restrict__ B,
   }
   cp_async_wait<0>();
 
-  // accumulator i: row g (+8 for i % 4 >= 2), column 8 * (i / 4) + 2t (+1
-  // for odd i) of the warp's 16 rows
-  float* out = C + (long long)blockIdx.y * M * N;
-  const bool pairs = (N % 2) == 0;    // (c, c+1) is one 8-byte store
-#pragma unroll
-  for (int i = 0; i < 64; i += 2) {
-    const int r = m0 + wrow + g + 8 * ((i / 2) % 2);
-    const int c = n0 + 8 * (i / 4) + 2 * t;
-    if (r >= M || c >= N) continue;
-    float* o = out + (long long)r * N + c;
-    if (pairs) {
-      *reinterpret_cast<float2*>(o) = make_float2(acc[i], acc[i + 1]);
-    } else {
-      o[0] = acc[i];
-      if (c + 1 < N) o[1] = acc[i + 1];
-    }
-  }
+  if (W != nullptr)
+    store_tile(acc, W + (long long)blockIdx.y * M * N, M, N, m0 + wrow,
+               n0, g, t);
+  else
+    store_tile(acc, C, M, N, m0 + wrow, n0, g, t);
 }
 
-template <bool B_KMAJOR, int VEC>
-cudaError_t launch(const float* A, const float* B, float* C, int M, int N,
+template <typename T, bool B_KMAJOR, int VEC>
+cudaError_t launch(const T* A, const T* B, T* C, float* W, int M, int N,
                    int K, long long lda, long long ldb, int k_chunk,
                    dim3 grid, cudaStream_t s) {
   static bool configured = false;
-  constexpr int bytes = smem_bytes<B_KMAJOR>();
+  constexpr int bytes = smem_bytes<T, B_KMAJOR>();
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(
-        tc_kernel<B_KMAJOR, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        bytes);
+        tc_kernel<T, B_KMAJOR, VEC>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return err;
     configured = true;
   }
-  tc_kernel<B_KMAJOR, VEC><<<grid, NT, bytes, s>>>(A, B, C, M, N, K, lda, ldb,
-                                                   k_chunk);
+  tc_kernel<T, B_KMAJOR, VEC><<<grid, NT, bytes, s>>>(A, B, C, W, M, N, K,
+                                                      lda, ldb, k_chunk);
   return cudaGetLastError();
+}
+
+// vec: values of T per copy, 16 / sizeof(T) (16 bytes), 4 / sizeof(T) (4
+// bytes) or, for bf16 and f16, 1 (2 bytes)
+template <typename T, bool B_KMAJOR>
+cudaError_t launch_vec(int vec, const T* A, const T* B, T* C, float* W,
+                       int M, int N, int K, long long lda, long long ldb,
+                       int k_chunk, dim3 grid, cudaStream_t s) {
+  constexpr int V16 = 16 / sizeof(T), V4 = 4 / sizeof(T);
+  if (vec == V16)
+    return launch<T, B_KMAJOR, V16>(A, B, C, W, M, N, K, lda, ldb, k_chunk,
+                                    grid, s);
+  if (vec == V4)
+    return launch<T, B_KMAJOR, V4>(A, B, C, W, M, N, K, lda, ldb, k_chunk,
+                                   grid, s);
+  if constexpr (sizeof(T) == 2) {
+    if (vec == 1)
+      return launch<T, B_KMAJOR, 1>(A, B, C, W, M, N, K, lda, ldb, k_chunk,
+                                    grid, s);
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace tc
@@ -418,83 +563,159 @@ constexpr int UNROLL = 4;             // loads in flight per lane and column
 constexpr int S_FLOATS = 8192;        // R x K-range of S: 32 KB at most
 constexpr int RED_FLOATS = 4096;      // column-contiguous partials: 16 KB
 
-// VEC floats from global memory (read-only path) or shared memory; VEC 4
-// needs a 16-byte-aligned address
+// S's rows in shared memory are padded to a multiple of KPAD floats, so a
+// lane's VEC-wide read of a row stays inside it
 template <int VEC>
-__device__ __forceinline__ void load_vec(float (&v)[VEC], const float* p) {
-  if constexpr (VEC == 4) {
+__host__ __device__ constexpr int kpad() {
+  return VEC > 4 ? VEC : 4;
+}
+
+// VEC values of T from global memory (read-only path), widened to f32;
+// 16-byte loads need a 16-byte-aligned address, 4-byte ones 4
+template <typename T, int VEC>
+__device__ __forceinline__ void load_vec(float (&v)[VEC], const T* p) {
+  if constexpr (sizeof(T) == 4 && VEC == 4) {
     const float4 q = __ldg(reinterpret_cast<const float4*>(p));
     v[0] = q.x;
     v[1] = q.y;
     v[2] = q.z;
     v[3] = q.w;
+  } else if constexpr (sizeof(T) == 2 && VEC == 8) {
+    const uint4 q = __ldg(reinterpret_cast<const uint4*>(p));
+    unpack2<T>(q.x, v[0], v[1]);
+    unpack2<T>(q.y, v[2], v[3]);
+    unpack2<T>(q.z, v[4], v[5]);
+    unpack2<T>(q.w, v[6], v[7]);
+  } else if constexpr (sizeof(T) == 2 && VEC == 2) {
+    unpack2<T>(__ldg(reinterpret_cast<const unsigned*>(p)), v[0], v[1]);
   } else {
-    v[0] = __ldg(p);
+    static_assert(VEC == 1, "loads of 16, 4 or one value");
+    v[0] = ld1(p);
   }
 }
 
 template <int VEC>
 __device__ __forceinline__ void load_vec_shared(float (&v)[VEC],
                                                 const float* p) {
-  if constexpr (VEC == 4) {
-    const float4 q = *reinterpret_cast<const float4*>(p);
-    v[0] = q.x;
-    v[1] = q.y;
-    v[2] = q.z;
-    v[3] = q.w;
+  if constexpr (VEC % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < VEC; i += 4) {
+      const float4 q = *reinterpret_cast<const float4*>(p + i);
+      v[i] = q.x;
+      v[i + 1] = q.y;
+      v[i + 2] = q.z;
+      v[i + 3] = q.w;
+    }
   } else {
-    v[0] = *p;
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) v[i] = p[i];
   }
 }
 
+// A lane's load of VEC values of T as it arrives, widened to f32 at use:
+// f32 loads arrive as floats, while 16-byte loads of bf16 or f16 stay
+// packed in 4 registers until their FMAs, so a lane keeps as many loads in
+// flight in as few registers as f32 does
+template <typename T, int VEC>
+struct Packed {
+  float v[VEC];
+  __device__ __forceinline__ void load(const T* p) { load_vec<T, VEC>(v, p); }
+  // the first n < VEC values, zeros after
+  __device__ __forceinline__ void tail(const T* p, int n) {
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) v[e] = e < n ? ld1(p + e) : 0.f;
+  }
+  __device__ __forceinline__ void widen(float (&out)[VEC]) const {
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) out[e] = v[e];
+  }
+};
+
+template <typename T>
+struct Packed<T, 8> {
+  uint4 q;
+  __device__ __forceinline__ void load(const T* p) {
+    q = __ldg(reinterpret_cast<const uint4*>(p));
+  }
+  __device__ __forceinline__ void tail(const T* p, int n) {
+    uint32_t w[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const unsigned short* h = reinterpret_cast<const unsigned short*>(p);
+      const uint32_t lo = 2 * e < n ? __ldg(h + 2 * e) : 0u;
+      const uint32_t hi = 2 * e + 1 < n ? __ldg(h + 2 * e + 1) : 0u;
+      w[e] = lo | (hi << 16);
+    }
+    q = make_uint4(w[0], w[1], w[2], w[3]);
+  }
+  __device__ __forceinline__ void widen(float (&out)[8]) const {
+    unpack2<T>(q.x, out[0], out[1]);
+    unpack2<T>(q.y, out[2], out[3]);
+    unpack2<T>(q.z, out[4], out[5]);
+    unpack2<T>(q.w, out[6], out[7]);
+  }
+};
+
 // columns per warp on K-contiguous L: enough that the R reads of S from
-// shared memory per 16-byte load of L stay below L's own rate
-template <int R>
+// shared memory per 16-byte load of L stay below L's own rate; a 16-byte
+// load of bf16 or f16 (VEC 8) covers half the K of f32's, so below 8 rows
+// a warp walks two columns at once to keep as many bytes in flight
+template <int R, int VEC>
 __host__ __device__ constexpr int cols_per_warp() {
-  return R >= 16 ? 4 : (R >= 8 ? 2 : 1);
+  return R >= 16 ? 4 : (R >= 8 || VEC > 4 ? 2 : 1);
 }
 
 // S element (r, k) at S[r*ls_r + k*ls_k], `rows` of R real; L element
 // (c, k) at L[c*ll_c + k*ll_k] with ll_k == 1 (L_KMAJOR) or ll_c == 1;
-// out (r, c) at O[r*lo_r + c*lo_c] (+ blockIdx.y * split_stride)
-template <int R, int VEC, bool L_KMAJOR>
+// out (r, c) at O[r*lo_r + c*lo_c] in T, or, with a workspace W, as f32 at
+// W[blockIdx.y * split_stride + r*lo_r + c*lo_c]
+template <typename T, int R, int VEC, bool L_KMAJOR>
 __global__ void __launch_bounds__(NT)
-skinny_kernel(const float* __restrict__ S, long long ls_r, long long ls_k,
-              int rows, const float* __restrict__ L, long long ll_c,
-              long long ll_k, int cols, float* __restrict__ O,
-              long long lo_r, long long lo_c, long long split_stride, int K,
-              int k_chunk, int kc_stride) {
+skinny_kernel(const T* __restrict__ S, long long ls_r, long long ls_k,
+              int rows, const T* __restrict__ L, long long ll_c,
+              long long ll_k, int cols, T* __restrict__ O,
+              float* __restrict__ W, long long lo_r, long long lo_c,
+              long long split_stride, int K, int k_chunk, int kc_stride) {
   extern __shared__ __align__(128) float smem[];
+  constexpr int KP = kpad<VEC>();
   const int k_begin = blockIdx.y * k_chunk;
   const int kc = max(0, min(K, k_begin + k_chunk) - k_begin);
-  const int kcp = (kc + 3) & ~3;      // row stride of S in shared memory
-  float* Ss = smem;                   // [R][kcp]
+  const int kcp = (kc + KP - 1) & ~(KP - 1);  // row stride of S in shared
+  float* Ss = smem;                   // [R][kcp], widened to f32
   if (ls_k == 1) {                    // walk S in its own memory order
 #pragma unroll 8
     for (int e = threadIdx.x; e < R * kcp; e += NT) {
       const int r = e / kcp, kk = e % kcp;
-      Ss[e] = (r < rows && kk < kc) ? S[r * ls_r + (k_begin + kk)] : 0.f;
+      Ss[e] = (r < rows && kk < kc) ? to_f32(S[r * ls_r + (k_begin + kk)])
+                                    : 0.f;
     }
   } else {
 #pragma unroll 8
     for (int e = threadIdx.x; e < R * kcp; e += NT) {
       const int kk = e / R, r = e % R;
-      Ss[r * kcp + kk] = (r < rows && kk < kc)
-                             ? S[r * ls_r + (long long)(k_begin + kk) * ls_k]
-                             : 0.f;
+      Ss[r * kcp + kk] =
+          (r < rows && kk < kc)
+              ? to_f32(S[r * ls_r + (long long)(k_begin + kk) * ls_k])
+              : 0.f;
     }
   }
   __syncthreads();
-  O += blockIdx.y * split_stride;
+  if (W != nullptr) W += blockIdx.y * split_stride;
+  auto put = [&](long long at, float val) {
+    if (W != nullptr)
+      W[at] = val;
+    else
+      O[at] = from_f32<T>(val);
+  };
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
   if constexpr (L_KMAJOR) {
-    constexpr int CPW = cols_per_warp<R>();
+    constexpr int CPW = cols_per_warp<R, VEC>();
     constexpr int STEP = 32 * VEC;    // K a warp reads per load
     const int groups = (cols + WARPS * CPW - 1) / (WARPS * CPW);
     for (int grp = blockIdx.x; grp < groups; grp += gridDim.x) {
       const int c0 = (grp * WARPS + warp) * CPW;
-      const float* lp[CPW];
+      const T* lp[CPW];
 #pragma unroll
       for (int c = 0; c < CPW; ++c)   // a column past the end re-reads the
         lp[c] = L + (long long)min(c0 + c, cols - 1) * ll_c + k_begin;
@@ -504,29 +725,30 @@ skinny_kernel(const float* __restrict__ S, long long ls_r, long long ls_k,
 #pragma unroll
         for (int c = 0; c < CPW; ++c) acc[r][c] = 0.f;
       // KU steps at a time, every load issued before the first use (past
-      // the end: zeros, and no use), so each lane keeps KU * CPW loads in
-      // flight; KU * CPW * VEC floats of registers at most 64
+      // the end: zeros, and no use), so each lane keeps KU * CPW = 16 loads
+      // in flight: 64 registers for 16-byte loads, 32 for 4-byte loads of
+      // bf16 or f16, 16 for single values
       constexpr int KU = 16 / CPW;
       for (int kk = VEC * lane; kk < kc; kk += KU * STEP) {
-        float w[KU][CPW][VEC];
+        Packed<T, VEC> w[KU][CPW];
 #pragma unroll
         for (int u = 0; u < KU; ++u) {
           const int k = kk + u * STEP;
 #pragma unroll
           for (int c = 0; c < CPW; ++c) {
-            if (k + VEC <= kc) {
-              load_vec<VEC>(w[u][c], lp[c] + k);
-            } else {                  // K's tail
-#pragma unroll
-              for (int e = 0; e < VEC; ++e)
-                w[u][c][e] = k + e < kc ? __ldg(lp[c] + k + e) : 0.f;
-            }
+            if (k + VEC <= kc)
+              w[u][c].load(lp[c] + k);
+            else                      // K's tail
+              w[u][c].tail(lp[c] + k, max(0, kc - k));
           }
         }
 #pragma unroll
         for (int u = 0; u < KU; ++u) {
           const int k = kk + u * STEP;
           if (k >= kc) break;         // S is zero-padded to kcp only
+          float wv[CPW][VEC];
+#pragma unroll
+          for (int c = 0; c < CPW; ++c) w[u][c].widen(wv[c]);
 #pragma unroll
           for (int r = 0; r < R; ++r) {
             float sv[VEC];
@@ -534,7 +756,7 @@ skinny_kernel(const float* __restrict__ S, long long ls_r, long long ls_k,
 #pragma unroll
             for (int c = 0; c < CPW; ++c)
 #pragma unroll
-              for (int e = 0; e < VEC; ++e) acc[r][c] += sv[e] * w[u][c][e];
+              for (int e = 0; e < VEC; ++e) acc[r][c] += sv[e] * wv[c][e];
           }
         }
       }
@@ -551,7 +773,7 @@ skinny_kernel(const float* __restrict__ S, long long ls_r, long long ls_k,
           if (c0 + c >= cols) break;
 #pragma unroll
           for (int r = 0; r < R; ++r)
-            if (r < rows) O[r * lo_r + (long long)(c0 + c) * lo_c] = acc[r][c];
+            if (r < rows) put(r * lo_r + (long long)(c0 + c) * lo_c, acc[r][c]);
         }
       }
     }
@@ -559,6 +781,7 @@ skinny_kernel(const float* __restrict__ S, long long ls_r, long long ls_k,
     constexpr int WIDTH = 32 * VEC;                 // columns per group
     constexpr int RCH = (RED_FLOATS / (WARPS * WIDTH)) < R
                             ? RED_FLOATS / (WARPS * WIDTH) : R;
+    static_assert(RCH >= 1, "the partials of one row fit the buffer");
     float* red = smem + R * kc_stride;              // [WARPS][RCH][WIDTH]
     const int groups = (cols + WIDTH - 1) / WIDTH;
     for (int grp = blockIdx.x; grp < groups; grp += gridDim.x) {
@@ -575,12 +798,12 @@ skinny_kernel(const float* __restrict__ S, long long ls_r, long long ls_k,
         float w[UNROLL][VEC];
 #pragma unroll
         for (int u = 0; u < UNROLL; ++u) {
-          const float* p = L + (long long)(k_begin + kk + u * WARPS) * ll_k + c;
+          const T* p = L + (long long)(k_begin + kk + u * WARPS) * ll_k + c;
           if (whole) {
-            load_vec<VEC>(w[u], p);
+            load_vec<T, VEC>(w[u], p);
           } else {
 #pragma unroll
-            for (int e = 0; e < VEC; ++e) w[u][e] = c + e < cols ? __ldg(p + e) : 0.f;
+            for (int e = 0; e < VEC; ++e) w[u][e] = c + e < cols ? ld1(p + e) : 0.f;
           }
         }
 #pragma unroll
@@ -593,10 +816,10 @@ skinny_kernel(const float* __restrict__ S, long long ls_r, long long ls_k,
           }
       }
       for (; kk < kc; kk += WARPS) {
-        const float* p = L + (long long)(k_begin + kk) * ll_k + c;
+        const T* p = L + (long long)(k_begin + kk) * ll_k + c;
 #pragma unroll
         for (int e = 0; e < VEC; ++e) {
-          const float w = c + e < cols ? __ldg(p + e) : 0.f;
+          const float w = c + e < cols ? ld1(p + e) : 0.f;
 #pragma unroll
           for (int r = 0; r < R; ++r) acc[r][e] += Ss[r * kcp + kk] * w;
         }
@@ -617,125 +840,132 @@ skinny_kernel(const float* __restrict__ S, long long ls_r, long long ls_k,
 #pragma unroll
           for (int w = 0; w < WARPS; ++w) sum += red[(w * RCH + rr) * WIDTH + cc];
           const int r = r0 + rr, col = grp * WIDTH + cc;
-          if (r < rows && col < cols) O[r * lo_r + (long long)col * lo_c] = sum;
+          if (r < rows && col < cols) put(r * lo_r + (long long)col * lo_c, sum);
         }
       }
     }
   }
 }
 
-template <int R, int VEC, bool L_KMAJOR>
-cudaError_t launch(const float* S, long long ls_r, long long ls_k, int rows,
-                   const float* L, long long ll_c, long long ll_k, int cols,
-                   float* O, long long lo_r, long long lo_c,
+template <typename T, int R, int VEC, bool L_KMAJOR>
+cudaError_t launch(const T* S, long long ls_r, long long ls_k, int rows,
+                   const T* L, long long ll_c, long long ll_k, int cols,
+                   T* O, float* W, long long lo_r, long long lo_c,
                    long long split_stride, int K, int k_chunk, dim3 grid,
                    cudaStream_t s) {
-  const int kc_stride = ((K < k_chunk ? K : k_chunk) + 3) & ~3;
+  constexpr int KP = kpad<VEC>();
+  const int kc_stride = ((K < k_chunk ? K : k_chunk) + KP - 1) & ~(KP - 1);
   if (R * kc_stride > S_FLOATS) return cudaErrorInvalidValue;
   const int floats = R * kc_stride + (L_KMAJOR ? 0 : RED_FLOATS);
-  skinny_kernel<R, VEC, L_KMAJOR><<<grid, NT, floats * 4, s>>>(
-      S, ls_r, ls_k, rows, L, ll_c, ll_k, cols, O, lo_r, lo_c, split_stride,
-      K, k_chunk, kc_stride);
+  skinny_kernel<T, R, VEC, L_KMAJOR><<<grid, NT, floats * 4, s>>>(
+      S, ls_r, ls_k, rows, L, ll_c, ll_k, cols, O, W, lo_r, lo_c,
+      split_stride, K, k_chunk, kc_stride);
   return cudaGetLastError();
 }
 
-template <int R>
-cudaError_t launch_r(int vec, int l_kmajor, const float* S, long long ls_r,
-                     long long ls_k, int rows, const float* L, long long ll_c,
-                     long long ll_k, int cols, float* O, long long lo_r,
-                     long long lo_c, long long split_stride, int K,
-                     int k_chunk, dim3 grid, cudaStream_t s) {
+// vec: values of T per load, as for the tensor-core kernel
+template <typename T, int R>
+cudaError_t launch_r(int vec, int l_kmajor, const T* S, long long ls_r,
+                     long long ls_k, int rows, const T* L, long long ll_c,
+                     long long ll_k, int cols, T* O, float* W,
+                     long long lo_r, long long lo_c, long long split_stride,
+                     int K, int k_chunk, dim3 grid, cudaStream_t s) {
+  constexpr int V16 = 16 / sizeof(T), V4 = 4 / sizeof(T);
 #define SOL_SKINNY(V, KM)                                                  \
-  return launch<R, V, KM>(S, ls_r, ls_k, rows, L, ll_c, ll_k, cols, O,     \
-                          lo_r, lo_c, split_stride, K, k_chunk, grid, s)
-  if (vec == 4) {
-    if (l_kmajor) SOL_SKINNY(4, true);
-    SOL_SKINNY(4, false);
+  return launch<T, R, V, KM>(S, ls_r, ls_k, rows, L, ll_c, ll_k, cols, O,  \
+                             W, lo_r, lo_c, split_stride, K, k_chunk, grid, \
+                             s)
+  if (vec == V16) {
+    if (l_kmajor) SOL_SKINNY(V16, true);
+    SOL_SKINNY(V16, false);
   }
-  if (l_kmajor) SOL_SKINNY(1, true);
-  SOL_SKINNY(1, false);
+  if (vec == V4) {
+    if (l_kmajor) SOL_SKINNY(V4, true);
+    SOL_SKINNY(V4, false);
+  }
+  if constexpr (sizeof(T) == 2) {
+    if (vec == 1) {
+      if (l_kmajor) SOL_SKINNY(1, true);
+      SOL_SKINNY(1, false);
+    }
+  }
 #undef SOL_SKINNY
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace sk
 
 // C = sum over the split-K partials, added in split order (deterministic)
+// and rounded once to T
+template <typename T>
 __global__ void reduce_splits(const float* __restrict__ ws,
-                              float* __restrict__ C, long long mn,
-                              int splits) {
+                              T* __restrict__ C, long long mn, int splits) {
   for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
        i < mn; i += (long long)gridDim.x * blockDim.x) {
     float s = 0.f;
     for (int z = 0; z < splits; ++z) s += ws[z * mn + i];
-    C[i] = s;
+    C[i] = from_f32<T>(s);
   }
 }
 
-cudaError_t reduce(const float* ws, float* C, long long mn, int splits,
+template <typename T>
+cudaError_t reduce(const float* ws, T* C, long long mn, int splits,
                    cudaStream_t s) {
   const long long want = (mn + 255) / 256;
   const int blocks = (int)(want < 4096 ? want : 4096);
-  reduce_splits<<<blocks, 256, 0, s>>>(ws, C, mn, splits);
+  reduce_splits<T><<<blocks, 256, 0, s>>>(ws, C, mn, splits);
   return cudaGetLastError();
 }
-
-}  // namespace
 
 // Tensor-core product.  ldb is B's stride between n where b_kmajor (an
 // (out,in) weight), else between k.  grid_x must be the number of 128x128
 // output tiles; splits > 1 splits K in chunks of k_chunk (a multiple of
-// 32) and needs a workspace of splits*M*N floats.  vec 4 needs A, B and
-// their row strides 16-byte aligned.
-SOL_EXPORT int sol_matmul_tc(const float* A, const float* B, float* C,
-                             float* workspace, int M, int N, int K,
-                             long long lda, long long ldb, int b_kmajor,
-                             int vec, int splits, int k_chunk, int grid_x,
-                             void* stream) {
+// 32) and needs an f32 workspace of splits*M*N.  vec is the values of T
+// per copy: 16 bytes need A, B and their row strides 16-byte aligned, 4
+// bytes 4-byte aligned.
+template <typename T>
+int matmul_tc(const T* A, const T* B, T* C, float* workspace, int M, int N,
+              int K, long long lda, long long ldb, int b_kmajor, int vec,
+              int splits, int k_chunk, int grid_x, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (M <= 0 || N <= 0) return 0;
   if (splits < 1 || k_chunk % tc::BK != 0 || (splits > 1 && !workspace))
     return static_cast<int>(cudaErrorInvalidValue);
-  float* target = splits > 1 ? workspace : C;
+  float* W = splits > 1 ? workspace : nullptr;
   const dim3 grid(grid_x, splits);
-  cudaError_t err;
-  if (b_kmajor)
-    err = vec == 4 ? tc::launch<true, 4>(A, B, target, M, N, K, lda, ldb,
+  const cudaError_t err =
+      b_kmajor ? tc::launch_vec<T, true>(vec, A, B, C, W, M, N, K, lda, ldb,
                                          k_chunk, grid, s)
-                   : tc::launch<true, 1>(A, B, target, M, N, K, lda, ldb,
-                                         k_chunk, grid, s);
-  else
-    err = vec == 4 ? tc::launch<false, 4>(A, B, target, M, N, K, lda, ldb,
-                                          k_chunk, grid, s)
-                   : tc::launch<false, 1>(A, B, target, M, N, K, lda, ldb,
+               : tc::launch_vec<T, false>(vec, A, B, C, W, M, N, K, lda, ldb,
                                           k_chunk, grid, s);
   if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
-  return static_cast<int>(reduce(workspace, C, (long long)M * N, splits, s));
+  return static_cast<int>(reduce<T>(workspace, C, (long long)M * N, splits,
+                                    s));
 }
 
 // Skinny product, C (M,N) contiguous.  S (R_pad >= rows rows, R_pad in
 // {1,2,4,8,16}) is held in shared memory, L streamed; out (r, c) at
 // C[r*lo_r + c*lo_c].  Each block takes K range blockIdx.y*k_chunk (a
-// multiple of 4, R_pad*k_chunk <= 8192) and walks column groups from
-// blockIdx.x by grid_x.  splits > 1 needs a workspace of splits*M*N.
-SOL_EXPORT int sol_matmul_skinny(const float* S, long long ls_r,
-                                 long long ls_k, int rows, const float* L,
-                                 long long ll_c, long long ll_k, int cols,
-                                 float* C, float* workspace, long long lo_r,
-                                 long long lo_c, int M, int N, int K,
-                                 int r_pad, int vec, int l_kmajor, int splits,
-                                 int k_chunk, int grid_x, void* stream) {
+// multiple of 8, R_pad*k_chunk <= 8192) and walks column groups from
+// blockIdx.x by grid_x.  splits > 1 needs an f32 workspace of splits*M*N.
+template <typename T>
+int matmul_skinny(const T* S, long long ls_r, long long ls_k, int rows,
+                  const T* L, long long ll_c, long long ll_k, int cols, T* C,
+                  float* workspace, long long lo_r, long long lo_c, int M,
+                  int N, int K, int r_pad, int vec, int l_kmajor, int splits,
+                  int k_chunk, int grid_x, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (M <= 0 || N <= 0) return 0;
-  if (splits < 1 || k_chunk < 1 || k_chunk % 4 != 0 || rows > r_pad ||
+  if (splits < 1 || k_chunk < 1 || k_chunk % 8 != 0 || rows > r_pad ||
       (splits > 1 && !workspace))
     return static_cast<int>(cudaErrorInvalidValue);
-  float* target = splits > 1 ? workspace : C;
+  float* W = splits > 1 ? workspace : nullptr;
   const long long stride = splits > 1 ? (long long)M * N : 0;
   const dim3 grid(grid_x, splits);
   cudaError_t err;
-#define SOL_R(RP)                                                           \
-  sk::launch_r<RP>(vec, l_kmajor, S, ls_r, ls_k, rows, L, ll_c, ll_k, cols, \
-                   target, lo_r, lo_c, stride, K, k_chunk, grid, s)
+#define SOL_R(RP)                                                          \
+  sk::launch_r<T, RP>(vec, l_kmajor, S, ls_r, ls_k, rows, L, ll_c, ll_k,   \
+                      cols, C, W, lo_r, lo_c, stride, K, k_chunk, grid, s)
   switch (r_pad) {
     case 1: err = SOL_R(1); break;
     case 2: err = SOL_R(2); break;
@@ -746,5 +976,31 @@ SOL_EXPORT int sol_matmul_skinny(const float* S, long long ls_r,
   }
 #undef SOL_R
   if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
-  return static_cast<int>(reduce(workspace, C, (long long)M * N, splits, s));
+  return static_cast<int>(reduce<T>(workspace, C, (long long)M * N, splits,
+                                    s));
 }
+
+}  // namespace
+
+// sol_matmul_tc_f32, _bf16 and _f16, and sol_matmul_skinny_<type>: A, B
+// (S, L) and C in that type, the workspace f32
+#define SOL_MATMUL(T, SUFFIX)                                                \
+  SOL_EXPORT int sol_matmul_tc_##SUFFIX(                                     \
+      const T* A, const T* B, T* C, float* workspace, int M, int N, int K,   \
+      long long lda, long long ldb, int b_kmajor, int vec, int splits,       \
+      int k_chunk, int grid_x, void* stream) {                               \
+    return matmul_tc<T>(A, B, C, workspace, M, N, K, lda, ldb, b_kmajor,     \
+                        vec, splits, k_chunk, grid_x, stream);               \
+  }                                                                          \
+  SOL_EXPORT int sol_matmul_skinny_##SUFFIX(                                 \
+      const T* S, long long ls_r, long long ls_k, int rows, const T* L,      \
+      long long ll_c, long long ll_k, int cols, T* C, float* workspace,      \
+      long long lo_r, long long lo_c, int M, int N, int K, int r_pad,        \
+      int vec, int l_kmajor, int splits, int k_chunk, int grid_x,            \
+      void* stream) {                                                        \
+    return matmul_skinny<T>(S, ls_r, ls_k, rows, L, ll_c, ll_k, cols, C,     \
+                            workspace, lo_r, lo_c, M, N, K, r_pad, vec,      \
+                            l_kmajor, splits, k_chunk, grid_x, stream);      \
+  }
+SOL_FOR_EACH_DTYPE(SOL_MATMUL)
+#undef SOL_MATMUL

@@ -1,4 +1,4 @@
-// RWKV6 WKV recurrence for Hopper, f32, SIMT.
+// RWKV6 WKV recurrence for Hopper, SIMT; f32, bf16 and f16 storage.
 //
 // Replaces: src/repro/kernels/rwkv6_scan/kernel.py, rwkv6_scan_call (the
 // Pallas kernel behind pallas.rwkv6_scan).
@@ -7,11 +7,17 @@
 //   o_t[j] = sum_i r_t[i] * (S[i][j] + u[i] * k_t[i] * v_t[j])
 //   S[i][j] <- exp(w_t[i]) * S[i][j] + k_t[i] * v_t[j]
 // r, k, v, w (the log decay, <= 0) and o are (B,T,H,hd) contiguous; u is
-// (H,hd); s0 and s_last are (B,H,hd,hd) f32.  A very negative w makes
-// expf underflow to 0, which is the exact limit of the decay.
+// (H,hd); s0 and s_last are (B,H,hd,hd).  r, k, v, w, u and o share one
+// storage type T, read in T and computed in f32; the decay is expf of the
+// f32 value of w, and o is rounded once to T at its store.  The state is
+// f32 throughout: s0 is read in T or in f32 (s0_f32), and s_last is always
+// f32, as JAX's out_shape (rwkv6_scan/kernel.py:34-52, :75).  A very
+// negative w makes expf underflow to 0, which is the exact limit of the
+// decay.
 //
 // What bounds it on this card: bytes (five (B,T,H,hd) tensors read or
-// written once, plus the two states), about 1.3 FLOP per byte at hd 64.
+// written once, plus the two states), about 1.3 FLOP per byte at hd 64 in
+// f32 (2.5 in bf16).
 // The recurrence is sequential in T, so the time is latency: T steps, each
 // a chain of hd FMAs per thread.
 // Design: one block per (b, h) with one thread per state column j: thread
@@ -33,42 +39,47 @@
 
 namespace {
 
-template <int HDP>
+template <typename T, int HDP>
 __global__ void __launch_bounds__(HDP)
-rwkv6_scan_kernel(const float* __restrict__ r, const float* __restrict__ k,
-                  const float* __restrict__ v, const float* __restrict__ w,
-                  const float* __restrict__ u, const float* __restrict__ s0,
-                  float* __restrict__ o, float* __restrict__ s_last, int T,
-                  int H, int hd) {
+rwkv6_scan_kernel(const T* __restrict__ r, const T* __restrict__ k,
+                  const T* __restrict__ v, const T* __restrict__ w,
+                  const T* __restrict__ u, const void* __restrict__ s0,
+                  int s0_f32, T* __restrict__ o, float* __restrict__ s_last,
+                  int T_len, int H, int hd) {
   __shared__ float r_s[2][HDP], k_s[2][HDP], e_s[2][HDP], u_s[HDP];
   const int j = threadIdx.x;
   const int h = blockIdx.x;
   const long long bi = blockIdx.y;
   const bool live = j < hd;
   const long long row = static_cast<long long>(H) * hd;     // one t step
-  const long long seq0 = bi * T * row + static_cast<long long>(h) * hd;
+  const long long seq0 = bi * T_len * row + static_cast<long long>(h) * hd;
   const long long st0 = (bi * H + h) * static_cast<long long>(hd) * hd;
 
-  u_s[j] = live ? u[h * hd + j] : 0.f;
+  u_s[j] = live ? to_f32(u[h * hd + j]) : 0.f;
+  const float* s0f = static_cast<const float*>(s0);
+  const T* s0t = static_cast<const T*>(s0);
   float S[HDP];
 #pragma unroll
-  for (int i = 0; i < HDP; ++i)
-    S[i] = (live && i < hd) ? s0[st0 + static_cast<long long>(i) * hd + j]
-                            : 0.f;
+  for (int i = 0; i < HDP; ++i) {
+    const long long at = st0 + static_cast<long long>(i) * hd + j;
+    S[i] = (live && i < hd) ? (s0_f32 ? s0f[at] : to_f32(s0t[at])) : 0.f;
+  }
 
   float rn = 0.f, kn = 0.f, wn = 0.f, vn = 0.f;
-  if (live && T > 0) {
-    rn = r[seq0 + j]; kn = k[seq0 + j]; wn = w[seq0 + j]; vn = v[seq0 + j];
+  if (live && T_len > 0) {
+    rn = to_f32(r[seq0 + j]); kn = to_f32(k[seq0 + j]);
+    wn = to_f32(w[seq0 + j]); vn = to_f32(v[seq0 + j]);
   }
-  for (int t = 0; t < T; ++t) {
+  for (int t = 0; t < T_len; ++t) {
     const int buf = t & 1;
     r_s[buf][j] = rn;
     k_s[buf][j] = kn;
     e_s[buf][j] = live ? expf(wn) : 0.f;
     const float vj = vn;
-    if (live && t + 1 < T) {
+    if (live && t + 1 < T_len) {
       const long long nx = seq0 + (t + 1) * row + j;
-      rn = r[nx]; kn = k[nx]; wn = w[nx]; vn = v[nx];
+      rn = to_f32(r[nx]); kn = to_f32(k[nx]);
+      wn = to_f32(w[nx]); vn = to_f32(v[nx]);
     }
     __syncthreads();
     float acc = 0.f, bonus = 0.f;
@@ -79,7 +90,7 @@ rwkv6_scan_kernel(const float* __restrict__ r, const float* __restrict__ k,
       bonus = fmaf(ri * u_s[i], ki, bonus);
       S[i] = fmaf(e_s[buf][i], S[i], ki * vj);
     }
-    if (live) o[seq0 + t * row + j] = fmaf(bonus, vj, acc);
+    if (live) o[seq0 + t * row + j] = from_f32<T>(fmaf(bonus, vj, acc));
   }
   if (live) {
 #pragma unroll
@@ -88,30 +99,44 @@ rwkv6_scan_kernel(const float* __restrict__ r, const float* __restrict__ k,
   }
 }
 
-template <int HDP>
-int launch(const float* r, const float* k, const float* v, const float* w,
-           const float* u, const float* s0, float* o, float* s_last, int B,
-           int T, int H, int hd, cudaStream_t stream) {
+template <typename T, int HDP>
+int launch(const T* r, const T* k, const T* v, const T* w, const T* u,
+           const void* s0, int s0_f32, T* o, float* s_last, int B, int T_len,
+           int H, int hd, cudaStream_t stream) {
   dim3 grid(H, B);
-  rwkv6_scan_kernel<HDP><<<grid, HDP, 0, stream>>>(r, k, v, w, u, s0, o,
-                                                   s_last, T, H, hd);
+  rwkv6_scan_kernel<T, HDP><<<grid, HDP, 0, stream>>>(
+      r, k, v, w, u, s0, s0_f32, o, s_last, T_len, H, hd);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int dispatch(const T* r, const T* k, const T* v, const T* w, const T* u,
+             const void* s0, int s0_f32, T* o, float* s_last, int B,
+             int T_len, int H, int hd, void* stream) {
+  if (B == 0 || H == 0) return 0;
+  if (B > 65535 || hd < 1) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define SOL_HDP(P) \
+  return launch<T, P>(r, k, v, w, u, s0, s0_f32, o, s_last, B, T_len, H, hd, s)
+  if (hd <= 16) SOL_HDP(16);
+  if (hd <= 32) SOL_HDP(32);
+  if (hd <= 64) SOL_HDP(64);
+  if (hd <= 128) SOL_HDP(128);
+#undef SOL_HDP
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-SOL_EXPORT int sol_rwkv6_scan_f32(const float* r, const float* k,
-                                  const float* v, const float* w,
-                                  const float* u, const float* s0, float* o,
-                                  float* s_last, int B, int T, int H, int hd,
-                                  void* stream) {
-  if (B == 0 || H == 0) return 0;
-  if (B > 65535 || hd < 1) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (hd <= 16) return launch<16>(r, k, v, w, u, s0, o, s_last, B, T, H, hd, s);
-  if (hd <= 32) return launch<32>(r, k, v, w, u, s0, o, s_last, B, T, H, hd, s);
-  if (hd <= 64) return launch<64>(r, k, v, w, u, s0, o, s_last, B, T, H, hd, s);
-  if (hd <= 128)
-    return launch<128>(r, k, v, w, u, s0, o, s_last, B, T, H, hd, s);
-  return static_cast<int>(cudaErrorInvalidValue);
-}
+// sol_rwkv6_scan_f32, _bf16 and _f16: r, k, v, w, u and o in that type, s0
+// in it or in f32 (s0_f32), s_last f32
+#define SOL_RWKV6(T, SUFFIX)                                                 \
+  SOL_EXPORT int sol_rwkv6_scan_##SUFFIX(                                    \
+      const T* r, const T* k, const T* v, const T* w, const T* u,            \
+      const void* s0, int s0_f32, T* o, float* s_last, int B, int T_len,     \
+      int H, int hd, void* stream) {                                         \
+    return dispatch<T>(r, k, v, w, u, s0, s0_f32, o, s_last, B, T_len, H,    \
+                       hd, stream);                                          \
+  }
+SOL_FOR_EACH_DTYPE(SOL_RWKV6)
+#undef SOL_RWKV6

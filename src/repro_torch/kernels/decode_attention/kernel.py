@@ -11,7 +11,7 @@ import ctypes
 
 import torch
 
-from .. import build
+from .. import build, dtypes
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -21,27 +21,19 @@ HEAD_DIMS = (16, 32, 64, 128)
 MAX_GROUP = 16          # query heads per kv head the shared memory holds
 
 
-def _lib() -> ctypes.CDLL:
-    lib = build.library("decode_attention")
-    fn = lib.sol_decode_attention_f32
-    if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES
-        fn.restype = ctypes.c_int
-    return lib
-
-
 def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           k_new: torch.Tensor, v_new: torch.Tensor,
                           lens: torch.Tensor, *, window: int = 0,
                           cap: float = 0.0) -> torch.Tensor:
-    """q (B,1,H,hd); cache k, v (B,S,KV,hd); k_new, v_new (B,1,KV,hd); lens
-    (B,) int32 → (B,1,H,hd), float32, on the card."""
+    """q (B,1,H,hd); cache k, v (B,S,KV,hd); k_new, v_new (B,1,KV,hd), all
+    of one dtype (float32, bfloat16 or float16); lens (B,) int32 →
+    (B,1,H,hd) in q's dtype, on the card; the softmax and accumulator are
+    f32."""
     fl = (q, k, v, k_new, v_new)
     if not all(t.is_cuda and t.device == q.device for t in fl + (lens,)):
         raise ValueError("decode_attention_cuda wants every operand on one "
                          "CUDA device")
-    if any(t.dtype != torch.float32 for t in fl):
-        raise TypeError("decode_attention_cuda takes float32")
+    sfx = dtypes.suffix("decode_attention_cuda", *fl)
     if lens.dtype != torch.int32 or lens.dim() != 1 or not \
             lens.is_contiguous():
         raise TypeError("decode_attention_cuda wants contiguous int32 lens")
@@ -60,16 +52,16 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"and at most {MAX_GROUP} query heads per kv head")
     if any(t.stride(3) != 1 for t in fl):
         raise ValueError("decode_attention_cuda wants a unit stride along hd")
-    o = torch.empty((b, 1, h, hd), device=q.device, dtype=torch.float32)
-    lib = _lib()
-    err = lib.sol_decode_attention_f32(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), k_new.data_ptr(),
-        v_new.data_ptr(), lens.data_ptr(), o.data_ptr(), b, s, h, kv, hd,
-        q.stride(0), q.stride(2), *k.stride()[:3], *v.stride()[:3],
-        k_new.stride(0), k_new.stride(2), v_new.stride(0), v_new.stride(2),
-        int(window), float(cap),
-        torch.cuda.current_stream(q.device).cuda_stream)
-    build.check(lib, err, "sol_decode_attention_f32")
+    o = torch.empty((b, 1, h, hd), device=q.device, dtype=q.dtype)
+    name = f"sol_decode_attention_{sfx}"
+    lib, fn = build.entry("decode_attention", name, _ARGTYPES)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), k_new.data_ptr(),
+             v_new.data_ptr(), lens.data_ptr(), o.data_ptr(), b, s, h, kv, hd,
+             q.stride(0), q.stride(2), *k.stride()[:3], *v.stride()[:3],
+             k_new.stride(0), k_new.stride(2), v_new.stride(0),
+             v_new.stride(2), int(window), float(cap),
+             torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(lib, err, name)
     decode_attention_cuda.launches += 1
     return o
 

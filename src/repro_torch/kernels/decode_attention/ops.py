@@ -3,7 +3,10 @@
 The node carries six model-layout operands — q (B,1,H,hd), the cache k, v
 (B,S,KV,hd), the step's k_new, v_new (B,1,KV,hd) and lens (B,) int32 — and
 produces (B,1,H,hd).  ``cuda.decode_attention`` sits at the shared tier
-gated on ``"cuda"``; ``ref.decode_attention`` is the reference tier."""
+gated on ``"cuda"``; ``ref.decode_attention`` is the reference tier.  The
+kernel takes q, the cache and the step's pair in float32, bfloat16 or
+float16, one dtype (``kernels/dtypes.py``); ``supports`` refuses other
+dtypes visibly."""
 from __future__ import annotations
 
 from typing import Sequence
@@ -12,6 +15,7 @@ import torch
 
 from ...backends import registry
 from ...core.ir import Node, OpKind
+from ..dtypes import same_float
 from .kernel import HEAD_DIMS, MAX_GROUP, decode_attention_cuda
 from .ref import decode_attention_ref
 
@@ -51,8 +55,8 @@ def _decode_ref_impl(n: Node, vals: Sequence[torch.Tensor],
 
 
 def _supports(n: Node) -> bool:
-    if len(n.spec.shape) != 4 or n.spec.dtype != "float32" \
-            or len(n.inputs) != 6:
+    if len(n.spec.shape) != 4 or len(n.inputs) != 6 \
+            or not same_float(n, n.inputs[:5]):
         return False
     h, hd = n.spec.shape[2], n.spec.shape[3]
     kv = n.inputs[1].spec.shape[2]

@@ -13,6 +13,16 @@ pass with at most one row reduction (layernorm/rmsnorm) whose body differs
 per fusion group, and Triton compiles a generated body at first use in
 seconds, where ``nvcc`` would need a build per program.
 
+Operands and output are float32, bfloat16 or float16, one dtype for all.
+Every load is widened to f32 (``.to(tl.float32)``) and each instruction
+computes in f32, then rounds its result to the storage type, as the JAX
+kernel's instructions do (``repro/kernels/dfp_fused/kernel.py:60-99``): a
+norm also rounds after normalising and after its gain, before its bias.
+Registers hold f32 values the storage type represents exactly; in f32 the
+roundings are the identity.  One difference is left: inside a composite
+instruction (gelu, silu, softcap) the JAX kernel rounds each primitive,
+the port only the instruction's result.
+
 What bounds it on this card: bytes — each 'full' operand is read once and
 the output written once (3.35 TB/s); the few FLOPs per element are free.
 Design: the input is viewed as (rows, d) with d untiled (norms reduce over
@@ -33,7 +43,7 @@ from typing import Dict, List, Sequence
 
 import torch
 
-from .. import build
+from .. import build, dtypes
 from .program import Program
 
 DFP_DIR = build.BUILD_DIR / "dfp"
@@ -43,6 +53,11 @@ _kernels: Dict[tuple, object] = {}
 
 def _tanh(z: str) -> str:
     return f"(1.0 - 2.0 / (tl.exp(2.0 * ({z})) + 1.0))"
+
+
+def _round(v: str) -> str:
+    """``v`` rounded to the storage type and widened back to f32."""
+    return f"({v}).to(out.dtype.element_ty).to(tl.float32)"
 
 
 def _norm(x: str, center: bool) -> List[str]:
@@ -71,9 +86,11 @@ def generate_source(prog: Program, name: str) -> str:
     ]
     for i, kind in enumerate(prog.operand_kinds):
         if kind == "full":
-            body.append(f"o{i} = tl.load(p{i} + off, mask=mask, other=0.0)")
+            body.append(f"o{i} = tl.load(p{i} + off, mask=mask, "
+                        f"other=0.0).to(tl.float32)")
         else:
-            body.append(f"o{i} = tl.load(p{i} + c, mask=cmask, other=0.0)")
+            body.append(f"o{i} = tl.load(p{i} + c, mask=cmask, "
+                        f"other=0.0).to(tl.float32)")
 
     def src(s) -> str:
         tag, i = s
@@ -110,15 +127,17 @@ def generate_source(prog: Program, name: str) -> str:
             body.append(f"{dst} = {src(ins[2])} + o{ins[3]}")
         elif op == "rmsnorm":
             body += _norm(src(ins[2]), center=False)
-            body.append(f"{dst} = _xc / tl.sqrt(_var[:, None] + {ins[4]!r})"
-                        f" * o{ins[3]}")
+            xn = _round(f"_xc / tl.sqrt(_var[:, None] + {ins[4]!r})")
+            body.append(f"{dst} = {xn} * o{ins[3]}")
         elif op == "layernorm":
             body += _norm(src(ins[2]), center=True)
-            body.append(f"{dst} = _xc / tl.sqrt(_var[:, None] + {ins[5]!r})"
-                        f" * o{ins[3]} + o{ins[4]}")
+            xn = _round(f"_xc / tl.sqrt(_var[:, None] + {ins[5]!r})")
+            body.append(f"{dst} = {_round(f'{xn} * o{ins[3]}')} + o{ins[4]}")
         else:
             raise NotImplementedError(op)
-    body.append(f"tl.store(out + off, r{prog.out_reg}, mask=mask)")
+        body.append(f"{dst} = {_round(dst)}")
+    body.append(f"tl.store(out + off, r{prog.out_reg}"
+                f".to(out.dtype.element_ty), mask=mask)")
     sig = ", ".join(["out"] + ops + ["rows", "d", "BLOCK_R: tl.constexpr",
                                      "BLOCK_D: tl.constexpr"])
     lines = ["# generated by repro_torch.kernels.dfp_fused.kernel for",
@@ -171,7 +190,8 @@ def block_shape(rows: int, d: int):
 def dfp_fused_triton(prog: Program, operands: Sequence[torch.Tensor],
                      out_shape, out_dtype) -> torch.Tensor:
     """Run ``prog`` on the card: 'full' operands shaped ``out_shape``, 'vec'
-    operands (d,), all float32, contiguous, on one CUDA device."""
+    operands (d,), contiguous, on one CUDA device, all in ``out_dtype``
+    (float32, bfloat16 or float16)."""
     d = int(out_shape[-1])
     rows = 1
     for s in out_shape[:-1]:
@@ -179,12 +199,14 @@ def dfp_fused_triton(prog: Program, operands: Sequence[torch.Tensor],
     if len(operands) != len(prog.operand_kinds):
         raise ValueError("operand count does not match the program")
     dev = operands[0].device if operands else None
+    dtypes.suffix("dfp_fused_triton", *operands)
+    if out_dtype != operands[0].dtype:
+        raise TypeError(f"dfp_fused_triton writes its operands' dtype "
+                        f"{operands[0].dtype}, not {out_dtype}")
     for t, kind in zip(operands, prog.operand_kinds):
         if not t.is_cuda or t.device != dev:
             raise ValueError("dfp_fused_triton wants operands on one CUDA "
                              "device")
-        if t.dtype != torch.float32 or out_dtype != torch.float32:
-            raise TypeError("dfp_fused_triton takes float32")
         if not t.is_contiguous():
             raise ValueError("dfp_fused_triton wants contiguous operands")
         want = rows * d if kind == "full" else d
@@ -192,7 +214,7 @@ def dfp_fused_triton(prog: Program, operands: Sequence[torch.Tensor],
             raise ValueError(f"{kind} operand of {t.numel()} elements, "
                              f"want {want}")
     kern = compiled_kernel(prog)
-    out = torch.empty(tuple(out_shape), device=dev, dtype=torch.float32)
+    out = torch.empty(tuple(out_shape), device=dev, dtype=out_dtype)
     block_r, block_d, warps = block_shape(rows, d)
     grid = (-(-rows // block_r),)
     with torch.cuda.device(dev):

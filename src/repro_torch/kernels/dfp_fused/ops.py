@@ -5,6 +5,8 @@
 fusion group encodes as a ``Program`` is decided in ``supports``, at
 election time: a group the kernel does not cover elects ``ref.compose``
 visibly, in ``impl_report``, and the kernel path itself never falls back.
+The kernel takes float32, bfloat16 and float16 when the group's inputs
+share the node's dtype (``kernels/dtypes.py``).
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ import torch
 
 from ...backends import registry
 from ...core.ir import Node, OpKind
+from ..dtypes import same_float
 from .kernel import dfp_fused_triton
 from .program import Program, encode_program
 from .ref import dfp_fused_ref
@@ -56,7 +59,7 @@ def _supports_chain(n: Node) -> bool:
             and all(b.op in DFP_KERNEL_OPS for b in body)
             and all(b.spec.shape == body[-1].spec.shape
                     or b.op is OpKind.BIAS_ADD for b in body)
-            and n.spec.dtype == "float32"
+            and same_float(n)
             and _encodes(n))
 
 

@@ -1,5 +1,10 @@
 """Plain PyTorch version of the DFP fused kernel: interprets the same static
-program on whole tensors (counterpart of ``repro.kernels.dfp_fused.ref``)."""
+program on whole tensors (counterpart of ``repro.kernels.dfp_fused.ref``).
+
+As the kernel, it widens every operand to f32, computes each instruction
+in f32 and rounds its result to the operands' storage type (a norm also
+after normalising and after its gain), the JAX kernel's instruction-level
+cast points; in f32 the roundings are the identity (``kernel.py``)."""
 from __future__ import annotations
 
 import math
@@ -19,11 +24,17 @@ def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
 
 def dfp_fused_ref(prog: Program, operands: Sequence[torch.Tensor],
                   out_shape, out_dtype) -> torch.Tensor:
+    storage = operands[0].dtype
+
+    def rnd(t: torch.Tensor) -> torch.Tensor:
+        return t.to(storage).float()
+
     d = out_shape[-1]
     rows = 1
     for s in out_shape[:-1]:
         rows *= s
-    vals = {i: op.reshape(rows, d) if kind == "full" else op.reshape(1, d)
+    vals = {i: (op.reshape(rows, d) if kind == "full"
+                else op.reshape(1, d)).float()
             for i, (op, kind) in enumerate(zip(operands,
                                                prog.operand_kinds))}
     regs = {}
@@ -63,17 +74,16 @@ def dfp_fused_ref(prog: Program, operands: Sequence[torch.Tensor],
         elif op == "bias":
             r = val(ins[2]) + vals[ins[3]]
         elif op == "rmsnorm":
-            x = val(ins[2]).float()
+            x = val(ins[2])
             ms = (x * x).mean(-1, keepdim=True)
-            r = (x * torch.rsqrt(ms + ins[4])).to(val(ins[2]).dtype) \
-                * vals[ins[3]]
+            r = rnd(x * torch.rsqrt(ms + ins[4])) * vals[ins[3]]
         elif op == "layernorm":
-            x = val(ins[2]).float()
+            x = val(ins[2])
             mu = x.mean(-1, keepdim=True)
             var = ((x - mu) ** 2).mean(-1, keepdim=True)
-            xn = (x - mu) * torch.rsqrt(var + ins[5])
-            r = xn.to(val(ins[2]).dtype) * vals[ins[3]] + vals[ins[4]]
+            xn = rnd((x - mu) * torch.rsqrt(var + ins[5]))
+            r = rnd(xn * vals[ins[3]]) + vals[ins[4]]
         else:  # pragma: no cover
             raise NotImplementedError(op)
-        regs[dst] = r
+        regs[dst] = rnd(r)
     return regs[prog.out_reg].reshape(out_shape).to(out_dtype)

@@ -11,7 +11,7 @@ import ctypes
 
 import torch
 
-from .. import build
+from .. import build, dtypes
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -20,26 +20,18 @@ _ARGTYPES = ([_P] * 4 + [_I] * 5 + [_L] * 12 + [_I, _I, ctypes.c_float, _P])
 HEAD_DIMS = (16, 32, 64, 128)
 
 
-def _lib() -> ctypes.CDLL:
-    lib = build.library("flash_attention")
-    fn = lib.sol_flash_attention_f32
-    if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES
-        fn.restype = ctypes.c_int
-    return lib
-
-
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True, window: int = 0,
                          cap: float = 0.0) -> torch.Tensor:
-    """q: (B, S, H, hd); k, v: (B, S, KV, hd) → (B, S, H, hd), float32, on
-    the card.  Every operand needs a unit stride along hd."""
+    """q: (B, S, H, hd); k, v: (B, S, KV, hd) → (B, S, H, hd), on the card,
+    all of one dtype (float32, bfloat16 or float16); the scores, softmax
+    and accumulator are f32.  Every operand needs a unit stride along
+    hd."""
     ts = (q, k, v)
     if not all(t.is_cuda and t.device == q.device for t in ts):
         raise ValueError("flash_attention_cuda wants q, k, v on one CUDA "
                          "device")
-    if any(t.dtype != torch.float32 for t in ts):
-        raise TypeError("flash_attention_cuda takes float32")
+    sfx = dtypes.suffix("flash_attention_cuda", *ts)
     if any(t.dim() != 4 for t in ts) or k.shape != v.shape:
         raise ValueError("flash_attention_cuda wants q (B,S,H,hd) and k, v "
                          "(B,S,KV,hd)")
@@ -53,14 +45,14 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"dim {hd}; it takes {HEAD_DIMS}")
     if any(t.stride(3) != 1 for t in ts):
         raise ValueError("flash_attention_cuda wants a unit stride along hd")
-    o = torch.empty((b, s, h, hd), device=q.device, dtype=torch.float32)
-    lib = _lib()
-    err = lib.sol_flash_attention_f32(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, s, h, kv,
-        hd, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-        *o.stride()[:3], int(bool(causal)), int(window), float(cap),
-        torch.cuda.current_stream(q.device).cuda_stream)
-    build.check(lib, err, "sol_flash_attention_f32")
+    o = torch.empty((b, s, h, hd), device=q.device, dtype=q.dtype)
+    name = f"sol_flash_attention_{sfx}"
+    lib, fn = build.entry("flash_attention", name, _ARGTYPES)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, s,
+             h, kv, hd, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+             *o.stride()[:3], int(bool(causal)), int(window), float(cap),
+             torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(lib, err, name)
     flash_attention_cuda.launches += 1
     return o
 

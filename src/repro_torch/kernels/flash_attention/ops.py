@@ -2,7 +2,9 @@
 
 ``cuda.flash_attention`` sits at the shared tier gated on ``"cuda"`` (where
 ``pallas.flash_attention`` sits in the JAX package); ``ref.attention`` is
-the reference tier, which materializes the S×S scores ("roundtrip")."""
+the reference tier, which materializes the S×S scores ("roundtrip").  The
+kernel takes float32, bfloat16 and float16 (``kernels/dtypes.py``);
+``supports`` refuses other dtypes visibly."""
 from __future__ import annotations
 
 from typing import Sequence
@@ -11,6 +13,7 @@ import torch
 
 from ...backends import registry
 from ...core.ir import Node, OpKind
+from ..dtypes import same_float
 from .kernel import HEAD_DIMS, flash_attention_cuda
 from .ref import flash_attention_ref
 
@@ -50,7 +53,7 @@ def _attention_ref_impl(n: Node, vals: Sequence[torch.Tensor],
 
 
 def _supports(n: Node) -> bool:
-    return (len(n.spec.shape) == 4 and n.spec.dtype == "float32"
+    return (len(n.spec.shape) == 4 and same_float(n)
             and n.spec.shape[-1] in HEAD_DIMS)
 
 

@@ -1,13 +1,16 @@
-"""Launching wrapper of the f32 matrix products in ``csrc/matmul.cu``.
+"""Launching wrapper of the matrix products in ``csrc/matmul.cu``, in
+float32, bfloat16 and float16.
 
 Replaces ``repro/kernels/matmul/kernel.py::matmul_call`` with two kernels:
-a 3xTF32 tensor-core kernel for the large products and a bandwidth-bound
-kernel for the skinny ones (M or N up to ``SKINNY``).  The source note in
-``matmul.cu`` says what bounds each and how it is built.  Which kernel
-runs, with which split of K, grid and copy width, is decided here, in
-``plan``, from the shapes, the strides and the pointers' alignment, so the
-CPU tests can reach it.  The library builds at first use
-(``kernels/build.py``).
+a tensor-core kernel for the large products (3xTF32 for f32, one TF32 pass
+for bf16 and f16, whose values TF32 holds exactly) and a bandwidth-bound
+kernel for the skinny ones (M or N up to ``SKINNY``).  The accumulator is
+f32 and the output is rounded once to the operands' dtype.  The source
+note in ``matmul.cu`` says what bounds each and how it is built.  Which
+kernel runs, with which split of K, grid and copy width, is decided here,
+in ``plan``, from the shapes, the strides, the element size and the
+pointers' alignment, so the CPU tests can reach it.  The library builds at
+first use (``kernels/build.py``).
 """
 from __future__ import annotations
 
@@ -18,7 +21,7 @@ from typing import Tuple
 
 import torch
 
-from .. import build
+from .. import build, dtypes
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _TC_ARGS = [_P, _P, _P, _P, _I, _I, _I, _L, _L, _I, _I, _I, _I, _I, _P]
@@ -40,7 +43,8 @@ SKINNY_MIN_K_CHUNK = {True: 256, False: 64}
 @dataclass(frozen=True)
 class Plan:
     """How one product runs.  ``kernel`` is ``"tensor_core"`` or
-    ``"skinny"``; ``vec`` the floats per copy, 4 (16-byte) or 1 (4-byte);
+    ``"skinny"``; ``vec`` the values per copy: 16 bytes (4 f32 or 8 bf16 or
+    f16 values), 4 bytes (1 or 2) or, for bf16 and f16, 2 bytes (1);
     K is cut in ``splits`` chunks of ``k_chunk``; the grid is ``grid``.
     Tensor core: ``b_kmajor`` reads w K-contiguous (an (out,in) weight).
     Skinny: ``small`` is the operand held in shared memory (``"x"``, or
@@ -66,23 +70,33 @@ def _unit(stride: int, size: int) -> bool:
     return stride == 1 or size == 1
 
 
-def _aligned(ptr: int, row_stride: int, rows: int) -> bool:
-    """16-byte copies: the base and, with more than one row, the row
-    stride in floats aligned to 16 bytes."""
-    return ptr % 16 == 0 and (rows == 1 or row_stride % 4 == 0)
+def _vec(ptr: int, row_stride: int, rows: int, itemsize: int) -> int:
+    """Values per copy of an operand whose rows run along the copies: 16
+    bytes where the base and, with more than one row, the row stride
+    (in elements) are 16-byte aligned, else 4 bytes where they are 4-byte
+    aligned, else one value."""
+    for nbytes in (16, 4):
+        if ptr % nbytes == 0 and (rows == 1
+                                  or row_stride * itemsize % nbytes == 0):
+            return nbytes // itemsize
+    return 1
 
 
 def plan(m: int, n: int, k: int, lda: int, ldb_k: int, ldb_n: int,
-         x_ptr: int = 0, w_ptr: int = 0, sms: int = SM_COUNT) -> Plan:
+         x_ptr: int = 0, w_ptr: int = 0, sms: int = SM_COUNT,
+         itemsize: int = 4) -> Plan:
     """The launch plan of x (M, K; row stride ``lda``, unit column stride)
     @ w (K, N; element (k, n) at ``k*ldb_k + n*ldb_n``) with x and w at
-    the addresses ``x_ptr`` and ``w_ptr``.  w must be K- or N-contiguous.
+    the addresses ``x_ptr`` and ``w_ptr`` and elements of ``itemsize``
+    bytes (4 for float32, 2 for bfloat16 and float16).  w must be K- or
+    N-contiguous.
     """
-    return _plan(m, n, k, lda, ldb_k, ldb_n, x_ptr % 16, w_ptr % 16, sms)
+    return _plan(m, n, k, lda, ldb_k, ldb_n, x_ptr % 16, w_ptr % 16, sms,
+                 itemsize)
 
 
 @functools.lru_cache(maxsize=4096)
-def _plan(m, n, k, lda, ldb_k, ldb_n, x_mod, w_mod, sms) -> Plan:
+def _plan(m, n, k, lda, ldb_k, ldb_n, x_mod, w_mod, sms, itemsize) -> Plan:
     w_nmajor, w_kmajor = _unit(ldb_n, n), _unit(ldb_k, k)
     if not (w_nmajor or w_kmajor):
         raise ValueError(f"matmul: w needs a unit stride along K or N, got "
@@ -92,10 +106,10 @@ def _plan(m, n, k, lda, ldb_k, ldb_n, x_mod, w_mod, sms) -> Plan:
     w_row_stride, w_rows = (ldb_n, n) if b_kmajor else (ldb_k, k)
     if m <= SKINNY or n <= SKINNY:
         return _skinny_plan(m, n, k, lda, b_kmajor, w_row_stride, w_rows,
-                            x_mod, w_mod, sms)
+                            x_mod, w_mod, sms, itemsize)
     bm, bn, bk = TC_TILE
-    vec = 4 if (_aligned(x_mod, lda, m)
-                and _aligned(w_mod, w_row_stride, w_rows)) else 1
+    vec = min(_vec(x_mod, lda, m, itemsize),
+              _vec(w_mod, w_row_stride, w_rows, itemsize))
     tiles = _cdiv(m, bm) * _cdiv(n, bn)
     splits = 1
     if tiles < sms:             # tiles alone leave SMs idle: split K
@@ -107,17 +121,19 @@ def _plan(m, n, k, lda, ldb_k, ldb_n, x_mod, w_mod, sms) -> Plan:
 
 
 def _skinny_plan(m, n, k, lda, b_kmajor, w_row_stride, w_rows, x_mod,
-                 w_mod, sms) -> Plan:
+                 w_mod, sms, itemsize) -> Plan:
     if m <= SKINNY:             # x in shared memory, w streamed
         small, rows, cols, big_kmajor = "x", m, n, b_kmajor
-        vec = 4 if _aligned(w_mod, w_row_stride, w_rows) else 1
+        vec = _vec(w_mod, w_row_stride, w_rows, itemsize)
     else:                       # C^T = w^T x^T: w in shared memory
         small, rows, cols, big_kmajor = "w", n, m, True
-        vec = 4 if _aligned(x_mod, lda, m) else 1
+        vec = _vec(x_mod, lda, m, itemsize)
     r_pad = next(r for r in SKINNY_ROWS if r >= rows)
     # columns per block step: 8 warps of 1-4 columns each on K-contiguous
-    # L, else 32 lanes of ``vec`` columns each
-    per_group = 8 * max(1, r_pad // 4) if big_kmajor else 32 * vec
+    # L (2 below 8 rows for 16-byte loads of 2-byte values), else 32 lanes
+    # of ``vec`` columns each
+    cpw = 4 if r_pad >= 16 else 2 if (r_pad >= 8 or vec > 4) else 1
+    per_group = 8 * cpw if big_kmajor else 32 * vec
     groups = max(1, _cdiv(cols, per_group))
     kc_max = SKINNY_S_FLOATS // r_pad
     splits = _cdiv(k, kc_max) if k else 1      # S's K range must fit
@@ -143,25 +159,16 @@ class _Count:
 KERNELS = {"tensor_core": _Count(), "skinny": _Count()}
 
 
-def _lib() -> ctypes.CDLL:
-    lib = build.library("matmul")
-    for fn, args in ((lib.sol_matmul_tc, _TC_ARGS),
-                     (lib.sol_matmul_skinny, _SKINNY_ARGS)):
-        if fn.argtypes is None:
-            fn.argtypes = args
-            fn.restype = ctypes.c_int
-    return lib
-
-
 def matmul_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x (M, K) @ w (K, N) → (M, N), f32, on the card.  ``x`` must have a
-    unit column stride.  ``w`` is read in place where it has a unit stride
-    along K (a transposed (N, K) weight) or along N; a view with neither (a
-    strided slice) is made contiguous first."""
+    """x (M, K) @ w (K, N) → (M, N) on the card, x and w of one dtype
+    (float32, bfloat16 or float16), accumulated in f32 and rounded once to
+    that dtype.  ``x`` must have a unit column stride.  ``w`` is read in
+    place where it has a unit stride along K (a transposed (N, K) weight)
+    or along N; a view with neither (a strided slice) is made contiguous
+    first."""
     if not (x.is_cuda and w.is_cuda and x.device == w.device):
         raise ValueError("matmul_cuda wants x and w on one CUDA device")
-    if x.dtype != torch.float32 or w.dtype != torch.float32:
-        raise TypeError(f"matmul_cuda takes float32, got {x.dtype}/{w.dtype}")
+    sfx = dtypes.suffix("matmul_cuda", x, w)
     if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[0]:
         raise ValueError(f"matmul_cuda wants (M,K) @ (K,N), got "
                          f"{tuple(x.shape)} @ {tuple(w.shape)}")
@@ -171,22 +178,22 @@ def matmul_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     n = w.shape[1]
     if not (_unit(w.stride(0), k) or _unit(w.stride(1), n)):
         w = w.contiguous()
-    out = torch.empty((m, n), device=x.device, dtype=torch.float32)
+    out = torch.empty((m, n), device=x.device, dtype=x.dtype)
     if m == 0 or n == 0:
         return out
     lda, ldb_k, ldb_n = x.stride(0), w.stride(0), w.stride(1)
-    p = plan(m, n, k, lda, ldb_k, ldb_n, x.data_ptr(), w.data_ptr())
+    p = plan(m, n, k, lda, ldb_k, ldb_n, x.data_ptr(), w.data_ptr(),
+             itemsize=x.element_size())
     ws = (torch.empty((p.splits, m, n), device=x.device, dtype=torch.float32)
           if p.splits > 1 else None)
     ws_ptr = ws.data_ptr() if ws is not None else None
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    lib = _lib()
     if p.kernel == "tensor_core":
-        err = lib.sol_matmul_tc(
-            x.data_ptr(), w.data_ptr(), out.data_ptr(), ws_ptr, m, n, k, lda,
-            ldb_n if p.b_kmajor else ldb_k, int(p.b_kmajor), p.vec, p.splits,
-            p.k_chunk, p.grid[0], stream)
-        what = "sol_matmul_tc"
+        what = f"sol_matmul_tc_{sfx}"
+        lib, fn = build.entry("matmul", what, _TC_ARGS)
+        err = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(), ws_ptr, m, n, k,
+                 lda, ldb_n if p.b_kmajor else ldb_k, int(p.b_kmajor), p.vec,
+                 p.splits, p.k_chunk, p.grid[0], stream)
     else:
         if p.small == "x":      # S = x (M rows), L = w (N columns)
             s_args = (x.data_ptr(), lda, 1, m)
@@ -196,11 +203,11 @@ def matmul_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
             s_args = (w.data_ptr(), ldb_n, ldb_k, n)
             l_args = (x.data_ptr(), lda, 1, m)
             o_strides = (1, n)
-        err = lib.sol_matmul_skinny(
-            *s_args, *l_args, out.data_ptr(), ws_ptr, *o_strides, m, n, k,
-            p.rows, p.vec, int(p.big_kmajor), p.splits, p.k_chunk, p.grid[0],
-            stream)
-        what = "sol_matmul_skinny"
+        what = f"sol_matmul_skinny_{sfx}"
+        lib, fn = build.entry("matmul", what, _SKINNY_ARGS)
+        err = fn(*s_args, *l_args, out.data_ptr(), ws_ptr, *o_strides, m, n,
+                 k, p.rows, p.vec, int(p.big_kmajor), p.splits, p.k_chunk,
+                 p.grid[0], stream)
     build.check(lib, err, what)
     KERNELS[p.kernel].launches += 1
     matmul_cuda.launches += 1

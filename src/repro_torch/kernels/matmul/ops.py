@@ -3,9 +3,10 @@
 ``cuda.matmul`` (MATMUL, weights (in, out)) and ``cuda.linear`` (LINEAR,
 weights (out, in), read through the transposed view) sit at the shared tier
 gated on the ``"cuda"`` capability — where ``pallas.matmul_mxu`` and
-``pallas.linear_mxu`` sit in the JAX package.  The kernel takes float32;
-``supports`` refuses every other dtype, so such a node goes to the reference
-tier visibly, in ``impl_report``.
+``pallas.linear_mxu`` sit in the JAX package.  As there, ``supports`` admits
+float32, bfloat16 and float16 when both operands share the node's dtype
+(``kernels/dtypes.py``); any other node goes to the reference tier visibly,
+in ``impl_report``.
 """
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ import torch
 
 from ...backends import registry
 from ...core.ir import Node, OpKind
+from ..dtypes import same_float
 from .kernel import matmul_cuda
 from .ref import matmul_ref
 
@@ -43,14 +45,10 @@ def _linear_impl(n: Node, vals: Sequence[torch.Tensor],
     return y
 
 
-def _f32(n: Node) -> bool:
-    return (n.spec.dtype == "float32"
-            and all(i.spec.dtype == "float32" for i in n.inputs[:2]))
-
-
 def _supports_matmul(n: Node) -> bool:
     return (len(n.inputs) >= 2 and len(n.inputs[1].spec.shape) == 2
-            and len(n.inputs[0].spec.shape) >= 2 and _f32(n))
+            and len(n.inputs[0].spec.shape) >= 2
+            and same_float(n, n.inputs[:2]))
 
 
 def _supports_linear(n: Node) -> bool:

@@ -3,9 +3,9 @@
 ``cuda.rglru_scan`` sits at the shared tier gated on ``"cuda"``, where
 ``pallas.rglru_scan`` sits in the JAX package; ``ref.rglru_scan`` is the
 reference tier.  The RGLRU_SCAN node takes (a, b, h0) and yields the whole
-hidden sequence h.  The kernel takes float32; ``supports`` refuses other
-dtypes, so such a node elects the reference tier visibly, in
-``impl_report``.
+hidden sequence h.  The kernel takes float32, bfloat16 and float16
+(``kernels/dtypes.py``); ``supports`` refuses other dtypes, so such a node
+elects the reference tier visibly, in ``impl_report``.
 """
 from __future__ import annotations
 
@@ -15,6 +15,7 @@ import torch
 
 from ...backends import registry
 from ...core.ir import Node, OpKind
+from ..dtypes import same_float
 from .kernel import rglru_scan_cuda
 from .ref import rglru_scan_ref
 
@@ -38,8 +39,7 @@ def _rglru_ref_impl(n: Node, vals: Sequence[torch.Tensor],
 
 
 def _supports(n: Node) -> bool:
-    return (len(n.spec.shape) == 3 and n.spec.dtype == "float32"
-            and all(i.spec.dtype == "float32" for i in n.inputs))
+    return len(n.spec.shape) == 3 and same_float(n)
 
 
 registry.register_shared_impl(

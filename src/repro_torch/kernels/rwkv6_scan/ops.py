@@ -3,9 +3,11 @@
 ``cuda.rwkv6_scan`` sits at the shared tier gated on ``"cuda"``, where
 ``pallas.rwkv6_scan`` sits in the JAX package; ``ref.rwkv6_scan`` is the
 reference tier.  The RWKV6_SCAN node takes (r, k, v, logw, u, s0) and
-yields the per-token output o.  ``supports`` admits rank-4 float32 nodes
-with a head dim the kernel keeps in registers (≤ 128); any other node
-elects the reference tier visibly, in ``impl_report``.
+yields the per-token output o.  ``supports`` admits rank-4 nodes in
+float32, bfloat16 or float16 whose inputs share the node's dtype
+(``kernels/dtypes.py``), with a head dim the kernel keeps in registers
+(≤ 128); any other node elects the reference tier visibly, in
+``impl_report``.
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ import torch
 
 from ...backends import registry
 from ...core.ir import Node, OpKind
+from ..dtypes import same_float
 from .kernel import MAX_HEAD_DIM, rwkv6_scan_cuda
 from .ref import rwkv6_scan_ref
 
@@ -40,8 +43,7 @@ def _rwkv6_ref_impl(n: Node, vals: Sequence[torch.Tensor],
 
 def _supports(n: Node) -> bool:
     return (len(n.spec.shape) == 4 and n.spec.shape[-1] <= MAX_HEAD_DIM
-            and n.spec.dtype == "float32"
-            and all(i.spec.dtype == "float32" for i in n.inputs))
+            and same_float(n))
 
 
 registry.register_shared_impl(

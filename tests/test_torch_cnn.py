@@ -152,12 +152,15 @@ def test_avgpool_kernel_raises_on_cpu_tensors():
     (3, 1, (2, 4, 9, 9), "float32", "cuda.avgpool"),
     ((2, 3), (1, 1), (2, 4, 9, 9), "float32", "cuda.avgpool"),
     (2, 2, (2, 4, 8, 8), "float32", "ref.avgpool"),
-    (3, 1, (2, 4, 9, 9), "bfloat16", "ref.avgpool"),
+    (3, 1, (2, 4, 9, 9), "bfloat16", "cuda.avgpool"),
+    (3, 1, (2, 4, 9, 9), "float16", "cuda.avgpool"),
+    (3, 1, (2, 4, 9, 9), "float64", "ref.avgpool"),
+    (3, 1, (2, 4, 9, 9), "int32", "ref.avgpool"),
 ])
 def test_avgpool_supports_what_the_kernel_takes(kernel, stride, shape, dtype,
                                                 want):
-    """Stride 1, rank 4, float32 elects the kernel; the rest the reference
-    tier."""
+    """Stride 1, rank 4, float32, bfloat16 or float16 elects the kernel;
+    the rest the reference tier."""
     k = (kernel, kernel) if isinstance(kernel, int) else kernel
     x = tir.input_node(shape, dtype)
     out = shape[:2] + (shape[2] - k[0] + 1, shape[3] - k[1] + 1)
@@ -334,19 +337,34 @@ def _attrs(n) -> dict:
     return n.attrs
 
 
-@pytest.mark.parametrize("port_bk,jax_bk", [("h100", "pallas_interpret"),
-                                            ("torch_ref", "xla")])
+# the storage types the kernels take; a float32 case keeps the id it had
+# before the half-precision ones joined
+DTYPES = ("float32", "bfloat16", "float16")
+
+
+def dtype_cases(*pairs):
+    """(port backend, JAX backend, dtype) for every pair and dtype."""
+    return [pytest.param(p, j, dt, id=f"{p}-{j}" + (
+        "" if dt == "float32" else f"-{dt}"))
+        for dt in DTYPES for p, j in pairs]
+
+
+@pytest.mark.parametrize("port_bk,jax_bk,dtype", dtype_cases(
+    ("h100", "pallas_interpret"), ("torch_ref", "xla")))
 @pytest.mark.parametrize("shape", SHAPES, ids=["32x32", "40x40"])
 @pytest.mark.parametrize("name", CNNS)
-def test_decisions_equal_jax(name, shape, port_bk, jax_bk):
+def test_decisions_equal_jax(name, shape, port_bk, jax_bk, dtype):
     """Node ops, fusion groups, layouts, folds, elected impls and cost terms
     equal the JAX package's.  The one mapped difference: a group holding a
     conv's channel bias, which the JAX package elects as
     ``pallas.dfp_fused`` and composes at run time, elects ``ref.compose``
-    on ``h100`` (its ``supports`` asks the encoder, which refuses it)."""
+    on ``h100`` (its ``supports`` asks the encoder, which refuses it).  In
+    each storage type the kernels take."""
     jm, tm = models(name)
-    jg = jpasses.run_pipeline(jex.extract(jm, shape), j_backend(jax_bk))
-    tg = passes.run_pipeline(tex.extract(tm, shape), get_backend(port_bk))
+    jg = jpasses.run_pipeline(jex.extract(jm, shape, dtype),
+                              j_backend(jax_bk))
+    tg = passes.run_pipeline(tex.extract(tm, shape, dtype),
+                             get_backend(port_bk))
     jt, tt = jg.topo(), tg.topo()
     assert [n.op.value for n in tt] == [n.op.value for n in jt]
     assert [n.name for n in tt if n.op is tir.OpKind.FUSED] == \
@@ -379,11 +397,13 @@ def test_decisions_equal_jax(name, shape, port_bk, jax_bk):
                       "conv2d": {"ref.conv2d": 5},
                       "fused": {"ref.compose": 3}}),
 ])
-def test_h100_elects_the_kernels(name, want):
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_h100_elects_the_kernels(name, want, dtype):
     """The lone stride-1 pools elect the kernel, every LINEAR its kernel,
-    and every group holding a conv bias composes."""
+    and every group holding a conv bias composes, in each storage type."""
     _, tm = models(name)
-    sol = optimize(tm, (2, 3, 32, 32), backend="h100", device="cpu")
+    sol = optimize(tm, (2, 3, 32, 32), backend="h100", device="cpu",
+                   dtype=dtype)
     by_kind = sol.impl_report(by_kind=True)
     for kind, impls in want.items():
         assert by_kind[kind] == impls, (kind, by_kind[kind])

@@ -8,7 +8,7 @@ package, hence ``--noconftest``):
 
     PYTHONPATH=src python -m pytest -q --noconftest -m gpu tests/test_torch_gpu.py
 
-Tolerance: 1e-4 absolute and relative.  The kernels sum in another order
+Tolerance in f32: 1e-4 absolute and relative.  The kernels sum in another order
 than the plain versions (tiles, online softmax, split K) on O(1) values,
 which leaves ~1e-6 of rounding; 1e-4 keeps a wide margin over that while
 any indexing or masking fault shows as an O(1) error.
@@ -18,6 +18,7 @@ import pytest
 import torch
 from torch import nn as tnn
 
+from repro_torch.backends import registry
 from repro_torch.frontends import nn
 from repro_torch.frontends.optimize import optimize
 from repro_torch.kernels.avgpool.kernel import avgpool_cuda
@@ -334,3 +335,216 @@ def test_listing3_cnn_on_the_card_matches_the_plain_path(dev):
     assert avgpool_cuda.launches == before + 2
     want = optimize(model, shape, backend="torch_ref")(x)
     torch.testing.assert_close(got, want, **TOL)
+
+
+# ---------------------------------------------------------------------------
+# bfloat16 and float16
+# ---------------------------------------------------------------------------
+#
+# Kernel and plain version both widen the operands to f32, compute in f32
+# and round once to the storage type, so their outputs may differ by one
+# rounding step of that type: rtol one unit in the last place (2^-7 for
+# bf16, 2^-10 for f16), atol 1e-4 for values near zero.  A fault that
+# rounds an intermediate or drops a term shows as many units.  A DFP
+# program rounds every instruction in both versions, and a one-unit step
+# where an instruction's two f32 results straddle a rounding boundary is
+# carried on by later instructions: DFP outputs also get one unit at the
+# output's scale.
+
+HALF = {"bfloat16": torch.bfloat16, "float16": torch.float16}
+HALF_TOL = {"bfloat16": dict(rtol=2.0 ** -7, atol=1e-4),
+            "float16": dict(rtol=2.0 ** -10, atol=1e-4)}
+
+
+def _close_half(got, want, dtype, chain=False):
+    assert got.dtype == want.dtype == HALF[dtype]
+    tol = dict(HALF_TOL[dtype])
+    if chain:
+        tol["atol"] += tol["rtol"] * float(want.float().abs().max())
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+@pytest.mark.parametrize("dtype", list(HALF))
+@pytest.mark.parametrize("m,k,n,oi", [
+    (1, 1536, 256, False), (4, 1536, 1536, True), (37, 130, 70, True),
+    (256, 512, 384, False), (2048, 2048, 4, False), (2048, 4, 2048, False),
+    (4, 1536, 5000, True), (300, 1000, 260, False), (300, 1000, 260, True),
+    (16, 6144, 1536, True), (200, 64, 10, True), (256, 12288, 1024, True),
+    (37, 131, 71, False), (37, 131, 71, True), (5, 131, 71, True),
+    (300, 257, 9, False),
+])
+def test_matmul_half_kernel_matches_plain(dev, m, k, n, oi, dtype):
+    """Both kernels, both weight orientations, split K, and odd K and N
+    (rows 2-byte aligned only: the 2-byte copies)."""
+    x = _randn(dev, 60, m, k).to(HALF[dtype])
+    w = _weight(dev, 61, k, n, oi).to(HALF[dtype])
+    _close_half(matmul_cuda(x, w), matmul_ref(x, w), dtype)
+
+
+@pytest.mark.parametrize("dtype", list(HALF))
+@pytest.mark.parametrize("offset", [1, 2])
+@pytest.mark.parametrize("m,k,n,oi", [
+    (300, 256, 260, False), (300, 256, 260, True),      # tensor cores
+    (4, 512, 700, False), (4, 512, 700, True),          # skinny, x small
+    (700, 512, 4, False),                               # skinny, w small
+])
+def test_matmul_half_kernel_reads_offset_views(dev, m, k, n, oi, offset,
+                                               dtype):
+    """Operands that start ``offset`` values (2 or 4 bytes) into their
+    storage, with row strides of K + offset values: the 2-byte and 4-byte
+    copy paths, no copy of either operand."""
+    x = _randn(dev, 62, m, k + offset).to(HALF[dtype])[:, offset:]
+    wide = (_randn(dev, 63, n, k + offset) if oi
+            else _randn(dev, 63, k, n + offset)) * k ** -0.5
+    wide = wide.to(HALF[dtype])
+    w = wide[:, offset:].T if oi else wide[:, offset:]
+    assert x.data_ptr() % 16 == 2 * offset
+    assert w.data_ptr() % 16 == 2 * offset
+    _close_half(matmul_cuda(x, w), matmul_ref(x, w), dtype)
+
+
+@pytest.mark.parametrize("dtype", list(HALF))
+@pytest.mark.parametrize("m,k,n", [(300, 256, 260), (4, 512, 700)])
+def test_matmul_half_kernel_takes_a_weight_with_no_unit_stride(dev, m, k, n,
+                                                               dtype):
+    x = _randn(dev, 64, m, k).to(HALF[dtype])
+    w = (_randn(dev, 65, k, 2 * n) * k ** -0.5).to(HALF[dtype])[:, ::2]
+    _close_half(matmul_cuda(x, w), matmul_ref(x, w), dtype)
+
+
+@pytest.mark.parametrize("dtype", list(HALF))
+@pytest.mark.parametrize("s,hd,causal,window,cap", [
+    (128, 128, True, 0, 0.0), (77, 128, True, 16, 0.0),
+    (64, 128, True, 0, 5.0), (33, 64, False, 0, 0.0)])
+def test_flash_half_kernel_matches_plain(dev, s, hd, causal, window, cap,
+                                         dtype):
+    q = _randn(dev, 66, 2, s, 12, hd).to(HALF[dtype])
+    k = _randn(dev, 67, 2, s, 2, hd).to(HALF[dtype])
+    v = _randn(dev, 68, 2, s, 2, hd).to(HALF[dtype])
+    attrs = dict(causal=causal, window=window, cap=cap)
+    want = flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                               v.transpose(1, 2), **attrs).transpose(1, 2)
+    _close_half(flash_attention_cuda(q, k, v, **attrs), want, dtype)
+
+
+@pytest.mark.parametrize("dtype", list(HALF))
+@pytest.mark.parametrize("hd,window,cap", [(128, 0, 0.0), (128, 24, 0.0),
+                                           (64, 0, 4.0)])
+def test_decode_half_kernel_matches_plain(dev, hd, window, cap, dtype):
+    q, kc, vc, kn, vn = (
+        _randn(dev, 69 + i, *shape).to(HALF[dtype]) for i, shape in
+        enumerate(((4, 1, 12, hd), (4, 128, 2, hd), (4, 128, 2, hd),
+                   (4, 1, 2, hd), (4, 1, 2, hd))))
+    lens = torch.tensor([0, 37, 100, 127], dtype=torch.int32, device=dev)
+    _close_half(decode_attention_cuda(q, kc, vc, kn, vn, lens, window=window,
+                                      cap=cap),
+                dops._ref_model_layout(q, kc, vc, kn, vn, lens, window, cap),
+                dtype)
+
+
+@pytest.mark.parametrize("dtype", list(HALF))
+@pytest.mark.parametrize("name,rows,d", [
+    ("bias_add+gelu", 512, 6144), ("bias_add+add", 512, 1536),
+    ("all_instructions", 64, 1536), ("all_instructions", 7, 40)])
+def test_dfp_half_kernel_matches_plain(dev, name, rows, d, dtype):
+    prog = _SERVING[name]
+    ops = [_randn(dev, 75 + i, *((rows, d) if kind == "full" else (d,)))
+           .to(HALF[dtype]) for i, kind in enumerate(prog.operand_kinds)]
+    _close_half(dfp_fused_triton(prog, ops, (rows, d), HALF[dtype]),
+                dfp_fused_ref(prog, ops, (rows, d), HALF[dtype]), dtype,
+                chain=True)
+
+
+@pytest.mark.parametrize("dtype", list(HALF))
+@pytest.mark.parametrize("b,t,d", [(4, 512, 4096), (2, 37, 200)])
+def test_rglru_half_kernel_matches_plain(dev, b, t, d, dtype):
+    a = (torch.rand(b, t, d, device=dev,
+                    generator=torch.Generator(dev).manual_seed(80)) * 0.5
+         + 0.5).to(HALF[dtype])
+    x = _randn(dev, 81, b, t, d).to(HALF[dtype])
+    h0 = _randn(dev, 82, b, d).to(HALF[dtype])
+    h, last = rglru_scan_cuda(a, x, h0)
+    want_h, want_last = rglru_scan_ref(a, x, h0)
+    _close_half(h, want_h, dtype)
+    _close_half(last, want_last, dtype)
+
+
+@pytest.mark.parametrize("dtype", list(HALF))
+@pytest.mark.parametrize("s0_f32", [False, True])
+@pytest.mark.parametrize("b,t,h,hd", [(4, 512, 32, 64), (1, 9, 2, 40)])
+def test_rwkv6_half_kernel_matches_plain(dev, b, t, h, hd, s0_f32, dtype):
+    """o in the inputs' dtype; s0 in it or in f32; s_last always f32."""
+    r, k, v = ((_randn(dev, 83 + i, b, t, h, hd) * 0.5).to(HALF[dtype])
+               for i in range(3))
+    logw = (-torch.exp(_randn(dev, 86, b, t, h, hd) * 0.5 - 1.0)
+            ).to(HALF[dtype])
+    u = (_randn(dev, 87, h, hd) * 0.5).to(HALF[dtype])
+    s0 = _randn(dev, 88, b, h, hd, hd) * 0.5
+    s0 = s0 if s0_f32 else s0.to(HALF[dtype])
+    o, s_last = rwkv6_scan_cuda(r, k, v, logw, u, s0)
+    want_o, want_s = rwkv6_scan_ref(r, k, v, logw, u, s0)
+    _close_half(o, want_o, dtype)
+    assert s_last.dtype == want_s.dtype == torch.float32
+    torch.testing.assert_close(s_last, want_s, **TOL)
+
+
+@pytest.mark.parametrize("dtype", list(HALF))
+@pytest.mark.parametrize("n,c,h,w,kh,kw", [
+    (2, 32, 224, 224, 3, 3), (3, 5, 17, 45, 2, 2), (1, 1, 70, 33, 3, 1)])
+def test_avgpool_half_kernel_matches_plain(dev, n, c, h, w, kh, kw, dtype):
+    x = _randn(dev, 89, n, c, h, w).to(HALF[dtype])
+    _close_half(avgpool_cuda(x, kh, kw), avgpool_ref(x, kh, kw), dtype)
+
+
+def test_half_kernels_refuse_other_dtypes(dev):
+    """A wrapper given a dtype outside float32, bfloat16 and float16, or
+    mixed ones, raises instead of converting."""
+    x64 = torch.zeros(4, 8, dtype=torch.float64, device=dev)
+    with pytest.raises(TypeError):
+        matmul_cuda(x64, x64.T)
+    with pytest.raises(TypeError):
+        matmul_cuda(x64.float(), x64.T.to(torch.bfloat16))
+    with pytest.raises(TypeError):
+        avgpool_cuda(torch.zeros(1, 1, 4, 4, dtype=torch.float64,
+                                 device=dev))
+
+
+@pytest.mark.parametrize("name", ["griffin", "rwkv6", "listing3_cnn"])
+def test_bf16_path_on_the_card_elects_and_runs_the_kernels(dev, name):
+    """A bf16 module and input through optimize(..., dtype="bfloat16"):
+    every node a cuda.* impl admits elects it, the path's kernels launch,
+    and the output is within README's bf16 row (3e-2; 5e-2 for RWKV6) of
+    torch_ref's scale on the same bf16 module."""
+    g = torch.Generator(dev).manual_seed(3)
+    if name == "listing3_cnn":
+        mods = list(nn.depthwise_cnn(device=dev, generator=g))
+        mods.insert(3, nn.AvgPool2d(3, stride=1))
+        mods.insert(8, nn.AvgPool2d(3, stride=1))
+        model, shape = tnn.Sequential(*mods).eval(), (4, 3, 64, 64)
+        counters = (matmul_cuda, avgpool_cuda)
+    elif name == "griffin":
+        model = tnn.Sequential(*[nn.griffin_block(64, device=dev, generator=g)
+                                 for _ in range(2)])
+        shape, counters = (2, 48, 64), (matmul_cuda, dfp_fused_triton,
+                                        rglru_scan_cuda)
+    else:
+        model = tnn.Sequential(*[nn.rwkv6_block(64, 4, device=dev,
+                                                generator=g)
+                                 for _ in range(2)])
+        shape, counters = (2, 48, 64), (matmul_cuda, dfp_fused_triton,
+                                        rwkv6_scan_cuda)
+    model = model.to(torch.bfloat16)
+    x = _randn(dev, 90, *shape).to(torch.bfloat16)
+    sol = optimize(model, shape, backend="h100", dtype="bfloat16")
+    for n in sol.graph.topo():
+        if any(c.name.startswith("cuda.")
+               for c in registry.candidates(sol.backend, n)):
+            assert (n.impl or "").startswith("cuda."), (n.name, n.impl)
+    before = [c.launches for c in counters]
+    got = sol(x)
+    assert all(c.launches > b for c, b in zip(counters, before))
+    want = optimize(model, shape, backend="torch_ref", dtype="bfloat16")(x)
+    assert got.dtype == want.dtype == torch.bfloat16
+    err = float((got.float() - want.float()).abs().max())
+    row = 5e-2 if name == "rwkv6" else 3e-2
+    assert err <= row * float(want.float().abs().max()), err

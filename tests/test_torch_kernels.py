@@ -92,12 +92,14 @@ def test_matmul_ops_folds_leading_dims_and_reads_transposed_weight():
     np.testing.assert_allclose(got.numpy(), x @ w_oi.T, **TOL)
 
 
-def _plan_of(m, k, n, oi, x_off=0, w_off=0, pad=0):
+def _plan_of(m, k, n, oi, x_off=0, w_off=0, pad=0, itemsize=4):
     """The plan of x (M, K) @ w (K, N) laid out as the port lays them out:
     x row-major with row stride K + pad, w (K, N) row-major or, with
-    ``oi``, an (N, K) weight's transposed view, each at a byte offset."""
+    ``oi``, an (N, K) weight's transposed view, each at a byte offset, in
+    elements of ``itemsize`` bytes."""
     ldb_k, ldb_n = (1, k + pad) if oi else (n + pad, 1)
-    return plan(m, n, k, k + pad, ldb_k, ldb_n, 256 + x_off, 512 + w_off)
+    return plan(m, n, k, k + pad, ldb_k, ldb_n, 256 + x_off, 512 + w_off,
+                itemsize=itemsize)
 
 
 # (M, K, N, (out,in) weight, x / w byte offset, row padding) → the fields
@@ -174,6 +176,60 @@ def test_matmul_plan_covers_k_within_the_kernels_limits(m, k, n, oi):
         assert p.k_chunk % 4 == 0 and p.rows in mkernel.SKINNY_ROWS
         assert p.rows * p.k_chunk <= mkernel.SKINNY_S_FLOATS
         assert p.rows >= (m if p.small == "x" else n)
+
+
+# bf16 and f16 (2-byte values): the copy width in values, 8 (16 bytes) from
+# 16-byte-aligned bases and row strides, 2 (4 bytes) from 4-byte-aligned
+# ones, else 1 (2 bytes); the rest of the plan is the f32 plan's
+@pytest.mark.parametrize("m,k,n,oi,x_off,w_off,pad,want", [
+    (256, 512, 384, False, 0, 0, 0, dict(kernel="tensor_core", vec=8)),
+    (256, 512, 384, True, 0, 0, 0, dict(kernel="tensor_core", vec=8)),
+    (37, 130, 70, True, 0, 0, 0, dict(kernel="tensor_core", vec=2)),
+    (37, 131, 70, True, 0, 0, 0, dict(kernel="tensor_core", vec=1)),  # odd K
+    (256, 512, 385, False, 0, 0, 0, dict(kernel="tensor_core", vec=1)),  # odd N
+    (256, 512, 384, False, 2, 0, 0, dict(kernel="tensor_core", vec=1)),
+    (256, 512, 384, False, 4, 0, 0, dict(kernel="tensor_core", vec=2)),
+    (256, 512, 384, True, 0, 8, 0, dict(kernel="tensor_core", vec=2)),
+    (256, 512, 384, True, 0, 2, 0, dict(kernel="tensor_core", vec=1)),
+    (256, 512, 384, False, 16, 32, 8, dict(kernel="tensor_core", vec=8)),
+    (256, 512, 384, False, 0, 0, 2, dict(kernel="tensor_core", vec=2)),
+    (4, 512, 700, True, 0, 0, 0, dict(kernel="skinny", vec=8)),
+    (4, 512, 700, True, 0, 2, 0, dict(kernel="skinny", vec=1)),
+    (4, 512, 700, True, 0, 4, 0, dict(kernel="skinny", vec=2)),
+    (4, 512, 700, True, 2, 0, 0, dict(kernel="skinny", vec=8)),  # x small
+    (4, 512, 701, False, 0, 0, 0, dict(kernel="skinny", vec=1)),  # odd N
+    (700, 512, 4, False, 2, 0, 0, dict(kernel="skinny", vec=1)),  # x big
+    (700, 514, 4, False, 0, 0, 0, dict(kernel="skinny", vec=2)),
+    (2048, 1536, 1536, True, 0, 0, 0,
+     dict(kernel="tensor_core", vec=8, splits=1, b_kmajor=True)),
+    # a lane streams 8 columns of an N-contiguous w, not 4: 6 column
+    # groups where f32 has 12, so K splits 24 ways (f32: 22)
+    (4, 1536, 1536, False, 0, 0, 0, dict(kernel="skinny", vec=8, splits=24)),
+])
+def test_matmul_half_precision_copy_width(m, k, n, oi, x_off, w_off, pad,
+                                          want):
+    p = _plan_of(m, k, n, oi, x_off, w_off, pad, itemsize=2)
+    assert {f: getattr(p, f) for f in want} == want, p
+
+
+@pytest.mark.parametrize("itemsize", [4, 2])
+@pytest.mark.parametrize("m,k,n,oi", [
+    (1, 1, 1, False), (4, 1536, 151936, True), (3, 100000, 5, True),
+    (16, 12287, 7, False), (17, 12288, 3000, True), (301, 1001, 261, False),
+    (2048, 4, 2048, True), (5000, 33, 9, True),
+])
+def test_matmul_plan_chunks_suit_each_element_size(m, k, n, oi, itemsize):
+    """Each K chunk starts a multiple of 8 values in, so a 16-byte copy of
+    bf16 or f16 stays aligned across splits, and the splits cover K once;
+    a copy moves 16 or 4 bytes or one value, and a half-precision plan
+    picks the f32 plan's kernel and operand roles."""
+    p = _plan_of(m, k, n, oi, itemsize=itemsize)
+    assert p.k_chunk % 8 == 0
+    assert (p.splits - 1) * p.k_chunk < max(k, 1) <= p.splits * p.k_chunk
+    assert p.vec * itemsize in (16, 4) or p.vec == 1
+    f32 = _plan_of(m, k, n, oi)
+    roles = ("kernel", "b_kmajor", "small", "rows", "big_kmajor")
+    assert [getattr(p, f) for f in roles] == [getattr(f32, f) for f in roles]
 
 
 def test_matmul_plan_refuses_a_weight_with_no_unit_stride():

@@ -1,8 +1,9 @@
 """The port's pipeline against the JAX package, on the CPU: the decisions
-(IR ops, fusion groups, layouts, elections) and the full, prefill and decode
-programs' outputs, with the JAX weights carried over by
-``load_numpy_state_dict``.  Small sizes: d 64, 4 heads, 2 KV heads, 2
-layers, vocab 128; f32 tolerance 1e-5 (README's conformance table)."""
+(IR ops, fusion groups, layouts, elections) in float32, bfloat16 and
+float16, and the full, prefill and decode programs' outputs, with the JAX
+weights carried over by ``load_numpy_state_dict``.  Small sizes: d 64, 4
+heads, 2 KV heads, 2 layers, vocab 128; f32 tolerance 1e-5 (README's
+conformance table)."""
 import os
 
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
@@ -14,6 +15,7 @@ import torch
 from torch import nn as tnn
 
 from repro.backends import get_backend as j_backend
+from repro.core import ir as jir
 from repro.core import passes as jpasses
 from repro.frontends import extract as jex
 from repro.frontends import nn as jnn
@@ -37,6 +39,16 @@ IMPL_MAP = {"cuda.linear": "pallas.linear_mxu",
             "cuda.flash_attention": "pallas.flash_attention",
             "cuda.decode_attention": "pallas.decode_attention",
             "cuda.dfp_fused": "pallas.dfp_fused"}
+# the storage types the kernels take; a float32 case keeps the id it had
+# before the half-precision ones joined
+DTYPES = ("float32", "bfloat16", "float16")
+
+
+def dtype_cases(*pairs):
+    """(port backend, JAX backend, dtype) for every pair and dtype."""
+    return [pytest.param(p, j, dt, id=f"{p}-{j}" + (
+        "" if dt == "float32" else f"-{dt}"))
+        for dt in DTYPES for p, j in pairs]
 
 
 @pytest.fixture(autouse=True)
@@ -64,11 +76,12 @@ def models(seed: int = 0):
     return jm, tm
 
 
-def _programs(jm, tm):
-    yield (jex.extract(jm, (2, 8, D)), tex.extract(tm, (2, 8, D)))
-    yield (jex.extract_prefill(jm, (2, 8, D)),
-           tex.extract_prefill(tm, (2, 8, D)))
-    yield (jex.extract_decode(jm, 2, 16, D), tex.extract_decode(tm, 2, 16, D))
+def _programs(jm, tm, dtype: str = "float32"):
+    yield (jex.extract(jm, (2, 8, D), dtype), tex.extract(tm, (2, 8, D), dtype))
+    yield (jex.extract_prefill(jm, (2, 8, D), dtype),
+           tex.extract_prefill(tm, (2, 8, D), dtype))
+    yield (jex.extract_decode(jm, 2, 16, D, dtype),
+           tex.extract_decode(tm, 2, 16, D, dtype))
 
 
 def test_state_dict_names_and_layouts_match():
@@ -80,13 +93,14 @@ def test_state_dict_names_and_layouts_match():
     assert tsd["0.1.1.weight"] == (4 * D, D)           # Linear (out, in)
 
 
-@pytest.mark.parametrize("port_bk,jax_bk", [("h100", "pallas_interpret"),
-                                            ("torch_ref", "xla")])
-def test_decisions_equal_jax(port_bk, jax_bk):
+@pytest.mark.parametrize("port_bk,jax_bk,dtype", dtype_cases(
+    ("h100", "pallas_interpret"), ("torch_ref", "xla")))
+def test_decisions_equal_jax(port_bk, jax_bk, dtype):
     """Node ops, fusion groups, layouts and elected impls equal the JAX
-    package's for the full, prefill and decode programs."""
+    package's for the full, prefill and decode programs, in each storage
+    type the kernels take."""
     jm, tm = models()
-    for jg, tg in _programs(jm, tm):
+    for jg, tg in _programs(jm, tm, dtype):
         jg = jpasses.run_pipeline(jg, j_backend(jax_bk))
         tg = passes.run_pipeline(tg, get_backend(port_bk))
         jt, tt = jg.topo(), tg.topo()
@@ -100,9 +114,63 @@ def test_decisions_equal_jax(port_bk, jax_bk):
         assert len(tg.outputs) == len(jg.outputs)
 
 
-def test_h100_elects_every_kernel_on_the_serving_programs():
+def _scan_and_pool_nodes(ir, dtype):
+    """One RGLRU_SCAN, RWKV6_SCAN and stride-1 AVGPOOL node of ``dtype``,
+    built with the IR module ``ir`` (the JAX package's or the port's)."""
+    a = ir.input_node((1, 4, 8), dtype)
+    rglru = ir.Node(ir.OpKind.RGLRU_SCAN, [a, a, ir.input_node((1, 8), dtype)],
+                    ir.TensorSpec((1, 4, 8), dtype))
+    seq = ir.input_node((1, 4, 2, 16), dtype)
+    rwkv6 = ir.Node(ir.OpKind.RWKV6_SCAN,
+                    [seq, seq, seq, seq, ir.input_node((2, 16), dtype),
+                     ir.input_node((1, 2, 16, 16), dtype)],
+                    ir.TensorSpec((1, 4, 2, 16), dtype))
+    pool = ir.Node(ir.OpKind.AVGPOOL, [ir.input_node((1, 2, 9, 9), dtype)],
+                   ir.TensorSpec((1, 2, 7, 7), dtype),
+                   attrs={"kernel": 3, "stride": 1})
+    return [rglru, rwkv6, pool]
+
+
+@pytest.mark.parametrize("dtype", ["float64", "int32", "int64"])
+def test_other_dtypes_elect_the_reference_tier_on_h100(dtype):
+    """The one mapped difference the dtypes leave.  Every kernel of the port
+    takes float32, bfloat16 and float16 only, so a kernel node of any other
+    dtype the IR takes (``core/executor.py``'s ``TORCH_DTYPES``) elects
+    ``ref.*`` on ``h100``.  The JAX matmul refuses such a node too; the six
+    JAX kernels without a dtype gate admit it.  Every other decision is
+    the JAX package's."""
     jm, tm = models()
-    for _, tg in _programs(jm, tm):
+    mapped = set()
+    for jg, tg in _programs(jm, tm, dtype):
+        jg = jpasses.run_pipeline(jg, j_backend("pallas_interpret"))
+        tg = passes.run_pipeline(tg, get_backend("h100"))
+        jt, tt = jg.topo(), tg.topo()
+        assert [n.op.value for n in tt] == [n.op.value for n in jt]
+        assert [n.layout for n in tt] == [n.layout for n in jt]
+        for t, j in zip(tt, jt):
+            assert not (t.impl or "").startswith("cuda."), t.name
+            if t.impl != j.impl:
+                assert j.impl.startswith("pallas.") and \
+                    t.impl.startswith("ref."), (t.name, t.impl, j.impl)
+                mapped.add((t.op.value, t.impl, j.impl))
+    assert mapped == {("attention", "ref.attention", "pallas.flash_attention"),
+                      ("decode_attention", "ref.decode_attention",
+                       "pallas.decode_attention"),
+                      ("fused", "ref.compose", "pallas.dfp_fused")}
+    h100, jax_bk = get_backend("h100"), j_backend("pallas_interpret")
+    for t, j in zip(_scan_and_pool_nodes(tir, dtype),
+                    _scan_and_pool_nodes(jir, dtype)):
+        assert h100.resolve(t).name.startswith("ref."), t.op
+        assert jax_bk.resolve(j).name.startswith("pallas."), j.op
+    for dt in DTYPES:       # the same nodes in a storage type: the kernels
+        for t in _scan_and_pool_nodes(tir, dt):
+            assert h100.resolve(t).name.startswith("cuda."), (dt, t.op)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_h100_elects_every_kernel_on_the_serving_programs(dtype):
+    jm, tm = models()
+    for _, tg in _programs(jm, tm, dtype):
         g = passes.run_pipeline(tg, get_backend("h100"))
         by_op = g.elections_by_op
         assert set(by_op["linear"]) == {"cuda.linear"}

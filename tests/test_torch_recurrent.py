@@ -352,16 +352,30 @@ def _attrs(n) -> dict:
     return n.attrs
 
 
-@pytest.mark.parametrize("port_bk,jax_bk", [("h100", "pallas_interpret"),
-                                            ("torch_ref", "xla")])
+# the storage types the kernels take; a float32 case keeps the id it had
+# before the half-precision ones joined
+DTYPES = ("float32", "bfloat16", "float16")
+
+
+def dtype_cases(*pairs):
+    """(port backend, JAX backend, dtype) for every pair and dtype."""
+    return [pytest.param(p, j, dt, id=f"{p}-{j}" + (
+        "" if dt == "float32" else f"-{dt}"))
+        for dt in DTYPES for p, j in pairs]
+
+
+@pytest.mark.parametrize("port_bk,jax_bk,dtype", dtype_cases(
+    ("h100", "pallas_interpret"), ("torch_ref", "xla")))
 @pytest.mark.parametrize("layers", [1, 2])
 @pytest.mark.parametrize("name", list(BLOCKS))
-def test_decisions_equal_jax(name, layers, port_bk, jax_bk):
+def test_decisions_equal_jax(name, layers, port_bk, jax_bk, dtype):
     """Node ops, fusion groups, layouts, elected impls and cost terms equal
-    the JAX package's."""
+    the JAX package's, in each storage type the kernels take."""
     jm, tm, shape = models(name, layers)
-    jg = jpasses.run_pipeline(jex.extract(jm, shape), j_backend(jax_bk))
-    tg = passes.run_pipeline(tex.extract(tm, shape), get_backend(port_bk))
+    jg = jpasses.run_pipeline(jex.extract(jm, shape, dtype),
+                              j_backend(jax_bk))
+    tg = passes.run_pipeline(tex.extract(tm, shape, dtype),
+                             get_backend(port_bk))
     jt, tt = jg.topo(), tg.topo()
     assert [n.op.value for n in tt] == [n.op.value for n in jt]
     assert [n.name for n in tt if n.op is tir.OpKind.FUSED] == \
@@ -384,12 +398,13 @@ def test_decisions_equal_jax(name, layers, port_bk, jax_bk):
                "fused": {"cuda.dfp_fused": 10},
                "matmul": {"cuda.matmul": 17}, "linear": {"cuda.linear": 2}}),
 ])
-def test_h100_elects_the_kernels(name, want):
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_h100_elects_the_kernels(name, want, dtype):
     """The split of the JAX probe: Griffin's softplus and √ groups compose
     (SOFTPLUS and SQRT are outside the DFP program set), every other group,
-    scan, MATMUL and LINEAR elects its kernel."""
+    scan, MATMUL and LINEAR elects its kernel, in each storage type."""
     _, tm, shape = models(name)
-    sol = optimize(tm, shape, backend="h100", device="cpu")
+    sol = optimize(tm, shape, backend="h100", device="cpu", dtype=dtype)
     by_kind = sol.impl_report(by_kind=True)
     for kind, impls in want.items():
         assert by_kind[kind] == impls, (kind, by_kind[kind])
@@ -401,20 +416,24 @@ def test_h100_elects_the_kernels(name, want):
 
 
 def test_scan_supports_refuse_what_the_kernels_do_not_take():
-    """hd > 128 (the state column no longer fits in registers) and non-f32
-    scans elect the reference tier."""
+    """hd > 128 (the state column no longer fits in registers), dtypes
+    other than float32, bfloat16 and float16, and mixed dtypes elect the
+    reference tier."""
     h100 = get_backend("h100")
     for hd, dtype, want in ((64, "float32", "cuda.rwkv6_scan"),
                             (128, "float32", "cuda.rwkv6_scan"),
                             (256, "float32", "ref.rwkv6_scan"),
-                            (64, "bfloat16", "ref.rwkv6_scan")):
+                            (64, "bfloat16", "cuda.rwkv6_scan"),
+                            (64, "float16", "cuda.rwkv6_scan"),
+                            (256, "bfloat16", "ref.rwkv6_scan"),
+                            (64, "float64", "ref.rwkv6_scan")):
         seq = tir.input_node((1, 4, 2, hd), dtype)
         n = tir.Node(tir.OpKind.RWKV6_SCAN,
                      [seq, seq, seq, seq, tir.input_node((2, hd), dtype),
                       tir.input_node((1, 2, hd, hd), dtype)],
                      tir.TensorSpec((1, 4, 2, hd), dtype))
         assert h100.resolve(n).name == want
-    a = tir.input_node((1, 4, 8), "bfloat16")
+    a = tir.input_node((1, 4, 8), "bfloat16")      # h0 float32: mixed
     n = tir.Node(tir.OpKind.RGLRU_SCAN, [a, a, tir.input_node((1, 8))],
                  tir.TensorSpec((1, 4, 8), "bfloat16"))
     assert h100.resolve(n).name == "ref.rglru_scan"

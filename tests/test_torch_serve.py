@@ -222,8 +222,7 @@ def _imported_modules(path: Path):
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
-        [ROOT / "chip_smoke.py",
-         ROOT / "tools" / "torch_recurrent_agreement.py"]
+        [ROOT / "chip_smoke.py"] + sorted((ROOT / "tools").glob("torch_*.py"))
     assert len(files) > 20
     bad = [(f.name, m) for f in files for m in _imported_modules(f)
            if m.split(".")[0] in ("jax", "jaxlib", "repro")]
