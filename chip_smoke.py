@@ -29,7 +29,7 @@ Phases, each failing loudly:
    rows' shapes and in f16 at one shape each, held to its plain version
    on the same rounded values within one rounding step of the storage
    type, bytes counted at the storage size and tensor-core matmul rows
-   bound at the TF32 rate.
+   bound at the 16-bit tensor cores' rate.
 3. serve — 28 × ``transformer_block(1536, 12, n_kv_heads=2)`` + a
    Linear(1536, 151936) head with random weights from a seeded generator
    (build_lm's block: pre-norm LayerNorm, 4·d tanh-GELU MLP, no RoPE — not
@@ -124,7 +124,7 @@ HALF_TOL = {"bfloat16": (2.0 ** -7, 1e-4), "float16": (2.0 ** -10, 1e-4)}
 
 PEAK_F32 = 67e12        # FLOP/s, f32 outside the tensor cores (H100 SXM)
 PEAK_3XTF32 = 495e12 / 3    # FLOP/s, f32-accurate products as 3 TF32 passes
-PEAK_TF32 = 495e12      # FLOP/s, one TF32 pass (bf16 and f16 products)
+PEAK_16BIT = 989e12     # FLOP/s, bf16 and f16 products on the tensor cores
 HBM = 3.35e12           # bytes/s
 
 FULL = dict(d_model=1536, n_heads=12, n_kv_heads=2, n_layers=28,
@@ -284,7 +284,7 @@ def phase_kernels(gen) -> dict:
 
     # matmul: (M, K) @ (K, N); 'oi' cases read an (N, K) weight transposed.
     # Each row names the kernel its plan picks, and its bound takes that
-    # kernel's peak: on the tensor cores 3xTF32 (f32) or one TF32 pass
+    # kernel's peak: on the tensor cores 3xTF32 (f32) or 16-bit wgmma
     # (bf16, f16), else f32 outside them
     def matmul_case(m, k, n, oi, label="", rtol=None, dt="float32"):
         x = randn(m, k, dt=dt)
@@ -300,7 +300,7 @@ def phase_kernels(gen) -> dict:
                  x.data_ptr(), w.data_ptr(), itemsize=size)
         peak = PEAK_F32
         if p.kernel == "tensor_core":
-            peak = PEAK_3XTF32 if dt == "float32" else PEAK_TF32
+            peak = PEAK_3XTF32 if dt == "float32" else PEAK_16BIT
         shape = f"{m}x{k}x{n}{' (out,in)' if oi else ''}{label}"
         record("matmul", shape, err, lambda: matmul_cuda(x, w),
                lambda: matmul_ref(x, w), lambda: torch.matmul(x, w),
@@ -648,7 +648,8 @@ def measured_serve(server, prompts, on_measure=None):
 
 # kernel-name fragments → the family a device event belongs to; the rest are
 # PyTorch's own kernels (reference-tier ops, gathers, casts)
-FAMILIES = (("tc_kernel", "matmul"), ("skinny_kernel", "matmul"),
+FAMILIES = (("tc_kernel", "matmul"), ("tc16_kernel", "matmul"),
+            ("skinny_kernel", "matmul"),
             ("reduce_splits", "matmul"),
             ("flash_fwd_kernel", "flash_attention"),
             ("decode_kernel", "decode_attention"), ("dfp_", "dfp_fused"),

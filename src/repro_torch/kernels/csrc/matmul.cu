@@ -58,31 +58,31 @@
 // their partials in shared memory in a fixed order.  N <= 16 runs as the
 // transposed product C^T = B^T A^T, so x is the streamed operand.
 //
-// bf16 and f16 (T of 2 bytes) take the same two kernels with one change
-// each.  The tensor-core kernel makes one TF32 pass instead of three: a
-// bf16 or f16 value is exact in TF32 (8 and 11 significant bits of TF32's
-// 11), so the small halves of 3xTF32 are zero, and each product of two
-// such values is exact in the f32 accumulator; the second accumulator tile
-// is still promoted every 4 slabs, since the tensor cores' accumulation
-// truncates as K grows.  The raw slabs hold T, so a 16-byte copy moves 8
-// values; A's fragments are read from them by plain loads and widened to
-// f32, and B is widened into the K-major TF32 tile (the "big" half) with
-// no split.  Its ceiling is TF32's 495 TFLOP/s, half the 989 of native
-// 16-bit wgmma, which would also read an (in,out) B without the widening
-// pass: later work.  The skinny kernel widens the small operand into its
-// f32 shared-memory copy and streams the large one in T, half the bytes of
-// f32; its 16-byte loads stay packed until their FMAs, and below 8 rows a
-// warp walks two columns at once, so a lane keeps as many bytes in flight
-// as in f32.  Copies move 16 bytes (8 values) where the base and row stride are
-// 16-byte aligned, else 4 (2 values) where they are 4-byte aligned, else 2
-// bytes, one value at a time: cp.async has no 2-byte form, so that path
-// loads and stores through registers.  plan() picks the width.
+// tc16_kernel, bf16 and f16 (T of 2 bytes) for M > 16 and N > 16: the
+// 16-bit tensor cores, wgmma m64n128k16 with f32 accumulators (989 TFLOP/s
+// dense, against TF32's 495).  Products of two bf16 or f16 values are
+// exact in f32, so no split is needed; the second accumulator tile is
+// still promoted every 4 slabs of 64 k, since the accumulation truncates
+// as K grows.  A's fragments come from its raw slab by ldmatrix.  16-bit
+// wgmma also reads an MN-major B (imm-trans-b), so both weight
+// orientations are copied straight into wgmma's layout and nothing passes
+// over B in shared memory.  The skinny kernel widens the small operand
+// into its f32 shared-memory copy and streams the large one in T, half
+// the bytes of f32; its 16-byte loads stay packed until their FMAs, and
+// below 8 rows a warp walks two columns at once, so a lane keeps as many
+// bytes in flight as in f32.  Copies move 16 bytes (8 values) where the
+// base and row stride are 16-byte aligned, else 4 (2 values) where they
+// are 4-byte aligned, else 2 bytes, one value at a time: cp.async has no
+// 2-byte form, so that path loads and stores through registers.  plan()
+// picks the width.
 //
 // Split K writes f32 partial sums to a workspace; reduce_splits adds them
 // in split order, so the result does not depend on scheduling, and rounds
 // the sum once to T.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -151,7 +151,7 @@ __device__ __forceinline__ float ld1(const T* p) {
 
 // four 8x4 f32 matrices from shared memory, lane l giving the address of
 // row l % 8 of matrix l / 8; lane l gets word l % 4 of row l / 4 of each
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const float* p) {
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
   const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
@@ -166,6 +166,35 @@ __device__ __forceinline__ void split_tf32(float x, uint32_t& big,
   asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(small) : "f"(rest));
 }
 
+// the warp's share of a 128x128 tile: accumulator i is row g (+8 for
+// i % 4 >= 2), column 8 * (i / 4) + 2t (+1 for odd i) of the warp's 16
+// rows, rounded to OutT (T, or f32 into the split-K workspace)
+template <typename OutT>
+__device__ __forceinline__ void store_tile(const float (&acc)[64],
+                                           OutT* out, int M, int N, int r0,
+                                           int c0, int g, int t) {
+  const bool pairs = (N % 2) == 0;    // (c, c+1) is one 8- or 4-byte store
+#pragma unroll
+  for (int i = 0; i < 64; i += 2) {
+    const int r = r0 + g + 8 * ((i / 2) % 2);
+    const int c = c0 + 8 * (i / 4) + 2 * t;
+    if (r >= M || c >= N) continue;
+    OutT* o = out + (long long)r * N + c;
+    if (pairs) {
+      if constexpr (sizeof(OutT) == 4) {
+        *reinterpret_cast<float2*>(o) = make_float2(acc[i], acc[i + 1]);
+      } else {
+        __align__(4) OutT two[2] = {from_f32<OutT>(acc[i]),
+                                    from_f32<OutT>(acc[i + 1])};
+        *reinterpret_cast<uint32_t*>(o) = *reinterpret_cast<uint32_t*>(two);
+      }
+    } else {
+      o[0] = from_f32<OutT>(acc[i]);
+      if (c + 1 < N) o[1] = from_f32<OutT>(acc[i + 1]);
+    }
+  }
+}
+
 // ---------------------------------------------------------------------------
 // tensor-core kernel
 // ---------------------------------------------------------------------------
@@ -175,116 +204,86 @@ namespace tc {
 constexpr int BM = 128, BN = 128, BK = 32, STAGES = 4, NT = 256;
 constexpr int PROMOTE = 4;            // slabs summed into `part` at a time
 constexpr int GROUP_M = 8;            // tile rows walked together
-// B's TF32 halves for one slab, each in wgmma's K-major layout without
+constexpr int LDK = BK + 4;           // row stride of a K-contiguous tile
+constexpr int LDN = BN + 8;           // row stride of an N-contiguous tile
+constexpr int A_FLOATS = BM * LDK;
+// B's split halves for one slab, each in wgmma's K-major layout without
 // swizzle: 8x4 "core matrices" of 128 contiguous bytes (8 n rows of 4 k),
 // the two k halves of a k step KHALF_BYTES apart, the 16 groups of 8 n
 // NGROUP_BYTES apart, the four k steps STEP_BYTES apart
 constexpr int SPLIT_FLOATS = BN * BK;
 constexpr int KHALF_BYTES = 128, NGROUP_BYTES = 256, STEP_BYTES = 4096;
 
-// The raw slab of one stage, in T: A (BM rows of BK, K-contiguous) and B
-// (BN rows of BK, or BK rows of BN).  Rows are padded by 16 bytes (4
-// floats or 8 half values; N-contiguous rows by 8 values), so reading them
-// is free of bank conflicts and every row starts 16-byte aligned.
-template <typename T>
-struct Raw {
-  static constexpr int LDK = BK + 16 / static_cast<int>(sizeof(T));
-  static constexpr int LDN = BN + 8;
-  static constexpr int A_ELEMS = BM * LDK;
-  template <bool B_KMAJOR>
-  __host__ __device__ static constexpr int stage_elems() {
-    return A_ELEMS + (B_KMAJOR ? BN * LDK : BK * LDN);
-  }
-};
-
-// f32 keeps B's big and small halves, bf16 and f16 the big one only; each
-// double-buffered
-template <typename T>
-__host__ __device__ constexpr int halves() {
-  return sizeof(T) == 4 ? 2 : 1;
+template <bool B_KMAJOR>
+__host__ __device__ constexpr int stage_floats() {
+  return A_FLOATS + (B_KMAJOR ? BN * LDK : BK * LDN);
 }
 
-template <typename T, bool B_KMAJOR>
+template <bool B_KMAJOR>
 __host__ __device__ constexpr int smem_bytes() {
-  return STAGES * Raw<T>::template stage_elems<B_KMAJOR>() *
-             static_cast<int>(sizeof(T)) +
-         2 * halves<T>() * SPLIT_FLOATS * 4;
+  return (STAGES * stage_floats<B_KMAJOR>() + 4 * SPLIT_FLOATS) * 4;
 }
 
 // 128 rows x BK of a K-contiguous operand: element (r, k) at G[r*ld + k]
-template <typename T, int VEC>
-__device__ __forceinline__ void load_k_tile(T* s, const T* G, long long ld,
-                                            int r0, int rows, int k0,
-                                            int k_end) {
+template <int VEC>
+__device__ __forceinline__ void load_k_tile(float* s, const float* G,
+                                            long long ld, int r0, int rows,
+                                            int k0, int k_end) {
   constexpr int PER_ROW = BK / VEC;
-  constexpr int LDK = Raw<T>::LDK;
   for (int e = threadIdx.x; e < 128 * PER_ROW; e += NT) {
     const int r = e / PER_ROW, kk = (e % PER_ROW) * VEC;
     const int gr = r0 + r, gk = k0 + kk;
     const int valid = gr < rows ? max(0, min(VEC, k_end - gk)) : 0;
-    cp_async<T, VEC>(s + r * LDK + kk,
-                     valid > 0 ? G + (long long)gr * ld + gk : G, valid);
+    cp_async<float, VEC>(s + r * LDK + kk,
+                  valid > 0 ? G + (long long)gr * ld + gk : G, valid);
   }
 }
 
 // BK x BN of B with unit column stride: element (k, n) at B[k*ldb_k + n]
-template <typename T, int VEC>
-__device__ __forceinline__ void load_n_tile(T* s, const T* B, long long ldb_k,
-                                            int n0, int N, int k0,
-                                            int k_end) {
+template <int VEC>
+__device__ __forceinline__ void load_n_tile(float* s, const float* B,
+                                            long long ldb_k, int n0, int N,
+                                            int k0, int k_end) {
   constexpr int PER_ROW = BN / VEC;
-  constexpr int LDN = Raw<T>::LDN;
   for (int e = threadIdx.x; e < BK * PER_ROW; e += NT) {
     const int kk = e / PER_ROW, nn = (e % PER_ROW) * VEC;
     const int gk = k0 + kk, gn = n0 + nn;
     const int valid = gk < k_end ? max(0, min(VEC, N - gn)) : 0;
-    cp_async<T, VEC>(s + kk * LDN + nn,
-                     valid > 0 ? B + (long long)gk * ldb_k + gn : B, valid);
+    cp_async<float, VEC>(s + kk * LDN + nn,
+                  valid > 0 ? B + (long long)gk * ldb_k + gn : B, valid);
   }
 }
 
-// Bring the slab's raw B tile (either layout) into wgmma's layout as TF32:
-// f32 splits into big and small halves, bf16 and f16 widen exactly into
-// the big half alone.  Each thread takes 4 runs of 4 k for one n;
-// neighbouring threads take neighbouring n, so a quarter warp writes one
-// whole core matrix.
-template <typename T, bool B_KMAJOR>
-__device__ __forceinline__ void split_b(const T* Bs, float* big,
+// Split the slab's B tile (raw f32, either layout) into its big and small
+// TF32 halves in wgmma's layout.  Each thread takes 4 runs of 4 k for one
+// n; neighbouring threads take neighbouring n, so a quarter warp writes
+// one whole core matrix.
+template <bool B_KMAJOR>
+__device__ __forceinline__ void split_b(const float* Bs, float* big,
                                         float* small) {
 #pragma unroll
   for (int q = threadIdx.x; q < BN * BK / 4; q += NT) {
     const int n = q % BN, k = (q / BN) * 4;
     float v[4];
-    if constexpr (B_KMAJOR && sizeof(T) == 4) {
-      const float4 r =
-          *reinterpret_cast<const float4*>(Bs + n * Raw<T>::LDK + k);
+    if constexpr (B_KMAJOR) {
+      const float4 r = *reinterpret_cast<const float4*>(Bs + n * LDK + k);
       v[0] = r.x;
       v[1] = r.y;
       v[2] = r.z;
       v[3] = r.w;
-    } else if constexpr (B_KMAJOR) {
-      const uint2 r =
-          *reinterpret_cast<const uint2*>(Bs + n * Raw<T>::LDK + k);
-      unpack2<T>(r.x, v[0], v[1]);
-      unpack2<T>(r.y, v[2], v[3]);
     } else {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) v[e] = to_f32(Bs[(k + e) * Raw<T>::LDN + n]);
+      for (int e = 0; e < 4; ++e) v[e] = Bs[(k + e) * LDN + n];
     }
+    uint32_t hi[4], lo[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) split_tf32(v[e], hi[e], lo[e]);
     const int off = ((k / 8) * STEP_BYTES + (n / 8) * NGROUP_BYTES +
                      ((k / 4) % 2) * KHALF_BYTES + (n % 8) * 16) / 4;
-    if constexpr (sizeof(T) == 4) {
-      uint32_t hi[4], lo[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) split_tf32(v[e], hi[e], lo[e]);
-      *reinterpret_cast<uint4*>(big + off) =
-          make_uint4(hi[0], hi[1], hi[2], hi[3]);
-      *reinterpret_cast<uint4*>(small + off) =
-          make_uint4(lo[0], lo[1], lo[2], lo[3]);
-    } else {
-      *reinterpret_cast<float4*>(big + off) =
-          make_float4(v[0], v[1], v[2], v[3]);
-    }
+    *reinterpret_cast<uint4*>(big + off) =
+        make_uint4(hi[0], hi[1], hi[2], hi[3]);
+    *reinterpret_cast<uint4*>(small + off) =
+        make_uint4(lo[0], lo[1], lo[2], lo[3]);
   }
 }
 
@@ -336,51 +335,17 @@ __device__ __forceinline__ void fence_regs(float (&d)[64]) {
   for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// the warp's share of the 128x128 tile: accumulator i is row g (+8 for
-// i % 4 >= 2), column 8 * (i / 4) + 2t (+1 for odd i) of the warp's 16
-// rows, rounded to OutT (T, or f32 into the split-K workspace)
-template <typename OutT>
-__device__ __forceinline__ void store_tile(const float (&acc)[64],
-                                           OutT* out, int M, int N, int r0,
-                                           int c0, int g, int t) {
-  const bool pairs = (N % 2) == 0;    // (c, c+1) is one 8- or 4-byte store
-#pragma unroll
-  for (int i = 0; i < 64; i += 2) {
-    const int r = r0 + g + 8 * ((i / 2) % 2);
-    const int c = c0 + 8 * (i / 4) + 2 * t;
-    if (r >= M || c >= N) continue;
-    OutT* o = out + (long long)r * N + c;
-    if (pairs) {
-      if constexpr (sizeof(OutT) == 4) {
-        *reinterpret_cast<float2*>(o) = make_float2(acc[i], acc[i + 1]);
-      } else {
-        __align__(4) OutT two[2] = {from_f32<OutT>(acc[i]),
-                                    from_f32<OutT>(acc[i + 1])};
-        *reinterpret_cast<uint32_t*>(o) = *reinterpret_cast<uint32_t*>(two);
-      }
-    } else {
-      o[0] = from_f32<OutT>(acc[i]);
-      if (c + 1 < N) o[1] = from_f32<OutT>(acc[i + 1]);
-    }
-  }
-}
-
-// ldb: B's stride between n (B_KMAJOR) or between k (otherwise).  The
-// output goes to C in T, or, with a workspace W, as f32 to split
-// blockIdx.y of W.
-template <typename T, bool B_KMAJOR, int VEC>
+// ldb: B's stride between n (B_KMAJOR) or between k (otherwise)
+template <bool B_KMAJOR, int VEC>
 __global__ void __launch_bounds__(NT, 1)
-tc_kernel(const T* __restrict__ A, const T* __restrict__ B,
-          T* __restrict__ C, float* __restrict__ W, int M, int N, int K,
-          long long lda, long long ldb, int k_chunk) {
+tc_kernel(const float* __restrict__ A, const float* __restrict__ B,
+          float* __restrict__ C, int M, int N, int K, long long lda,
+          long long ldb, int k_chunk) {
   extern __shared__ __align__(128) float smem[];
-  using R = Raw<T>;
-  constexpr int SE = R::template stage_elems<B_KMAJOR>();
-  constexpr int H = halves<T>();
-  T* raw = reinterpret_cast<T*>(smem);
-  // B's TF32 halves, double-buffered: slab t's at split + (t % 2) * H *
+  constexpr int SF = stage_floats<B_KMAJOR>();
+  // split B, double-buffered: slab t's halves at split + (t % 2) * 2 *
   // SPLIT_FLOATS, big first
-  float* split = reinterpret_cast<float*>(raw + STAGES * SE);
+  float* split = smem + STAGES * SF;
   const int tiles_m = (M + BM - 1) / BM, tiles_n = (N + BN - 1) / BN;
   const int per_group = GROUP_M * tiles_n;
   const int first_m = (blockIdx.x / per_group) * GROUP_M;
@@ -393,18 +358,18 @@ tc_kernel(const T* __restrict__ A, const T* __restrict__ B,
   const int slabs = k_end > k_begin ? (k_end - k_begin + BK - 1) / BK : 0;
 
   auto load_slab = [&](int slab) {
-    T* s = raw + (slab % STAGES) * SE;
+    float* s = smem + (slab % STAGES) * SF;
     const int k0 = k_begin + slab * BK;
-    load_k_tile<T, VEC>(s, A, lda, m0, M, k0, k_end);
+    load_k_tile<VEC>(s, A, lda, m0, M, k0, k_end);
     if constexpr (B_KMAJOR)
-      load_k_tile<T, VEC>(s + R::A_ELEMS, B, ldb, n0, N, k0, k_end);
+      load_k_tile<VEC>(s + A_FLOATS, B, ldb, n0, N, k0, k_end);
     else
-      load_n_tile<T, VEC>(s + R::A_ELEMS, B, ldb, n0, N, k0, k_end);
+      load_n_tile<VEC>(s + A_FLOATS, B, ldb, n0, N, k0, k_end);
   };
   auto split_slab = [&](int slab) {
-    float* big = split + (slab % 2) * H * SPLIT_FLOATS;
-    split_b<T, B_KMAJOR>(raw + (slab % STAGES) * SE + R::A_ELEMS, big,
-                         big + SPLIT_FLOATS);
+    float* big = split + (slab % 2) * 2 * SPLIT_FLOATS;
+    split_b<B_KMAJOR>(smem + (slab % STAGES) * SF + A_FLOATS, big,
+                      big + SPLIT_FLOATS);
     // written by every thread, read by wgmma (the async proxy)
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   };
@@ -421,11 +386,10 @@ tc_kernel(const T* __restrict__ A, const T* __restrict__ B,
   for (int i = 0; i < 64; ++i) acc[i] = part[i] = 0.f;
 
   // The k steps of all slabs stream through the tensor cores: each step's
-  // wgmmas (three for f32, one for bf16 and f16) are one group, each of a
-  // slab's four steps has its own A registers, and up to four groups are in
-  // flight.  After a slab's last step the block splits the next slab's B
-  // into the other buffer; the copies of the two slabs after it are in
-  // flight meanwhile.
+  // three wgmmas are one group, each of a slab's four steps has its own A
+  // registers, and up to four groups are in flight.  After a slab's last
+  // step the block splits the next slab's B into the other buffer; the
+  // copies of the two slabs after it are in flight meanwhile.
 #pragma unroll
   for (int s = 0; s < STAGES - 1; ++s) {
     if (s < slabs) load_slab(s);
@@ -440,8 +404,8 @@ tc_kernel(const T* __restrict__ A, const T* __restrict__ B,
   uint32_t a_big[4][4], a_small[4][4];
   fence_regs(part);
   for (int slab = 0; slab < slabs; ++slab) {
-    const T* As = raw + (slab % STAGES) * SE;
-    const float* big = split + (slab % 2) * H * SPLIT_FLOATS;
+    const float* As = smem + (slab % STAGES) * SF;
+    const float* big = split + (slab % 2) * 2 * SPLIT_FLOATS;
     const int steps = min(BK, k_end - (k_begin + slab * BK) + 7) / 8;
     // PROMOTE slabs sum into `part`, which is then added to `acc` in f32
     if (slab > 0 && slab % PROMOTE == 0) {
@@ -454,31 +418,20 @@ tc_kernel(const T* __restrict__ A, const T* __restrict__ B,
 #pragma unroll
     for (int s = 0; s < 4; ++s) {
       if (s < steps) {
-        const uint64_t d_big = b_desc(big + s * (STEP_BYTES / 4));
-        const int first = slab % PROMOTE != 0 || s > 0;
-        if constexpr (sizeof(T) == 4) {
-          uint32_t r[4];
-          ldmatrix_x4(r, As + (wrow + lm_row) * R::LDK + s * 8 + lm_col);
+        uint32_t r[4];
+        ldmatrix_x4(r, As + (wrow + lm_row) * LDK + s * 8 + lm_col);
 #pragma unroll
-          for (int e = 0; e < 4; ++e)
-            split_tf32(__uint_as_float(r[e]), a_big[s][e], a_small[s][e]);
-          const uint64_t d_small =
-              b_desc(big + SPLIT_FLOATS + s * (STEP_BYTES / 4));
-          asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-          wgmma_tf32(part, a_small[s], d_big, first);
-          wgmma_tf32(part, a_big[s], d_small, 1);
-          wgmma_tf32(part, a_big[s], d_big, 1);
-        } else {
-          // the fragment ldmatrix gives in f32: (g, t), (g+8, t), (g, t+4),
-          // (g+8, t+4) of the warp's 16 rows and the step's 8 k
-          const T* ap = As + (wrow + g) * R::LDK + s * 8 + t;
-          a_big[s][0] = __float_as_uint(to_f32(ap[0]));
-          a_big[s][1] = __float_as_uint(to_f32(ap[8 * R::LDK]));
-          a_big[s][2] = __float_as_uint(to_f32(ap[4]));
-          a_big[s][3] = __float_as_uint(to_f32(ap[8 * R::LDK + 4]));
-          asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-          wgmma_tf32(part, a_big[s], d_big, first);
-        }
+        for (int e = 0; e < 4; ++e)
+          split_tf32(__uint_as_float(r[e]), a_big[s][e],
+                     a_small[s][e]);
+        const uint64_t d_big = b_desc(big + s * (STEP_BYTES / 4));
+        const uint64_t d_small =
+            b_desc(big + SPLIT_FLOATS + s * (STEP_BYTES / 4));
+        asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+        wgmma_tf32(part, a_small[s], d_big,
+                   slab % PROMOTE != 0 || s > 0);
+        wgmma_tf32(part, a_big[s], d_small, 1);
+        wgmma_tf32(part, a_big[s], d_big, 1);
         asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
         // all but the newest 3 groups are done: the A slot of the next
         // step, last used 4 groups back, is free
@@ -504,6 +457,267 @@ tc_kernel(const T* __restrict__ A, const T* __restrict__ B,
   }
   cp_async_wait<0>();
 
+  // accumulator i: row g (+8 for i % 4 >= 2), column 8 * (i / 4) + 2t (+1
+  // for odd i) of the warp's 16 rows
+  float* out = C + (long long)blockIdx.y * M * N;
+  const bool pairs = (N % 2) == 0;    // (c, c+1) is one 8-byte store
+#pragma unroll
+  for (int i = 0; i < 64; i += 2) {
+    const int r = m0 + wrow + g + 8 * ((i / 2) % 2);
+    const int c = n0 + 8 * (i / 4) + 2 * t;
+    if (r >= M || c >= N) continue;
+    float* o = out + (long long)r * N + c;
+    if (pairs) {
+      *reinterpret_cast<float2*>(o) = make_float2(acc[i], acc[i + 1]);
+    } else {
+      o[0] = acc[i];
+      if (c + 1 < N) o[1] = acc[i + 1];
+    }
+  }
+}
+
+template <bool B_KMAJOR, int VEC>
+cudaError_t launch(const float* A, const float* B, float* C, int M, int N,
+                   int K, long long lda, long long ldb, int k_chunk,
+                   dim3 grid, cudaStream_t s) {
+  static bool configured = false;
+  constexpr int bytes = smem_bytes<B_KMAJOR>();
+  if (!configured) {
+    cudaError_t err = cudaFuncSetAttribute(
+        tc_kernel<B_KMAJOR, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        bytes);
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
+  tc_kernel<B_KMAJOR, VEC><<<grid, NT, bytes, s>>>(A, B, C, M, N, K, lda, ldb,
+                                                   k_chunk);
+  return cudaGetLastError();
+}
+
+}  // namespace tc
+
+// ---------------------------------------------------------------------------
+// 16-bit tensor-core kernel
+// ---------------------------------------------------------------------------
+
+namespace tc16 {
+
+// bf16 and f16 on the 16-bit tensor cores: wgmma m64n128k16, A (64 rows a
+// warpgroup) from registers by ldmatrix, B from shared memory, f32
+// accumulators.  Tiles 128x128 per block of two warpgroups, 64 k a slab
+// (four k16 steps), a 4-stage cp.async ring.  B needs no pass of its own:
+// the copies write it straight into wgmma's layout without swizzle, core
+// matrices of 8 rows of 16 bytes (8 values) laid out contiguously.  An
+// (out,in) weight is K-major: a core matrix's rows are 8 n, its 16 bytes
+// run along k.  An (in,out) weight is MN-major, read transposed by wgmma
+// (imm-trans-b): rows are 8 k, the 16 bytes run along n.  In both, the two
+// 8-deep k halves of a k16 step sit KHALF_BYTES apart (the descriptor's
+// leading byte offset), the 16 groups of 8 n NGROUP_BYTES apart (its
+// stride byte offset), the four k16 steps STEP_BYTES apart.  The second
+// accumulator tile is promoted every 4 slabs (256 k), as in the f32 kernel.
+constexpr int BM = 128, BN = 128, BK = 64, STAGES = 4, NT = 256;
+constexpr int PROMOTE = 4;
+constexpr int GROUP_M = 8;
+constexpr int LDA = BK + 8;           // A's row stride in values: 144 bytes
+constexpr int A_ELEMS = BM * LDA;
+constexpr int B_ELEMS = BN * BK;
+constexpr int STAGE_ELEMS = A_ELEMS + B_ELEMS;
+constexpr int SMEM_BYTES = STAGES * STAGE_ELEMS * 2;
+constexpr int KHALF_BYTES = 128, NGROUP_BYTES = 256, STEP_BYTES = 4096;
+
+// where B's (n, k) value of a slab sits, in values
+template <bool B_KMAJOR>
+__device__ __forceinline__ int b_offset(int n, int k) {
+  const int core = (k / 16) * STEP_BYTES + (n / 8) * NGROUP_BYTES +
+                   ((k / 8) % 2) * KHALF_BYTES;
+  const int in = B_KMAJOR ? (n % 8) * 16 + (k % 8) * 2
+                          : (k % 8) * 16 + (n % 8) * 2;
+  return (core + in) / 2;
+}
+
+// the slab's B: element (k, n) at B[n*ldb + k] (B_KMAJOR) or B[k*ldb + n]
+template <typename T, bool B_KMAJOR, int VEC>
+__device__ __forceinline__ void load_b(T* s, const T* B, long long ldb,
+                                       int n0, int N, int k0, int k_end) {
+  if constexpr (B_KMAJOR) {
+    constexpr int PER_ROW = BK / VEC;
+    for (int e = threadIdx.x; e < BN * PER_ROW; e += NT) {
+      const int n = e / PER_ROW, kk = (e % PER_ROW) * VEC;
+      const int gn = n0 + n, gk = k0 + kk;
+      const int valid = gn < N ? max(0, min(VEC, k_end - gk)) : 0;
+      cp_async<T, VEC>(s + b_offset<true>(n, kk),
+                       valid > 0 ? B + (long long)gn * ldb + gk : B, valid);
+    }
+  } else {
+    constexpr int PER_ROW = BN / VEC;
+    for (int e = threadIdx.x; e < BK * PER_ROW; e += NT) {
+      const int kk = e / PER_ROW, n = (e % PER_ROW) * VEC;
+      const int gk = k0 + kk, gn = n0 + n;
+      const int valid = gk < k_end ? max(0, min(VEC, N - gn)) : 0;
+      cp_async<T, VEC>(s + b_offset<false>(n, kk),
+                       valid > 0 ? B + (long long)gk * ldb + gn : B, valid);
+    }
+  }
+}
+
+// the slab's A, row-major with row stride LDA: element (r, k) at
+// A[r*lda + k]
+template <typename T, int VEC>
+__device__ __forceinline__ void load_a(T* s, const T* A, long long lda,
+                                       int m0, int M, int k0, int k_end) {
+  constexpr int PER_ROW = BK / VEC;
+  for (int e = threadIdx.x; e < BM * PER_ROW; e += NT) {
+    const int r = e / PER_ROW, kk = (e % PER_ROW) * VEC;
+    const int gr = m0 + r, gk = k0 + kk;
+    const int valid = gr < M ? max(0, min(VEC, k_end - gk)) : 0;
+    cp_async<T, VEC>(s + r * LDA + kk,
+                     valid > 0 ? A + (long long)gr * lda + gk : A, valid);
+  }
+}
+
+__device__ __forceinline__ uint64_t b_desc(const void* p) {
+  const uint64_t a = static_cast<uint64_t>(__cvta_generic_to_shared(p));
+  return ((a & 0x3FFFF) >> 4) | (uint64_t(KHALF_BYTES >> 4) << 16) |
+         (uint64_t(NGROUP_BYTES >> 4) << 32);
+}
+
+// d(64x128) (+)= a(64x16, registers) @ b(16x128, shared); scale_d 0
+// overwrites d; TRANS_B 1 reads an MN-major B
+template <typename T, int TRANS_B>
+__device__ __forceinline__ void wgmma16(float (&d)[64],
+                                        const uint32_t (&a)[4],
+                                        uint64_t desc, int scale_d) {
+#define SOL_WGMMA16(TYPE)                                                     \
+  asm volatile(                                                               \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"                            \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TYPE "." TYPE " {"       \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, " \
+      "{%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"                         \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),                       \
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),                       \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),                     \
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),                   \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),                   \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),                   \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),                   \
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),                   \
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),                   \
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),                   \
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),                   \
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),                   \
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),                   \
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),                   \
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),                   \
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])                    \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d),  \
+        "n"(TRANS_B))
+  if constexpr (std::is_same<T, __nv_bfloat16>::value)
+    SOL_WGMMA16("bf16");
+  else
+    SOL_WGMMA16("f16");
+#undef SOL_WGMMA16
+}
+
+// ldb: B's stride between n (B_KMAJOR) or between k (otherwise).  The
+// output goes to C in T, or, with a workspace W, as f32 to split
+// blockIdx.y of W.
+template <typename T, bool B_KMAJOR, int VEC>
+__global__ void __launch_bounds__(NT, 1)
+tc16_kernel(const T* __restrict__ A, const T* __restrict__ B,
+            T* __restrict__ C, float* __restrict__ W, int M, int N, int K,
+            long long lda, long long ldb, int k_chunk) {
+  extern __shared__ __align__(128) float smem[];
+  T* smem16 = reinterpret_cast<T*>(smem);
+  const int tiles_m = (M + BM - 1) / BM, tiles_n = (N + BN - 1) / BN;
+  const int per_group = GROUP_M * tiles_n;
+  const int first_m = (blockIdx.x / per_group) * GROUP_M;
+  const int group_m = min(tiles_m - first_m, GROUP_M);
+  const int in_group = blockIdx.x % per_group;
+  const int m0 = (first_m + in_group % group_m) * BM;
+  const int n0 = (in_group / group_m) * BN;
+  const int k_begin = blockIdx.y * k_chunk;
+  const int k_end = min(K, k_begin + k_chunk);
+  const int slabs = k_end > k_begin ? (k_end - k_begin + BK - 1) / BK : 0;
+
+  auto load_slab = [&](int slab) {
+    T* s = smem16 + (slab % STAGES) * STAGE_ELEMS;
+    const int k0 = k_begin + slab * BK;
+    load_a<T, VEC>(s, A, lda, m0, M, k0, k_end);
+    load_b<T, B_KMAJOR, VEC>(s + A_ELEMS, B, ldb, n0, N, k0, k_end);
+  };
+  // a slab's copies (cp.async or stores: the generic proxy) are made
+  // visible to wgmma (the async proxy), then to every thread
+  auto landed = [&]() {
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+  };
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wrow = (warp / 4) * 64 + (warp % 4) * 16;
+  const int g = lane / 4, t = lane % 4;
+  // ldmatrix: lanes 0-15 address the warp's 16 rows at k, lanes 16-31 the
+  // same rows at k + 8; the four 8x8 matrices are the m16k16 fragment
+  const int lm_row = lane % 16, lm_col = (lane / 16) * 8;
+  float acc[64], part[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = part[i] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < slabs) load_slab(s);
+    cp_async_commit();
+  }
+  if (slabs > 0) {
+    cp_async_wait<STAGES - 2>();
+    landed();
+  }
+  uint32_t a[4][4];
+  tc::fence_regs(part);
+  for (int slab = 0; slab < slabs; ++slab) {
+    const T* As = smem16 + (slab % STAGES) * STAGE_ELEMS;
+    const T* Bs = As + A_ELEMS;
+    const int steps = min(BK, k_end - (k_begin + slab * BK) + 15) / 16;
+    if (slab > 0 && slab % PROMOTE == 0) {
+      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+      tc::fence_regs(part);
+#pragma unroll
+      for (int i = 0; i < 64; ++i) acc[i] += part[i];
+      tc::fence_regs(part);
+    }
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      if (s < steps) {
+        ldmatrix_x4(a[s], As + (wrow + lm_row) * LDA + s * 16 + lm_col);
+        const uint64_t desc = b_desc(Bs + s * (STEP_BYTES / 2));
+        asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+        wgmma16<T, B_KMAJOR ? 0 : 1>(part, a[s], desc,
+                                     slab % PROMOTE != 0 || s > 0);
+        asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+        // all but the newest 3 groups are done: the A registers of the
+        // next step, last used 4 groups back, are free
+        asm volatile("wgmma.wait_group.sync.aligned 3;\n" ::: "memory");
+      }
+    }
+    if (slab + 1 < slabs) {
+      // only this slab's groups may still be in flight, so slab - 1's
+      // stage is free once every thread is here
+      cp_async_wait<STAGES - 3>();
+      landed();
+      if (slab + STAGES - 1 < slabs) load_slab(slab + STAGES - 1);
+      cp_async_commit();
+    }
+  }
+  if (slabs > 0) {
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    tc::fence_regs(part);
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] += part[i];
+  }
+  cp_async_wait<0>();
+
   if (W != nullptr)
     store_tile(acc, W + (long long)blockIdx.y * M * N, M, N, m0 + wrow,
                n0, g, t);
@@ -516,41 +730,35 @@ cudaError_t launch(const T* A, const T* B, T* C, float* W, int M, int N,
                    int K, long long lda, long long ldb, int k_chunk,
                    dim3 grid, cudaStream_t s) {
   static bool configured = false;
-  constexpr int bytes = smem_bytes<T, B_KMAJOR>();
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(
-        tc_kernel<T, B_KMAJOR, VEC>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+        tc16_kernel<T, B_KMAJOR, VEC>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
     if (err != cudaSuccess) return err;
     configured = true;
   }
-  tc_kernel<T, B_KMAJOR, VEC><<<grid, NT, bytes, s>>>(A, B, C, W, M, N, K,
-                                                      lda, ldb, k_chunk);
+  tc16_kernel<T, B_KMAJOR, VEC><<<grid, NT, SMEM_BYTES, s>>>(
+      A, B, C, W, M, N, K, lda, ldb, k_chunk);
   return cudaGetLastError();
 }
 
-// vec: values of T per copy, 16 / sizeof(T) (16 bytes), 4 / sizeof(T) (4
-// bytes) or, for bf16 and f16, 1 (2 bytes)
+// vec: values per copy, 8 (16 bytes), 2 (4 bytes) or 1 (2 bytes)
 template <typename T, bool B_KMAJOR>
 cudaError_t launch_vec(int vec, const T* A, const T* B, T* C, float* W,
                        int M, int N, int K, long long lda, long long ldb,
                        int k_chunk, dim3 grid, cudaStream_t s) {
-  constexpr int V16 = 16 / sizeof(T), V4 = 4 / sizeof(T);
-  if (vec == V16)
-    return launch<T, B_KMAJOR, V16>(A, B, C, W, M, N, K, lda, ldb, k_chunk,
-                                    grid, s);
-  if (vec == V4)
-    return launch<T, B_KMAJOR, V4>(A, B, C, W, M, N, K, lda, ldb, k_chunk,
-                                   grid, s);
-  if constexpr (sizeof(T) == 2) {
-    if (vec == 1)
-      return launch<T, B_KMAJOR, 1>(A, B, C, W, M, N, K, lda, ldb, k_chunk,
-                                    grid, s);
+  switch (vec) {
+    case 8: return launch<T, B_KMAJOR, 8>(A, B, C, W, M, N, K, lda, ldb,
+                                          k_chunk, grid, s);
+    case 2: return launch<T, B_KMAJOR, 2>(A, B, C, W, M, N, K, lda, ldb,
+                                          k_chunk, grid, s);
+    case 1: return launch<T, B_KMAJOR, 1>(A, B, C, W, M, N, K, lda, ldb,
+                                          k_chunk, grid, s);
+    default: return cudaErrorInvalidValue;
   }
-  return cudaErrorInvalidValue;
 }
 
-}  // namespace tc
+}  // namespace tc16
 
 // ---------------------------------------------------------------------------
 // skinny kernel
@@ -920,24 +1128,39 @@ cudaError_t reduce(const float* ws, T* C, long long mn, int splits,
 // Tensor-core product.  ldb is B's stride between n where b_kmajor (an
 // (out,in) weight), else between k.  grid_x must be the number of 128x128
 // output tiles; splits > 1 splits K in chunks of k_chunk (a multiple of
-// 32) and needs an f32 workspace of splits*M*N.  vec is the values of T
-// per copy: 16 bytes need A, B and their row strides 16-byte aligned, 4
-// bytes 4-byte aligned.
+// the kernel's slab, 32 for f32 and 64 for bf16 and f16) and needs an f32
+// workspace of splits*M*N.  vec is the values of T per copy: 16 bytes need
+// A, B and their row strides 16-byte aligned, 4 bytes 4-byte aligned.
 template <typename T>
 int matmul_tc(const T* A, const T* B, T* C, float* workspace, int M, int N,
               int K, long long lda, long long ldb, int b_kmajor, int vec,
               int splits, int k_chunk, int grid_x, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (M <= 0 || N <= 0) return 0;
-  if (splits < 1 || k_chunk % tc::BK != 0 || (splits > 1 && !workspace))
+  constexpr int SLAB = sizeof(T) == 4 ? tc::BK : tc16::BK;
+  if (splits < 1 || k_chunk % SLAB != 0 || (splits > 1 && !workspace))
     return static_cast<int>(cudaErrorInvalidValue);
-  float* W = splits > 1 ? workspace : nullptr;
   const dim3 grid(grid_x, splits);
-  const cudaError_t err =
-      b_kmajor ? tc::launch_vec<T, true>(vec, A, B, C, W, M, N, K, lda, ldb,
-                                         k_chunk, grid, s)
-               : tc::launch_vec<T, false>(vec, A, B, C, W, M, N, K, lda, ldb,
-                                          k_chunk, grid, s);
+  cudaError_t err;
+  if constexpr (sizeof(T) == 4) {
+    float* target = splits > 1 ? workspace : C;
+    if (b_kmajor)
+      err = vec == 4 ? tc::launch<true, 4>(A, B, target, M, N, K, lda, ldb,
+                                           k_chunk, grid, s)
+                     : tc::launch<true, 1>(A, B, target, M, N, K, lda, ldb,
+                                           k_chunk, grid, s);
+    else
+      err = vec == 4 ? tc::launch<false, 4>(A, B, target, M, N, K, lda, ldb,
+                                            k_chunk, grid, s)
+                     : tc::launch<false, 1>(A, B, target, M, N, K, lda, ldb,
+                                            k_chunk, grid, s);
+  } else {
+    float* W = splits > 1 ? workspace : nullptr;
+    err = b_kmajor ? tc16::launch_vec<T, true>(vec, A, B, C, W, M, N, K, lda,
+                                               ldb, k_chunk, grid, s)
+                   : tc16::launch_vec<T, false>(vec, A, B, C, W, M, N, K,
+                                                lda, ldb, k_chunk, grid, s);
+  }
   if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
   return static_cast<int>(reduce<T>(workspace, C, (long long)M * N, splits,
                                     s));

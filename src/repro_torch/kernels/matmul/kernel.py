@@ -1,10 +1,10 @@
 """Launching wrapper of the matrix products in ``csrc/matmul.cu``, in
 float32, bfloat16 and float16.
 
-Replaces ``repro/kernels/matmul/kernel.py::matmul_call`` with two kernels:
-a tensor-core kernel for the large products (3xTF32 for f32, one TF32 pass
-for bf16 and f16, whose values TF32 holds exactly) and a bandwidth-bound
-kernel for the skinny ones (M or N up to ``SKINNY``).  The accumulator is
+Replaces ``repro/kernels/matmul/kernel.py::matmul_call`` with a
+tensor-core kernel for the large products (3xTF32 ``wgmma`` for f32, the
+16-bit ``wgmma`` for bf16 and f16) and a bandwidth-bound kernel for the
+skinny ones (M or N up to ``SKINNY``).  The accumulator is
 f32 and the output is rounded once to the operands' dtype.  The source
 note in ``matmul.cu`` says what bounds each and how it is built.  Which
 kernel runs, with which split of K, grid and copy width, is decided here,
@@ -30,7 +30,8 @@ _SKINNY_ARGS = [_P, _L, _L, _I, _P, _L, _L, _I, _P, _P, _L, _L, _I, _I, _I,
 
 SM_COUNT = 132
 SKINNY = 16             # M or N up to which the skinny kernel runs
-TC_TILE = (128, 128, 32)    # BM, BN, BK of the tensor-core kernel
+TC_TILE = (128, 128, 32)    # BM, BN, BK of the f32 tensor-core kernel
+TC_BK_16BIT = 64            # BK of the bf16 and f16 one
 TC_MIN_K_CHUNK = 256    # K per split of the tensor-core kernel, at least
 SKINNY_ROWS = (1, 2, 4, 8, 16)  # the small operand's rows, padded
 SKINNY_S_FLOATS = 8192  # the small operand's K range in shared memory
@@ -108,6 +109,8 @@ def _plan(m, n, k, lda, ldb_k, ldb_n, x_mod, w_mod, sms, itemsize) -> Plan:
         return _skinny_plan(m, n, k, lda, b_kmajor, w_row_stride, w_rows,
                             x_mod, w_mod, sms, itemsize)
     bm, bn, bk = TC_TILE
+    if itemsize == 2:
+        bk = TC_BK_16BIT
     vec = min(_vec(x_mod, lda, m, itemsize),
               _vec(w_mod, w_row_stride, w_rows, itemsize))
     tiles = _cdiv(m, bm) * _cdiv(n, bn)

@@ -225,6 +225,8 @@ def test_matmul_plan_chunks_suit_each_element_size(m, k, n, oi, itemsize):
     picks the f32 plan's kernel and operand roles."""
     p = _plan_of(m, k, n, oi, itemsize=itemsize)
     assert p.k_chunk % 8 == 0
+    if p.kernel == "tensor_core":     # whole slabs: 32 f32 or 64 16-bit k
+        assert p.k_chunk % (32 if itemsize == 4 else 64) == 0
     assert (p.splits - 1) * p.k_chunk < max(k, 1) <= p.splits * p.k_chunk
     assert p.vec * itemsize in (16, 4) or p.vec == 1
     f32 = _plan_of(m, k, n, oi)
