@@ -26,10 +26,14 @@ Phases, each failing loudly:
    this card (matmul rows also against the tensor cores' 3xTF32 rate);
    beside them the back-to-back launch time, which host launch cost can
    push above the device time.  Then every kernel in bf16 at the f32
-   rows' shapes and in f16 at one shape each, held to its plain version
-   on the same rounded values within one rounding step of the storage
-   type, bytes counted at the storage size and tensor-core matmul rows
-   bound at the 16-bit tensor cores' rate.
+   rows' shapes, in bf16 at every shape and DFP program that phase 7's
+   paths run and no row above holds (read from two-block versions of the
+   paths' graphs: the transformer's 1024-row products, LM head and
+   S 256 attention, its decode step's products, each path's DFP groups,
+   the CNN's head), and in f16 at one shape each, held to its plain
+   version on the same rounded values within one rounding step of the
+   storage type, bytes counted at the storage size and tensor-core matmul
+   rows bound at the 16-bit tensor cores' rate.
 3. serve — 28 × ``transformer_block(1536, 12, n_kv_heads=2)`` + a
    Linear(1536, 151936) head with random weights from a seeded generator
    (build_lm's block: pre-norm LayerNorm, 4·d tanh-GELU MLP, no RoPE — not
@@ -70,14 +74,18 @@ Phases, each failing loudly:
    transformer's full program at (4, 256, 1536) and one decode step
    against a bf16 cache with lens 0/37/100/127, the stacks at (4, 512, d),
    the CNN at (64, 3, 224, 224).  Every node a ``cuda.*`` impl admits
-   elects it and each path's kernels launch.  Gates, relative to the
-   output's scale: logits, each recurrent block alone and the CNN's output
-   within README's bf16 row (3e-2, RWKV6 5e-2) of ``torch_ref`` bf16 on
-   the same module; a stack's output no further from ``torch_ref`` in f32
-   on the same bf16-rounded weights than twice ``torch_ref`` bf16's own
-   distance (its bf16 floor).  Warm times in turns with ``torch_ref``
-   bf16, beside the same path's f32 h100 time, and one profiled call per
-   path.
+   elects it, each path's kernels launch, and phase 2 held every kernel
+   node of the path at its shapes.  Gates, relative to the output's
+   scale: logits, each recurrent block alone and the CNN's output within
+   README's bf16 row (3e-2, RWKV6 5e-2) of ``torch_ref`` bf16 on the same
+   module; a stack's output no further from ``torch_ref`` in f32 on the
+   same bf16-rounded weights than twice ``torch_ref`` bf16's own distance
+   (its bf16 floor).  RWKV6's floor at 24 blocks is about half the
+   output's scale, so that gate cannot catch a wrong kernel there; its
+   first two blocks are held to the same rule, and the same two blocks
+   with the scan's bonus u zeroed must fail it.  Warm times in turns with
+   ``torch_ref`` bf16, beside the same path's f32 h100 time, and one
+   profiled call per path.
 
 The second-to-last lines are the card's ``nvidia-smi`` line and a JSON
 ``kernels`` line (an entry per kernel in f32, and one per kernel in bf16
@@ -91,6 +99,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
@@ -207,11 +216,14 @@ def max_err(a, b) -> float:
 def phase_kernels(gen) -> dict:
     """Every kernel against its plain version: in f32 at the main paths'
     shapes and edge cases, then in bf16 at the f32 rows' shapes (the
-    matmul: serving, LoRA, the 2048-row products and the K = 12288 row) and
-    in f16 at one shape per kernel.  A half-precision row runs the same
-    random values rounded to its storage type, counts bytes at the storage
-    size, and takes a tensor-core matmul row's operations at the TF32
-    rate; its library call runs in the same dtype."""
+    matmul: serving, LoRA, the 2048-row products and the K = 12288 row),
+    in bf16 at every kernel node's shapes in phase 7's paths
+    (``bf16_path_nodes``) that no bf16 row holds yet, and in f16 at one
+    shape per kernel.  A half-precision row runs the same random values rounded
+    to its storage type, counts bytes at the storage size, and takes a
+    tensor-core matmul row's operations at the 16-bit tensor cores' rate
+    (PEAK_16BIT); its library call runs in the same dtype.  Each row
+    carries its ``node_key``."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.avgpool.kernel import avgpool_cuda
@@ -250,7 +262,7 @@ def phase_kernels(gen) -> dict:
     cases = []
 
     def record(name, shape, err, fn, plain, library, flops, nbytes,
-               replaces, source, route, on_path=True, peak=PEAK_F32,
+               replaces, source, route, key, on_path=True, peak=PEAK_F32,
                extra=None, dtype="float32", within=None):
         t = {"": time_ms(fn), "plain_": time_ms(plain)}
         if library is not None:
@@ -261,7 +273,7 @@ def phase_kernels(gen) -> dict:
                "source": source, "replaces": replaces, "max_abs_err": err,
                "tol": tol, "library_ms": None,
                "bound_ms": b_ms, "bound_by": b_by, "on_path": on_path,
-               **(extra or {})}
+               "key": key, **(extra or {})}
         for pre, v in t.items():
             row[f"{pre}ms"] = v["device"]
             row[f"{pre}launch_ms"] = v["launch"]
@@ -306,16 +318,16 @@ def phase_kernels(gen) -> dict:
                lambda: matmul_ref(x, w), lambda: torch.matmul(x, w),
                2.0 * m * k * n, float(size) * (m * k + k * n + m * n),
                "src/repro/kernels/matmul/kernel.py:85", csrc + "matmul.cu",
-               "cuda", peak=peak,
+               "cuda", ("matmul", m, k, n, oi), peak=peak,
                extra={"kernel": p.kernel, "splits": p.splits, "vec": p.vec,
                       "rel_err": rel}, dtype=dt, within=within)
         if rtol is not None and not rel <= rtol:
             fail(f"matmul {shape}: max |error| {rel:.3g} of the output's "
                  f"scale > {rtol}")
 
-    # flash attention at the prefill bucket: B 4, S 128, H 12, KV 2, hd 128
-    def flash_case(dt="float32"):
-        b, s, h, kv, hd = 4, 128, 12, 2, 128
+    # causal flash attention, by default at the prefill bucket: B 4, S 128,
+    # H 12, KV 2, hd 128
+    def flash_case(dt="float32", b=4, s=128, h=12, kv=2, hd=128):
         q, k_ = randn(b, s, h, hd, dt=dt), randn(b, s, kv, hd, dt=dt)
         v = randn(b, s, kv, hd, dt=dt)
         o = flash_attention_cuda(q, k_, v, causal=True)
@@ -342,7 +354,9 @@ def phase_kernels(gen) -> dict:
                float(q.element_size()) * (2 * b * s * h * hd
                                           + 2 * b * s * kv * hd),
                "src/repro/kernels/flash_attention/kernel.py:82",
-               csrc + "flash_attention.cu", "cuda", dtype=dt, within=within)
+               csrc + "flash_attention.cu", "cuda",
+               ("flash_attention", b, s, h, kv, hd, True, 0, 0.0), dtype=dt,
+               within=within)
 
     # decode attention at the decode bucket: cache 128, mixed lens incl. 0
     def decode_case(dt="float32"):
@@ -365,7 +379,9 @@ def phase_kernels(gen) -> dict:
                float(qd.element_size()) * (2 * b * h * hd + 2 * rows * kv * hd
                                            + 2 * b * kv * hd) + 4.0 * b,
                "src/repro/kernels/decode_attention/kernel.py:94",
-               csrc + "decode_attention.cu", "cuda", dtype=dt, within=within)
+               csrc + "decode_attention.cu", "cuda",
+               ("decode_attention", b, cache, h, kv, hd), dtype=dt,
+               within=within)
 
     # a generated DFP program on random operands
     def dfp_case(label, rows_n, d, prog, on_path=True, dt="float32"):
@@ -381,7 +397,7 @@ def phase_kernels(gen) -> dict:
         n_full = prog.operand_kinds.count("full")
         n_vec = prog.operand_kinds.count("vec")
         library = None
-        if label == "bias_add+gelu":
+        if tuple(i[0] for i in prog.instrs) == ("bias", "gelu"):
             library = lambda: F.gelu(ops[0] + ops[1], approximate="tanh")  # noqa: E731
         record("dfp_fused", f"{label} rows{rows_n} d{d}", err,
                lambda: dfp_fused_triton(prog, ops, (rows_n, d), tdt[dt]),
@@ -391,7 +407,8 @@ def phase_kernels(gen) -> dict:
                                                + n_vec * d),
                "src/repro/kernels/dfp_fused/kernel.py:117",
                "src/repro_torch/kernels/dfp_fused/kernel.py", "triton",
-               on_path, dtype=dt, within=within)
+               ("dfp_fused", repr(prog), rows_n, d), on_path, dtype=dt,
+               within=within)
 
     # RG-LRU scan: a in (0.5, 1), h0 nonzero
     def rglru_case(b_, t_, d_, dt="float32"):
@@ -409,7 +426,8 @@ def phase_kernels(gen) -> dict:
                lambda: rglru_scan_ref(a, bb, h0), None, 2.0 * n,
                float(a.element_size()) * (3 * n + 2 * b_ * d_),
                "src/repro/kernels/rglru_scan/kernel.py:36",
-               csrc + "rglru_scan.cu", "cuda", dtype=dt,
+               csrc + "rglru_scan.cu", "cuda", ("rglru_scan", b_, t_, d_),
+               dtype=dt,
                within=None if w1 is None else w1 and w2)
 
     # RWKV6 scan; ``extremes``: log decays 0 (no decay) and -50 (exp
@@ -439,7 +457,8 @@ def phase_kernels(gen) -> dict:
                float(r.element_size()) * (5 * n + h_ * hd + state)
                + 4.0 * state,
                "src/repro/kernels/rwkv6_scan/kernel.py:55",
-               csrc + "rwkv6_scan.cu", "cuda", dtype=dt, within=within,
+               csrc + "rwkv6_scan.cu", "cuda", ("rwkv6_scan", b_, t_, h_, hd),
+               dtype=dt, within=within,
                extra={"s_last_max_abs_err": s_err})
 
     # average pooling; F.avg_pool2d is the library call
@@ -456,7 +475,8 @@ def phase_kernels(gen) -> dict:
                float(kh * kw) * out,
                float(x.element_size()) * (x.numel() + out),
                "src/repro/kernels/avgpool/kernel.py:34", csrc + "avgpool.cu",
-               "cuda", on_path, dtype=dt, within=within)
+               "cuda", ("avgpool", n_, c_, h_, w_, kh, kw), on_path, dtype=dt,
+               within=within)
 
     serving = [(4, 1536, 151936, True), (256, 1536, 1536, False),
                (256, 1536, 6144, False), (256, 1536, 6144, True),
@@ -517,6 +537,29 @@ def phase_kernels(gen) -> dict:
         decode_case(dt)
         rglru_case(4, 512, 4096, dt)
         rwkv6_case(4, 512, 32, 64, dt=dt)
+
+    # bf16 at every kernel node of phase 7's paths that no row above holds
+    held = {c["key"] for c in cases if c["dtype"] == bf}
+    for key, node in bf16_path_nodes(torch, dev).items():
+        if key in held:
+            continue
+        kind, dims = key[0], key[1:]
+        if kind == "matmul":
+            matmul_case(*dims, " (bf16 path)", dt=bf)
+        elif kind == "flash_attention" and dims[5:] == (True, 0, 0.0):
+            flash_case(bf, *dims[:5])
+        elif kind == "dfp_fused":
+            dfp_case(node.name[len("fused["):-1] + " (bf16 path)", dims[1],
+                     dims[2], dfp_program(node), dt=bf)
+        elif kind == "rglru_scan":
+            rglru_case(*dims, dt=bf)
+        elif kind == "rwkv6_scan":
+            rwkv6_case(*dims, dt=bf)
+        elif kind == "avgpool":
+            avgpool_case(*dims, dt=bf)
+        else:
+            fail(f"phase 2 has no bf16 case for the bf16 paths' {key}")
+        held.add(key)
     f16 = "float16"
     matmul_case(4, 1536, 151936, True, dt=f16)
     matmul_case(2048, 4096, 4096, False, dt=f16)
@@ -1219,6 +1262,11 @@ def phase_cnn(torch, counters, dev) -> dict:
 BF16_ROW = {"transformer": 3e-2, "rwkv6": 5e-2, "griffin": 3e-2,
             "listing3_cnn": 3e-2}
 BF16_FLOOR_FACTOR = 2.0
+# RWKV6's floor at 24 blocks is about half its output's scale (torch_ref
+# bf16 lies 0.51 of it from torch_ref f32), where the floor gate passes any
+# output; its first two blocks, where the floor is a few percent, are held
+# to the same rule, beside a control with the scan's bonus u zeroed
+BF16_PREFIX_BLOCKS = 2
 BF16_LM_SHAPE = (4, 256, 1536)       # the full program: 4 x 256 tokens
 BF16_DECODE_CACHE = 128
 BF16_DECODE_LENS = (0, 37, 100, 127)
@@ -1232,6 +1280,93 @@ BF16_KERNELS = {
     "griffin": ("matmul", "dfp_fused", "rglru_scan"),
     "listing3_cnn": ("matmul", "avgpool"),
 }
+
+
+def dfp_program(n):
+    from repro_torch.kernels.dfp_fused.program import encode_program
+    return encode_program(n, {id(i): i.spec for i in n.inputs})[0]
+
+
+def node_key(n) -> tuple:
+    """What a phase-2 row must match to hold a ``cuda.*`` node: its kernel
+    and the shapes (a DFP group's program, flash attention's mask) it runs
+    them at.  A LINEAR reads its (out, in) weight transposed."""
+    kind = n.impl[len("cuda."):]
+    s = [tuple(i.spec.shape) for i in n.inputs]
+    if kind in ("matmul", "linear"):
+        lead, w = s[0][:-1], s[1]
+        n_out = w[0] if kind == "linear" else w[-1]
+        return ("matmul", math.prod(lead), s[0][-1], n_out, kind == "linear")
+    if kind == "flash_attention":
+        b, t, h, hd = s[0]
+        return (kind, b, t, h, s[1][2], hd, n.attrs.get("causal", True),
+                n.attrs.get("window", 0), n.attrs.get("cap", 0.0))
+    if kind == "decode_attention":
+        b, _, h, hd = s[0]
+        return (kind, b, s[1][1], h, s[1][2], hd)
+    if kind == "dfp_fused":
+        out = tuple(n.spec.shape)
+        return (kind, repr(dfp_program(n)), math.prod(out[:-1]), out[-1])
+    if kind == "avgpool":
+        k = n.attrs.get("kernel", 2)
+        return (kind, *s[0], *((k, k) if isinstance(k, int) else k))
+    return (kind, *s[0])            # the scans: their first operand
+
+
+def cuda_keys(sol) -> dict:
+    """node_key -> the first ``cuda.*`` node of ``sol``'s graph with it."""
+    out = {}
+    for n in sol.graph.topo():
+        if (n.impl or "").startswith("cuda."):
+            out.setdefault(node_key(n), n)
+    return out
+
+
+def bf16_path_nodes(torch, dev) -> dict:
+    """node_key -> node of every kernel node that phase 7's paths run,
+    read from two-block versions of them at full width (a path's blocks
+    are alike): the transformer's full program and decode step with the
+    LM head, each stack, the Listing-3 CNN.  Nothing is launched."""
+    from repro_torch.frontends import extract
+    from repro_torch.frontends.optimize import compile_graph, optimize
+    from repro_torch.launch.serve import ServeConfig, build_lm
+
+    gen = torch.Generator(dev).manual_seed(0)
+    bf, out = torch.bfloat16, {}
+
+    def add(sol):
+        for k, n in cuda_keys(sol).items():
+            out.setdefault(k, n)
+
+    cfg = ServeConfig(**{k: v for k, v in FULL.items() if k != "n_kv_heads"},
+                      backend="h100")
+    cfg = dataclasses.replace(cfg, n_layers=2)
+    with torch.no_grad():
+        lm = build_lm(cfg, n_kv_heads=FULL["n_kv_heads"], device=dev,
+                      generator=gen).to(bf)
+    b, d = BF16_LM_SHAPE[0], FULL["d_model"]
+    add(optimize(lm, BF16_LM_SHAPE, backend="h100", dtype="bfloat16",
+                 device=dev))
+    add(compile_graph(lm, extract.extract_decode(
+        lm, b, BF16_DECODE_CACHE, d, "bfloat16"), "h100", device=dev))
+    del lm
+    for name, stack in STACKS:
+        with torch.no_grad():
+            m = _build_stack(name, {**stack, "layers": 2}, dev, gen).to(bf)
+        add(optimize(m, REC_SHAPE_BT + (stack["d_model"],), backend="h100",
+                     dtype="bfloat16", device=dev))
+    with torch.no_grad():
+        m = _build_cnn(torch, "listing3_cnn", dev, gen).to(bf)
+    add(optimize(m, CNN_SHAPE, backend="h100", dtype="bfloat16", device=dev))
+    return out
+
+
+def check_held(sol, name: str, held) -> None:
+    """Phase 2 held every kernel node of the path against its plain
+    version at the node's shapes, in bf16."""
+    missing = [k for k in cuda_keys(sol) if k not in held]
+    if missing:
+        fail(f"{name} bf16: phase 2 held no bf16 row at {missing}")
 
 
 def _bf16_run(torch, counters, name, fn):
@@ -1270,7 +1405,7 @@ def _in_turns(torch, h100, ref):
     return h_ms, r_ms
 
 
-def bf16_transformer(torch, counters, dev) -> dict:
+def bf16_transformer(torch, counters, dev, held) -> dict:
     """build_lm's 28 blocks and head at Qwen2-1.5B width, cast to bf16: the
     full program at BF16_LM_SHAPE and one decode step against a bf16 cache
     with lens BF16_DECODE_LENS, each against torch_ref bf16, timed beside
@@ -1314,6 +1449,8 @@ def bf16_transformer(torch, counters, dev) -> dict:
     by_kind = check_cuda_elected(sol, "transformer bf16")
     dec = compile_graph(model, decode_graph("bfloat16"), "h100")
     by_kind_dec = check_cuda_elected(dec, "transformer decode bf16")
+    check_held(sol, "transformer", held)
+    check_held(dec, "transformer decode", held)
     for kind, impl, rep in (("linear", "cuda.linear", by_kind),
                             ("matmul", "cuda.matmul", by_kind),
                             ("attention", "cuda.flash_attention", by_kind),
@@ -1376,7 +1513,7 @@ def bf16_transformer(torch, counters, dev) -> dict:
 
 
 def bf16_stack(torch, counters, dev, index: int, name: str, cfg: dict,
-               f32_ms: float) -> dict:
+               f32_ms: float, held) -> dict:
     """The phase-5 stack (same seed, same weights) rounded to bf16: each
     block alone and the stack's output held to the gates above, warm
     forwards in turns with torch_ref bf16."""
@@ -1396,6 +1533,7 @@ def bf16_stack(torch, counters, dev, index: int, name: str, cfg: dict,
 
     sol = optimize(model, shape, backend="h100", dtype="bfloat16")
     by_kind = check_elections(sol, name)
+    check_held(sol, name, held)
     y, launches = _bf16_run(torch, counters, name, lambda: sol(x16))
     _check_finite(torch, name, y, shape)
     ref = optimize(model, shape, backend="torch_ref", dtype="bfloat16")
@@ -1407,6 +1545,8 @@ def bf16_stack(torch, counters, dev, index: int, name: str, cfg: dict,
     err_h, err_r = rel_err(y, want32), rel_err(want, want32)
     _gate(name, f"the output's distance from torch_ref f32 (torch_ref "
           f"bf16's: {err_r:.3g}) is", err_h, BF16_FLOOR_FACTOR * err_r)
+    prefix = (bf16_rwkv6_prefix(torch, model, shape, x16)
+              if name == "rwkv6" else None)
     h_ms, r_ms = _in_turns(torch, lambda: sol(x16), lambda: ref(x16))
     med = statistics.median
     log(f"[bf16] {name}: elections {by_kind}; launches {launches}; each "
@@ -1423,6 +1563,7 @@ def bf16_stack(torch, counters, dev, index: int, name: str, cfg: dict,
            "launches": launches, "per_layer_rel_err": layers,
            "rel_err_f32_h100": err_h, "rel_err_f32_torch_ref": err_r,
            "floor_factor": BF16_FLOOR_FACTOR, "layer_limit": BF16_ROW[name],
+           "prefix_floor": prefix,
            "h100_ms": h_ms, "h100_ms_median": med(h_ms),
            "torch_ref_ms": r_ms, "torch_ref_ms_median": med(r_ms),
            "h100_f32_ms_median": f32_ms}
@@ -1430,7 +1571,45 @@ def bf16_stack(torch, counters, dev, index: int, name: str, cfg: dict,
     return out
 
 
-def bf16_cnn(torch, counters, dev, f32_ms: float) -> dict:
+def bf16_rwkv6_prefix(torch, model, shape, x16) -> dict:
+    """The bf16 floor gate on RWKV6's first BF16_PREFIX_BLOCKS blocks, and
+    its control: the same blocks on h100 with the scan's bonus u zeroed
+    must lie beyond the limit."""
+    import copy
+    from torch import nn as tnn
+    from repro_torch.frontends.optimize import optimize
+    from repro_torch.kernels.rwkv6_scan import ops
+
+    n = BF16_PREFIX_BLOCKS
+    sub = tnn.Sequential(*list(model)[:n])
+    want32 = optimize(copy.deepcopy(sub).float(), shape,
+                      backend="torch_ref")(x16.float())
+    err_r = rel_err(optimize(sub, shape, backend="torch_ref",
+                             dtype="bfloat16")(x16), want32)
+    sol = optimize(sub, shape, backend="h100", dtype="bfloat16")
+    err_h = rel_err(sol(x16), want32)
+    limit = BF16_FLOOR_FACTOR * err_r
+    _gate("rwkv6", f"the first {n} blocks' distance from torch_ref f32 "
+          f"(torch_ref bf16's: {err_r:.3g}) is", err_h, limit)
+    real = ops.rwkv6_scan
+    ops.rwkv6_scan = lambda r, k, v, logw, u, s0: real(
+        r, k, v, logw, torch.zeros_like(u), s0)
+    try:
+        err_fault = rel_err(sol(x16), want32)
+    finally:
+        ops.rwkv6_scan = real
+    if not err_fault > limit:
+        fail(f"rwkv6 bf16: the first {n} blocks with u zeroed read "
+             f"{err_fault:.3g}, within the floor gate's {limit:.3g}")
+    log(f"[bf16] rwkv6 first {n} blocks from torch_ref f32: h100 bf16 "
+        f"{err_h:.3g}, torch_ref bf16 {err_r:.3g} (limit {limit:.3g}); "
+        f"with u zeroed {err_fault:.3g}")
+    return {"blocks": n, "rel_err_f32_h100": err_h,
+            "rel_err_f32_torch_ref": err_r, "limit": limit,
+            "u_zeroed_rel_err_f32": err_fault}
+
+
+def bf16_cnn(torch, counters, dev, f32_ms: float, held) -> dict:
     """The phase-6 Listing-3 CNN (same seed, same weights) cast to bf16."""
     import statistics
     from repro_torch.frontends.optimize import optimize
@@ -1445,6 +1624,7 @@ def bf16_cnn(torch, counters, dev, f32_ms: float) -> dict:
     if by_kind.get("avgpool") != {"cuda.avgpool": 2} or \
             set(by_kind.get("linear", {})) != {"cuda.linear"}:
         fail(f"listing3_cnn bf16: elections {by_kind}")
+    check_held(sol, "listing3_cnn", held)
     for n in sol.graph.topo():
         if conv_bias_group(n) and n.impl != "ref.compose":
             fail(f"listing3_cnn bf16: conv bias group {n.name} elected "
@@ -1477,21 +1657,21 @@ def bf16_cnn(torch, counters, dev, f32_ms: float) -> dict:
     return out
 
 
-def phase_bf16(torch, counters, dev, recurrent, cnn) -> dict:
+def phase_bf16(torch, counters, dev, recurrent, cnn, held) -> dict:
     """The four paths with bf16 weights and inputs through
     ``optimize(..., dtype="bfloat16", backend="h100")`` at the f32 phases'
-    widths."""
+    widths; ``held``: the node keys of phase 2's bf16 rows."""
     import gc
-    results = {"transformer": bf16_transformer(torch, counters, dev)}
+    results = {"transformer": bf16_transformer(torch, counters, dev, held)}
     gc.collect()
     torch.cuda.empty_cache()
     for i, (name, cfg) in enumerate(STACKS):
         results[name] = bf16_stack(torch, counters, dev, i, name, cfg,
-                                   recurrent[name]["h100_ms_median"])
+                                   recurrent[name]["h100_ms_median"], held)
         gc.collect()
         torch.cuda.empty_cache()
     results["listing3_cnn"] = bf16_cnn(
-        torch, counters, dev, cnn["listing3_cnn"]["h100_ms_median"])
+        torch, counters, dev, cnn["listing3_cnn"]["h100_ms_median"], held)
     gc.collect()
     torch.cuda.empty_cache()
     return results
@@ -1558,8 +1738,9 @@ def main() -> int:
                      "dfp_fused": dfp_fused_triton,
                      "rglru_scan": rglru_scan_cuda,
                      "rwkv6_scan": rwkv6_scan_cuda, "avgpool": avgpool_cuda}
+    held = {c["key"] for c in kern["cases"] if c["dtype"] == "bfloat16"}
     bf16 = phase_bf16(torch, bf16_counters, torch.device("cuda"), recurrent,
-                      cnn)
+                      cnn, held)
 
     # launches per main path: the served set and one forward of each stack
     # and each CNN in f32; the bf16 paths' runs for the bf16 entries

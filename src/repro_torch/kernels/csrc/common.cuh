@@ -39,5 +39,5 @@ __device__ __forceinline__ __half from_f32<__half>(float x) {
 
 // M(type, suffix) once per storage type: each kernel exports one entry per
 // type, sol_<kernel>_f32, _bf16 and _f16, which the wrapper picks by the
-// tensors' dtype (kernels/build.py, DTYPE_SUFFIX)
+// tensors' dtype (kernels/dtypes.py, SUFFIX)
 #define SOL_FOR_EACH_DTYPE(M) M(float, f32) M(__nv_bfloat16, bf16) M(__half, f16)

@@ -253,6 +253,19 @@ def test_recurrent_stack_in_bf16_matches_jax(name):
                  (RWKV6_ROW if name == "rwkv6" else ROW)[0])
 
 
+def test_rwkv6_bf16_row_still_fails_a_wrong_stack():
+    """At README's RWKV6 bf16 row, the bf16 stack of the test above with
+    its bonus ``u`` zeroed on the port's side fails."""
+    jm, tm, shape = recurrent_tests.models("rwkv6", 2)
+    jm, tm = _to_bf16(jm, tm)
+    with torch.no_grad():
+        zeroed = [p.zero_() for k, p in tm.named_parameters()
+                  if k.endswith(".u")]
+    assert len(zeroed) == 2
+    with pytest.raises(AssertionError):
+        _slice_close(tm, jm, shape, np.random.default_rng(6), RWKV6_ROW[0])
+
+
 def test_listing3_cnn_in_bf16_matches_jax():
     """At 40×40: at 32×32 the first conv's C equals W, where JAX's
     ``pallas_interpret`` broadcasts the conv bias over W (the reference
