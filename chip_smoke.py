@@ -16,24 +16,31 @@ Phases, each failing loudly:
 2. kernels — matmul (serving, LoRA and the recurrent stacks' dense
    shapes, each on the kernel its plan picks: 3xTF32 tensor cores or the
    skinny kernel; one K = 12288 row held to 1e-5 of the output's scale),
-   flash attention, decode attention, the generated DFP programs (serving groups and the
-   recurrent graphs' gate, mix and group-norm programs), the RG-LRU scan,
-   the RWKV6 scan and the average pooling (full width and edge cases)
-   against their plain versions (max |error| against the stated
-   tolerance) with their device times (cold L2, the host ahead of the
-   device), the plain version's, one PyTorch library call's where one
-   computes the same function, and the roofline bound of the same work on
-   this card (matmul rows also against the tensor cores' 3xTF32 rate);
-   beside them the back-to-back launch time, which host launch cost can
-   push above the device time.  Then every kernel in bf16 at the f32
-   rows' shapes, in bf16 at every shape and DFP program that phase 7's
-   paths run and no row above holds (read from two-block versions of the
-   paths' graphs: the transformer's 1024-row products, LM head and
-   S 256 attention, its decode step's products, each path's DFP groups,
-   the CNN's head), and in f16 at one shape each, held to its plain
+   flash attention (tensor cores), decode attention (split-KV, with the
+   number of splits), the generated DFP programs (the served graph's
+   groups and the recurrent graphs' gate, mix and group-norm programs),
+   the RG-LRU scan, the RWKV6 scan and the average pooling (full width
+   and edge cases) against their plain versions (max |error| against the
+   stated tolerance) with their device times (cold L2, the host ahead of
+   the device), the plain version's, one PyTorch library call's where one
+   computes the same function (decode attention: SDPA on a copy of the
+   cache that already holds the step's row), and the roofline bound of
+   the same work on this card, taken at the peak of the units that run
+   it (3xTF32 or 16-bit tensor cores for the matmul's tensor-core rows
+   and for flash attention); beside them the back-to-back launch time,
+   which host launch cost can push above the device time.  Then an f32
+   row at every kernel node that phases 3, 5 and 6 run and no row above
+   holds (``path_nodes``: two-block versions of the serve's programs at
+   the buckets phase 3 opens, of both stacks and of the three CNNs); then
+   every kernel in bf16 at the f32 rows' shapes, in bf16 at every shape
+   and DFP program that phase 7's paths run and no row above holds (the
+   transformer's 1024-row products, LM head and S 256 attention, its
+   decode step's products, each path's DFP groups, the CNN's head), and
+   in f16 at one shape each (flash also at S 256), held to its plain
    version on the same rounded values within one rounding step of the
-   storage type, bytes counted at the storage size and tensor-core matmul
-   rows bound at the 16-bit tensor cores' rate.
+   storage type, bytes counted at the storage size.  Phases 3, 5, 6 and 7
+   fail on a kernel node of their paths that no row of their dtype holds
+   (``node_key``, ``check_held``).
 3. serve — 28 × ``transformer_block(1536, 12, n_kv_heads=2)`` + a
    Linear(1536, 151936) head with random weights from a seeded generator
    (build_lm's block: pre-norm LayerNorm, 4·d tanh-GELU MLP, no RoPE — not
@@ -228,8 +235,8 @@ def phase_kernels(gen) -> dict:
     import torch.nn.functional as F
     from repro_torch.kernels.avgpool.kernel import avgpool_cuda
     from repro_torch.kernels.avgpool.ref import avgpool_ref
-    from repro_torch.kernels.decode_attention.kernel import \
-        decode_attention_cuda
+    from repro_torch.kernels.decode_attention.kernel import (
+        decode_attention_cuda, decode_plan)
     from repro_torch.kernels.decode_attention.ops import _ref_model_layout
     from repro_torch.kernels.dfp_fused.kernel import dfp_fused_triton
     from repro_torch.kernels.dfp_fused.ref import dfp_fused_ref
@@ -325,43 +332,62 @@ def phase_kernels(gen) -> dict:
             fail(f"matmul {shape}: max |error| {rel:.3g} of the output's "
                  f"scale > {rtol}")
 
-    # causal flash attention, by default at the prefill bucket: B 4, S 128,
-    # H 12, KV 2, hd 128
-    def flash_case(dt="float32", b=4, s=128, h=12, kv=2, hd=128):
-        q, k_ = randn(b, s, h, hd, dt=dt), randn(b, s, kv, hd, dt=dt)
-        v = randn(b, s, kv, hd, dt=dt)
-        o = flash_attention_cuda(q, k_, v, causal=True)
+    # flash attention, by default causal at the prefill bucket: B 4, S 128,
+    # H 12, KV 2, hd 128.  The products run on the tensor cores: bound at
+    # the 16-bit rate in bf16 and f16, at the 3xTF32 rate in f32
+    def flash_case(dt="float32", b=4, s=128, h=12, kv=2, hd=128,
+                   causal=True, window=0, cap=0.0):
+        q, k_, v = randn(b, s, h, hd, dt=dt), randn(b, s, kv, hd, dt=dt), \
+            randn(b, s, kv, hd, dt=dt)
+        attrs = dict(causal=causal, window=window, cap=cap)
+        o = flash_attention_cuda(q, k_, v, **attrs)
         torch.cuda.synchronize()
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k_, v))
 
         def fa_plain():
-            return flash_attention_ref(qt, kt, vt).transpose(1, 2)
+            return flash_attention_ref(qt, kt, vt, **attrs).transpose(1, 2)
 
-        try:
-            F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                           enable_gqa=True)
-            sdpa = lambda: F.scaled_dot_product_attention(     # noqa: E731
-                qt, kt, vt, is_causal=True, enable_gqa=True)
-        except TypeError:   # an older torch without GQA in SDPA
-            ke, ve = (t.repeat_interleave(h // kv, 1) for t in (kt, vt))
-            sdpa = lambda: F.scaled_dot_product_attention(     # noqa: E731
-                qt, ke, ve, is_causal=True)
+        sdpa = None
+        if not window and not cap:
+            try:
+                F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                               enable_gqa=True)
+                sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                    qt, kt, vt, is_causal=causal, enable_gqa=True)
+            except TypeError:   # an older torch without GQA in SDPA
+                ke, ve = (t.repeat_interleave(h // kv, 1) for t in (kt, vt))
+                sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                    qt, ke, ve, is_causal=causal)
         err, within = verdict(o, fa_plain(), dt)
-        pairs = b * h * s * (s + 1) / 2                    # causal (q, k)
-        record("flash_attention", f"B{b} S{s} H{h} KV{kv} hd{hd} causal",
-               err, lambda: flash_attention_cuda(q, k_, v, causal=True),
-               fa_plain, sdpa, 4.0 * pairs * hd,
+        pairs = sum(min(i + 1, window or s) if causal
+                    else s - max(0, i - window + 1) if window else s
+                    for i in range(s))
+        half = dt != "float32"
+        tags = (" causal" if causal else "") + (f" window{window}" if window
+                                                else "") + \
+            (f" cap{cap:g}" if cap else "")
+        record("flash_attention", f"B{b} S{s} H{h} KV{kv} hd{hd}{tags}", err,
+               lambda: flash_attention_cuda(q, k_, v, **attrs), fa_plain, sdpa,
+               4.0 * b * h * pairs * hd,
                float(q.element_size()) * (2 * b * s * h * hd
                                           + 2 * b * s * kv * hd),
                "src/repro/kernels/flash_attention/kernel.py:82",
                csrc + "flash_attention.cu", "cuda",
-               ("flash_attention", b, s, h, kv, hd, True, 0, 0.0), dtype=dt,
-               within=within)
+               ("flash_attention", b, s, h, kv, hd, causal, window, cap),
+               peak=PEAK_16BIT if half else PEAK_3XTF32,
+               extra={"units": "16-bit mma.sync" if half
+                      else "3xTF32 mma.sync"}, dtype=dt, within=within)
 
-    # decode attention at the decode bucket: cache 128, mixed lens incl. 0
-    def decode_case(dt="float32"):
-        b, h, kv, hd, cache = 4, 12, 2, 128, 128
-        lens = torch.tensor([0, 37, 100, 127], dtype=torch.int32, device=dev)
+    # decode attention, by default at the decode bucket: cache 128, lens
+    # 0/37/100/127.  Library yardstick: one SDPA call (GQA, a boolean mask
+    # pos <= lens[b]) on a copy of the cache holding the step's own row at
+    # lens[b], made outside the timed call
+    def decode_case(dt="float32", b=4, cache=128, h=12, kv=2, hd=128):
+        if (b, cache) == (4, 128):
+            lens_l = [0, 37, 100, 127]
+        else:       # batch padding, then spread up to a full cache
+            lens_l = [0] + [cache * (i + 1) // b for i in range(b - 1)]
+        lens = torch.tensor(lens_l, dtype=torch.int32, device=dev)
         qd = randn(b, 1, h, hd, dt=dt)
         kc, vc = randn(b, cache, kv, hd, dt=dt), randn(b, cache, kv, hd, dt=dt)
         kn, vn = randn(b, 1, kv, hd, dt=dt), randn(b, 1, kv, hd, dt=dt)
@@ -371,21 +397,39 @@ def phase_kernels(gen) -> dict:
         if max_err(od[0], vn[0].repeat_interleave(h // kv, 1)) != 0.0:
             fail(f"decode attention {dt} with lens 0 is not exactly v_new")
         err, within = verdict(od, plain(), dt)
-        rows = int(lens.sum())
+        library = None
+        if max(lens_l) < cache:
+            kfull, vfull = kc.clone(), vc.clone()
+            rows = torch.arange(b, device=dev)
+            kfull[rows, lens.long()] = kn[:, 0]
+            vfull[rows, lens.long()] = vn[:, 0]
+            qs, ks, vs = (t.transpose(1, 2) for t in (qd, kfull, vfull))
+            mask = (torch.arange(cache, device=dev)[None, :]
+                    <= lens.long()[:, None])[:, None, None, :]
+            library = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                qs, ks, vs, attn_mask=mask, enable_gqa=True)
+        rows_n = int(sum(lens_l))
+        p = decode_plan(b, kv, cache, hd, qd.element_size(),
+                        torch.cuda.get_device_properties(dev)
+                        .multi_processor_count)
         record("decode_attention", f"B{b} cache{cache} H{h} KV{kv} hd{hd} "
-               f"lens{lens.tolist()}", err,
+               f"lens{lens_l}", err,
                lambda: decode_attention_cuda(qd, kc, vc, kn, vn, lens), plain,
-               None, 4.0 * h * hd * (rows + b),
-               float(qd.element_size()) * (2 * b * h * hd + 2 * rows * kv * hd
+               library, 4.0 * h * hd * (rows_n + b),
+               float(qd.element_size()) * (2 * b * h * hd
+                                           + 2 * rows_n * kv * hd
                                            + 2 * b * kv * hd) + 4.0 * b,
                "src/repro/kernels/decode_attention/kernel.py:94",
                csrc + "decode_attention.cu", "cuda",
                ("decode_attention", b, cache, h, kv, hd), dtype=dt,
-               within=within)
+               within=within, extra={"splits": p.splits, "chunk": p.chunk,
+                                     "blocks": p.splits * kv * b})
 
-    # a generated DFP program on random operands
-    def dfp_case(label, rows_n, d, prog, on_path=True, dt="float32"):
-        ops = [randn(rows_n, d, dt=dt) if kd == "full" else randn(d, dt=dt)
+    # a generated DFP program on random operands, N(0, scale^2)
+    def dfp_case(label, rows_n, d, prog, on_path=True, dt="float32",
+                 scale=1.0):
+        ops = [randn(rows_n, d, scale=scale, dt=dt) if kd == "full"
+               else randn(d, scale=scale, dt=dt)
                for kd in prog.operand_kinds]
         t0 = time.perf_counter()
         y = dfp_fused_triton(prog, ops, (rows_n, d), tdt[dt])
@@ -399,7 +443,8 @@ def phase_kernels(gen) -> dict:
         library = None
         if tuple(i[0] for i in prog.instrs) == ("bias", "gelu"):
             library = lambda: F.gelu(ops[0] + ops[1], approximate="tanh")  # noqa: E731
-        record("dfp_fused", f"{label} rows{rows_n} d{d}", err,
+        record("dfp_fused", f"{label} rows{rows_n} d{d}"
+               + (f" operands x{scale:g}" if scale != 1.0 else ""), err,
                lambda: dfp_fused_triton(prog, ops, (rows_n, d), tdt[dt]),
                lambda: dfp_fused_ref(prog, ops, (rows_n, d), tdt[dt]),
                library, 10.0 * rows_n * d,
@@ -478,7 +523,7 @@ def phase_kernels(gen) -> dict:
                "cuda", ("avgpool", n_, c_, h_, w_, kh, kw), on_path, dtype=dt,
                within=within)
 
-    serving = [(4, 1536, 151936, True), (256, 1536, 1536, False),
+    serve_mm = [(4, 1536, 151936, True), (256, 1536, 1536, False),
                (256, 1536, 6144, False), (256, 1536, 6144, True),
                (4, 1536, 1536, False), (4, 6144, 1536, True)]
     lora = [(2048, 2048, 4), (2048, 4, 2048)]
@@ -491,12 +536,14 @@ def phase_kernels(gen) -> dict:
     # the RWKV6 (d 2048, MLP 6144) and Griffin (d 4096, MLP 12288) dense
     # products on their 2048 rows, a K = 12288 accuracy row, the groups its
     # graphs add, the scans), then the Listing-3 pools and edge cases
-    for m, k, n, oi in serving:
+    nodes32 = path_nodes(torch, dev, "float32")
+    serving = serving_programs(nodes32)
+    for m, k, n, oi in serve_mm:
         matmul_case(m, k, n, oi)
     flash_case()
     decode_case()
-    for label, d, prog in serving_programs():
-        dfp_case(label, 4 * 128, d, prog)
+    for label, rows_n, d, prog, on_path in serving:
+        dfp_case(label, rows_n, d, prog, on_path)
     for m, k, n in lora:
         matmul_case(m, k, n, False, " (LoRA)")
     for m, k, n, oi in dense:
@@ -516,18 +563,57 @@ def phase_kernels(gen) -> dict:
     for n_, c_, h_, w_, kh, kw in ((3, 5, 17, 45, 2, 2), (1, 1, 3, 3, 3, 3),
                                    (2, 3, 9, 40, 2, 3), (1, 1, 70, 33, 3, 1)):
         avgpool_case(n_, c_, h_, w_, kh, kw, on_path=False)
+    # flash at the bf16 transformer's S 256 in f32 too, beside its bf16 row
+    flash_case(s=256)
+
+    def hold(dt, nodes, tag):
+        """A row in ``dt`` at every kernel node of ``nodes`` that no row
+        of ``dt`` holds yet."""
+        held = {c["key"] for c in cases if c["dtype"] == dt}
+        for key, (_, node) in nodes.items():
+            if key in held:
+                continue
+            kind, dims = key[0], key[1:]
+            if kind == "matmul":
+                matmul_case(*dims, tag, dt=dt)
+            elif kind == "flash_attention":
+                flash_case(dt, *dims)
+            elif kind == "decode_attention":
+                decode_case(dt, *dims)
+            elif kind == "dfp_fused":
+                # KERNEL_TOL assumes O(1) outputs: an f32 program that
+                # exponentiates gets operands at half scale (exp of a sum
+                # of two N(0, 1) operands reaches e^7.5, where an f32 ulp
+                # is 1.2e-4)
+                prog = dfp_program(node)
+                scale = 0.5 if dt == "float32" and any(
+                    i[0] == "exp" for i in prog.instrs) else 1.0
+                dfp_case(node.name[len("fused["):-1] + tag, dims[1], dims[2],
+                         prog, dt=dt, scale=scale)
+            elif kind == "rglru_scan":
+                rglru_case(*dims, dt=dt)
+            elif kind == "rwkv6_scan":
+                rwkv6_case(*dims, dt=dt)
+            elif kind == "avgpool":
+                avgpool_case(*dims, dt=dt)
+            else:
+                fail(f"phase 2 has no {dt} case for the paths' {key}")
+            held.add(key)
+
+    # f32 at every kernel node of phases 3-6 that no row above holds
+    hold("float32", nodes32, " (f32 path)")
 
     # bf16 at the f32 rows' shapes, then f16 at one shape per kernel
     bf = "bfloat16"
-    for m, k, n, oi in serving:
+    for m, k, n, oi in serve_mm:
         matmul_case(m, k, n, oi, dt=bf)
     for m, k, n in lora:
         matmul_case(m, k, n, False, " (LoRA)", dt=bf)
     for m, k, n, oi in dense:
         matmul_case(m, k, n, oi, dt=bf)
     matmul_case(256, 12288, 1024, True, " (accuracy)", dt=bf)
-    for label, d, prog in serving_programs():
-        dfp_case(label, 4 * 128, d, prog, dt=bf)
+    for label, rows_n, d, prog, on_path in serving:
+        dfp_case(label, rows_n, d, prog, on_path, dt=bf)
     for label, rows_n, d, prog, on_path in recurrent_programs():
         dfp_case(label, rows_n, d, prog, on_path, dt=bf)
     for n_, c_, h_, w_ in listing3_pools:
@@ -537,34 +623,16 @@ def phase_kernels(gen) -> dict:
         decode_case(dt)
         rglru_case(4, 512, 4096, dt)
         rwkv6_case(4, 512, 32, 64, dt=dt)
+    flash_case("float16", s=256)
 
     # bf16 at every kernel node of phase 7's paths that no row above holds
-    held = {c["key"] for c in cases if c["dtype"] == bf}
-    for key, node in bf16_path_nodes(torch, dev).items():
-        if key in held:
-            continue
-        kind, dims = key[0], key[1:]
-        if kind == "matmul":
-            matmul_case(*dims, " (bf16 path)", dt=bf)
-        elif kind == "flash_attention" and dims[5:] == (True, 0, 0.0):
-            flash_case(bf, *dims[:5])
-        elif kind == "dfp_fused":
-            dfp_case(node.name[len("fused["):-1] + " (bf16 path)", dims[1],
-                     dims[2], dfp_program(node), dt=bf)
-        elif kind == "rglru_scan":
-            rglru_case(*dims, dt=bf)
-        elif kind == "rwkv6_scan":
-            rwkv6_case(*dims, dt=bf)
-        elif kind == "avgpool":
-            avgpool_case(*dims, dt=bf)
-        else:
-            fail(f"phase 2 has no bf16 case for the bf16 paths' {key}")
-        held.add(key)
+    hold(bf, path_nodes(torch, dev, bf), " (bf16 path)")
     f16 = "float16"
     matmul_case(4, 1536, 151936, True, dt=f16)
     matmul_case(2048, 4096, 4096, False, dt=f16)
-    label, d, prog = serving_programs()[0]
-    dfp_case(label, 4 * 128, d, prog, dt=f16)
+    label, rows_n, d, prog, _ = next(r for r in serving
+                                     if r[0] == "bias_add+gelu")
+    dfp_case(label, rows_n, d, prog, dt=f16)
     avgpool_case(*listing3_pools[0], dt=f16)
     return {"cases": cases}
 
@@ -581,23 +649,23 @@ def half_check(got, want, dtype: str, chain: bool = False):
             float(((g - w).abs() - rtol * w.abs()).max()) <= atol)
 
 
-def serving_programs():
-    """(label, d, Program) of the serving graphs' DFP groups timed in
-    phase 2, on 4 x 128 rows."""
+def serving_programs(nodes) -> list:
+    """(label, rows, d, Program, on_path) of the DFP groups of the serve's
+    prefill program, encoded from the served graph (``path_nodes``), so
+    each row's key is its node's; then a LayerNorm + residual program on
+    the same rows, off the path (the served LayerNorms elect
+    ``ref.layernorm``, as in the JAX package)."""
     from repro_torch.kernels.dfp_fused.program import Program
-    return [
-        ("bias_add+gelu", 6144, Program(
-            (("bias", 0, ("op", 0), 1, None),
-             ("gelu", 1, ("reg", 0), None)), ("full", "vec"), 1)),
-        ("bias_add+add", 1536, Program(
-            (("bias", 0, ("op", 0), 1, None),
-             ("add", 1, ("reg", 0), ("op", 2), None)),
-            ("full", "vec", "full"), 1)),
-        ("layernorm+add", 1536, Program(
-            (("layernorm", 0, ("op", 0), 1, 2, 1e-5),
-             ("add", 1, ("reg", 0), ("op", 3), None)),
-            ("full", "vec", "vec", "full"), 1)),
-    ]
+    groups = sorted(((n.name[len("fused["):-1], key[2], key[3],
+                      dfp_program(n), True)
+                     for key, (path, n) in nodes.items()
+                     if key[0] == "dfp_fused" and path == "serve prefill"),
+                    key=lambda g: (g[0], g[2]))
+    groups.append(("layernorm+add", groups[0][1], FULL["d_model"], Program(
+        (("layernorm", 0, ("op", 0), 1, 2, 1e-5),
+         ("add", 1, ("reg", 0), ("op", 3), None)),
+        ("full", "vec", "vec", "full"), 1), False))
+    return groups
 
 
 def recurrent_programs():
@@ -694,8 +762,10 @@ def measured_serve(server, prompts, on_measure=None):
 FAMILIES = (("tc_kernel", "matmul"), ("tc16_kernel", "matmul"),
             ("skinny_kernel", "matmul"),
             ("reduce_splits", "matmul"),
-            ("flash_fwd_kernel", "flash_attention"),
-            ("decode_kernel", "decode_attention"), ("dfp_", "dfp_fused"),
+            ("flash_mma_kernel", "flash_attention"),
+            ("decode_split_kernel", "decode_attention"),
+            ("decode_combine_kernel", "decode_attention"),
+            ("dfp_", "dfp_fused"),
             ("rglru_scan_kernel", "rglru_scan"),
             ("rwkv6_scan_kernel", "rwkv6_scan"),
             ("avgpool_kernel", "avgpool"),
@@ -773,7 +843,7 @@ def compare_tokens(name: str, got, ref, tol_of) -> list:
     return ties
 
 
-def phase_serve(torch, counters, dev) -> dict:
+def phase_serve(torch, counters, dev, held) -> dict:
     import numpy as np
     from repro_torch.frontends import nn
     from repro_torch.launch.serve import ServeConfig, SolServer
@@ -816,6 +886,11 @@ def phase_serve(torch, counters, dev) -> dict:
         f"{s['forwards']}: {s['dmas'] == s['forwards']}; buckets "
         f"{s['buckets']}")
     log(f"[serve] kernel launches in the second pass: {launches}")
+    for key, sol in sorted(server._models.items()):
+        check_held(sol, f"serve bucket {key}", held, "float32")
+    if sorted(server._models) != sorted(serve_buckets(server)):
+        fail(f"serve opened buckets {sorted(server._models)}, phase 2 held "
+             f"{serve_buckets(server)}")
     if s["dmas"] != s["forwards"]:
         fail("more than one packed copy per forward")
     check_matmul_kernels("serve", launches)
@@ -1008,7 +1083,7 @@ def timed_forwards(torch, sol, x, repeats: int) -> list:
     return timed_calls(torch, lambda: sol(x), repeats)
 
 
-def phase_recurrent(torch, counters, dev) -> dict:
+def phase_recurrent(torch, counters, dev, held) -> dict:
     """Each stack at full width through ``optimize(..., backend="h100")``:
     elections, launch counts of one forward, agreement with ``torch_ref``
     on the same weights layer by layer and at the output, warm forward
@@ -1033,6 +1108,7 @@ def phase_recurrent(torch, counters, dev) -> dict:
         sol = optimize(model, shape, backend="h100")
         compile_s = time.perf_counter() - t0
         by_kind = check_elections(sol, name)
+        check_held(sol, name, held, "float32")
         log(f"[recurrent] {name} h100 elections (optimize {compile_s:.2f} "
             f"s): {by_kind}")
 
@@ -1152,7 +1228,7 @@ def host_enqueue_ms(torch, sol, x) -> float:
     return ms
 
 
-def phase_cnn(torch, counters, dev) -> dict:
+def phase_cnn(torch, counters, dev, held) -> dict:
     """Each CNN through ``optimize(..., backend="h100")``: elections, the
     launch counts of one forward, agreement with ``torch_ref`` on the same
     weights, warm forward times of both backends in turns, and one
@@ -1171,6 +1247,7 @@ def phase_cnn(torch, counters, dev) -> dict:
         sol = optimize(model, CNN_SHAPE, backend="h100")
         compile_s = time.perf_counter() - t0
         by_kind = check_cuda_elected(sol, name)
+        check_held(sol, name, held, "float32")
         nodes = sol.graph.topo()
         pools = sum(n.op.value == "avgpool" for n in nodes)
         if pools != (2 if name == "listing3_cnn" else 0) or \
@@ -1322,51 +1399,80 @@ def cuda_keys(sol) -> dict:
     return out
 
 
-def bf16_path_nodes(torch, dev) -> dict:
-    """node_key -> node of every kernel node that phase 7's paths run,
-    read from two-block versions of them at full width (a path's blocks
-    are alike): the transformer's full program and decode step with the
-    LM head, each stack, the Listing-3 CNN.  Nothing is launched."""
+def serve_buckets(server) -> list:
+    """The bucket keys phase 3's requests open on ``server``, by
+    ``SolServer``'s own bucket rule: every request is admitted at once and
+    prefilled in one forward, then decoded together while the longest
+    cache grows from max(PROMPT_LENS) for GEN - 1 steps."""
+    n = min(len(PROMPT_LENS), server.cfg.max_batch)
+    keys = [("prefill",) + server._bucket(n, max(PROMPT_LENS))]
+    for i in range(GEN - 1):
+        key = ("decode",) + server._bucket(n, max(PROMPT_LENS) + i)
+        if key not in keys:
+            keys.append(key)
+    return keys
+
+
+def path_nodes(torch, dev, dtype: str) -> dict:
+    """node_key -> (path, node) of every kernel node that a phase runs in
+    ``dtype``, read from two-block versions of its paths at full width (a
+    path's blocks are alike; nothing is launched).  float32: the serve's
+    programs at the buckets phase 3 opens (``serve_buckets``, built by a
+    two-layer ``SolServer``), both stacks (phase 5) and the three CNNs
+    (phase 6).  bfloat16 (phase 7): the transformer's full program and
+    decode step with the LM head, each stack, the Listing-3 CNN."""
     from repro_torch.frontends import extract
     from repro_torch.frontends.optimize import compile_graph, optimize
-    from repro_torch.launch.serve import ServeConfig, build_lm
+    from repro_torch.launch.serve import ServeConfig, SolServer, build_lm
 
     gen = torch.Generator(dev).manual_seed(0)
-    bf, out = torch.bfloat16, {}
+    half = dtype != "float32"
+    tdt, out = getattr(torch, dtype), {}
+    kw = dict(dtype=dtype) if half else {}
 
-    def add(sol):
+    def add(sol, path):
         for k, n in cuda_keys(sol).items():
-            out.setdefault(k, n)
+            out.setdefault(k, (path, n))
 
     cfg = ServeConfig(**{k: v for k, v in FULL.items() if k != "n_kv_heads"},
                       backend="h100")
     cfg = dataclasses.replace(cfg, n_layers=2)
     with torch.no_grad():
         lm = build_lm(cfg, n_kv_heads=FULL["n_kv_heads"], device=dev,
-                      generator=gen).to(bf)
-    b, d = BF16_LM_SHAPE[0], FULL["d_model"]
-    add(optimize(lm, BF16_LM_SHAPE, backend="h100", dtype="bfloat16",
-                 device=dev))
-    add(compile_graph(lm, extract.extract_decode(
-        lm, b, BF16_DECODE_CACHE, d, "bfloat16"), "h100", device=dev))
+                      generator=gen).to(tdt)
+    if half:
+        b, d = BF16_LM_SHAPE[0], FULL["d_model"]
+        add(optimize(lm, BF16_LM_SHAPE, backend="h100", device=dev, **kw),
+            "transformer")
+        add(compile_graph(lm, extract.extract_decode(
+            lm, b, BF16_DECODE_CACHE, d, dtype), "h100", device=dev),
+            "transformer decode")
+    else:
+        server = SolServer(cfg, model=lm, device=dev)
+        for key in serve_buckets(server):
+            add(server._model_for(key), f"serve {key[0]}")
+        server.close()
     del lm
     for name, stack in STACKS:
         with torch.no_grad():
-            m = _build_stack(name, {**stack, "layers": 2}, dev, gen).to(bf)
+            m = _build_stack(name, {**stack, "layers": 2}, dev, gen).to(tdt)
         add(optimize(m, REC_SHAPE_BT + (stack["d_model"],), backend="h100",
-                     dtype="bfloat16", device=dev))
-    with torch.no_grad():
-        m = _build_cnn(torch, "listing3_cnn", dev, gen).to(bf)
-    add(optimize(m, CNN_SHAPE, backend="h100", dtype="bfloat16", device=dev))
+                     device=dev, **kw), name)
+    for name in (("listing3_cnn",) if half else
+                 ("small_cnn", "depthwise_cnn", "listing3_cnn")):
+        with torch.no_grad():
+            m = _build_cnn(torch, name, dev, gen).to(tdt)
+        add(optimize(m, CNN_SHAPE, backend="h100", device=dev, **kw), name)
     return out
 
 
-def check_held(sol, name: str, held) -> None:
+def check_held(sol, name: str, held, dtype: str) -> None:
     """Phase 2 held every kernel node of the path against its plain
-    version at the node's shapes, in bf16."""
+    version at the node's shapes, in ``dtype``; ``held``: the node keys of
+    its rows in that dtype."""
     missing = [k for k in cuda_keys(sol) if k not in held]
     if missing:
-        fail(f"{name} bf16: phase 2 held no bf16 row at {missing}")
+        fail(f"{name} {dtype}: phase 2 held no {dtype} row at {missing}")
 
 
 def _bf16_run(torch, counters, name, fn):
@@ -1449,8 +1555,8 @@ def bf16_transformer(torch, counters, dev, held) -> dict:
     by_kind = check_cuda_elected(sol, "transformer bf16")
     dec = compile_graph(model, decode_graph("bfloat16"), "h100")
     by_kind_dec = check_cuda_elected(dec, "transformer decode bf16")
-    check_held(sol, "transformer", held)
-    check_held(dec, "transformer decode", held)
+    check_held(sol, "transformer", held, "bfloat16")
+    check_held(dec, "transformer decode", held, "bfloat16")
     for kind, impl, rep in (("linear", "cuda.linear", by_kind),
                             ("matmul", "cuda.matmul", by_kind),
                             ("attention", "cuda.flash_attention", by_kind),
@@ -1533,7 +1639,7 @@ def bf16_stack(torch, counters, dev, index: int, name: str, cfg: dict,
 
     sol = optimize(model, shape, backend="h100", dtype="bfloat16")
     by_kind = check_elections(sol, name)
-    check_held(sol, name, held)
+    check_held(sol, name, held, "bfloat16")
     y, launches = _bf16_run(torch, counters, name, lambda: sol(x16))
     _check_finite(torch, name, y, shape)
     ref = optimize(model, shape, backend="torch_ref", dtype="bfloat16")
@@ -1624,7 +1730,7 @@ def bf16_cnn(torch, counters, dev, f32_ms: float, held) -> dict:
     if by_kind.get("avgpool") != {"cuda.avgpool": 2} or \
             set(by_kind.get("linear", {})) != {"cuda.linear"}:
         fail(f"listing3_cnn bf16: elections {by_kind}")
-    check_held(sol, "listing3_cnn", held)
+    check_held(sol, "listing3_cnn", held, "bfloat16")
     for n in sol.graph.topo():
         if conv_bias_group(n) and n.impl != "ref.compose":
             fail(f"listing3_cnn bf16: conv bias group {n.name} elected "
@@ -1725,14 +1831,16 @@ def main() -> int:
     counters = {**mm, "flash_attention": flash_attention_cuda,
                 "decode_attention": decode_attention_cuda,
                 "dfp_fused": dfp_fused_triton}
-    serve = phase_serve(torch, counters, torch.device("cuda"))
+    held32 = {c["key"] for c in kern["cases"] if c["dtype"] == "float32"}
+    serve = phase_serve(torch, counters, torch.device("cuda"), held32)
     rec_counters = {**mm, "dfp_fused": dfp_fused_triton,
                     "rglru_scan": rglru_scan_cuda,
                     "rwkv6_scan": rwkv6_scan_cuda}
-    recurrent = phase_recurrent(torch, rec_counters, torch.device("cuda"))
+    recurrent = phase_recurrent(torch, rec_counters, torch.device("cuda"),
+                                held32)
     cnn_counters = {**mm, "dfp_fused": dfp_fused_triton,
                     "avgpool": avgpool_cuda}
-    cnn = phase_cnn(torch, cnn_counters, torch.device("cuda"))
+    cnn = phase_cnn(torch, cnn_counters, torch.device("cuda"), held32)
     bf16_counters = {**mm, "flash_attention": flash_attention_cuda,
                      "decode_attention": decode_attention_cuda,
                      "dfp_fused": dfp_fused_triton,

@@ -24,7 +24,9 @@ from repro_torch.frontends.optimize import optimize
 from repro_torch.kernels.avgpool.kernel import avgpool_cuda
 from repro_torch.kernels.avgpool.ref import avgpool_ref
 from repro_torch.kernels.decode_attention import ops as dops
-from repro_torch.kernels.decode_attention.kernel import decode_attention_cuda
+from repro_torch.kernels.decode_attention.kernel import (MAX_GROUP,
+                                                         decode_attention_cuda,
+                                                         decode_plan)
 from repro_torch.kernels.dfp_fused.kernel import dfp_fused_triton
 from repro_torch.kernels.dfp_fused.program import Program
 from repro_torch.kernels.dfp_fused.ref import dfp_fused_ref
@@ -507,6 +509,136 @@ def test_half_kernels_refuse_other_dtypes(dev):
     with pytest.raises(TypeError):
         avgpool_cuda(torch.zeros(1, 1, 4, 4, dtype=torch.float64,
                                  device=dev))
+
+
+
+# ---------------------------------------------------------------------------
+# the tensor-core flash kernel and the split-KV decode, widened
+# ---------------------------------------------------------------------------
+
+ALL_DTYPES = {"float32": torch.float32, **HALF}
+
+
+def _close_dtype(got, want, dtype):
+    if dtype == "float32":
+        torch.testing.assert_close(got, want, **TOL)
+    else:
+        _close_half(got, want, dtype)
+
+
+def _bshd(dev, seed, b, s, heads, hd, dtype, layout):
+    """A (b, s, heads, hd) operand: contiguous as the served graph passes
+    it (a reshaped projection), a view with wider row strides (16-byte
+    aligned), or one that starts a value into its storage (no 16-byte
+    copies)."""
+    dt = ALL_DTYPES[dtype]
+    if layout == "contiguous":
+        return _randn(dev, seed, b, s, heads, hd).to(dt)
+    if layout == "strided":
+        return _randn(dev, seed, b, s, heads + 3, hd + 8).to(dt)[:, :, 1:heads + 1, 8:]
+    flat = _randn(dev, seed, b * s * heads * hd + 1).to(dt)
+    return flat[1:].view(b, s, heads, hd)
+
+
+def _flash_case(dev, s, hd, dtype, causal=True, window=0, cap=0.0,
+                layout="contiguous", b=2, h=6, kv=2):
+    q = _bshd(dev, 91, b, s, h, hd, dtype, layout)
+    k = _bshd(dev, 92, b, s, kv, hd, dtype, layout)
+    v = _bshd(dev, 93, b, s, kv, hd, dtype, layout)
+    attrs = dict(causal=causal, window=window, cap=cap)
+    want = flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                               v.transpose(1, 2), **attrs).transpose(1, 2)
+    _close_dtype(flash_attention_cuda(q, k, v, **attrs), want, dtype)
+
+
+@pytest.mark.parametrize("dtype", list(ALL_DTYPES))
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("s", [1, 17, 64, 65, 128, 129, 256, 300])
+def test_flash_kernel_at_every_length(dev, s, hd, dtype):
+    """Every head dim at lengths below, at and past the 32- and 64-key
+    tiles, on contiguous BSHD operands as the served graph passes them."""
+    _flash_case(dev, s, hd, dtype)
+
+
+@pytest.mark.parametrize("dtype", list(ALL_DTYPES))
+@pytest.mark.parametrize("layout", ["contiguous", "strided", "offset"])
+@pytest.mark.parametrize("s,hd,causal,window,cap", [
+    (300, 128, True, 64, 0.0),      # a window across tiles
+    (129, 64, True, 16, 30.0),      # window and softcap
+    (65, 128, True, 0, 5.0),        # softcap
+    (256, 32, False, 0, 0.0),       # non-causal
+    (17, 16, False, 8, 0.0),        # non-causal window
+    (128, 128, True, 1, 0.0),       # each row sees only itself
+])
+def test_flash_kernel_windows_caps_and_layouts(dev, s, hd, causal, window,
+                                               cap, layout, dtype):
+    _flash_case(dev, s, hd, dtype, causal, window, cap, layout)
+
+
+@pytest.mark.parametrize("dtype", list(ALL_DTYPES))
+def test_flash_kernel_at_the_serving_widths(dev, dtype):
+    """B 4, S 128 and 256, H 12, KV 2, hd 128: the prefill's and the bf16
+    transformer's shapes."""
+    for s in (128, 256):
+        _flash_case(dev, s, 128, dtype, b=4, h=12, kv=2)
+
+
+def _decode_case(dev, cache, g, dtype, lens, hd=128, window=0, cap=0.0,
+                 sm_count=0, kv=2):
+    dt = ALL_DTYPES[dtype]
+    b = len(lens)
+    q, kc, vc, kn, vn = (
+        _randn(dev, 94 + i, *shape).to(dt) for i, shape in
+        enumerate(((b, 1, kv * g, hd), (b, cache, kv, hd), (b, cache, kv, hd),
+                   (b, 1, kv, hd), (b, 1, kv, hd))))
+    lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
+    got = decode_attention_cuda(q, kc, vc, kn, vn, lens_t, window=window,
+                                cap=cap, sm_count=sm_count)
+    _close_dtype(got, dops._ref_model_layout(q, kc, vc, kn, vn, lens_t,
+                                             window, cap), dtype)
+    for i, n in enumerate(lens):
+        if n == 0:      # batch padding attends only the step's own pair
+            assert torch.equal(got[i, 0], vn[i, 0].repeat_interleave(g, 0))
+
+
+@pytest.mark.parametrize("dtype", list(ALL_DTYPES))
+@pytest.mark.parametrize("g", [1, 3, 6, 16])
+@pytest.mark.parametrize("cache", [1, 7, 64, 128, 256, 1000])
+def test_decode_kernel_at_every_cache(dev, cache, g, dtype):
+    """lens 0, full and mixed, one to MAX_GROUP query heads per kv head."""
+    assert g <= MAX_GROUP
+    _decode_case(dev, cache, g, dtype,
+                 [0, cache, max(1, cache // 3), max(0, cache - 1)])
+
+
+@pytest.mark.parametrize("dtype", list(ALL_DTYPES))
+@pytest.mark.parametrize("sm_count", [1, 10_000])
+@pytest.mark.parametrize("cache,hd,g,window,cap", [
+    (128, 128, 6, 0, 0.0), (1000, 128, 6, 100, 0.0), (256, 64, 4, 0, 4.0),
+    (1000, 32, 16, 300, 20.0), (200, 16, 2, 5, 0.0),
+])
+def test_decode_kernel_at_one_split_and_many(dev, cache, hd, g, window, cap,
+                                             sm_count, dtype):
+    """The plan forced to one split (sm_count 1) and to its most (a large
+    sm_count), with windows that start inside a split and softcaps."""
+    p = decode_plan(4, 2, cache, hd, ALL_DTYPES[dtype].itemsize, sm_count)
+    assert (p.splits == 1) == (sm_count == 1)
+    _decode_case(dev, cache, g, dtype, [0, cache, cache // 2 + 3, 9],
+                 hd=hd, window=window, cap=cap, sm_count=sm_count)
+
+
+def test_decode_kernel_reads_unaligned_views(dev):
+    """A cache that starts a value into its storage: one value per load."""
+    b, cache, kv, hd = 3, 100, 2, 128
+    flat = _randn(dev, 99, 2 * b * cache * kv * hd + 1)
+    kc = flat[1:b * cache * kv * hd + 1].view(b, cache, kv, hd)
+    vc = flat[b * cache * kv * hd + 1:].view(b, cache, kv, hd)
+    q = _randn(dev, 100, b, 1, 12, hd)
+    kn, vn = _randn(dev, 101, b, 1, kv, hd), _randn(dev, 102, b, 1, kv, hd)
+    lens = torch.tensor([0, 50, 100], dtype=torch.int32, device=dev)
+    torch.testing.assert_close(
+        decode_attention_cuda(q, kc, vc, kn, vn, lens),
+        dops._ref_model_layout(q, kc, vc, kn, vn, lens, 0, 0.0), **TOL)
 
 
 # README's bf16 row, relative to the output's scale
