@@ -28,7 +28,9 @@ Phases, each failing loudly:
    the same work on this card, taken at the peak of the units that run
    it (3xTF32 or 16-bit tensor cores for the matmul's tensor-core rows
    and for flash attention); beside them the back-to-back launch time,
-   which host launch cost can push above the device time.  Then an f32
+   which host launch cost can push above the device time.  The two scans
+   are also timed at the paths' shapes under every cut their plans can
+   take (``[plans]`` lines; RWKV6 with its time by pass).  Then an f32
    row at every kernel node that phases 3, 5 and 6 run and no row above
    holds (``path_nodes``: two-block versions of the serve's programs at
    the buckets phase 3 opens, of both stacks and of the three CNNs); then
@@ -245,12 +247,16 @@ def phase_kernels(gen) -> dict:
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     from repro_torch.kernels.matmul.kernel import matmul_cuda, plan
     from repro_torch.kernels.matmul.ref import matmul_ref
-    from repro_torch.kernels.rglru_scan.kernel import rglru_scan_cuda
+    from repro_torch.kernels.rglru_scan.kernel import (rglru_plan,
+                                                       rglru_scan_cuda)
     from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
-    from repro_torch.kernels.rwkv6_scan.kernel import rwkv6_scan_cuda
+    from repro_torch.kernels.rwkv6_scan.kernel import (MAX_CHUNK, STEP,
+                                                       rwkv6_plan,
+                                                       rwkv6_scan_cuda)
     from repro_torch.kernels.rwkv6_scan.ref import rwkv6_scan_ref
 
     dev = torch.device("cuda")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     tdt = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
     csrc = "src/repro_torch/kernels/csrc/"
@@ -455,7 +461,8 @@ def phase_kernels(gen) -> dict:
                ("dfp_fused", repr(prog), rows_n, d), on_path, dtype=dt,
                within=within)
 
-    # RG-LRU scan: a in (0.5, 1), h0 nonzero
+    # RG-LRU scan: a in (0.5, 1), h0 nonzero; one launch a call, the
+    # channels and T cut by rglru_plan
     def rglru_case(b_, t_, d_, dt="float32"):
         a = (torch.rand(b_, t_, d_, device=dev, generator=gen) * 0.5
              + 0.5).to(tdt[dt])
@@ -466,6 +473,7 @@ def phase_kernels(gen) -> dict:
         e1, w1 = verdict(h, want_h, dt)
         e2, w2 = verdict(last, want_last, dt)
         n = b_ * t_ * d_
+        p = rglru_plan(b_, t_, d_, a.element_size(), sms)
         record("rglru_scan", f"B{b_} T{t_} D{d_}, h0 nonzero", max(e1, e2),
                lambda: rglru_scan_cuda(a, bb, h0),
                lambda: rglru_scan_ref(a, bb, h0), None, 2.0 * n,
@@ -473,10 +481,15 @@ def phase_kernels(gen) -> dict:
                "src/repro/kernels/rglru_scan/kernel.py:36",
                csrc + "rglru_scan.cu", "cuda", ("rglru_scan", b_, t_, d_),
                dtype=dt,
-               within=None if w1 is None else w1 and w2)
+               within=None if w1 is None else w1 and w2,
+               extra={"cuda_launches": 1, "lanes": p.lanes,
+                      "chunk": p.chunk, "chunks_a_tile": p.chunks,
+                      "blocks": p.grid[0] * p.grid[1]})
 
     # RWKV6 scan; ``extremes``: log decays 0 (no decay) and -50 (exp
-    # underflows to 0).  The state comes back in f32 in every dtype
+    # underflows to 0).  The state comes back in f32 in every dtype.  T in
+    # rwkv6_plan's chunks: three launches a call (chunk states, carry,
+    # output), one where there is one chunk
     def rwkv6_case(b_, t_, h_, hd, extremes=False, dt="float32"):
         r, k_, v = (randn(b_, t_, h_, hd, scale=0.5, dt=dt) for _ in range(3))
         if extremes:
@@ -494,6 +507,7 @@ def phase_kernels(gen) -> dict:
         if within is not None:
             within = within and s_err <= KERNEL_TOL["rwkv6_scan"]
         n, state = b_ * t_ * h_ * hd, b_ * h_ * hd * hd
+        p = rwkv6_plan(b_, t_, h_, hd, r.element_size(), sms)
         record("rwkv6_scan", f"B{b_} T{t_} H{h_} hd{hd}, s0 nonzero"
                + (", logw in {0, -50}" if extremes else ""), max(err, s_err),
                lambda: rwkv6_scan_cuda(r, k_, v, logw, u, s0),
@@ -504,7 +518,101 @@ def phase_kernels(gen) -> dict:
                "src/repro/kernels/rwkv6_scan/kernel.py:55",
                csrc + "rwkv6_scan.cu", "cuda", ("rwkv6_scan", b_, t_, h_, hd),
                dtype=dt, within=within,
-               extra={"s_last_max_abs_err": s_err})
+               extra={"s_last_max_abs_err": s_err,
+                      "cuda_launches": 3 if p.chunks > 1 else 1,
+                      "chunk": p.chunk, "chunks": p.chunks,
+                      "blocks": p.chunks * h_ * b_})
+
+    def scan_passes(fn, calls=5) -> dict:
+        """Device ms of one call by the scan kernels' passes, warm L2,
+        from the profiler over ``calls`` calls."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        by: dict = {}
+        for e in prof.events():
+            if e.device_type != DeviceType.CUDA:
+                continue
+            name = ("chunk states" if ", false>" in e.name else
+                    "output" if ", true>" in e.name else
+                    "carry" if "carry" in e.name else
+                    "chunks" if "rglru_chunk" in e.name else "other")
+            by[name] = by.get(name, 0.0) + e.time_range.elapsed_us() / 1e3
+        return {k: v / calls for k, v in by.items()}
+
+    def sm_count_for(plan, field, value, *shape) -> int:
+        """An SM count with which ``plan`` picks ``value`` for ``field``."""
+        return next(n for n in range(1, 100_000)
+                    if getattr(plan(*shape, n), field) == value)
+
+    # the scans at the paths' shapes under each cut their plans can take
+    # (forced through sm_count), beside the plan's own, each held to the
+    # plain version: which cut the plan should pick, and where the RWKV6
+    # passes spend their time
+    def scan_plans(dt):
+        size = tdt[dt].itemsize
+        r, k_, v = (randn(4, 512, 32, 64, scale=0.5, dt=dt) for _ in range(3))
+        logw = (-torch.exp(randn(4, 512, 32, 64, scale=0.5) - 1.0)
+                ).to(tdt[dt])
+        u, s0 = randn(32, 64, scale=0.5, dt=dt), \
+            randn(4, 32, 64, 64, scale=0.5, dt=dt)
+        want_o, want_s = rwkv6_scan_ref(r, k_, v, logw, u, s0)
+        a = (torch.rand(4, 512, 4096, device=dev, generator=gen) * 0.5
+             + 0.5).to(tdt[dt])
+        bb, h0 = randn(4, 512, 4096, dt=dt), randn(4, 4096, dt=dt)
+        want_h, _ = rglru_scan_ref(a, bb, h0)
+        rows = []
+        shape6 = (4, 512, 32, 64, size)
+        for chunk in (None, *range(STEP, MAX_CHUNK + 1, STEP), 512):
+            n = sms if chunk is None else sm_count_for(
+                rwkv6_plan, "chunk", chunk, *shape6)
+            p = rwkv6_plan(*shape6, n)
+            fn = (lambda n=n: rwkv6_scan_cuda(r, k_, v, logw, u, s0,
+                                              sm_count=n))
+            o, s_last = fn()
+            torch.cuda.synchronize()
+            err, within = verdict(o, want_o, dt)
+            if not (err <= KERNEL_TOL["rwkv6_scan"] if within is None
+                    else within) or max_err(s_last, want_s) > 1e-4:
+                fail(f"rwkv6_scan {dt} at chunk {p.chunk} disagrees with "
+                     f"its plain version: {err}")
+            rows.append({"kernel": "rwkv6_scan", "dtype": dt,
+                         "plan": chunk is None, "chunk": p.chunk,
+                         "chunks": p.chunks, "ms": time_ms(fn)["device"],
+                         "passes_warm_ms": scan_passes(fn)})
+        shape3 = (4, 512, 4096, size)
+        for lanes in (None, 32, 16, 8, 4):
+            n = sms if lanes is None else sm_count_for(
+                rglru_plan, "lanes", lanes, *shape3)
+            p = rglru_plan(*shape3, n)
+            fn = (lambda n=n: rglru_scan_cuda(a, bb, h0, sm_count=n))
+            h, _ = fn()
+            torch.cuda.synchronize()
+            err, within = verdict(h, want_h, dt)
+            if not (err <= KERNEL_TOL["rglru_scan"] if within is None
+                    else within):
+                fail(f"rglru_scan {dt} at {p.lanes} lanes disagrees with "
+                     f"its plain version: {err}")
+            rows.append({"kernel": "rglru_scan", "dtype": dt,
+                         "plan": lanes is None, "lanes": p.lanes,
+                         "blocks": p.grid[0] * p.grid[1],
+                         "ms": time_ms(fn)["device"]})
+        for row in rows:
+            cut = (f"chunk {row['chunk']} ({row['chunks']} chunks)"
+                   if row["kernel"] == "rwkv6_scan" else
+                   f"{row['lanes']} lanes ({row['blocks']} blocks)")
+            passes = "".join(f", {k} {v:.4f}" for k, v in
+                             row.get("passes_warm_ms", {}).items())
+            log(f"[plans] {row['kernel']} {dt} at the path's shape, "
+                f"{cut}{' (the plan)' if row['plan'] else ''}: device ms "
+                f"{row['ms']:.4f}{' (warm, by pass' if passes else ''}"
+                f"{passes}{')' if passes else ''}")
+        return rows
 
     # average pooling; F.avg_pool2d is the library call
     def avgpool_case(n_, c_, h_, w_, kh=3, kw=3, on_path=True, dt="float32"):
@@ -552,10 +660,14 @@ def phase_kernels(gen) -> dict:
                 rtol=MATMUL_ACCURACY_RTOL)
     for label, rows_n, d, prog, on_path in recurrent_programs():
         dfp_case(label, rows_n, d, prog, on_path)
-    for shape in ((4, 512, 4096), (3, 1, 24)):      # Griffin's; T 1, D 24
+    # Griffin's; T 1, D 24; T ragged over the chunks and tiles, D no
+    # multiple of a block's channels
+    for shape in ((4, 512, 4096), (3, 1, 24), (1, 300, 4100)):
         rglru_case(*shape)
     rwkv6_case(4, 512, 32, 64)                      # RWKV6-1.6B's heads
     rwkv6_case(1, 3, 2, 8, extremes=True)
+    rwkv6_case(1, 300, 2, 64, extremes=True)        # 19 chunks, the last 12
+    plans = scan_plans("float32") + scan_plans("bfloat16")
     for n_, c_, h_, w_ in listing3_pools:
         avgpool_case(n_, c_, h_, w_)
     # k 2 and 3, kh != kw, H or W equal to k, N·C 1, widths no multiple of
@@ -634,7 +746,7 @@ def phase_kernels(gen) -> dict:
                                      if r[0] == "bias_add+gelu")
     dfp_case(label, rows_n, d, prog, dt=f16)
     avgpool_case(*listing3_pools[0], dt=f16)
-    return {"cases": cases}
+    return {"cases": cases, "scan_plans": plans}
 
 
 def half_check(got, want, dtype: str, chain: bool = False):
@@ -766,8 +878,9 @@ FAMILIES = (("tc_kernel", "matmul"), ("tc16_kernel", "matmul"),
             ("decode_split_kernel", "decode_attention"),
             ("decode_combine_kernel", "decode_attention"),
             ("dfp_", "dfp_fused"),
-            ("rglru_scan_kernel", "rglru_scan"),
-            ("rwkv6_scan_kernel", "rwkv6_scan"),
+            ("rglru_chunk_kernel", "rglru_scan"),
+            ("rwkv6_chunk_kernel", "rwkv6_scan"),
+            ("rwkv6_carry_kernel", "rwkv6_scan"),
             ("avgpool_kernel", "avgpool"),
             ("conv", "conv"), ("fprop", "conv"),
             ("Memcpy HtoD", "copy to card"), ("Memcpy DtoH", "copy to host"),
@@ -1885,7 +1998,8 @@ def main() -> int:
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
         {"nvidia_smi": smi, "build_log": build.BUILD_LOG,
          "build_digest": {n: build.digest(n) for n in build.BUILD_LOG},
-         "kernels": kern["cases"], "serve": serve,
+         "kernels": kern["cases"], "scan_plans": kern["scan_plans"],
+         "serve": serve,
          "recurrent": recurrent, "cnn": cnn, "bf16": bf16,
          "seconds": time.perf_counter() - t_start},
         indent=1, default=str))

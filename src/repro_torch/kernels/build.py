@@ -126,6 +126,19 @@ def entry(name: str, fn_name: str, argtypes) -> tuple:
     return lib, fn
 
 
+_SMS: Dict[int, int] = {}
+
+
+def sm_count(dev) -> int:
+    """The SM count of CUDA device ``dev`` (a ``torch.device``), which
+    the launch plans take; read once a device."""
+    import torch
+    i = dev.index if dev.index is not None else torch.cuda.current_device()
+    if i not in _SMS:
+        _SMS[i] = torch.cuda.get_device_properties(i).multi_processor_count
+    return _SMS[i]
+
+
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:
     """Raise on a non-zero ``cudaError_t`` returned by a launch."""
     if err != 0:

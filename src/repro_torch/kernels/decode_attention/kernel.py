@@ -69,16 +69,6 @@ def _aligned(t: torch.Tensor, dims) -> bool:
         (t.stride(d) * size) % 16 == 0 or t.shape[d] == 1 for d in dims)
 
 
-_SMS: dict = {}
-
-
-def _sm_count(dev: torch.device) -> int:
-    i = dev.index if dev.index is not None else torch.cuda.current_device()
-    if i not in _SMS:
-        _SMS[i] = torch.cuda.get_device_properties(i).multi_processor_count
-    return _SMS[i]
-
-
 def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           k_new: torch.Tensor, v_new: torch.Tensor,
                           lens: torch.Tensor, *, window: int = 0,
@@ -114,7 +104,7 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if any(t.stride(3) != 1 for t in fl):
         raise ValueError("decode_attention_cuda wants a unit stride along hd")
     p = decode_plan(b, kv, s, hd, q.element_size(),
-                    sm_count or _sm_count(q.device))
+                    sm_count or build.sm_count(q.device))
     o = torch.empty((b, 1, h, hd), device=q.device, dtype=q.dtype)
     ws = torch.empty(b * kv * p.splits * (h // kv) * (hd + 2),
                      device=q.device, dtype=torch.float32)

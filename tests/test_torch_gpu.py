@@ -249,8 +249,13 @@ def test_served_tokens_on_the_card_match_the_plain_path(dev):
     assert tokens["h100"] == tokens["torch_ref"]
 
 
-@pytest.mark.parametrize("b,t,d", [(4, 512, 4096), (3, 1, 24), (2, 37, 200)])
+@pytest.mark.parametrize("b,t,d", [
+    (4, 512, 4096), (3, 1, 24), (2, 37, 200), (1, 300, 4100), (2, 0, 64),
+    (2, 129, 130), (1, 1000, 3)])
 def test_rglru_kernel_matches_plain(dev, b, t, d):
+    """Full width; T 0, 1, ragged over the chunks and over several tiles;
+    D not a multiple of a block's channels (and not of 4: one value a
+    load)."""
     a = torch.rand(b, t, d, device=dev,
                    generator=torch.Generator(dev).manual_seed(20)) * 0.5 + 0.5
     x, h0 = _randn(dev, 21, b, t, d), _randn(dev, 22, b, d)
@@ -262,8 +267,12 @@ def test_rglru_kernel_matches_plain(dev, b, t, d):
 
 @pytest.mark.parametrize("b,t,h,hd,extremes", [
     (4, 512, 32, 64, False), (1, 3, 2, 8, True), (2, 20, 3, 128, False),
-    (1, 9, 2, 40, False)])
+    (1, 9, 2, 40, False), (1, 300, 2, 64, True), (1, 300, 2, 64, False),
+    (2, 200, 3, 16, False), (2, 150, 2, 32, True), (1, 333, 2, 128, True),
+    (1, 0, 2, 64, False), (1, 1, 2, 64, False), (2, 77, 2, 40, True)])
 def test_rwkv6_kernel_matches_plain(dev, b, t, h, hd, extremes):
+    """Full width; many ragged chunks at hd 16, 32, 40, 64 and 128, with
+    log decays of 0 and -50 across them; T 0 and 1."""
     r, k, v = (_randn(dev, 30 + i, b, t, h, hd) * 0.5 for i in range(3))
     if extremes:            # no decay, and a decay whose exp underflows
         logw = torch.where(_randn(dev, 33, b, t, h, hd) > 0, 0.0, -50.0)
@@ -458,7 +467,9 @@ def test_dfp_half_kernel_matches_plain(dev, name, rows, d, dtype):
 
 
 @pytest.mark.parametrize("dtype", list(HALF))
-@pytest.mark.parametrize("b,t,d", [(4, 512, 4096), (2, 37, 200)])
+@pytest.mark.parametrize("b,t,d", [(4, 512, 4096), (2, 37, 200),
+                                   (1, 300, 4100), (2, 0, 64), (1, 1, 130),
+                                   (1, 200, 3)])
 def test_rglru_half_kernel_matches_plain(dev, b, t, d, dtype):
     a = (torch.rand(b, t, d, device=dev,
                     generator=torch.Generator(dev).manual_seed(80)) * 0.5
@@ -473,7 +484,10 @@ def test_rglru_half_kernel_matches_plain(dev, b, t, d, dtype):
 
 @pytest.mark.parametrize("dtype", list(HALF))
 @pytest.mark.parametrize("s0_f32", [False, True])
-@pytest.mark.parametrize("b,t,h,hd", [(4, 512, 32, 64), (1, 9, 2, 40)])
+@pytest.mark.parametrize("b,t,h,hd", [(4, 512, 32, 64), (1, 9, 2, 40),
+                                     (1, 300, 2, 64), (2, 150, 2, 16),
+                                     (1, 200, 2, 128), (1, 0, 2, 64),
+                                     (1, 1, 2, 32)])
 def test_rwkv6_half_kernel_matches_plain(dev, b, t, h, hd, s0_f32, dtype):
     """o in the inputs' dtype; s0 in it or in f32; s_last always f32."""
     r, k, v = ((_randn(dev, 83 + i, b, t, h, hd) * 0.5).to(HALF[dtype])
@@ -639,6 +653,107 @@ def test_decode_kernel_reads_unaligned_views(dev):
     torch.testing.assert_close(
         decode_attention_cuda(q, kc, vc, kn, vn, lens),
         dops._ref_model_layout(q, kc, vc, kn, vn, lens, 0, 0.0), **TOL)
+
+
+# ---------------------------------------------------------------------------
+# the chunked scans, widened
+# ---------------------------------------------------------------------------
+
+def _rwkv6_inputs(dev, b, t, h, hd, dtype, extremes):
+    dt = ALL_DTYPES[dtype]
+    r, k, v = ((_randn(dev, 110 + i, b, t, h, hd) * 0.5).to(dt)
+               for i in range(3))
+    if extremes:            # no decay, and a decay whose exp underflows
+        logw = torch.where(_randn(dev, 113, b, t, h, hd) > 0, 0.0, -50.0)
+    else:
+        logw = -torch.exp(_randn(dev, 113, b, t, h, hd) * 0.5 - 1.0)
+    u = (_randn(dev, 114, h, hd) * 0.5).to(dt)
+    s0 = (_randn(dev, 115, b, h, hd, hd) * 0.5).to(dt)
+    return r, k, v, logw.to(dt), u, s0
+
+
+@pytest.mark.parametrize("dtype", list(ALL_DTYPES))
+@pytest.mark.parametrize("sm_count", [1, 10_000])
+@pytest.mark.parametrize("b,t,h,hd,extremes", [
+    (2, 300, 2, 64, True), (2, 129, 2, 16, False), (2, 200, 2, 32, True),
+    (2, 257, 2, 128, False), (2, 70, 3, 40, True), (2, 64, 2, 64, False)])
+def test_rwkv6_kernel_at_one_chunk_and_many(dev, b, t, h, hd, extremes,
+                                            sm_count, dtype):
+    """The plan forced to one chunk walked in several staged tiles
+    (sm_count 1) and to 16-step chunks (a large sm_count), at every head
+    dim, with log decays of 0 and -50 across the chunks; s_last in f32."""
+    from repro_torch.kernels.rwkv6_scan.kernel import max_tile, rwkv6_plan
+    p = rwkv6_plan(b, t, h, hd, ALL_DTYPES[dtype].itemsize, sm_count)
+    assert (p.chunks == 1) == (sm_count == 1 or t <= max_tile(hd))
+    ins = _rwkv6_inputs(dev, b, t, h, hd, dtype, extremes)
+    o, s_last = rwkv6_scan_cuda(*ins, sm_count=sm_count)
+    want_o, want_s = rwkv6_scan_ref(*ins)
+    _close_dtype(o, want_o, dtype)
+    assert s_last.dtype == torch.float32
+    torch.testing.assert_close(s_last, want_s, **TOL)
+
+
+def test_rwkv6_kernel_at_t_0_returns_s0(dev):
+    r, k, v, logw, u, s0 = _rwkv6_inputs(dev, 2, 0, 3, 64, "bfloat16", False)
+    o, s_last = rwkv6_scan_cuda(r, k, v, logw, u, s0)
+    assert o.shape == r.shape and s_last.dtype == torch.float32
+    assert torch.equal(s_last, s0.float())
+
+
+def _offset_view(x):
+    """x copied into storage that starts one value in: no 16-byte loads."""
+    flat = torch.empty(x.numel() + 1, device=x.device, dtype=x.dtype)
+    return flat[1:].view(x.shape).copy_(x)
+
+
+@pytest.mark.parametrize("dtype", list(ALL_DTYPES))
+def test_rwkv6_kernel_reads_unaligned_views(dev, dtype):
+    ins = _rwkv6_inputs(dev, 1, 100, 2, 64, dtype, False)
+    ins = [_offset_view(x) for x in ins[:4]] + list(ins[4:])
+    o, s_last = rwkv6_scan_cuda(*ins)
+    want_o, want_s = rwkv6_scan_ref(*ins)
+    _close_dtype(o, want_o, dtype)
+    torch.testing.assert_close(s_last, want_s, **TOL)
+
+
+@pytest.mark.parametrize("dtype", list(ALL_DTYPES))
+@pytest.mark.parametrize("sm_count", [1, 10_000])
+@pytest.mark.parametrize("b,t,d", [(2, 300, 4100), (3, 9, 130),
+                                   (1, 1000, 512), (4, 17, 5)])
+def test_rglru_kernel_at_wide_and_narrow_warps(dev, b, t, d, sm_count,
+                                               dtype):
+    """The plan forced to its widest rows (32 lanes of channels, sm_count
+    1) and its narrowest (4 lanes, a large sm_count); T ragged over the
+    chunks and the tiles, D not a multiple of a block's channels."""
+    from repro_torch.kernels.rglru_scan.kernel import rglru_plan
+    dt = ALL_DTYPES[dtype]
+    p = rglru_plan(b, t, d, dt.itemsize, sm_count)
+    assert p.lanes == (32 if sm_count == 1 else 4)
+    a = (torch.rand(b, t, d, device=dev,
+                    generator=torch.Generator(dev).manual_seed(130)) * 0.5
+         + 0.5).to(dt)
+    x, h0 = _randn(dev, 131, b, t, d).to(dt), _randn(dev, 132, b, d).to(dt)
+    h, last = rglru_scan_cuda(a, x, h0, sm_count=sm_count)
+    want_h, want_last = rglru_scan_ref(a, x, h0)
+    _close_dtype(h, want_h, dtype)
+    _close_dtype(last, want_last, dtype)
+    if t:
+        assert torch.equal(last, h[:, -1])
+
+
+@pytest.mark.parametrize("dtype", list(ALL_DTYPES))
+def test_rglru_kernel_reads_unaligned_views(dev, dtype):
+    dt = ALL_DTYPES[dtype]
+    b, t, d = 2, 50, 256
+    a = (torch.rand(b, t, d, device=dev,
+                    generator=torch.Generator(dev).manual_seed(140)) * 0.5
+         + 0.5).to(dt)
+    a, x = _offset_view(a), _offset_view(_randn(dev, 141, b, t, d).to(dt))
+    h0 = _randn(dev, 142, b, d).to(dt)
+    h, last = rglru_scan_cuda(a, x, h0)
+    want_h, want_last = rglru_scan_ref(a, x, h0)
+    _close_dtype(h, want_h, dtype)
+    _close_dtype(last, want_last, dtype)
 
 
 # README's bf16 row, relative to the output's scale
