@@ -12,7 +12,9 @@ CNN again in bf16, and checks every path against the plain path.
 
 Phases, each failing loudly:
 
-1. device — ``nvidia-smi`` name and power limit; kernel build time.
+1. device — ``nvidia-smi`` name and power limit; kernel build time;
+   ``-Xptxas -v`` registers and spills of every instance (a spill in an
+   avgpool instance fails).
 2. kernels — matmul (serving, LoRA and the recurrent stacks' dense
    shapes, each on the kernel its plan picks: 3xTF32 tensor cores or the
    skinny kernel; one K = 12288 row held to 1e-5 of the output's scale),
@@ -20,7 +22,8 @@ Phases, each failing loudly:
    number of splits), the generated DFP programs (the served graph's
    groups and the recurrent graphs' gate, mix and group-norm programs),
    the RG-LRU scan, the RWKV6 scan and the average pooling (full width
-   and edge cases) against their plain versions (max |error| against the
+   and edge cases: column tiles, N·C past 65,535, run-time windows,
+   unaligned rows in each dtype) against their plain versions (max |error| against the
    stated tolerance) with their device times (cold L2, the host ahead of
    the device), the plain version's, one PyTorch library call's where one
    computes the same function (decode attention: SDPA on a copy of the
@@ -30,7 +33,9 @@ Phases, each failing loudly:
    and for flash attention); beside them the back-to-back launch time,
    which host launch cost can push above the device time.  The two scans
    are also timed at the paths' shapes under every cut their plans can
-   take (``[plans]`` lines; RWKV6 with its time by pass).  Then an f32
+   take, and the pooling at both Listing-3 shapes under every band height
+   of ``AVGPOOL_SWEEP`` in f32 and bf16 (``[plans]`` lines; RWKV6 with its
+   time by pass).  Then an f32
    row at every kernel node that phases 3, 5 and 6 run and no row above
    holds (``path_nodes``: two-block versions of the serve's programs at
    the buckets phase 3 opens, of both stacks and of the three CNNs); then
@@ -75,8 +80,12 @@ Phases, each failing loudly:
    AVGPOOL elects ``cuda.avgpool`` (two launches per Listing-3 forward),
    every LINEAR ``cuda.linear``, every group holding a conv bias
    ``ref.compose``; each output within 1e-4 of ``torch_ref``'s scale on
-   the same weights.  Warm forward times of both backends and one
-   profiled forward.
+   the same weights.  Warm forward times of both backends and a profile
+   of 3 forwards back to back (per forward) behind ``PROFILE_PAD`` pad
+   kernels; for the Listing-3 CNN also one forward as the profile opens,
+   the way earlier runs read it, and a gate: the padded profile shows both
+   pools in every forward and spans at least ``PROFILE_SPAN_SHARE`` of
+   the warm forward.
 7. bf16 — the phase-3 model's 28 blocks and head, the phase-5 stacks and
    the Listing-3 CNN with their weights cast to bf16, through
    ``optimize(..., dtype="bfloat16", backend="h100")`` on bf16 inputs: the
@@ -94,7 +103,10 @@ Phases, each failing loudly:
    first two blocks are held to the same rule, and the same two blocks
    with the scan's bonus u zeroed must fail it.  Warm times in turns with
    ``torch_ref`` bf16, beside the same path's f32 h100 time, and one
-   profiled call per path.
+   profiled call per path (the Listing-3 CNN as in phase 6).  Every
+   profile counts only the events after its ``PROFILE_PAD`` pad kernels;
+   the recurrent phases add the DFP groups' summed bytes bounds beside the
+   profiled DFP family (``[dfp]`` lines).
 
 The second-to-last lines are the card's ``nvidia-smi`` line and a JSON
 ``kernels`` line (an entry per kernel in f32, and one per kernel in bf16
@@ -109,6 +121,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -120,7 +133,9 @@ OUT_DIR = ROOT / "chiprun_out"
 # f32 products accumulate in another order than the plain version; outputs
 # are O(1), so agreement to 1e-4 absolute leaves ~100x margin over the
 # expected ~1e-6 rounding while catching any indexing or masking fault.
-# The pooling sums the plain version's taps in its order: 1e-5.
+# The pooling sums each input row's kw taps, then the kh row sums; the
+# plain version sums the taps in the listing's order (k1 outer, k2 inner):
+# a few ulps apart on O(1) values, so 1e-5.
 KERNEL_TOL = {"matmul": 1e-4, "flash_attention": 1e-4,
               "decode_attention": 1e-4, "dfp_fused": 1e-4,
               "rglru_scan": 1e-4, "rwkv6_scan": 1e-4, "avgpool": 1e-5}
@@ -139,6 +154,9 @@ LOGIT_RTOL = 1e-4
 # at the output's scale
 HALF_DTYPES = ("bfloat16", "float16")
 HALF_TOL = {"bfloat16": (2.0 ** -7, 1e-4), "float16": (2.0 ** -10, 1e-4)}
+
+# band heights the plans sweep forces on both Listing-3 pools
+AVGPOOL_SWEEP = (4, 8, 16, 24, 32, 48, 64)
 
 PEAK_F32 = 67e12        # FLOP/s, f32 outside the tensor cores (H100 SXM)
 PEAK_3XTF32 = 495e12 / 3    # FLOP/s, f32-accurate products as 3 TF32 passes
@@ -235,7 +253,7 @@ def phase_kernels(gen) -> dict:
     carries its ``node_key``."""
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels.avgpool.kernel import avgpool_cuda
+    from repro_torch.kernels.avgpool.kernel import avgpool_cuda, avgpool_plan
     from repro_torch.kernels.avgpool.ref import avgpool_ref
     from repro_torch.kernels.decode_attention.kernel import (
         decode_attention_cuda, decode_plan)
@@ -447,8 +465,12 @@ def phase_kernels(gen) -> dict:
         n_full = prog.operand_kinds.count("full")
         n_vec = prog.operand_kinds.count("vec")
         library = None
-        if tuple(i[0] for i in prog.instrs) == ("bias", "gelu"):
+        names = tuple(i[0] for i in prog.instrs)
+        if names == ("bias", "gelu"):
             library = lambda: F.gelu(ops[0] + ops[1], approximate="tanh")  # noqa: E731
+        elif names == ("layernorm",):       # RWKV6's group norm
+            eps = prog.instrs[0][5]
+            library = lambda: F.layer_norm(ops[0], (d,), ops[1], ops[2], eps)  # noqa: E731
         record("dfp_fused", f"{label} rows{rows_n} d{d}"
                + (f" operands x{scale:g}" if scale != 1.0 else ""), err,
                lambda: dfp_fused_triton(prog, ops, (rows_n, d), tdt[dt]),
@@ -614,14 +636,20 @@ def phase_kernels(gen) -> dict:
                 f"{passes}{')' if passes else ''}")
         return rows
 
-    # average pooling; F.avg_pool2d is the library call
-    def avgpool_case(n_, c_, h_, w_, kh=3, kw=3, on_path=True, dt="float32"):
-        x = randn(n_, c_, h_, w_, dt=dt)
+    # average pooling; F.avg_pool2d is the library call.  ``offset``
+    # starts x that many elements into its buffer (rows and planes then
+    # off every 16-byte line); each row names the plan's cut
+    def avgpool_case(n_, c_, h_, w_, kh=3, kw=3, on_path=True, dt="float32",
+                     offset=0):
+        x = randn(n_ * c_ * h_ * w_ + offset, dt=dt)[offset:].view(
+            n_, c_, h_, w_)
         y = avgpool_cuda(x, kh, kw)
         torch.cuda.synchronize()
         err, within = verdict(y, avgpool_ref(x, kh, kw), dt)
         out = y.numel()
-        record("avgpool", f"({n_}, {c_}, {h_}, {w_}) k{kh}x{kw}", err,
+        p = avgpool_plan(n_, c_, h_, w_, kh, kw, x.element_size())
+        at = f" at element {offset}" if offset else ""
+        record("avgpool", f"({n_}, {c_}, {h_}, {w_}) k{kh}x{kw}{at}", err,
                lambda: avgpool_cuda(x, kh, kw),
                lambda: avgpool_ref(x, kh, kw),
                lambda: F.avg_pool2d(x, (kh, kw), stride=1),
@@ -629,7 +657,44 @@ def phase_kernels(gen) -> dict:
                float(x.element_size()) * (x.numel() + out),
                "src/repro/kernels/avgpool/kernel.py:34", csrc + "avgpool.cu",
                "cuda", ("avgpool", n_, c_, h_, w_, kh, kw), on_path, dtype=dt,
-               within=within)
+               within=within,
+               extra={"band_rows": p.rows, "bands": p.bands,
+                      "tiles": p.tiles, "threads": p.tx * p.groups,
+                      "smem": p.smem})
+
+    # both Listing-3 pools under every band height of the sweep, beside the
+    # plan's own, each held to the plain version: which height the plan
+    # should pick
+    def avgpool_plans(dt):
+        rows = []
+        for shape in listing3_pools:
+            x = randn(*shape, dt=dt)
+            want = avgpool_ref(x, 3, 3)
+            nbytes = float(x.element_size()) * (x.numel() + want.numel())
+            b_ms, _ = bound(9.0 * want.numel(), nbytes)
+            for band in (0, *AVGPOOL_SWEEP):
+                fn = (lambda band=band: avgpool_cuda(x, 3, 3, rows=band))
+                y = fn()
+                torch.cuda.synchronize()
+                err, within = verdict(y, want, dt)
+                if not (err <= KERNEL_TOL["avgpool"] if within is None
+                        else within):
+                    fail(f"avgpool {dt} {shape} at a band of {band} rows "
+                         f"disagrees with its plain version: {err}")
+                p = avgpool_plan(*shape, 3, 3, x.element_size(), band)
+                ms = time_ms(fn)["device"]
+                rows.append({"kernel": "avgpool", "dtype": dt,
+                             "shape": shape, "plan": band == 0,
+                             "rows": p.rows, "bands": p.bands,
+                             "smem": p.smem, "threads": p.tx * p.groups,
+                             "ms": ms, "bound_ms": b_ms})
+                log(f"[plans] avgpool {dt} at {shape}, bands of {p.rows} "
+                    f"rows ({p.bands} a plane, {p.smem} bytes staged, "
+                    f"{p.tx * p.groups} threads)"
+                    f"{' (the plan)' if band == 0 else ''}: device ms "
+                    f"{ms:.4f}, {100 * b_ms / ms:.1f}% of the bound "
+                    f"{b_ms:.4f}")
+        return rows
 
     serve_mm = [(4, 1536, 151936, True), (256, 1536, 1536, False),
                (256, 1536, 6144, False), (256, 1536, 6144, True),
@@ -671,10 +736,18 @@ def phase_kernels(gen) -> dict:
     for n_, c_, h_, w_ in listing3_pools:
         avgpool_case(n_, c_, h_, w_)
     # k 2 and 3, kh != kw, H or W equal to k, N·C 1, widths no multiple of
-    # a warp
+    # a warp; column tiles; N·C past 65,535; run-time windows 5x5 and 1x7
     for n_, c_, h_, w_, kh, kw in ((3, 5, 17, 45, 2, 2), (1, 1, 3, 3, 3, 3),
-                                   (2, 3, 9, 40, 2, 3), (1, 1, 70, 33, 3, 1)):
+                                   (2, 3, 9, 40, 2, 3), (1, 1, 70, 33, 3, 1),
+                                   (1, 2, 20, 5000, 3, 3),
+                                   (70000, 1, 4, 4, 3, 3),
+                                   (2, 3, 30, 40, 5, 5),
+                                   (2, 3, 30, 41, 1, 7)):
         avgpool_case(n_, c_, h_, w_, kh, kw, on_path=False)
+    # unaligned rows (111 elements) from an unaligned base, in each dtype
+    for dt in ("float32", *HALF_DTYPES):
+        avgpool_case(2, 3, 13, 111, on_path=False, dt=dt, offset=1)
+    plans += avgpool_plans("float32") + avgpool_plans("bfloat16")
     # flash at the bf16 transformer's S 256 in f32 too, beside its bf16 row
     flash_case(s=256)
 
@@ -746,7 +819,7 @@ def phase_kernels(gen) -> dict:
                                      if r[0] == "bias_add+gelu")
     dfp_case(label, rows_n, d, prog, dt=f16)
     avgpool_case(*listing3_pools[0], dt=f16)
-    return {"cases": cases, "scan_plans": plans}
+    return {"cases": cases, "plans": plans}
 
 
 def half_check(got, want, dtype: str, chain: bool = False):
@@ -887,24 +960,48 @@ FAMILIES = (("tc_kernel", "matmul"), ("tc16_kernel", "matmul"),
             ("Memcpy", "copy on card"), ("Memset", "memset"))
 
 
-def device_breakdown(torch, run) -> dict:
-    """Run ``run()`` under ``torch.profiler`` (CUDA activity only) and
-    return the device time per family and the device's busy share: the
-    union of device events over the span from the first to the last."""
+# tiny device kernels each profile runs ahead of the measured calls: the
+# first device events of a profile can be lost (in this script's later
+# phases 11-14 of them; none in a fresh process), whatever the host waits
+# first, and the profiled Listing-3 forward then showed part of its span
+# and one of its two pools or none.  Only events after the last pad count.
+PROFILE_PAD = 256
+PAD_KERNEL = "spin_kernel"      # torch.cuda._sleep's kernel
+
+
+def device_breakdown(torch, run, calls: int = 1,
+                     pad: int = PROFILE_PAD) -> dict:
+    """Run ``pad`` one-cycle ``torch.cuda._sleep`` kernels, then ``run()``
+    ``calls`` times back to back, under one ``torch.profiler`` session
+    (CUDA activity only), and return per call the device time and
+    launches per family of the events after the last pad, the span from
+    the first of them to the last, and the device's busy share over it:
+    the union of device events over that span.  ``pad_events_lost``: the
+    pads the profile did not record."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        run()
+        for _ in range(pad):
+            torch.cuda._sleep(1)
         torch.cuda.synchronize()
-    spans = sorted((e.time_range.start, e.time_range.end, e.name)
-                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+        for _ in range(calls):
+            run()
+        torch.cuda.synchronize()
+    events = [(e.time_range.start, e.time_range.end, e.name)
+              for e in prof.events() if e.device_type == DeviceType.CUDA]
+    pads = [e for e in events if PAD_KERNEL in e[2]]
+    cut = max((e[1] for e in pads), default=float("-inf"))
+    spans = sorted(e for e in events
+                   if PAD_KERNEL not in e[2] and e[0] >= cut)
     if not spans:
-        return {"measured": False}
+        return {"measured": False, "pad_events_lost": pad - len(pads)}
     busy, (lo, hi) = 0.0, spans[0][:2]
     by_family: dict = {}
+    launches: dict = {}
     for s, e, name in spans:
         fam = next((f for frag, f in FAMILIES if frag in name), "torch ops")
-        by_family[fam] = by_family.get(fam, 0.0) + (e - s) / 1e3
+        by_family[fam] = by_family.get(fam, 0.0) + (e - s) / 1e3 / calls
+        launches[fam] = launches.get(fam, 0) + 1
         if s > hi:
             busy += hi - lo
             lo, hi = s, e
@@ -912,27 +1009,79 @@ def device_breakdown(torch, run) -> dict:
             hi = max(hi, e)
     busy += hi - lo
     span = spans[-1][1] - spans[0][0]
-    return {"measured": True, "events": len(spans), "span_ms": span / 1e3,
-            "busy_ms": busy / 1e3, "busy_share": busy / span,
+    return {"measured": True, "calls": calls, "events": len(spans),
+            "pad_events_lost": pad - len(pads),
+            "span_ms": span / 1e3 / calls, "busy_ms": busy / 1e3 / calls,
+            "busy_share": busy / span,
             "device_ms_by_family": dict(sorted(
-                by_family.items(), key=lambda kv: -kv[1]))}
+                by_family.items(), key=lambda kv: -kv[1])),
+            "launches_by_family": {k: v / calls for k, v in sorted(
+                launches.items(), key=lambda kv: -kv[1])}}
 
 
-def profiled(torch, label: str, run, digits: int = 2) -> dict:
-    """``device_breakdown`` of ``run()``, logged under ``label``."""
-    breakdown = device_breakdown(torch, run)
+def profiled(torch, label: str, run, digits: int = 2, calls: int = 1,
+             pad: int = PROFILE_PAD) -> dict:
+    """``device_breakdown`` of ``calls`` calls of ``run()``, logged under
+    ``label`` per call."""
+    breakdown = device_breakdown(torch, run, calls, pad)
     if breakdown["measured"]:
         fams = ", ".join(f"{k} {v:.{digits}f}" for k, v in
                          breakdown["device_ms_by_family"].items())
-        log(f"[profile] {label}: device busy "
+        per = "" if calls == 1 else f" (a call, of {calls} back to back)"
+        log(f"[profile] {label}{per}: device busy "
             f"{breakdown['busy_ms']:.{digits}f} of "
             f"{breakdown['span_ms']:.{digits}f} ms "
             f"({100 * breakdown['busy_share']:.1f}%); device ms by family: "
-            f"{fams}")
+            f"{fams}; launches by family: "
+            f"{breakdown['launches_by_family']}; of {pad} pad kernels "
+            f"ahead, {breakdown['pad_events_lost']} not recorded")
     else:
         log(f"[profile] {label}: torch.profiler recorded no device events: "
             f"device busy share not measured")
     return breakdown
+
+
+DTYPE_BYTES = {"float32": 4, "bfloat16": 2, "float16": 2}
+
+
+def dfp_in_path(sol, breakdown: dict, label: str) -> dict:
+    """The DFP groups a forward of ``sol`` runs, the sum of their bytes
+    bounds (each operand read once and the output written once, at its
+    storage size, over HBM) and the profiled dfp_fused family beside it:
+    how far the kernel is from its bound where the path runs it."""
+    groups = [n for n in sol.graph.topo() if n.impl == "cuda.dfp_fused"]
+    nbytes = sum(DTYPE_BYTES[t.spec.dtype] * math.prod(t.spec.shape)
+                 for n in groups for t in (n, *n.inputs))
+    by_program: dict = {}
+    for n in groups:
+        by_program[n.name] = by_program.get(n.name, 0) + 1
+    out = {"groups": len(groups), "by_program": by_program,
+           "bound_ms": 1e3 * nbytes / HBM,
+           "family_ms": breakdown.get("device_ms_by_family", {}).get(
+               "dfp_fused")}
+    if out["family_ms"]:
+        log(f"[dfp] {label}: {out['groups']} DFP groups a forward "
+            f"{by_program}, their "
+            f"bytes bounds sum to {out['bound_ms']:.3f} ms; the profiled "
+            f"dfp_fused family reads {out['family_ms']:.3f} ms, so it runs "
+            f"at {100 * out['bound_ms'] / out['family_ms']:.1f}% of its "
+            f"bound")
+    return out
+
+
+# the padded Listing-3 profile must cover most of a warm forward
+PROFILE_SPAN_SHARE = 0.75
+
+
+def check_pools_profiled(name: str, breakdown: dict, forward_ms: float):
+    """The Listing-3 forward's profile shows both pools in every call and
+    spans most of the forward: nothing was lost at its start."""
+    pools = breakdown.get("launches_by_family", {}).get("avgpool")
+    span = breakdown.get("span_ms", 0.0)
+    if pools != 2 or span < PROFILE_SPAN_SHARE * forward_ms:
+        fail(f"{name}: the profiled forward shows {pools} avgpool launches "
+             f"a call over {span:.3f} ms, the warm forward takes "
+             f"{forward_ms:.3f} ms: events were lost")
 
 
 def compare_tokens(name: str, got, ref, tol_of) -> list:
@@ -1270,6 +1419,7 @@ def phase_recurrent(torch, counters, dev, held) -> dict:
             f"{len(h_ms)}: h100 {h_med:.2f} {[round(v, 2) for v in h_ms]}, "
             f"torch_ref {r_med:.2f} {[round(v, 2) for v in r_ms]}")
         breakdown = profiled(torch, f"{name} h100 forward", lambda: sol(x))
+        dfp = dfp_in_path(sol, breakdown, name)
         results[name] = {
             "config": cfg, "shape": shape, "parameters": n_params,
             "optimize_s": compile_s, "elections": by_kind,
@@ -1279,7 +1429,7 @@ def phase_recurrent(torch, counters, dev, held) -> dict:
             "output_scale": float(want.abs().max()),
             "h100_ms": h_ms, "h100_ms_median": h_med,
             "torch_ref_ms": r_ms, "torch_ref_ms_median": r_med,
-            "device_breakdown": breakdown}
+            "device_breakdown": breakdown, "dfp_in_path": dfp}
         del model, sol, ref, x, y, want
         gc.collect()
         torch.cuda.empty_cache()
@@ -1294,6 +1444,7 @@ CNN_SHAPE = (64, 3, 224, 224)       # ImageNet resolution, batch 64
 CNN_CLASSES = 1000
 CNN_RTOL = 1e-4
 CNN_REPEATS = 3
+CNN_PROFILE_CALLS = 3   # forwards a CNN's profile takes, back to back
 
 
 def listing3_cnn(nn, **kw):
@@ -1421,7 +1572,12 @@ def phase_cnn(torch, counters, dev, held) -> dict:
             f"{r_med:.3f} {[round(v, 3) for v in r_ms]}; an h100 call "
             f"returns to the host after {enqueue_ms:.3f} ms")
         breakdown = profiled(torch, f"{name} h100 forward", lambda: sol(x),
-                             digits=3)
+                             digits=3, calls=CNN_PROFILE_CALLS)
+        # the way earlier runs profiled it: one call as the profile opens
+        at_open = profiled(torch, f"{name} h100 forward, one call as the "
+                           f"profile opens", lambda: sol(x), digits=3, pad=0)
+        if name == "listing3_cnn":
+            check_pools_profiled(name, breakdown, h_med)
         results[name] = {
             "shape": CNN_SHAPE, "classes": CNN_CLASSES,
             "parameters": sum(p.numel() for p in model.parameters()),
@@ -1431,7 +1587,8 @@ def phase_cnn(torch, counters, dev, held) -> dict:
             "output_scale": float(want.abs().max()),
             "h100_ms": h_ms, "h100_ms_median": h_med,
             "torch_ref_ms": r_ms, "torch_ref_ms_median": r_med,
-            "h100_enqueue_ms": enqueue_ms, "device_breakdown": breakdown}
+            "h100_enqueue_ms": enqueue_ms, "device_breakdown": breakdown,
+            "device_breakdown_at_open": at_open}
         del model, sol, ref, x, y, want
         gc.collect()
         torch.cuda.empty_cache()
@@ -1779,6 +1936,7 @@ def bf16_stack(torch, counters, dev, index: int, name: str, cfg: dict,
                          lambda: sol(x16))
     out = {"config": cfg, "shape": shape, "elections": by_kind,
            "device_breakdown": breakdown,
+           "dfp_in_path": dfp_in_path(sol, breakdown, f"{name} bf16"),
            "launches": launches, "per_layer_rel_err": layers,
            "rel_err_f32_h100": err_h, "rel_err_f32_torch_ref": err_r,
            "floor_factor": BF16_FLOOR_FACTOR, "layer_limit": BF16_ROW[name],
@@ -1865,9 +2023,13 @@ def bf16_cnn(torch, counters, dev, f32_ms: float, held) -> dict:
         f"{[round(v, 3) for v in h_ms]}, torch_ref bf16 {med(r_ms):.3f}, "
         f"h100 f32 (phase 6) {f32_ms:.3f}")
     breakdown = profiled(torch, "listing3_cnn bf16 h100 forward",
-                         lambda: sol(x16), digits=3)
+                         lambda: sol(x16), digits=3, calls=CNN_PROFILE_CALLS)
+    at_open = profiled(torch, "listing3_cnn bf16 h100 forward, one call as "
+                       "the profile opens", lambda: sol(x16), digits=3, pad=0)
+    check_pools_profiled("listing3_cnn bf16", breakdown, med(h_ms))
     out = {"shape": CNN_SHAPE, "elections": by_kind, "launches": launches,
            "device_breakdown": breakdown,
+           "device_breakdown_at_open": at_open,
            "rel_err": err, "rel_err_limit": BF16_ROW["listing3_cnn"],
            "h100_ms": h_ms, "h100_ms_median": med(h_ms),
            "torch_ref_ms": r_ms, "torch_ref_ms_median": med(r_ms),
@@ -1934,6 +2096,11 @@ def main() -> int:
                 if "registers" in ln or "spill" in ln]
         for ln in regs:
             log(f"[device] ptxas {name}: {ln}")
+        # the pooling's instances keep every value in registers
+        spills = [int(n) for ln in regs for n in re.findall(
+            r"(\d+) bytes spill (?:stores|loads)", ln)]
+        if name == "avgpool" and any(spills):
+            fail("an avgpool instance spills (ptxas -v above)")
 
     gen = torch.Generator("cuda").manual_seed(1234)
     kern = phase_kernels(gen)
@@ -1982,7 +2149,7 @@ def main() -> int:
             case, kernel = kernel_rows.get(name, (name, None))
             rows = [c for c in kern["cases"] if c["name"] == case
                     and c.get("kernel") == kernel and c["dtype"] == dtype]
-            rep = rows[0]
+            rep = next((c for c in rows if c["on_path"]), rows[0])
             paths = {p: n[name] for p, n in paths_of.items() if n.get(name)}
             entry = {
                 "name": name + suffix, "dtype": dtype, "route": rep["route"],
@@ -1998,7 +2165,7 @@ def main() -> int:
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
         {"nvidia_smi": smi, "build_log": build.BUILD_LOG,
          "build_digest": {n: build.digest(n) for n in build.BUILD_LOG},
-         "kernels": kern["cases"], "scan_plans": kern["scan_plans"],
+         "kernels": kern["cases"], "plans": kern["plans"],
          "serve": serve,
          "recurrent": recurrent, "cnn": cnn, "bf16": bf16,
          "seconds": time.perf_counter() - t_start},

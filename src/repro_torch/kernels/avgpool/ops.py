@@ -6,7 +6,8 @@ executor's ``F.avg_pool2d`` lowering.  The kernel covers rank-4 NCHW,
 stride 1, VALID, in float32, bfloat16 or float16 (``kernels/dtypes.py``);
 ``supports`` refuses the rest, so such a node elects the reference tier
 visibly, in ``impl_report``.  The JAX impl's
-``avgpool_block`` Tunable waits for measured election on the card.
+``avgpool_block`` Tunable waits for measured election on the card; its
+natural space here is the band height of ``kernel.avgpool_plan``.
 """
 from __future__ import annotations
 

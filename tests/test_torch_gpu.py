@@ -21,8 +21,8 @@ from torch import nn as tnn
 from repro_torch.backends import registry
 from repro_torch.frontends import nn
 from repro_torch.frontends.optimize import optimize
-from repro_torch.kernels.avgpool.kernel import avgpool_cuda
-from repro_torch.kernels.avgpool.ref import avgpool_ref
+from repro_torch.kernels.avgpool.kernel import avgpool_cuda, avgpool_plan
+from repro_torch.kernels.avgpool.ref import avgpool_banded_ref, avgpool_ref
 from repro_torch.kernels.decode_attention import ops as dops
 from repro_torch.kernels.decode_attention.kernel import (MAX_GROUP,
                                                          decode_attention_cuda,
@@ -41,6 +41,8 @@ from repro_torch.kernels.rwkv6_scan.ref import rwkv6_scan_ref
 from repro_torch.launch import serve
 
 TOL = dict(rtol=1e-4, atol=1e-4)
+ALL_DTYPES_BY_NAME = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+                      "float16": torch.float16}
 
 pytestmark = pytest.mark.gpu
 
@@ -317,11 +319,103 @@ def test_recurrent_stack_on_the_card_matches_the_plain_path(dev, name):
 ])
 def test_avgpool_kernel_matches_plain(dev, n, c, h, w, kh, kw):
     """k 2 and 3, kh != kw, H or W equal to k, N·C = 1, sizes that are no
-    multiple of a warp: to 1e-5, as the kernel sums the plain version's
-    taps in its order."""
+    multiple of a warp: to 1e-5.  The kernel sums each row's taps first and
+    then the row sums, the plain version the taps in the listing's order:
+    a few ulps apart on O(1) values."""
     x = _randn(dev, 50, n, c, h, w)
     torch.testing.assert_close(avgpool_cuda(x, kh, kw),
                                avgpool_ref(x, kh, kw), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", list(ALL_DTYPES_BY_NAME))
+@pytest.mark.parametrize("n,c,h,w,kh,kw,offset", [
+    (1, 2, 20, 5000, 3, 3, 0),      # column tiles
+    (70000, 1, 4, 4, 3, 3, 0),      # N·C above 65,535: the grid strides
+    (2, 3, 13, 111, 3, 3, 1),       # rows of 111: no 16-byte alignment,
+    (2, 3, 13, 111, 3, 3, 3),       # and x at an odd element offset
+    (3, 2, 17, 45, 2, 2, 5),
+    (2, 3, 30, 40, 5, 5, 0),        # run-time windows
+    (2, 3, 30, 41, 1, 7, 2),
+    (1, 1, 3, 3, 3, 3, 1),
+])
+def test_avgpool_kernel_matches_its_algorithm_exactly(dev, n, c, h, w, kh,
+                                                      kw, offset, dtype):
+    """The kernel equals ``avgpool_banded_ref`` (its bands, tiles and sum
+    order in plain torch, an IEEE division) bit for bit, and the plain
+    version within 1e-5 (f32) or one rounding step; x may start at any
+    element of a 16-byte line."""
+    t = ALL_DTYPES_BY_NAME[dtype]
+    numel = n * c * h * w
+    flat = _randn(dev, 53, numel + offset).to(t)
+    x = flat[offset:].view(n, c, h, w)
+    got = avgpool_cuda(x, kh, kw)
+    plan = avgpool_plan(n, c, h, w, kh, kw, x.element_size())
+    want = avgpool_banded_ref(x, kh, kw, plan)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    if dtype == "float32":
+        torch.testing.assert_close(got, avgpool_ref(x, kh, kw), rtol=1e-5,
+                                   atol=1e-5)
+    else:
+        _close_half(got, avgpool_ref(x, kh, kw), dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rows", [0, 1, 4, 8, 16, 24, 32, 48, 64])
+def test_avgpool_kernel_at_every_band_height(dev, rows, dtype):
+    """The Listing-3 CNN's first pool (N 4) with each band height of the
+    plans sweep forced: the same outputs, bit for bit, as the plan's own."""
+    x = _randn(dev, 54, 4, 32, 224, 224).to(ALL_DTYPES_BY_NAME[dtype])
+    plan = avgpool_plan(4, 32, 224, 224, 3, 3, x.element_size(), rows)
+    got = avgpool_cuda(x, 3, 3, rows=rows)
+    torch.testing.assert_close(got, avgpool_banded_ref(x, 3, 3, plan),
+                               rtol=0, atol=0)
+    torch.testing.assert_close(got, avgpool_cuda(x, 3, 3), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype", list(ALL_DTYPES_BY_NAME))
+@pytest.mark.parametrize("n,c,h,w,kh,kw", [
+    (2, 4, 111, 111, 3, 3), (1, 2, 20, 5000, 3, 3), (2, 3, 17, 46, 2, 2),
+    (2, 3, 30, 41, 5, 5), (300, 2, 9, 9, 3, 3)])
+def test_avgpool_kernel_matches_its_algorithm_at_odd_and_even_widths(
+        dev, n, c, h, w, kh, kw, dtype):
+    """Odd and even output widths, column tiles, run-time windows and many
+    small planes: the same outputs, bit for bit, as the algorithm's."""
+    x = _randn(dev, 55, n, c, h, w).to(ALL_DTYPES_BY_NAME[dtype])
+    plan = avgpool_plan(n, c, h, w, kh, kw, x.element_size())
+    torch.testing.assert_close(avgpool_cuda(x, kh, kw),
+                               avgpool_banded_ref(x, kh, kw, plan),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype", list(ALL_DTYPES_BY_NAME))
+@pytest.mark.parametrize("kh,kw", [(3, 3), (2, 2), (1, 7)])
+def test_avgpool_kernel_divides_exactly_at_every_magnitude(dev, kh, kw,
+                                                          dtype):
+    """Inputs from 2^-130 to 2^125 (subnormal sums in f32), with zeros,
+    negative zeros, infinities and NaNs among them, and a plane of negative
+    zeros: every output, sign of zero included, equals the IEEE division's
+    (``avgpool_banded_ref`` divides), where the 3x3 kernel takes a
+    product and Markstein's correction."""
+    t = ALL_DTYPES_BY_NAME[dtype]
+    g = torch.Generator(dev).manual_seed(56)
+    shape = (3, 4, 37, 45)
+    scale = torch.randint(-130, 126, shape, device=dev, generator=g)
+    x = torch.randn(*shape, device=dev, generator=g) * torch.exp2(
+        scale.float())
+    pick = torch.rand(*shape, device=dev, generator=g)
+    for lo, v in ((0.00, 0.0), (0.02, -0.0), (0.04, float("inf")),
+                  (0.045, float("-inf")), (0.05, float("nan"))):
+        x = torch.where((pick >= lo) & (pick < lo + 0.005), v, x)
+    x[1, 2] = -0.0
+    x = x.to(t)
+    got = avgpool_cuda(x, kh, kw)
+    plan = avgpool_plan(*shape, kh, kw, x.element_size())
+    want = avgpool_banded_ref(x, kh, kw, plan)
+    bits = torch.int32 if dtype == "float32" else torch.int16
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan)
+    assert torch.equal(got.view(bits)[~nan], want.view(bits)[~nan])
+    assert bool((got[1, 2].view(bits) == want[1, 2].view(bits)).all())
 
 
 def test_listing3_cnn_on_the_card_matches_the_plain_path(dev):
