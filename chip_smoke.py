@@ -23,8 +23,8 @@ Phases, each failing loudly:
    groups and the recurrent graphs' gate, mix and group-norm programs),
    the RG-LRU scan, the RWKV6 scan and the average pooling (full width
    and edge cases: column tiles, N·C past 65,535, run-time windows,
-   unaligned rows in each dtype) against their plain versions (max |error| against the
-   stated tolerance) with their device times (cold L2, the host ahead of
+   unaligned rows in each dtype) against their plain versions (max
+   |error| against the stated tolerance) with their device times (cold L2, the host ahead of
    the device), the plain version's, one PyTorch library call's where one
    computes the same function (decode attention: SDPA on a copy of the
    cache that already holds the step's row), and the roofline bound of
@@ -82,10 +82,9 @@ Phases, each failing loudly:
    ``ref.compose``; each output within 1e-4 of ``torch_ref``'s scale on
    the same weights.  Warm forward times of both backends and a profile
    of 3 forwards back to back (per forward) behind ``PROFILE_PAD`` pad
-   kernels; for the Listing-3 CNN also one forward as the profile opens,
-   the way earlier runs read it, and a gate: the padded profile shows both
-   pools in every forward and spans at least ``PROFILE_SPAN_SHARE`` of
-   the warm forward.
+   kernels; for the Listing-3 CNN a gate: the profile shows both pools in
+   every forward and spans at least ``PROFILE_SPAN_SHARE`` of the warm
+   forward.
 7. bf16 — the phase-3 model's 28 blocks and head, the phase-5 stacks and
    the Listing-3 CNN with their weights cast to bf16, through
    ``optimize(..., dtype="bfloat16", backend="h100")`` on bf16 inputs: the
@@ -969,10 +968,9 @@ PROFILE_PAD = 256
 PAD_KERNEL = "spin_kernel"      # torch.cuda._sleep's kernel
 
 
-def device_breakdown(torch, run, calls: int = 1,
-                     pad: int = PROFILE_PAD) -> dict:
-    """Run ``pad`` one-cycle ``torch.cuda._sleep`` kernels, then ``run()``
-    ``calls`` times back to back, under one ``torch.profiler`` session
+def device_breakdown(torch, run, calls: int = 1) -> dict:
+    """Run ``PROFILE_PAD`` one-cycle ``torch.cuda._sleep`` kernels, then
+    ``run()`` ``calls`` times back to back, under one ``torch.profiler`` session
     (CUDA activity only), and return per call the device time and
     launches per family of the events after the last pad, the span from
     the first of them to the last, and the device's busy share over it:
@@ -981,7 +979,7 @@ def device_breakdown(torch, run, calls: int = 1,
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(pad):
+        for _ in range(PROFILE_PAD):
             torch.cuda._sleep(1)
         torch.cuda.synchronize()
         for _ in range(calls):
@@ -994,7 +992,8 @@ def device_breakdown(torch, run, calls: int = 1,
     spans = sorted(e for e in events
                    if PAD_KERNEL not in e[2] and e[0] >= cut)
     if not spans:
-        return {"measured": False, "pad_events_lost": pad - len(pads)}
+        return {"measured": False,
+                "pad_events_lost": PROFILE_PAD - len(pads)}
     busy, (lo, hi) = 0.0, spans[0][:2]
     by_family: dict = {}
     launches: dict = {}
@@ -1010,7 +1009,7 @@ def device_breakdown(torch, run, calls: int = 1,
     busy += hi - lo
     span = spans[-1][1] - spans[0][0]
     return {"measured": True, "calls": calls, "events": len(spans),
-            "pad_events_lost": pad - len(pads),
+            "pad_events_lost": PROFILE_PAD - len(pads),
             "span_ms": span / 1e3 / calls, "busy_ms": busy / 1e3 / calls,
             "busy_share": busy / span,
             "device_ms_by_family": dict(sorted(
@@ -1019,11 +1018,11 @@ def device_breakdown(torch, run, calls: int = 1,
                 launches.items(), key=lambda kv: -kv[1])}}
 
 
-def profiled(torch, label: str, run, digits: int = 2, calls: int = 1,
-             pad: int = PROFILE_PAD) -> dict:
+def profiled(torch, label: str, run, digits: int = 2,
+             calls: int = 1) -> dict:
     """``device_breakdown`` of ``calls`` calls of ``run()``, logged under
     ``label`` per call."""
-    breakdown = device_breakdown(torch, run, calls, pad)
+    breakdown = device_breakdown(torch, run, calls)
     if breakdown["measured"]:
         fams = ", ".join(f"{k} {v:.{digits}f}" for k, v in
                          breakdown["device_ms_by_family"].items())
@@ -1033,8 +1032,8 @@ def profiled(torch, label: str, run, digits: int = 2, calls: int = 1,
             f"{breakdown['span_ms']:.{digits}f} ms "
             f"({100 * breakdown['busy_share']:.1f}%); device ms by family: "
             f"{fams}; launches by family: "
-            f"{breakdown['launches_by_family']}; of {pad} pad kernels "
-            f"ahead, {breakdown['pad_events_lost']} not recorded")
+            f"{breakdown['launches_by_family']}; of {PROFILE_PAD} pad "
+            f"kernels ahead, {breakdown['pad_events_lost']} not recorded")
     else:
         log(f"[profile] {label}: torch.profiler recorded no device events: "
             f"device busy share not measured")
@@ -1573,9 +1572,6 @@ def phase_cnn(torch, counters, dev, held) -> dict:
             f"returns to the host after {enqueue_ms:.3f} ms")
         breakdown = profiled(torch, f"{name} h100 forward", lambda: sol(x),
                              digits=3, calls=CNN_PROFILE_CALLS)
-        # the way earlier runs profiled it: one call as the profile opens
-        at_open = profiled(torch, f"{name} h100 forward, one call as the "
-                           f"profile opens", lambda: sol(x), digits=3, pad=0)
         if name == "listing3_cnn":
             check_pools_profiled(name, breakdown, h_med)
         results[name] = {
@@ -1587,8 +1583,7 @@ def phase_cnn(torch, counters, dev, held) -> dict:
             "output_scale": float(want.abs().max()),
             "h100_ms": h_ms, "h100_ms_median": h_med,
             "torch_ref_ms": r_ms, "torch_ref_ms_median": r_med,
-            "h100_enqueue_ms": enqueue_ms, "device_breakdown": breakdown,
-            "device_breakdown_at_open": at_open}
+            "h100_enqueue_ms": enqueue_ms, "device_breakdown": breakdown}
         del model, sol, ref, x, y, want
         gc.collect()
         torch.cuda.empty_cache()
@@ -2024,12 +2019,9 @@ def bf16_cnn(torch, counters, dev, f32_ms: float, held) -> dict:
         f"h100 f32 (phase 6) {f32_ms:.3f}")
     breakdown = profiled(torch, "listing3_cnn bf16 h100 forward",
                          lambda: sol(x16), digits=3, calls=CNN_PROFILE_CALLS)
-    at_open = profiled(torch, "listing3_cnn bf16 h100 forward, one call as "
-                       "the profile opens", lambda: sol(x16), digits=3, pad=0)
     check_pools_profiled("listing3_cnn bf16", breakdown, med(h_ms))
     out = {"shape": CNN_SHAPE, "elections": by_kind, "launches": launches,
            "device_breakdown": breakdown,
-           "device_breakdown_at_open": at_open,
            "rel_err": err, "rel_err_limit": BF16_ROW["listing3_cnn"],
            "h100_ms": h_ms, "h100_ms_median": med(h_ms),
            "torch_ref_ms": r_ms, "torch_ref_ms_median": med(r_ms),
