@@ -6,7 +6,8 @@ shapes in float32, bfloat16 and float16, serves a few requests at full
 Qwen2-1.5B attention width through ``SolServer``, runs the Griffin and
 RWKV6 block stacks at full width and three CNNs at ImageNet resolution
 through ``optimize()``, runs the transformer, both stacks and the Listing-3
-CNN again in bf16, and checks every path against the plain path.
+CNN again in bf16, serves the transformer once more under a strict
+measured-provenance audit, and checks every path against the plain path.
 
     python3 chip_smoke.py          # one CUDA card, run from the repo root
 
@@ -45,7 +46,11 @@ Phases, each failing loudly:
    decode step's products, each path's DFP groups, the CNN's head), and
    in f16 at one shape each (flash also at S 256), held to its plain
    version on the same rounded values within one rounding step of the
-   storage type, bytes counted at the storage size.  Phases 3, 5, 6 and 7
+   storage type, bytes counted at the storage size.  Then, for each
+   kernel (the matmul's two), every config of its ``Tunable`` space pinned
+   on the first f32 and the first bf16 path node that runs it, through the
+   impl, held to the plain version at the same tolerances (one
+   ``[configs]`` line per kernel).  Phases 3, 5, 6 and 7
    fail on a kernel node of their paths that no row of their dtype holds
    (``node_key``, ``check_held``).
 3. serve — 28 × ``transformer_block(1536, 12, n_kv_heads=2)`` + a
@@ -106,11 +111,29 @@ Phases, each failing loudly:
    profile counts only the events after its ``PROFILE_PAD`` pad kernels;
    the recurrent phases add the DFP groups' summed bytes bounds beside the
    profiled DFP family (``[dfp]`` lines).
+8. measured serve — phase 3's model (the same weights) and requests on
+   ``SolServer(strict_provenance=True)`` with a fresh autotune cache
+   installed for the phase (the previous one restored after it, so phases
+   3 and 5-7 keep their cold-cache elections): ``warm_autotune`` over the
+   buckets the workload opens (one ``[measured]`` line per (op, shape):
+   each impl's min and mean µs, ``core.measure``'s CUDA-event times with a
+   warm L2 and the host's launch cost where it exceeds the device time,
+   the winner and its pinned config), then two passes of serving.  A
+   ``ProvenanceError`` fails the run; every served election must be
+   measured on its exact bucket; every elected kernel must launch in the
+   second pass (counts from 0, read after it) and no other; every pinned
+   config of the served buckets is held to the plain version at its
+   node's shapes; logits at every served step of both passes within 1e-4
+   of phase 4's ``torch_ref`` and greedy tokens equal (near ties
+   reported); tokens/s beside phases 3 and 4.  Then the driver's ``tune``
+   at the bf16 transformer's products (phase 7's shapes) prints which impl
+   measurement elects there, with no gate on the winner.
 
 The second-to-last lines are the card's ``nvidia-smi`` line and a JSON
 ``kernels`` line (an entry per kernel in f32, and one per kernel in bf16
 named ``<kernel>_bf16`` with its launches on the bf16 paths); the last line
-is ``{"ok": true, "device": ...}``.  The
+is ``{"ok": true, "device": ...}``; the ``kernels`` line's launches are
+phases 3 and 5-7's.  The
 full record goes to ``chiprun_out/chip_smoke.json``.  The script imports
 nothing of JAX or of the JAX package ``src/repro``; it exits non-zero,
 printing no result, without a CUDA card or without the package.
@@ -118,6 +141,7 @@ printing no result, without a CUDA card or without the package.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import re
@@ -786,6 +810,7 @@ def phase_kernels(gen) -> dict:
 
     # f32 at every kernel node of phases 3-6 that no row above holds
     hold("float32", nodes32, " (f32 path)")
+    configs = sweep_configs(torch, gen, "float32", nodes32)
 
     # bf16 at the f32 rows' shapes, then f16 at one shape per kernel
     bf = "bfloat16"
@@ -810,7 +835,10 @@ def phase_kernels(gen) -> dict:
     flash_case("float16", s=256)
 
     # bf16 at every kernel node of phase 7's paths that no row above holds
-    hold(bf, path_nodes(torch, dev, bf), " (bf16 path)")
+    nodes16 = path_nodes(torch, dev, bf)
+    hold(bf, nodes16, " (bf16 path)")
+    configs += sweep_configs(torch, gen, bf, nodes16)
+    log_configs(configs)
     f16 = "float16"
     matmul_case(4, 1536, 151936, True, dt=f16)
     matmul_case(2048, 4096, 4096, False, dt=f16)
@@ -818,7 +846,145 @@ def phase_kernels(gen) -> dict:
                                      if r[0] == "bias_add+gelu")
     dfp_case(label, rows_n, d, prog, dt=f16)
     avgpool_case(*listing3_pools[0], dt=f16)
-    return {"cases": cases, "plans": plans}
+    # the bf16 transformer's products, (M, K, N, LINEAR): phase 8 tunes them
+    products = sorted({key[1:] for key, (path, _) in nodes16.items()
+                       if key[0] == "matmul" and path.startswith(
+                           "transformer")})
+    return {"cases": cases, "plans": plans, "configs": configs,
+            "bf16_products": products}
+
+
+def node_operands(torch, node, gen) -> list:
+    """Random operands of a kernel node at its shapes and dtypes, on
+    ``gen``'s device, scaled as phase 2's rows scale them: O(1) outputs (a product's
+    weight by K^-1/2, an f32 DFP program that exponentiates at half
+    scale), an RG-LRU decay in (0.5, 1), RWKV6's log decays below 0, and
+    decode lengths from a batch-padding 0 up to a full cache."""
+    from repro_torch.core.executor import TORCH_DTYPES
+    from repro_torch.core.ir import OpKind
+    dev = gen.device
+    shapes = [tuple(i.spec.shape) for i in node.inputs]
+    dts = [TORCH_DTYPES[i.spec.dtype] for i in node.inputs]
+
+    def randn(i, scale=1.0):
+        return (torch.randn(shapes[i], device=dev, generator=gen)
+                * scale).to(dts[i])
+
+    op = node.op
+    if op in (OpKind.LINEAR, OpKind.MATMUL):
+        k = shapes[0][-1]
+        return [randn(0), randn(1, k ** -0.5)] + [
+            randn(i, 0.1) for i in range(2, len(shapes))]
+    if op is OpKind.DECODE_ATTENTION:
+        b, cache = shapes[1][0], shapes[1][1]
+        lens = ([0, 37, 100, 127] if (b, cache) == (4, 128) else
+                [0] + [cache * (i + 1) // b for i in range(b - 1)])[:b]
+        return [randn(i) for i in range(5)] + [
+            torch.tensor(lens, dtype=torch.int32, device=dev)]
+    if op is OpKind.RGLRU_SCAN:
+        a = (torch.rand(shapes[0], device=dev, generator=gen) * 0.5
+             + 0.5).to(dts[0])
+        return [a, randn(1), randn(2)]
+    if op is OpKind.RWKV6_SCAN:
+        logw = (-torch.exp(torch.randn(shapes[3], device=dev, generator=gen)
+                           * 0.5 - 1.0)).to(dts[3])
+        return [randn(0, 0.5), randn(1, 0.5), randn(2, 0.5), logw,
+                randn(4, 0.5), randn(5, 0.5)]
+    if op is OpKind.FUSED:
+        scale = 0.5 if node.spec.dtype == "float32" and any(
+            i[0] == "exp" for i in dfp_program(node).instrs) else 1.0
+        return [randn(i, scale) for i in range(len(shapes))]
+    return [randn(i) for i in range(len(shapes))]
+
+
+def kernel_of(node, hw) -> str:
+    """The kernel a ``cuda.*`` node runs: its family, the matmul split by
+    the kernel its plan picks."""
+    kind = node_key(node)[0]
+    if kind == "matmul":
+        from repro_torch.kernels.matmul.ops import node_plan
+        return {"tensor_core": "matmul_tc",
+                "skinny": "matmul_skinny"}[node_plan(node, hw).kernel]
+    return kind
+
+
+def hold_config(torch, node, vals, hw, cfg) -> float:
+    """Run ``node``'s elected ``cuda.*`` impl with ``cfg`` pinned (None:
+    the pin it carries) and hold it against the plain version at phase 2's
+    tolerance of its dtype; returns max |error|."""
+    from repro_torch.backends import get_backend, registry
+    from repro_torch.benchmarks.autotune import plain_version
+    impl = registry.get_impl(node.impl)
+    backend = dataclasses.replace(get_backend("h100"), hw=hw)
+    saved = node.attrs.get(impl.tunable.attr)
+    if cfg is not None:
+        impl.tunable.bind_config(node, cfg)
+    try:
+        got = impl.fn(node, vals, backend)
+    finally:
+        impl.tunable.bind_config(node, saved)
+    torch.cuda.synchronize()
+    want = plain_version(node, vals)
+    dt = node.spec.dtype
+    kind = node_key(node)[0]
+    if dt == "float32":
+        err = max_err(got, want)
+        ok = err <= KERNEL_TOL[kind]
+    else:
+        err, ok = half_check(got, want, dt, chain=kind == "dfp_fused")
+    if not ok:
+        fail(f"{kernel_of(node, hw)} {dt} at {node_key(node)[1:]} with "
+             f"config {cfg or saved} disagrees with its plain version: max "
+             f"|error| {err}")
+    return err
+
+
+def sweep_configs(torch, gen, dtype: str, nodes) -> list:
+    """Every config of each kernel's Tunable space at the first node of
+    ``nodes`` (``path_nodes``, phase order) that runs it, held against the
+    plain version at phase 2's tolerance."""
+    from repro_torch.backends import h100_spec, registry
+    hw = h100_spec(torch.cuda.get_device_name(0))
+    rows, seen = [], set()
+    for key, (path, node) in nodes.items():
+        kernel = kernel_of(node, hw)
+        if kernel in seen:
+            continue
+        seen.add(kernel)
+        impl = registry.get_impl(node.impl)
+        vals = node_operands(torch, node, gen)
+        space = impl.tunable.tune_space(node, hw)
+        if not space:
+            fail(f"{kernel} {dtype} at {key[1:]}: an empty config space")
+        for cfg in space:
+            rows.append({"kernel": kernel, "dtype": dtype, "path": path,
+                         "key": key, "config": cfg,
+                         "max_abs_err": hold_config(torch, node, vals, hw,
+                                                    cfg)})
+    want = {"matmul_tc", "matmul_skinny", "flash_attention",
+            "decode_attention", "dfp_fused", "rglru_scan", "rwkv6_scan",
+            "avgpool"}
+    if seen != want:
+        fail(f"phase 2 swept the configs of {sorted(seen)} in {dtype}, not "
+             f"of {sorted(want)}")
+    return rows
+
+
+def log_configs(rows) -> None:
+    """One ``[configs]`` line per kernel: each config's max |error| at the
+    f32 node and the bf16 node."""
+    for kernel in dict.fromkeys(r["kernel"] for r in rows):
+        parts = []
+        for dt in ("float32", "bfloat16"):
+            mine = [r for r in rows if r["kernel"] == kernel
+                    and r["dtype"] == dt]
+            if mine:
+                errs = ", ".join(f"{r['config']} {r['max_abs_err']:.3g}"
+                                 for r in mine)
+                parts.append(f"{dt} at {mine[0]['key'][1:]} ({mine[0]['path']}"
+                             f"): {errs}")
+        log(f"[configs] {kernel}: every config of its space within its "
+            f"plain version's tolerance; " + "; ".join(parts))
 
 
 def half_check(got, want, dtype: str, chain: bool = False):
@@ -1104,13 +1270,13 @@ def compare_tokens(name: str, got, ref, tol_of) -> list:
     return ties
 
 
-def phase_serve(torch, counters, dev, held) -> dict:
-    import numpy as np
+def serve_model(torch, dev):
+    """Phase 3's model and config: the same weights on every call (a
+    generator seeded 0 on the card)."""
     from repro_torch.frontends import nn
-    from repro_torch.launch.serve import ServeConfig, SolServer
+    from repro_torch.launch.serve import ServeConfig
     from torch import nn as tnn
 
-    t0 = time.perf_counter()
     gen = torch.Generator(dev).manual_seed(0)
     kvh = FULL["n_kv_heads"]
     d, heads = FULL["d_model"], FULL["n_heads"]
@@ -1118,12 +1284,23 @@ def phase_serve(torch, counters, dev, held) -> dict:
         *[nn.transformer_block(d, heads, kvh, device=dev, generator=gen)
           for _ in range(FULL["n_layers"])],
         nn.Linear(d, FULL["vocab"], device=dev, generator=gen))
+    cfg_kw = {k: v for k, v in FULL.items() if k != "n_kv_heads"}
+    return model, ServeConfig(**cfg_kw, backend="h100")
+
+
+def phase_serve(torch, counters, dev, held):
+    """Phases 3 and 4; returns the record and phase 4's ``torch_ref``
+    trace (tokens and logits per request), which phase 8 is held to."""
+    import numpy as np
+    from repro_torch.launch.serve import SolServer
+    from torch import nn as tnn
+
+    t0 = time.perf_counter()
+    model, cfg = serve_model(torch, dev)
     n_params = sum(p.numel() for p in model.parameters())
     log(f"[serve] model: {n_params / 1e6:.1f} M parameters on the card "
         f"({4 * n_params / 1e9:.2f} GB f32) built in "
         f"{time.perf_counter() - t0:.1f} s")
-    cfg_kw = {k: v for k, v in FULL.items() if k != "n_kv_heads"}
-    cfg = ServeConfig(**cfg_kw, backend="h100")
     prompts = _workload(cfg.vocab)
 
     server = SolServer(cfg, model=model, device=dev)
@@ -1216,7 +1393,7 @@ def phase_serve(torch, counters, dev, held) -> dict:
     return {"h100": m, "summary": s, "launches": launches,
             "device_breakdown": breakdown, "torch_ref": rm,
             "logit_rel_err": worst, "near_ties": ties,
-            "decode_vs_reforward_near_ties": ties2}
+            "decode_vs_reforward_near_ties": ties2}, ref
 
 
 # ---------------------------------------------------------------------------
@@ -1964,8 +2141,8 @@ def bf16_rwkv6_prefix(torch, model, shape, x16) -> dict:
     _gate("rwkv6", f"the first {n} blocks' distance from torch_ref f32 "
           f"(torch_ref bf16's: {err_r:.3g}) is", err_h, limit)
     real = ops.rwkv6_scan
-    ops.rwkv6_scan = lambda r, k, v, logw, u, s0: real(
-        r, k, v, logw, torch.zeros_like(u), s0)
+    ops.rwkv6_scan = lambda r, k, v, logw, u, s0, **kw: real(
+        r, k, v, logw, torch.zeros_like(u), s0, **kw)
     try:
         err_fault = rel_err(sol(x16), want32)
     finally:
@@ -2050,6 +2227,216 @@ def phase_bf16(torch, counters, dev, recurrent, cnn, held) -> dict:
     return results
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the measured serve
+# ---------------------------------------------------------------------------
+
+# the served kernels' impls and the launch counter each moves
+SERVED_IMPLS = {"cuda.linear": "matmul", "cuda.matmul": "matmul",
+                "cuda.flash_attention": "flash_attention",
+                "cuda.decode_attention": "decode_attention",
+                "cuda.dfp_fused": "dfp_fused"}
+MEASURE_WARMUP, MEASURE_ITERS = 1, 3
+
+
+def measured_table(cache, tag: str) -> list:
+    """One row a measured (op, shape bucket, dtype) of ``cache`` (the
+    nearest power of two of each dim, as the cache keys it: 1536 reads
+    2048, 151936 reads 131072): each impl's min and mean µs and best
+    config, the winner (the least min, as the election takes it) and its
+    config; each row logged."""
+    groups: dict = {}
+    for (op, dt, _bk), bucket, impl, m in cache.entries():
+        groups.setdefault((op, bucket, dt), {})[impl] = m
+    rows = []
+    for (op, bucket, dt), impls in groups.items():
+        win = min(impls, key=lambda nm: impls[nm].us)
+        row = {"op": op, "shape": bucket, "dtype": dt,
+               "impls": {nm: {"min_us": m.us, "mean_us": m.mean_us,
+                              "config": m.config} for nm, m in impls.items()},
+               "winner": win, "config": impls[win].config}
+        rows.append(row)
+        text = "; ".join(
+            f"{nm} min {v['min_us']:.2f} mean {v['mean_us']:.2f} µs"
+            + (f" (best config {v['config']})" if v["config"] else "")
+            for nm, v in sorted(row["impls"].items()))
+        log(f"[measured] {tag} {op} bucket {'x'.join(str(d) for d in bucket)} "
+            f"{dt}: "
+            f"{text} → {win}" + (f", pinned {row['config']}"
+                                 if row["config"] else ""))
+    return rows
+
+
+def phase_measured_serve(torch, counters, dev, serve, serve_ref,
+                         bf16_products) -> dict:
+    """Phase 3's model and requests on a strict measured-provenance server,
+    with a fresh autotune cache installed for the phase (the cold cache of
+    phases 3 and 5-7 comes back in a ``finally``)."""
+    import numpy as np
+    from repro_torch.backends import h100_spec, registry
+    from repro_torch.benchmarks import autotune as drv
+    from repro_torch.core import autotune as AT
+    from repro_torch.launch.serve import SERVED_KINDS, SolServer
+
+    t_phase = time.perf_counter()
+    hw = h100_spec(torch.cuda.get_device_name(0))
+    model, cfg = serve_model(torch, dev)
+    prompts = _workload(cfg.vocab)
+    prev = AT.get_cache()
+    AT.set_cache(AT.AutotuneCache())
+    try:
+        server = SolServer(cfg, model=model, device=dev,
+                           strict_provenance=True)
+        reqs = [server.submit(p, GEN) for p in prompts]
+        t0 = time.perf_counter()
+        counts = server.warm_autotune(warmup=MEASURE_WARMUP,
+                                      iters=MEASURE_ITERS)
+        warm_s = time.perf_counter() - t0
+        table = measured_table(AT.get_cache(), "serve")
+        log(f"[measured] warm_autotune: {counts['impls']} impl timings "
+            f"over {counts['nodes']} (op, shape) keys of {counts['graphs']} "
+            f"programs in {warm_s:.1f} s")
+        # first pass: opens and audits the buckets (a ProvenanceError
+        # fails the run)
+        trace = {r.rid: [] for r in reqs}
+        t0 = time.perf_counter()
+        while server.depth:
+            for rid in server.step():
+                r = next(q for q in reqs if q.rid == rid)
+                trace[rid].append(r.last_logits.copy())
+        first_s = time.perf_counter() - t0
+        first = [(r.generated, trace[r.rid]) for r in reqs]
+        # second pass, measured: counts from 0 just before, read just after
+        for c in counters.values():
+            c.launches = 0
+        _, second, wall = serve_trace(server, prompts, GEN)
+        launches = {name: c.launches for name, c in counters.items()}
+        tokens = sum(len(t) for t, _ in second)
+        summary = server.summary()
+        server.close()
+
+        # the elections served, by kind and tier, and every one measured on
+        # its exact bucket (the strict audit passed for every bucket)
+        served = sorted(server._models)
+        by_kind: dict = {}
+        elected = set()
+        for key, rec in sorted(server.served_elections.items()):
+            for kind, impls in rec["by_op"].items():
+                for name, n in impls.items():
+                    elected.add(name)
+                    tier = name.split(".")[0]
+                    per = by_kind.setdefault(kind, {})
+                    per[tier] = per.get(tier, 0) + n
+                    if kind != "fused" and set(
+                            rec["provenance"][name]["sources"]) != {
+                                "measured"}:
+                        fail(f"phase 8 bucket {key} served {kind} → {name} "
+                             f"from {rec['provenance'][name]['sources']}")
+            model_ = server._models[key]
+            viol = server._exact_bucket_violations(model_)
+            if viol:
+                fail(f"phase 8 bucket {key}: {viol}")
+        log(f"[measured] served buckets {served}; elections by kind (cuda / "
+            f"ref, summed over the buckets): {by_kind}")
+        for impl, counter in SERVED_IMPLS.items():
+            used = any(name in elected for name, c in SERVED_IMPLS.items()
+                       if c == counter)
+            if used and launches[counter] <= 0:
+                fail(f"phase 8: {impl} was elected but {counter} did not "
+                     f"launch in the measured pass")
+            if not used and launches[counter] != 0:
+                fail(f"phase 8: {counter} launched {launches[counter]} times "
+                     f"with no node electing it")
+        log(f"[measured] kernel launches in the measured pass: {launches}")
+
+        # every pinned config of the path against the plain version at its
+        # node's shapes (these launches come after the counts were read)
+        pins = {}
+        gen = torch.Generator(dev).manual_seed(8)
+        for key in served:
+            for node in server._models[key].graph.topo():
+                if node.op not in SERVED_KINDS or \
+                        not (node.impl or "").startswith("cuda."):
+                    continue
+                attr = registry.get_impl(node.impl).tunable.attr
+                cfg = node.attrs.get(attr)
+                if cfg is None:
+                    fail(f"phase 8: {node.name} elects {node.impl} with no "
+                         f"pinned config")
+                pk = (node_key(node), tuple(cfg))
+                if pk in pins:
+                    continue
+                pins[pk] = hold_config(torch, node,
+                                       node_operands(torch, node, gen), hw,
+                                       None)
+        log(f"[measured] {len(pins)} pinned (node, config) pairs of the "
+            f"served buckets held against the plain version: "
+            + ", ".join(f"{k[0][0]}{k[0][1:]} {k[1]} {e:.3g}"
+                        for k, e in pins.items()))
+
+        # logits at every served step of both passes against phase 4's
+        # torch_ref, and the greedy tokens
+        worst, ties = 0.0, []
+        for got in (first, second):
+            for i, ((g_tok, g_log), (r_tok, r_log)) in enumerate(
+                    zip(got, serve_ref)):
+                for pos, (a, b) in enumerate(zip(g_log, r_log)):
+                    scale = float(np.abs(b).max())
+                    err = float(np.abs(a - b).max())
+                    worst = max(worst, err / scale)
+                    if err > LOGIT_RTOL * scale:
+                        fail(f"phase 8 request {i} step {pos}: logits differ "
+                             f"from torch_ref by {err:.3g} (scale "
+                             f"{scale:.3g})")
+                    if g_tok[pos] != r_tok[pos]:
+                        break
+            ties += compare_tokens("measured serve vs torch_ref", got,
+                                   serve_ref, lambda row: LOGIT_RTOL
+                                   * float(np.abs(row).max()))
+        tps = tokens / wall
+        log(f"[measured] logits vs torch_ref: worst max|Δ|/max|logit| "
+            f"{worst:.3g} (rtol {LOGIT_RTOL}); greedy tokens identical"
+            + (f" except near ties {ties}" if ties else ""))
+        log(f"[measured] strict measured serve, second pass: {tokens} tokens "
+            f"in {1e3 * wall:.2f} ms = {tps:.2f} tok/s; phase 3 (cold cache, "
+            f"h100) {serve['h100']['tokens_per_s']:.2f} tok/s, phase 4 "
+            f"(torch_ref) {serve['torch_ref']['tokens_per_s']:.2f} tok/s, "
+            f"this run; first pass (bucket compiles) {first_s:.2f} s")
+
+        # the driver's tune at the bf16 transformer's product shapes: which
+        # impl measurement elects there (no gate on the winner)
+        t0 = time.perf_counter()
+        bf16_cache = AT.AutotuneCache()
+        shapes = {"linear": [], "matmul": []}
+        for m, k, n, is_linear in bf16_products:
+            shapes["linear" if is_linear else "matmul"].append((m, k, n))
+        drv.tune("h100", ("linear", "matmul"), shapes=shapes,
+                 dtype="bfloat16", device=dev, cache=bf16_cache,
+                 warmup=MEASURE_WARMUP, iters=MEASURE_ITERS)
+        bf16_table = measured_table(bf16_cache, "bf16 tune")
+        bf16_s = time.perf_counter() - t0
+    finally:
+        AT.set_cache(prev)
+    phase_s = time.perf_counter() - t_phase
+    wins = {}
+    for row in table + bf16_table:
+        k = (row["op"], row["dtype"], row["winner"])
+        wins[k] = wins.get(k, 0) + 1
+    log(f"[measured] winners by (op, dtype, impl): {wins}; phase 8 took "
+        f"{phase_s:.1f} s (warm {warm_s:.1f} s, bf16 tune {bf16_s:.1f} s)")
+    return {"warm": counts, "warm_s": warm_s, "first_pass_s": first_s,
+            "table": table, "bf16_table": bf16_table, "by_kind": by_kind,
+            "buckets": served, "launches": launches,
+            "pinned_held": [{"key": k[0], "config": k[1], "max_abs_err": e}
+                            for k, e in pins.items()],
+            "logit_rel_err": worst, "near_ties": ties, "tokens": tokens,
+            "wall_ms": 1e3 * wall, "tokens_per_s": tps,
+            "phase3_tokens_per_s": serve["h100"]["tokens_per_s"],
+            "phase4_tokens_per_s": serve["torch_ref"]["tokens_per_s"],
+            "dmas": summary["dmas"], "forwards": summary["forwards"],
+            "phase_s": phase_s, "bf16_tune_s": bf16_s}
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "__init__.py").is_file():
         print("chip_smoke: src/repro_torch not found next to this script; "
@@ -2104,7 +2491,8 @@ def main() -> int:
                 "decode_attention": decode_attention_cuda,
                 "dfp_fused": dfp_fused_triton}
     held32 = {c["key"] for c in kern["cases"] if c["dtype"] == "float32"}
-    serve = phase_serve(torch, counters, torch.device("cuda"), held32)
+    serve, serve_ref = phase_serve(torch, counters, torch.device("cuda"),
+                                   held32)
     rec_counters = {**mm, "dfp_fused": dfp_fused_triton,
                     "rglru_scan": rglru_scan_cuda,
                     "rwkv6_scan": rwkv6_scan_cuda}
@@ -2121,6 +2509,10 @@ def main() -> int:
     held = {c["key"] for c in kern["cases"] if c["dtype"] == "bfloat16"}
     bf16 = phase_bf16(torch, bf16_counters, torch.device("cuda"), recurrent,
                       cnn, held)
+    gc.collect()
+    torch.cuda.empty_cache()
+    measured = phase_measured_serve(torch, counters, torch.device("cuda"),
+                                    serve, serve_ref, kern["bf16_products"])
 
     # launches per main path: the served set and one forward of each stack
     # and each CNN in f32; the bf16 paths' runs for the bf16 entries
@@ -2160,6 +2552,7 @@ def main() -> int:
          "kernels": kern["cases"], "plans": kern["plans"],
          "serve": serve,
          "recurrent": recurrent, "cnn": cnn, "bf16": bf16,
+         "measured_serve": measured,
          "seconds": time.perf_counter() - t_start},
         indent=1, default=str))
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")

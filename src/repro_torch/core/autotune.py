@@ -3,11 +3,14 @@
 
 The election pass (``core.passes.elect_implementations``) prefers measured
 timings from this cache and falls back to the (optionally calibrated)
-roofline when the cache is cold.  Measurement itself comes in a later slice
-of the port; this module already holds what election and serving buckets
-read: the :class:`Tunable` declaration kernels register, the pow2 bucketing
-of shapes, and the persistent JSON cache (schema 1, the same file format as
-the JAX package).
+roofline when the cache is cold.  ``core.measure.sweep_node`` fills it: the
+offline driver ``repro_torch.benchmarks.autotune`` and
+``SolServer.warm_autotune`` time every admissible impl of a node, each
+impl's declared :class:`Tunable` config space swept, and record the best
+time with the winning config; the election re-pins that config on the node
+when the measurement wins.  ``repro_torch.benchmarks.calibrate`` fits the
+cache's calibration section.  The file format is the JAX package's
+(schema 1).
 
 Cache keying — (op kind, canonicalized shape bucket, dtype, backend, impl):
 
@@ -23,6 +26,7 @@ differs from :data:`SCHEMA_VERSION` is ignored on load (``stale=True``).
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
 import math
 import os
@@ -32,7 +36,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 SCHEMA_VERSION = 1
 
 # process-wide cache consulted by the election pass; empty unless the user
-# opts in via SOL_AUTOTUNE_CACHE or set_cache()
+# opts in via SOL_AUTOTUNE_CACHE or set_cache()/load_cache()
 _CACHE: Optional["AutotuneCache"] = None
 
 EntryKey = Tuple[str, str, str]                  # (op, dtype, backend)
@@ -49,11 +53,17 @@ class Tunable:
     ``space`` — ``space(node, hw) -> [config, ...]``: candidate configs for
                 one node on one ``HardwareSpec``; may be empty.
     ``bind``  — optional override of the default pin/clear behaviour.
+    ``refine``— optional override of :meth:`refine_space`, the
+                neighbourhood a gap-driven planner probes around a winning
+                config (families whose configs must stay legal override
+                it).
     """
 
     attr: str
     space: Callable[[object, object], Sequence[Config]]
     bind: Optional[Callable[[object, Optional[Config]], None]] = None
+    refine: Optional[Callable[[object, object, Config],
+                              Sequence[Config]]] = None
 
     def tune_space(self, node, hw) -> List[Config]:
         return [tuple(int(d) for d in cfg) for cfg in self.space(node, hw)]
@@ -65,6 +75,26 @@ class Tunable:
             node.attrs.pop(self.attr, None)
         else:
             node.attrs[self.attr] = tuple(int(d) for d in cfg)
+
+    def refine_space(self, node, hw, winning_cfg: Config) -> List[Config]:
+        """Candidate configs around ``winning_cfg``, minus the winner and
+        the initial ``tune_space`` (already measured).  The default probes
+        every combination of halving, keeping and doubling each dimension;
+        ``refine`` replaces that neighbourhood."""
+        win = tuple(int(d) for d in winning_cfg)
+        if self.refine is not None:
+            cands = [tuple(int(d) for d in c)
+                     for c in self.refine(node, hw, win)]
+        else:
+            axes = [sorted({max(1, d // 2), d, 2 * d}) for d in win]
+            cands = [c for c in itertools.product(*axes) if c != win]
+        seen = set(self.tune_space(node, hw)) | {win}
+        out: List[Config] = []
+        for c in cands:
+            if c not in seen and all(d >= 1 for d in c):
+                seen.add(c)
+                out.append(c)
+        return out
 
 
 def bucket_dim(d: int) -> int:
@@ -172,29 +202,48 @@ class AutotuneCache:
                backend: str) -> Dict[str, Measurement]:
         """Measurements for the exact bucket, else the nearest same-rank
         bucket (L1 in log2-space), else {}."""
+        return self.lookup_with_confidence(op, shape, dtype, backend)[0]
+
+    def lookup_with_confidence(self, op: str,
+                               shape: Optional[Tuple[int, ...]], dtype: str,
+                               backend: str
+                               ) -> Tuple[Dict[str, Measurement], str]:
+        """Like :meth:`lookup`, plus where the hit came from: ``"exact"``
+        (the shape's own bucket), ``"nearest"`` (another same-rank bucket, a
+        neighbourhood estimate) or ``""`` (a miss)."""
         if shape is None:
-            return {}
+            return {}, ""
         buckets = self._entries.get((op, dtype, backend))
         if not buckets:
-            return {}
+            return {}, ""
         want = bucket_shape(shape)
         if want in buckets:
-            return dict(buckets[want])
+            return dict(buckets[want]), "exact"
         same_rank = [b for b in buckets if len(b) == len(want)]
         if not same_rank:
-            return {}
+            return {}, ""
 
         def dist(b: Bucket) -> float:
             return sum(abs(math.log2(x) - math.log2(y))
                        for x, y in zip(b, want))
 
-        return dict(buckets[min(same_rank, key=dist)])
+        return dict(buckets[min(same_rank, key=dist)]), "nearest"
 
     def has_bucket(self, op: str, shape: Tuple[int, ...], dtype: str,
                    backend: str) -> bool:
         """Whether the EXACT bucket of ``shape`` holds measurements."""
         buckets = self._entries.get((op, dtype, backend))
         return bool(buckets) and bucket_shape(shape) in buckets
+
+    def entries(self) -> List[Tuple[EntryKey, Bucket, str, Measurement]]:
+        """Every (key, bucket, impl, measurement), sorted: what the
+        calibration fit and the reports iterate."""
+        out = []
+        for key, buckets in sorted(self._entries.items()):
+            for bucket, impls in sorted(buckets.items()):
+                for impl, m in sorted(impls.items()):
+                    out.append((key, bucket, impl, m))
+        return out
 
     def __len__(self) -> int:
         return sum(len(impls) for buckets in self._entries.values()
@@ -206,6 +255,9 @@ class AutotuneCache:
 
     def calibration(self, backend: str, op: str) -> Optional[Dict[str, float]]:
         return self._calibration.get((backend, op))
+
+    def calibrations(self) -> Dict[Tuple[str, str], Dict[str, float]]:
+        return dict(self._calibration)
 
     def to_json(self) -> dict:
         entries = {}
@@ -273,8 +325,8 @@ class AutotuneCache:
 
 def get_cache() -> AutotuneCache:
     """The cache the election pass consults.  Starts empty; a warm cache is
-    an explicit opt-in (SOL_AUTOTUNE_CACHE, or set_cache), so elections stay
-    deterministic by default."""
+    an explicit opt-in (SOL_AUTOTUNE_CACHE, or set_cache/load_cache), so
+    elections stay deterministic by default."""
     global _CACHE
     if _CACHE is None:
         path = os.environ.get("SOL_AUTOTUNE_CACHE")
@@ -286,3 +338,8 @@ def set_cache(cache: Optional[AutotuneCache]) -> Optional[AutotuneCache]:
     global _CACHE
     _CACHE = cache
     return cache
+
+
+def load_cache(path: str) -> AutotuneCache:
+    """Load ``path`` and install it as the process-wide cache."""
+    return set_cache(AutotuneCache.load(path))

@@ -26,6 +26,7 @@ MAX_THREADS = 256           # a block's threads (the kernel's launch bound)
 MIN_FULL_ROWS = 4           # a full-width band must hold this many rows
 TILE_ROWS = 16              # band height of a column-tiled plan
 MIN_GROUP_ROWS = 8          # output rows a thread group walks, at least
+BAND_SWEEP = (4, 8, 16, 24, 32, 48, 64)     # band heights a tuning sweeps
 
 
 @dataclass(frozen=True)

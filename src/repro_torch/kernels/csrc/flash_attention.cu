@@ -20,9 +20,12 @@
 // ~100 blocks, so the time is the latency of each block's serial walk over
 // its key tiles, not a rate.
 //
-// Design (FlashAttention-2's layout): a block holds 4 warps, each warp
-// owns 16 query rows (64 a block: 96 blocks at the serving prefill, up to
-// two on an SM), and the block walks key tiles of BKV rows (64 for 16-bit types, 32 for f32).  Q, K and V sit in shared
+// Design (FlashAttention-2's layout): a block holds NW warps, each warp
+// owns 16 query rows (NW is a template parameter, 4 by default: 64 rows a
+// block, 96 blocks at the serving prefill, up to two on an SM; 2 is the
+// tuned alternative, 32 rows a block, twice the blocks and half the causal
+// walk of the longest one), and the block walks key tiles of BKV rows (64
+// for 16-bit types, 32 for f32).  Q, K and V sit in shared
 // memory in the storage type, their rows padded by 16 bytes so fragment
 // loads hit distinct banks; K and V arrive through a cp.async
 // double-buffered ring (tile t+1 lands while tile t is computed).  In bf16
@@ -58,9 +61,6 @@ namespace {
 struct Strides {           // element strides of a BSHD tensor (d stride 1)
   long long b, s, h;
 };
-
-constexpr int NW = 4;      // warps a block, 16 query rows each
-constexpr int BQ = 16 * NW;
 
 constexpr float LOG2E = 1.4426950408889634f;
 
@@ -185,13 +185,14 @@ __device__ __forceinline__ void load_rows(T* dst, const T* src, long long rs,
   }
 }
 
-template <typename T, int HD>
+template <typename T, int HD, int NW>
 __global__ void __launch_bounds__(NW * 32, 1)
 flash_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o, Strides qs,
                  Strides ks, Strides vs, Strides os, int group, int S,
                  int causal, int window, float cap, float scale, int vec) {
   using C = Cfg<T>;
+  constexpr int BQ = 16 * NW;         // query rows a block
   constexpr int BKV = C::BKV;
   constexpr int LD = HD + C::PAD;
   constexpr int NT = NW * 32;
@@ -426,37 +427,34 @@ flash_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int HD>
+// shared memory of a block: the Q tile and two stages of K and V tiles
+// (flash_attention/kernel.py's flash_smem_bytes computes the same)
+template <typename T, int HD, int NW>
 int launch(const T* q, const T* k, const T* v, T* o, Strides qs, Strides ks,
            Strides vs, Strides os, int B, int H, int KV, int S, int causal,
            int window, float cap, int vec, cudaStream_t stream) {
   using C = Cfg<T>;
+  constexpr int BQ = 16 * NW;
   const size_t smem = sizeof(T) * (HD + C::PAD) * (BQ + 4 * C::BKV);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_mma_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      flash_mma_kernel<T, HD, NW>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid((S + BQ - 1) / BQ, H, B);
   const float scale = 1.f / sqrtf((float)HD);
-  flash_mma_kernel<T, HD><<<grid, NW * 32, smem, stream>>>(
+  flash_mma_kernel<T, HD, NW><<<grid, NW * 32, smem, stream>>>(
       q, k, v, o, qs, ks, vs, os, H / KV, S, causal, window, cap, scale, vec);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int dispatch(const T* q, const T* k, const T* v, T* o, int B, int S, int H,
-             int KV, int hd, long long q_sb, long long q_ss, long long q_sh,
-             long long k_sb, long long k_ss, long long k_sh, long long v_sb,
-             long long v_ss, long long v_sh, long long o_sb, long long o_ss,
-             long long o_sh, int causal, int window, float cap, int vec,
-             void* stream) {
-  if (B == 0 || S == 0 || H == 0) return 0;
-  const Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh},
-      vs{v_sb, v_ss, v_sh}, os{o_sb, o_ss, o_sh};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define SOL_HD(HD_)                                                      \
-  return launch<T, HD_>(q, k, v, o, qs, ks, vs, os, B, H, KV, S, causal, \
-                        window, cap, vec, s)
+template <typename T, int NW>
+int dispatch_hd(const T* q, const T* k, const T* v, T* o, Strides qs,
+                Strides ks, Strides vs, Strides os, int B, int S, int H,
+                int KV, int hd, int causal, int window, float cap, int vec,
+                cudaStream_t s) {
+#define SOL_HD(HD_)                                                          \
+  return launch<T, HD_, NW>(q, k, v, o, qs, ks, vs, os, B, H, KV, S, causal, \
+                            window, cap, vec, s)
   switch (hd) {
     case 16: SOL_HD(16);
     case 32: SOL_HD(32);
@@ -467,24 +465,48 @@ int dispatch(const T* q, const T* k, const T* v, T* o, int B, int S, int H,
 #undef SOL_HD
 }
 
+template <typename T>
+int dispatch(const T* q, const T* k, const T* v, T* o, int B, int S, int H,
+             int KV, int hd, long long q_sb, long long q_ss, long long q_sh,
+             long long k_sb, long long k_ss, long long k_sh, long long v_sb,
+             long long v_ss, long long v_sh, long long o_sb, long long o_ss,
+             long long o_sh, int causal, int window, float cap, int block_q,
+             int vec, void* stream) {
+  if (B == 0 || S == 0 || H == 0) return 0;
+  const Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh},
+      vs{v_sb, v_ss, v_sh}, os{o_sb, o_ss, o_sh};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (block_q) {
+    case 64:
+      return dispatch_hd<T, 4>(q, k, v, o, qs, ks, vs, os, B, S, H, KV, hd,
+                               causal, window, cap, vec, s);
+    case 32:
+      return dispatch_hd<T, 2>(q, k, v, o, qs, ks, vs, os, B, S, H, KV, hd,
+                               causal, window, cap, vec, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 }  // namespace
 
 // sol_flash_attention_f32, _bf16 and _f16: q (B,S,H,hd), k/v (B,S,KV,hd),
 // o (B,S,H,hd), all in that type; strides in elements, the hd stride 1.
+// block_q: query rows a block, 64 (4 warps) or 32 (2 warps).
 // vec: q's, k's and v's bases and row strides are 16-byte aligned (16-byte
 // copies); o's must be (the wrapper allocates it contiguous).
-// Returns a cudaError_t (cudaErrorInvalidValue for an hd the kernel is not
-// instantiated for).
+// Returns a cudaError_t (cudaErrorInvalidValue for an hd or block_q the
+// kernel is not instantiated for).
 #define SOL_FLASH(T, SUFFIX)                                                 \
   SOL_EXPORT int sol_flash_attention_##SUFFIX(                               \
       const T* q, const T* k, const T* v, T* o, int B, int S, int H, int KV, \
       int hd, long long q_sb, long long q_ss, long long q_sh, long long k_sb, \
       long long k_ss, long long k_sh, long long v_sb, long long v_ss,        \
       long long v_sh, long long o_sb, long long o_ss, long long o_sh,        \
-      int causal, int window, float cap, int vec, void* stream) {            \
+      int causal, int window, float cap, int block_q, int vec,               \
+      void* stream) {                                                        \
     return dispatch<T>(q, k, v, o, B, S, H, KV, hd, q_sb, q_ss, q_sh, k_sb,  \
                        k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh,       \
-                       causal, window, cap, vec, stream);                    \
+                       causal, window, cap, block_q, vec, stream);           \
   }
 SOL_FOR_EACH_DTYPE(SOL_FLASH)
 #undef SOL_FLASH

@@ -49,14 +49,15 @@ def tile_rows(hd: int, itemsize: int) -> int:
 
 
 def decode_plan(b: int, kv: int, cache: int, hd: int, itemsize: int,
-                sm_count: int = SM_COUNT) -> DecodePlan:
+                sm_count: int = SM_COUNT, splits: int = 0) -> DecodePlan:
     """Splits and chunk of a decode call, from its shapes alone: enough
-    splits that B·KV·splits blocks fill ``BLOCKS_PER_SM`` per SM, each
-    chunk a multiple of one warp tile (``tile_rows``) and at least one, at
-    most ``MAX_SPLITS`` splits; every cache row lies in exactly one
-    chunk."""
+    splits that B·KV·splits blocks fill ``BLOCKS_PER_SM`` per SM (or
+    ``splits``, a tuned config's), each chunk a multiple of one warp tile
+    (``tile_rows``) and at least one, at most ``MAX_SPLITS`` splits; every
+    cache row lies in exactly one chunk."""
     rows = tile_rows(hd, itemsize)
-    want = max(1, _cdiv(BLOCKS_PER_SM * max(1, sm_count), max(1, b * kv)))
+    want = splits or max(1, _cdiv(BLOCKS_PER_SM * max(1, sm_count),
+                                  max(1, b * kv)))
     chunk = rows * max(1, _cdiv(_cdiv(max(cache, 1), want), rows))
     chunk = max(chunk, rows * _cdiv(_cdiv(max(cache, 1), MAX_SPLITS), rows))
     splits = max(1, _cdiv(cache, chunk))
@@ -72,14 +73,15 @@ def _aligned(t: torch.Tensor, dims) -> bool:
 def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           k_new: torch.Tensor, v_new: torch.Tensor,
                           lens: torch.Tensor, *, window: int = 0,
-                          cap: float = 0.0, sm_count: int = 0
-                          ) -> torch.Tensor:
+                          cap: float = 0.0, sm_count: int = 0,
+                          splits: int = 0) -> torch.Tensor:
     """q (B,1,H,hd); cache k, v (B,S,KV,hd); k_new, v_new (B,1,KV,hd), all
     of one dtype (float32, bfloat16 or float16); lens (B,) int32 →
     (B,1,H,hd) in q's dtype, on the card; the softmax, partials and
     accumulator are f32.  The splits come from ``decode_plan`` with the
     card's SM count, or ``sm_count`` where it is given (the tests force
-    one split and many that way)."""
+    one split and many that way); ``splits`` asks the plan for that many
+    (a tuned config)."""
     fl = (q, k, v, k_new, v_new)
     if not all(t.is_cuda and t.device == q.device for t in fl + (lens,)):
         raise ValueError("decode_attention_cuda wants every operand on one "
@@ -104,7 +106,7 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if any(t.stride(3) != 1 for t in fl):
         raise ValueError("decode_attention_cuda wants a unit stride along hd")
     p = decode_plan(b, kv, s, hd, q.element_size(),
-                    sm_count or build.sm_count(q.device))
+                    sm_count or build.sm_count(q.device), splits)
     o = torch.empty((b, 1, h, hd), device=q.device, dtype=q.dtype)
     ws = torch.empty(b * kv * p.splits * (h // kv) * (hd + 2),
                      device=q.device, dtype=torch.float32)

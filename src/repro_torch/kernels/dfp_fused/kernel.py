@@ -177,21 +177,36 @@ def compiled_kernel(prog: Program):
         return _kernels[key]
 
 
-def block_shape(rows: int, d: int):
-    """(BLOCK_R, BLOCK_D, num_warps): a row block of at most 4096 elements
-    (at least one row), d untiled."""
-    block_d = 1 << max(0, (d - 1).bit_length())
-    block_r = max(1, min(4096 // block_d,
-                         1 << max(0, (rows - 1).bit_length())))
-    warps = 8 if block_r * block_d >= 4096 else 4
+BLOCK_ELEMS = 4096      # elements of a program's row block, by default
+
+
+def _pow2_ceil(n: int) -> int:
+    return 1 << max(0, (n - 1).bit_length())
+
+
+def block_shape(rows: int, d: int, block_rows: int = 0):
+    """(BLOCK_R, BLOCK_D, num_warps): d untiled; a row block of at most
+    ``BLOCK_ELEMS`` elements (at least one row), or ``block_rows`` rows (a
+    tuned config, rounded up to a power of two), never more rows than the
+    call has rounded up to a power of two.  Row block i takes rows
+    ``[i * BLOCK_R, (i + 1) * BLOCK_R)``, masked at the edge."""
+    block_d = _pow2_ceil(d)
+    most = _pow2_ceil(rows)
+    if block_rows:
+        block_r = min(_pow2_ceil(block_rows), most)
+    else:
+        block_r = max(1, min(BLOCK_ELEMS // block_d, most))
+    warps = 8 if block_r * block_d >= BLOCK_ELEMS else 4
     return block_r, block_d, warps
 
 
 def dfp_fused_triton(prog: Program, operands: Sequence[torch.Tensor],
-                     out_shape, out_dtype) -> torch.Tensor:
+                     out_shape, out_dtype, *,
+                     block_rows: int = 0) -> torch.Tensor:
     """Run ``prog`` on the card: 'full' operands shaped ``out_shape``, 'vec'
     operands (d,), contiguous, on one CUDA device, all in ``out_dtype``
-    (float32, bfloat16 or float16)."""
+    (float32, bfloat16 or float16).  ``block_rows``: a row block a tuned
+    config asks ``block_shape`` for."""
     d = int(out_shape[-1])
     rows = 1
     for s in out_shape[:-1]:
@@ -215,7 +230,7 @@ def dfp_fused_triton(prog: Program, operands: Sequence[torch.Tensor],
                              f"want {want}")
     kern = compiled_kernel(prog)
     out = torch.empty(tuple(out_shape), device=dev, dtype=out_dtype)
-    block_r, block_d, warps = block_shape(rows, d)
+    block_r, block_d, warps = block_shape(rows, d, block_rows)
     grid = (-(-rows // block_r),)
     with torch.cuda.device(dev):
         kern[grid](out, *operands, rows, d, BLOCK_R=block_r,

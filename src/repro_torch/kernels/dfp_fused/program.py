@@ -5,6 +5,10 @@ A fusion group is encoded as a tuple of ``Instr`` over a small virtual
 register file.  The encoding is static, so one generated kernel serves
 every group with the same ``Program.key()``.
 
+``split_program`` cuts a program into segments that run as successive
+launches of the same kernel (a tuned ``max_group``; JAX
+``dfp_fused/program.py:147-244``).
+
 Register model: r0..rk hold values of the chain's output shape.
 Operands:
   kind 'full' — a tensor shaped like the chain output (residual inputs)
@@ -20,7 +24,7 @@ gates are such groups, and the port runs them through the kernel.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 from ...core.ir import Node, OpKind
 
@@ -130,3 +134,118 @@ def encode_program(fused: Node, env: Dict[int, Any]):
     prog = Program(tuple(instrs), tuple(operand_kinds),
                    out_reg=regs[id(body[-1])])
     return prog, operands
+
+
+# ---------------------------------------------------------------------------
+# program splitting — the second field of a tuned DFP config caps how many
+# instructions run as one kernel launch; each cut carries one value through
+# device memory to the next launch
+# ---------------------------------------------------------------------------
+
+# which Instr slots hold value sources ('reg'/'op' pairs) and which hold raw
+# operand indices of vectors, per opcode: what split_program renumbers
+_SRC_SLOTS = {**{op: (2,) for op in
+                 ("relu", "gelu", "silu", "sigmoid", "tanh", "exp", "copy",
+                  "scale", "softcap", "bias", "rmsnorm", "layernorm")},
+              **{op: (2, 3) for op in ("add", "sub", "mul", "div")}}
+_VEC_SLOTS = {"bias": (3,), "rmsnorm": (3,), "layernorm": (3, 4)}
+
+
+def split_points(prog: Program) -> List[int]:
+    """Instruction indices ``i`` after which the only live value is
+    instruction ``i``'s own destination: the legal cuts, where exactly one
+    tensor crosses."""
+    n = len(prog.instrs)
+    dst_pos = {ins[1]: j for j, ins in enumerate(prog.instrs)}
+    pts: List[int] = []
+    for i in range(n - 1):
+        live = set()
+        for j in range(i + 1, n):
+            ins = prog.instrs[j]
+            for slot in _SRC_SLOTS[ins[0]]:
+                tag, r = ins[slot]
+                if tag == "reg" and dst_pos[r] <= i:
+                    live.add(r)
+        if dst_pos.get(prog.out_reg, n) <= i:
+            live.add(prog.out_reg)
+        if live == {prog.instrs[i][1]}:
+            pts.append(i)
+    return pts
+
+
+def split_program(prog: Program, max_len: int):
+    """Split ``prog`` at legal split points into segments of at most
+    ``max_len`` instructions (stretching a segment to the next legal point
+    when none falls inside the budget).  The value crossing each cut becomes
+    a ``'full'`` operand of the following segment.
+
+    Returns ``[(segment, selection), ...]`` where ``selection`` maps each
+    segment operand slot to an original operand index, or the string
+    ``'carry'`` for the previous segment's output."""
+    n = len(prog.instrs)
+    if max_len >= n or max_len < 1:
+        return [(prog, list(range(len(prog.operand_kinds))))]
+    pts = set(split_points(prog))
+    cuts: List[int] = []
+    start = 0
+    while n - start > max_len:
+        cut = None
+        for i in range(min(start + max_len, n - 1) - 1, start - 1, -1):
+            if i in pts:
+                cut = i
+                break
+        if cut is None:
+            for i in range(start + max_len, n - 1):
+                if i in pts:
+                    cut = i
+                    break
+        if cut is None:
+            break
+        cuts.append(cut)
+        start = cut + 1
+    if not cuts:
+        return [(prog, list(range(len(prog.operand_kinds))))]
+
+    segments = []
+    carry_reg: Optional[int] = None
+    lo = 0
+    for hi in cuts + [n - 1]:
+        sel: List[Any] = []
+        kinds: List[str] = []
+        op_map: Dict[int, int] = {}
+        carry_local: Optional[int] = None
+        local_reg: Dict[int, int] = {}
+        instrs: List[Instr] = []
+
+        def op_local(orig: int) -> int:
+            if orig not in op_map:
+                op_map[orig] = len(sel)
+                sel.append(orig)
+                kinds.append(prog.operand_kinds[orig])
+            return op_map[orig]
+
+        for j in range(lo, hi + 1):
+            ins = list(prog.instrs[j])
+            for slot in _SRC_SLOTS[ins[0]]:
+                tag, r = ins[slot]
+                if tag == "op":
+                    ins[slot] = ("op", op_local(r))
+                elif r in local_reg:
+                    ins[slot] = ("reg", local_reg[r])
+                else:       # produced before this segment: must be the carry
+                    assert r == carry_reg, f"non-carry reg {r} crosses a cut"
+                    if carry_local is None:
+                        carry_local = len(sel)
+                        sel.append("carry")
+                        kinds.append("full")
+                    ins[slot] = ("op", carry_local)
+            for slot in _VEC_SLOTS.get(ins[0], ()):
+                ins[slot] = op_local(ins[slot])
+            local_reg[ins[1]] = j - lo
+            ins[1] = j - lo
+            instrs.append(tuple(ins))
+        segments.append((Program(tuple(instrs), tuple(kinds),
+                                 out_reg=hi - lo), sel))
+        carry_reg = prog.instrs[hi][1]
+        lo = hi + 1
+    return segments

@@ -18,18 +18,29 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _ARGTYPES = ([_P] * 4 + [_I] * 5 + [_L] * 12
-             + [_I, _I, ctypes.c_float, _I, _P])
+             + [_I, _I, ctypes.c_float, _I, _I, _P])
 HEAD_DIMS = (16, 32, 64, 128)
+BLOCK_Q = 64            # query rows a block: 4 warps of 16
+BLOCK_QS = (64, 32)     # the instances the source holds (4 and 2 warps)
+
+
+def flash_smem_bytes(hd: int, itemsize: int, block_q: int = BLOCK_Q) -> int:
+    """Shared memory of a block: the Q tile and two stages of K and V
+    tiles of 64 keys (16-bit types) or 32 (f32), rows padded by 16 bytes
+    (``flash_attention.cu``'s ``launch``)."""
+    bkv = 64 if itemsize == 2 else 32
+    return itemsize * (hd + 16 // itemsize) * (block_q + 4 * bkv)
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True, window: int = 0,
-                         cap: float = 0.0) -> torch.Tensor:
+                         cap: float = 0.0,
+                         block_q: int = BLOCK_Q) -> torch.Tensor:
     """q: (B, S, H, hd); k, v: (B, S, KV, hd) → (B, S, H, hd), on the card,
     all of one dtype (float32, bfloat16 or float16); the scores, softmax
     and accumulator are f32, the products run on the tensor cores (16-bit
     operands; 3xTF32 in f32).  Every operand needs a unit stride along
-    hd."""
+    hd.  ``block_q``: query rows a block, one of ``BLOCK_QS``."""
     ts = (q, k, v)
     if not all(t.is_cuda and t.device == q.device for t in ts):
         raise ValueError("flash_attention_cuda wants q, k, v on one CUDA "
@@ -48,6 +59,9 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"dim {hd}; it takes {HEAD_DIMS}")
     if any(t.stride(3) != 1 for t in ts):
         raise ValueError("flash_attention_cuda wants a unit stride along hd")
+    if block_q not in BLOCK_QS:
+        raise ValueError(f"flash_attention_cuda takes block_q in "
+                         f"{BLOCK_QS}, got {block_q}")
     o = torch.empty((b, s, h, hd), device=q.device, dtype=q.dtype)
     size = q.element_size()
     vec = all(t.data_ptr() % 16 == 0
@@ -58,7 +72,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, s,
              h, kv, hd, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
              *o.stride()[:3], int(bool(causal)), int(window), float(cap),
-             int(vec), torch.cuda.current_stream(q.device).cuda_stream)
+             int(block_q), int(vec),
+             torch.cuda.current_stream(q.device).cuda_stream)
     build.check(lib, err, name)
     flash_attention_cuda.launches += 1
     return o

@@ -85,19 +85,25 @@ def _vec(ptr: int, row_stride: int, rows: int, itemsize: int) -> int:
 
 def plan(m: int, n: int, k: int, lda: int, ldb_k: int, ldb_n: int,
          x_ptr: int = 0, w_ptr: int = 0, sms: int = SM_COUNT,
-         itemsize: int = 4) -> Plan:
+         itemsize: int = 4, splits: int = 0) -> Plan:
     """The launch plan of x (M, K; row stride ``lda``, unit column stride)
     @ w (K, N; element (k, n) at ``k*ldb_k + n*ldb_n``) with x and w at
     the addresses ``x_ptr`` and ``w_ptr`` and elements of ``itemsize``
     bytes (4 for float32, 2 for bfloat16 and float16).  w must be K- or
-    N-contiguous.
+    N-contiguous.  ``splits`` asks for that many K splits (a tuned config;
+    0 lets the plan choose); the chunk is rounded to the kernel's K step,
+    so the plan's ``splits`` is the count that covers K.
     """
-    return _plan(m, n, k, lda, ldb_k, ldb_n, x_ptr % 16, w_ptr % 16, sms,
-                 itemsize)
+    return _plan(m, n, k, lda, ldb_k, ldb_n, x_mod=x_ptr % 16,
+                 w_mod=w_ptr % 16, sms=sms, itemsize=itemsize,
+                 want_splits=splits)
 
 
+# the key holds every argument, the asked-for splits too: a tuned config
+# never reads back another config's plan
 @functools.lru_cache(maxsize=4096)
-def _plan(m, n, k, lda, ldb_k, ldb_n, x_mod, w_mod, sms, itemsize) -> Plan:
+def _plan(m, n, k, lda, ldb_k, ldb_n, *, x_mod, w_mod, sms, itemsize,
+          want_splits) -> Plan:
     w_nmajor, w_kmajor = _unit(ldb_n, n), _unit(ldb_k, k)
     if not (w_nmajor or w_kmajor):
         raise ValueError(f"matmul: w needs a unit stride along K or N, got "
@@ -107,7 +113,7 @@ def _plan(m, n, k, lda, ldb_k, ldb_n, x_mod, w_mod, sms, itemsize) -> Plan:
     w_row_stride, w_rows = (ldb_n, n) if b_kmajor else (ldb_k, k)
     if m <= SKINNY or n <= SKINNY:
         return _skinny_plan(m, n, k, lda, b_kmajor, w_row_stride, w_rows,
-                            x_mod, w_mod, sms, itemsize)
+                            x_mod, w_mod, sms, itemsize, want_splits)
     bm, bn, bk = TC_TILE
     if itemsize == 2:
         bk = TC_BK_16BIT
@@ -115,7 +121,9 @@ def _plan(m, n, k, lda, ldb_k, ldb_n, x_mod, w_mod, sms, itemsize) -> Plan:
               _vec(w_mod, w_row_stride, w_rows, itemsize))
     tiles = _cdiv(m, bm) * _cdiv(n, bn)
     splits = 1
-    if tiles < sms:             # tiles alone leave SMs idle: split K
+    if want_splits:
+        splits = max(1, min(want_splits, _cdiv(k, bk)))
+    elif tiles < sms:           # tiles alone leave SMs idle: split K
         splits = max(1, min(sms // tiles, k // TC_MIN_K_CHUNK))
     k_chunk = max(bk, _cdiv(_cdiv(k, splits), bk) * bk)
     splits = max(1, _cdiv(k, k_chunk))
@@ -124,7 +132,7 @@ def _plan(m, n, k, lda, ldb_k, ldb_n, x_mod, w_mod, sms, itemsize) -> Plan:
 
 
 def _skinny_plan(m, n, k, lda, b_kmajor, w_row_stride, w_rows, x_mod,
-                 w_mod, sms, itemsize) -> Plan:
+                 w_mod, sms, itemsize, want_splits) -> Plan:
     if m <= SKINNY:             # x in shared memory, w streamed
         small, rows, cols, big_kmajor = "x", m, n, b_kmajor
         vec = _vec(w_mod, w_row_stride, w_rows, itemsize)
@@ -140,7 +148,9 @@ def _skinny_plan(m, n, k, lda, b_kmajor, w_row_stride, w_rows, x_mod,
     groups = max(1, _cdiv(cols, per_group))
     kc_max = SKINNY_S_FLOATS // r_pad
     splits = _cdiv(k, kc_max) if k else 1      # S's K range must fit
-    if groups < sms:            # the columns alone leave SMs idle: split K
+    if want_splits:
+        splits = max(splits, want_splits)
+    elif groups < sms:          # the columns alone leave SMs idle: split K
         splits = max(splits, min(_cdiv(2 * sms, groups),
                                  k // SKINNY_MIN_K_CHUNK[big_kmajor]))
     step = 32 if big_kmajor else 8     # K per lane step, or per 8 warps
@@ -162,13 +172,14 @@ class _Count:
 KERNELS = {"tensor_core": _Count(), "skinny": _Count()}
 
 
-def matmul_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def matmul_cuda(x: torch.Tensor, w: torch.Tensor, *,
+                splits: int = 0) -> torch.Tensor:
     """x (M, K) @ w (K, N) → (M, N) on the card, x and w of one dtype
     (float32, bfloat16 or float16), accumulated in f32 and rounded once to
     that dtype.  ``x`` must have a unit column stride.  ``w`` is read in
     place where it has a unit stride along K (a transposed (N, K) weight)
     or along N; a view with neither (a strided slice) is made contiguous
-    first."""
+    first.  ``splits``: the K splits a tuned config asks ``plan`` for."""
     if not (x.is_cuda and w.is_cuda and x.device == w.device):
         raise ValueError("matmul_cuda wants x and w on one CUDA device")
     sfx = dtypes.suffix("matmul_cuda", x, w)
@@ -186,7 +197,7 @@ def matmul_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         return out
     lda, ldb_k, ldb_n = x.stride(0), w.stride(0), w.stride(1)
     p = plan(m, n, k, lda, ldb_k, ldb_n, x.data_ptr(), w.data_ptr(),
-             itemsize=x.element_size())
+             itemsize=x.element_size(), splits=splits)
     ws = (torch.empty((p.splits, m, n), device=x.device, dtype=torch.float32)
           if p.splits > 1 else None)
     ws_ptr = ws.data_ptr() if ws is not None else None

@@ -29,6 +29,13 @@ LANES = (32, 16, 8, 4)  # channel lanes of a warp, widest first
 MAX_CHUNKS = 16         # chunks a tile holds (one per warp at 32 lanes)
 
 
+def static_smem_bytes(lanes: int) -> int:
+    """The chunk kernel's shared memory at ``lanes`` lanes: the tile's
+    chunk decays and states and the carry, f32, for lanes · VEC
+    channels."""
+    return 4 * (2 * MAX_CHUNKS + 1) * lanes * VEC
+
+
 @dataclass(frozen=True)
 class RglruPlan:
     """A block takes ``channels`` (= ``lanes`` · VEC) channels of one
@@ -48,31 +55,36 @@ def _cdiv(a: int, b: int) -> int:
 
 
 def rglru_plan(b: int, t: int, d: int, itemsize: int,
-               sm_count: int = SM_COUNT) -> RglruPlan:
+               sm_count: int = SM_COUNT, lanes: int = 0,
+               chunks: int = 0) -> RglruPlan:
     """The cut of a scan call, from its shapes alone: the widest warp of
     channel lanes (coalesced rows of lanes · 4 · ``itemsize`` bytes) whose
     blocks still fill ``BLOCKS_PER_SM`` per SM, else the narrowest; as
     many chunks of ``CHUNK`` steps a tile as T needs, at most
-    ``MAX_CHUNKS``, rounded up to whole warps.  Every step lies in exactly
-    one chunk of one tile."""
+    ``MAX_CHUNKS``, rounded up to whole warps.  ``lanes`` (one of
+    ``LANES``) and ``chunks`` (a tile's, at most ``MAX_CHUNKS``) replace
+    the plan's choice where a tuned config gives them.  Every step lies in
+    exactly one chunk of one tile."""
+    if lanes not in (0, *LANES):
+        raise ValueError(f"rglru_plan: lanes {lanes} not in {LANES}")
     want = BLOCKS_PER_SM * max(1, sm_count)
-    lanes = next((n for n in LANES if _cdiv(d, n * VEC) * b >= want),
-                 LANES[-1])
+    lanes = lanes or next((n for n in LANES
+                           if _cdiv(d, n * VEC) * b >= want), LANES[-1])
     per_warp = 32 // lanes
-    need = min(MAX_CHUNKS, max(1, _cdiv(t, CHUNK)))
+    need = min(MAX_CHUNKS, chunks or max(1, _cdiv(t, CHUNK)))
     warps = _cdiv(need, per_warp)
     return RglruPlan(CHUNK, lanes, warps * per_warp, warps, lanes * VEC,
                      (_cdiv(d, lanes * VEC), b))
 
 
 def rglru_scan_cuda(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor, *,
-                    sm_count: int = 0):
+                    sm_count: int = 0, lanes: int = 0, chunks: int = 0):
     """h_t = a_t·h_{t-1} + b_t.  a, b: (B, T, D); h0: (B, D); all of one
     dtype (float32, bfloat16 or float16), contiguous, on one CUDA device →
     (h (B, T, D), h_last (B, D)) in that dtype, the state held in f32.
     The cut comes from ``rglru_plan`` with the card's SM count, or
     ``sm_count`` where it is given (the tests force wide and narrow warps
-    that way)."""
+    that way); ``lanes`` and ``chunks`` are a tuned config's."""
     ts = (a, b, h0)
     if not all(t.is_cuda and t.device == a.device for t in ts):
         raise ValueError("rglru_scan_cuda wants a, b, h0 on one CUDA device")
@@ -87,7 +99,7 @@ def rglru_scan_cuda(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor, *,
     bsz, t_len, d = a.shape
     size = a.element_size()
     p = rglru_plan(bsz, t_len, d, size,
-                   sm_count or build.sm_count(a.device))
+                   sm_count or build.sm_count(a.device), lanes, chunks)
     h = torch.empty_like(a)
     h_last = torch.empty_like(h0)
     # one load of VEC values a thread: rows of D values keep every

@@ -73,7 +73,7 @@ def max_tile(hd: int) -> int:
 
 
 def rwkv6_plan(b: int, t: int, h: int, hd: int, itemsize: int,
-               sm_count: int = SM_COUNT) -> Rwkv6Plan:
+               sm_count: int = SM_COUNT, chunk: int = 0) -> Rwkv6Plan:
     """The chunks of a scan call, from its shapes alone.  One chunk where
     B·H alone fills ``BLOCKS_PER_SM`` blocks per SM or T fits one staged
     tile; else the longest chunk (a multiple of ``STEP``, at most
@@ -81,11 +81,18 @@ def rwkv6_plan(b: int, t: int, h: int, hd: int, itemsize: int,
     where even that does not.  A chunk longer than a tile is staged a
     tile at a time.  Every step lies in exactly one chunk.  The staged
     rows are f32 in every storage type, so ``itemsize`` changes only the
-    loads, not the plan."""
+    loads, not the plan.  ``chunk`` (a tuned config's: a multiple of
+    ``STEP`` up to ``MAX_CHUNK``, or at least T for one chunk) replaces
+    the plan's choice."""
+    if chunk and chunk < t and (chunk % STEP or chunk > MAX_CHUNK):
+        raise ValueError(f"rwkv6_plan: chunk {chunk} is neither a multiple "
+                         f"of {STEP} up to {MAX_CHUNK} nor all of T {t}")
     n = head_threads(hd)
     cap = max_tile(hd)
     want = BLOCKS_PER_SM * max(1, sm_count)
-    if b * h >= want or t <= cap:
+    if chunk:
+        chunk = min(chunk, max(t, 1))
+    elif b * h >= want or t <= cap:
         chunk = max(t, 1)
     else:
         chunk = max(STEP, min(MAX_CHUNK, STEP * (t * b * h // want // STEP)))
@@ -95,14 +102,16 @@ def rwkv6_plan(b: int, t: int, h: int, hd: int, itemsize: int,
                      (chunks, h, b), b * h * (chunks - 1) * hd * (hd + 1))
 
 
-def rwkv6_scan_cuda(r, k, v, logw, u, s0, *, sm_count: int = 0):
+def rwkv6_scan_cuda(r, k, v, logw, u, s0, *, sm_count: int = 0,
+                    chunk: int = 0):
     """r, k, v, logw: (B, T, H, hd); u: (H, hd); s0: (B, H, hd, hd); all
     contiguous, on one CUDA device, hd ≤ 128.  r, k, v, logw and u share
     one dtype (float32, bfloat16 or float16); s0 is in it or in float32 →
     (o (B, T, H, hd) in r's dtype, s_last (B, H, hd, hd) float32): the
     state is f32 throughout, as the JAX kernel's.  The chunks come from
     ``rwkv6_plan`` with the card's SM count, or ``sm_count`` where it is
-    given (the tests force one chunk and many that way)."""
+    given (the tests force one chunk and many that way), or ``chunk``
+    where a tuned config gives it."""
     ts = (r, k, v, logw, u, s0)
     if not all(t.is_cuda and t.device == r.device for t in ts):
         raise ValueError("rwkv6_scan_cuda wants every operand on one CUDA "
@@ -127,7 +136,7 @@ def rwkv6_scan_cuda(r, k, v, logw, u, s0, *, sm_count: int = 0):
         raise ValueError("rwkv6_scan_cuda wants contiguous operands")
     size = r.element_size()
     p = rwkv6_plan(bsz, t_len, h, hd, size,
-                   sm_count or build.sm_count(r.device))
+                   sm_count or build.sm_count(r.device), chunk)
     o = torch.empty_like(r)
     s_last = torch.empty_like(s0, dtype=torch.float32)
     ws = torch.empty(p.workspace, device=r.device, dtype=torch.float32)

@@ -19,11 +19,19 @@ backend, the hand-written CUDA and Triton kernels.
 decode step gathers every resident cache and stages it to the card with the
 step's other inputs as ONE packed copy (``runtime/packed``), so
 ``dmas == forwards``.  Batches pad to pow2 (batch, seq) buckets, each bucket
-compiling its own program once.
+compiling its own program once; a power of two is its own autotune bucket,
+so every served shape hits its measurements exactly.
 
-This slice serves on one device.  Measured election (``warm_autotune``,
-strict provenance), deploy artifacts, meshes and fleets are later slices:
-asking for them raises ``NotImplementedError``.
+**Provenance enforcement.**  ``warm_autotune`` measures every admissible
+impl of every LINEAR/MATMUL/ATTENTION/DECODE_ATTENTION node (each
+``Tunable`` space swept, ``core.measure.sweep_node``) for every prefill and
+decode bucket the workload can open, into the process-wide autotune cache.
+With ``strict_provenance`` a bucket model whose served-kind elections did
+not come from measurements of that node's exact bucket raises
+:class:`ProvenanceError` instead of serving roofline guesses.
+
+This slice serves on one device.  Deploy artifacts, meshes and fleets are
+later slices: asking for them raises ``NotImplementedError``.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke [--device cpu]
 """
@@ -35,7 +43,7 @@ import json
 import sys
 import time
 from collections import deque
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -43,11 +51,14 @@ from torch import nn as tnn
 
 from ..backends import get_backend, h100_spec
 from ..core import autotune as AT
+from ..core import measure, passes
+from ..core.executor import TORCH_DTYPES
 from ..core.ir import OpKind
 from ..frontends import nn
 from ..frontends.extract import extract, extract_decode, extract_prefill
 from ..frontends.offload import DeviceLike, resolve_device
-from ..frontends.optimize import compile_graph, optimize
+from ..frontends.optimize import (SolModel, compile_graph, optimize,
+                                  provenance_violations)
 from ..runtime import packed
 from ..runtime.async_queue import AsyncQueue
 
@@ -56,6 +67,11 @@ KV_BYTES = 4                       # float32 cache rows in the slot arena
 MIN_SEQ_BUCKET = 8                 # smallest padded sequence bucket
 SERVED_KINDS = (OpKind.LINEAR, OpKind.MATMUL, OpKind.ATTENTION,
                 OpKind.DECODE_ATTENTION)
+
+
+class ProvenanceError(RuntimeError):
+    """A bucket model would serve elections that did not come from
+    autotune measurements of its exact buckets."""
 
 
 # ---------------------------------------------------------------------------
@@ -332,13 +348,18 @@ class SolServer:
     ``program`` one of ``"prefill"``, ``"decode"`` (seq = padded cache
     length) and ``"full"`` (``decode=False``).  ``device=None`` serves on
     the CUDA card and raises when there is none; ``device="cpu"`` serves on
-    the CPU, where every kernel runs its plain version."""
+    the CPU, where every kernel runs its plain version.
+    ``strict_provenance``: every bucket model's served-kind elections must
+    come from measurements of their exact buckets (``warm_autotune``),
+    else compiling the bucket raises :class:`ProvenanceError`."""
 
     def __init__(self, cfg: Optional[ServeConfig] = None,
                  model: Optional[tnn.Module] = None, *,
                  deployed: Optional[Dict[Tuple, Any]] = None,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None,
+                 strict_provenance: bool = False):
         self.cfg = cfg or ServeConfig()
+        self.strict_provenance = strict_provenance
         if deployed is not None:
             raise NotImplementedError(
                 "serving deploy artifacts arrives with the deploy slice of "
@@ -581,10 +602,71 @@ class SolServer:
     def _bucket(self, n_rows: int, max_len: int) -> Tuple[int, int]:
         """The (batch, seq) pow2 bucket a batch is padded to; for decode,
         ``max_len`` is the longest resident cache length."""
-        sb = min(self.cfg.max_seq,
-                 max(min(MIN_SEQ_BUCKET, self.cfg.max_seq),
-                     AT.ceil_pow2(max_len)))
-        return AT.ceil_pow2(n_rows), sb
+        return AT.ceil_pow2(n_rows), self._seq_bucket(max_len)
+
+    def _seq_bucket(self, max_len: int) -> int:
+        return min(self.cfg.max_seq,
+                   max(min(MIN_SEQ_BUCKET, self.cfg.max_seq),
+                       AT.ceil_pow2(max_len)))
+
+    def _seq_buckets(self, max_len: int) -> List[int]:
+        """Every sequence bucket up to the one ``max_len`` opens."""
+        out, s = [], min(MIN_SEQ_BUCKET, self.cfg.max_seq)
+        while s <= self._seq_bucket(max_len):
+            out.append(s)
+            s *= 2
+        return out
+
+    def _batch_buckets(self) -> List[int]:
+        """Every batch bucket up to ``max_batch``'s."""
+        out, b = [], 1
+        while b <= AT.ceil_pow2(self.cfg.max_batch):
+            out.append(b)
+            b *= 2
+        return out
+
+    def _workload_maxima(self, max_len: Optional[int] = None
+                         ) -> Tuple[int, int]:
+        """(longest prompt, longest total context) the current workload can
+        produce; the prefill and decode bucket spaces derive from them."""
+        if max_len is not None:
+            return max_len, max_len
+        reqs = list(self._pending) + self._active
+        if not reqs:
+            raise ValueError("no requests to derive the bucket space "
+                             "from; pass max_len explicitly")
+        prompts = [len(r.prompt) for r in reqs]
+        totals = [min(self.cfg.max_seq, r.length
+                      + (r.max_new_tokens - len(r.generated)))
+                  for r in reqs]
+        return max(prompts), max(totals)
+
+    def bucket_space(self, max_len: Optional[int] = None
+                     ) -> List[Tuple[int, int]]:
+        """Every (batch, seq) bucket the current workload can open through
+        the full re-forward program (``decode=False``)."""
+        _, max_total = self._workload_maxima(max_len)
+        return [(b, s) for b in self._batch_buckets()
+                for s in self._seq_buckets(max_total)]
+
+    def _warm_graphs(self, max_len: Optional[int]) -> Iterator:
+        """Every program graph whose buckets the workload can open: the
+        plain forward per (batch, seq) bucket with ``decode=False``;
+        otherwise the prefill program per (batch, prompt) bucket and the
+        decode program per (batch, cache) bucket (a cache peaks one row
+        short of the total context: the newest token is never cached)."""
+        d = self.cfg.d_model
+        if not self.cfg.decode:
+            for bb, sb in self.bucket_space(max_len):
+                yield extract(self.model, (bb, sb, d))
+            return
+        max_prompt, max_total = self._workload_maxima(max_len)
+        for bb in self._batch_buckets():
+            for sb in self._seq_buckets(max_prompt):
+                yield extract_prefill(self.model, (bb, sb, d))
+        for db in self._batch_buckets():
+            for cb in self._seq_buckets(max(1, max_total - 1)):
+                yield extract_decode(self.model, db, cb, d)
 
     def _model_for(self, key: Tuple):
         m = self._models.get(key)
@@ -603,20 +685,81 @@ class SolServer:
             sol = compile_graph(self.model,
                                 extract_decode(self.model, b, s, d),
                                 self.backend, device=self.device)
-        self._models[key] = sol
-        self._audit(sol, key)
+        self._models[key] = self._audit(sol, key)
         return sol
 
-    def _audit(self, model, key: Tuple) -> None:
-        """Record which impls the bucket model serves, per served kind, plus
-        the FUSED groups."""
-        kinds = tuple(k.value for k in SERVED_KINDS) + (OpKind.FUSED.value,)
+    def _audit(self, model, key: Tuple):
+        """Record which impls the bucket model serves, per served kind and
+        for the FUSED groups, and under ``strict_provenance`` enforce that
+        every served-kind election was measured on its exact bucket."""
+        served = tuple(k.value for k in SERVED_KINDS)
+        kinds = served + (OpKind.FUSED.value,)
+        by_kind = model.impl_report(by_kind=True)
+        prov = model.impl_report(provenance=True)
         self.served_elections[key] = {
-            "by_op": {k: dict(v) for k, v in
-                      model.impl_report(by_kind=True).items()
-                      if k in kinds},
-            "provenance": model.impl_report(provenance=True),
+            "by_op": {k: dict(v) for k, v in by_kind.items() if k in kinds},
+            "provenance": prov,
         }
+        if self.strict_provenance:
+            viol = (provenance_violations(by_kind, prov, kinds=served)
+                    + self._exact_bucket_violations(model))
+            if viol:
+                raise ProvenanceError(
+                    f"bucket {key} would serve unmeasured elections (warm "
+                    f"the autotune cache first): {viol}")
+        return model
+
+    def _exact_bucket_violations(self, model: SolModel) -> List[str]:
+        """An election can carry 'measured' provenance through the cache's
+        nearest-bucket lookup, timings of another shape.  Strict serving
+        wants every served-kind node's exact bucket measured (a request
+        that opens a new bucket needs another ``warm_autotune()``, which
+        skips the buckets already measured)."""
+        cache = AT.get_cache()
+        out = []
+        for node in model.graph.topo():
+            if node.op not in SERVED_KINDS:
+                continue
+            shape = AT.node_shape(node)
+            if not cache.has_bucket(node.op.value, shape, node.spec.dtype,
+                                    self.backend.cache_name):
+                out.append(f"{node.op.value}@{shape}: measured via "
+                           f"nearest-bucket fallback, not this bucket")
+        return out
+
+    # -- autotune warmup -----------------------------------------------------
+
+    def warm_autotune(self, max_len: Optional[int] = None, *,
+                      warmup: int = 1, iters: int = 3) -> Dict[str, int]:
+        """Measure every admissible impl of every served-kind node, each
+        ``Tunable`` space swept, for every prefill and decode bucket the
+        workload (or ``max_len``) can open, into the process-wide cache
+        (``autotune.get_cache()``: install another with
+        ``autotune.set_cache`` before warming).  (op, shape, dtype) keys
+        already measured are skipped."""
+        cache = AT.get_cache()
+        counts = {"nodes": 0, "impls": 0, "skipped": 0, "graphs": 0}
+        seen = set()
+        for g in self._warm_graphs(max_len):
+            counts["graphs"] += 1
+            g = passes.run_pipeline(g, self.backend)
+            for node in g.topo():
+                if node.op not in SERVED_KINDS:
+                    continue
+                shape = AT.node_shape(node)
+                key = (node.op.value, shape, node.spec.dtype)
+                if key in seen:
+                    continue
+                seen.add(key)
+                if cache.has_bucket(node.op.value, shape, node.spec.dtype,
+                                    self.backend.cache_name):
+                    counts["skipped"] += 1
+                    continue
+                counts["nodes"] += 1
+                counts["impls"] += len(_measure_node(
+                    node, self.backend, cache, self.device, warmup=warmup,
+                    iters=iters))
+        return counts
 
     # -- reporting -----------------------------------------------------------
 
@@ -654,6 +797,30 @@ class SolServer:
         }
 
 
+def _measure_node(node, backend, cache: AT.AutotuneCache,
+                  device: torch.device, *, warmup: int, iters: int
+                  ) -> List[measure.ImplMeasurement]:
+    """Time every admissible impl of one node (every tunable config)
+    through the shared sweep (``core.measure.sweep_node``, the driver's
+    path) on operands drawn on ``device`` in the node's dtypes.  An integer
+    input (the decode program's ``lens``) takes the worst case: every row
+    attends a full cache."""
+    gen = torch.Generator(device).manual_seed(0)
+    vals = []
+    for inp in node.inputs:
+        dt = TORCH_DTYPES[inp.spec.dtype]
+        if not dt.is_floating_point:
+            fill = (node.inputs[1].spec.shape[1]
+                    if node.op is OpKind.DECODE_ATTENTION else 1)
+            vals.append(torch.full(inp.spec.shape, fill, dtype=dt,
+                                   device=device))
+        else:
+            vals.append(torch.randn(inp.spec.shape, generator=gen,
+                                    device=device).to(dt))
+    return measure.sweep_node(node, vals, backend, cache, warmup=warmup,
+                              iters=iters)
+
+
 # ---------------------------------------------------------------------------
 # command line
 # ---------------------------------------------------------------------------
@@ -672,7 +839,8 @@ def smoke_workload(cfg: ServeConfig, n_requests: int, gen: int,
 def main(argv: Optional[Sequence[str]] = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--smoke", action="store_true",
-                    help="tiny model, a few requests, elections printed")
+                    help="tiny model, a few requests, elections printed, "
+                         "then the strict measured-provenance leg")
     ap.add_argument("--backend", default="h100")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
@@ -701,8 +869,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                           max_seq=args.max_seq, max_batch=args.max_batch,
                           slots=args.slots, backend=args.backend,
                           decode=not args.no_decode)
+    workload = smoke_workload(cfg, args.requests, args.gen)
     server = SolServer(cfg, device=args.device)
-    for prompt, g in smoke_workload(cfg, args.requests, args.gen):
+    for prompt, g in workload:
         server.submit(prompt, g)
     summary = server.run()
     server.close()
@@ -716,14 +885,59 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     for bucket, rec in sorted(server.served_elections.items()):
         for kind, impls in sorted(rec["by_op"].items()):
             print(f"[serve] bucket {bucket} {kind} → {impls}")
-    print("[serve] this slice elects analytically: the strict measured-"
-          "provenance audit and the deploy round-trip of the JAX smoke "
-          "need measurement and deployment, which later slices port")
+    if summary["dmas"] != summary["forwards"]:
+        return 1
     if args.json:
         with open(args.json, "w") as f:
             json.dump(summary, f, indent=2)
         print(f"[serve] wrote {args.json}")
-    return 0 if summary["dmas"] == summary["forwards"] else 1
+    if args.smoke:
+        return _strict_leg(cfg, args.device, workload, server)
+    return 0
+
+
+def _strict_leg(cfg: ServeConfig, device, workload, cold) -> int:
+    """The same workload on a strict-provenance server after
+    ``warm_autotune``: every served election must come from measurements
+    of its exact bucket, and the tokens must equal the cold server's."""
+    server = SolServer(cfg, model=cold.model, device=device,
+                       strict_provenance=True)
+    reqs = [server.submit(p, g) for p, g in workload]
+    t0 = time.perf_counter()
+    counts = server.warm_autotune()
+    print(f"[serve] strict: autotune warmup on {cfg.backend}: "
+          f"{counts['impls']} impl timings over {counts['nodes']} (op, "
+          f"shape) keys of {counts['graphs']} programs ({counts['skipped']} "
+          f"already cached) in {time.perf_counter() - t0:.1f} s")
+    summary = server.run()
+    server.close()
+    failures = []
+    for bucket, rec in sorted(server.served_elections.items()):
+        prov = rec["provenance"]
+        for kind, impls in sorted(rec["by_op"].items()):
+            if kind == OpKind.FUSED.value:
+                continue
+            for name in impls:
+                entry = prov.get(name, {})
+                srcs = entry.get("sources", {})
+                pins = entry.get("pinned", "")
+                print(f"[serve] strict: bucket {bucket} {kind} → {name} "
+                      f"sources={srcs}" + (f" pinned={pins}" if pins else ""))
+                if set(srcs) - {"measured"} or not srcs:
+                    failures.append(f"{bucket}:{kind}->{name}:{srcs}")
+    if failures:
+        print(f"[serve] unmeasured elections served: {failures}",
+              file=sys.stderr)
+        return 1
+    cold_tokens = {r.rid: r.generated for r in cold._finished}
+    if any(r.generated != cold_tokens[r.rid] for r in reqs):
+        print("[serve] strict: tokens differ from the cold server's",
+              file=sys.stderr)
+        return 1
+    print(f"[serve] strict: {summary['tokens']} tokens, every served "
+          f"election measured on its exact bucket, tokens equal to the cold "
+          f"server's")
+    return 0
 
 
 if __name__ == "__main__":

@@ -918,3 +918,91 @@ def test_bf16_rwkv6_row_still_fails_a_wrong_stack(dev):
     assert len(zeroed) == 2
     got = optimize(model, shape, backend="h100", dtype="bfloat16")(x)
     assert _rel_err(got, want) > BF16_ROW["rwkv6"]
+
+
+# ---------------------------------------------------------------------------
+# every config of every kernel's Tunable space, and measurement on the card
+# ---------------------------------------------------------------------------
+
+CONFIG_CASES = [
+    ("matmul", (512, 1536, 1536)), ("matmul", (4, 1536, 1536)),
+    ("linear", (4, 1536, 5000)), ("linear", (512, 6144, 1536)),
+    ("attention", (2, 128, 12, 2, 128)), ("attention", (1, 65, 4, 4, 64)),
+    ("decode_attention", (4, 128, 12, 2, 128)),
+    ("decode_attention", (2, 300, 8, 2, 64)),
+    ("fused", (512, 6144)), ("fused", (7, 40)),
+    ("rglru_scan", (4, 512, 4096)), ("rglru_scan", (1, 300, 4100)),
+    ("rwkv6_scan", (4, 512, 32, 64)), ("rwkv6_scan", (1, 300, 2, 64)),
+    ("avgpool", (4, 32, 222, 222)), ("avgpool", (2, 3, 7, 38)),
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("op,shape", CONFIG_CASES)
+def test_every_tunable_config_matches_plain(dev, op, shape, dtype):
+    """Each config of the kernel's space, pinned on the node as a measured
+    election pins it, runs through the impl and equals the plain version
+    (f32: 1e-4; bf16: one rounding step)."""
+    from repro_torch.benchmarks import autotune as drv
+    node, vals = drv._build(op, shape, dtype, dev)
+    backend = registry.get_backend("h100")
+    impl = next(i for i in registry.candidates(backend, node)
+                if i.name.startswith("cuda."))
+    space = impl.tunable.tune_space(node, backend.hw)
+    assert space
+    want = drv.plain_version(node, vals)
+    for cfg in space:
+        impl.tunable.bind_config(node, cfg)
+        try:
+            got = impl.fn(node, vals, backend)
+        finally:
+            impl.tunable.bind_config(node, None)
+        torch.cuda.synchronize()
+        if dtype == "float32":
+            torch.testing.assert_close(got, want, **TOL)
+        else:
+            _close_half(got, want, dtype, chain=op == "fused")
+
+
+def test_measurement_on_the_card_records_min_and_mean(dev):
+    from repro_torch.benchmarks import autotune as drv
+    from repro_torch.core import autotune as AT
+    from repro_torch.core import measure
+    node, vals = drv._build("linear", (4, 1536, 1536), "float32", dev)
+    cache = AT.AutotuneCache()
+    out = measure.sweep_node(node, vals, registry.get_backend("h100"), cache,
+                             warmup=1, iters=5)
+    assert {m.impl for m in out} == {"cuda.linear", "ref.linear"}
+    assert "cuda_mm_block" not in node.attrs
+    for m in out:
+        assert m.mean_us >= m.us > 0.0
+
+
+def test_strict_serving_on_the_card(dev):
+    """warm_autotune on the card, then strict serving: every served
+    election measured on its exact bucket, tokens equal to a cold
+    server's."""
+    from repro_torch.core import autotune as AT
+    cfg = serve.ServeConfig(d_model=64, n_heads=4, n_layers=2, vocab=128,
+                            max_seq=32, max_batch=2, slots=3)
+    model = serve.build_lm(cfg, n_kv_heads=2, device=dev)
+    prompts = [[1, 2, 3, 4, 5], [6, 7, 8], [9, 10, 11, 12, 13, 14, 15]]
+    prev = AT.get_cache()
+    AT.set_cache(AT.AutotuneCache())
+    try:
+        cold = serve.SolServer(cfg, model=model, device=dev)
+        creqs = [cold.submit(p, 5) for p in prompts]
+        cold.run()
+        cold.close()
+        strict = serve.SolServer(cfg, model=model, device=dev,
+                                 strict_provenance=True)
+        reqs = [strict.submit(p, 5) for p in prompts]
+        assert strict.warm_autotune()["nodes"] > 0
+        strict.run()
+        strict.close()
+    finally:
+        AT.set_cache(prev)
+    kinds = ("linear", "matmul", "attention", "decode_attention")
+    for key, model_ in strict._models.items():
+        assert model_.check_provenance(kinds=kinds) == []
+    assert [r.generated for r in reqs] == [r.generated for r in creqs]

@@ -1,11 +1,14 @@
 """The port's serving slice on the CPU: greedy tokens equal the JAX
 package's ``SolServer`` on the same weights and prompts, decode equals the
-re-forward, one packed copy per forward, the card is the default device
-(and its absence raises), and the port imports neither ``jax`` nor
-``repro``."""
+re-forward, one packed copy per forward, strict measured provenance after
+``warm_autotune`` (and its refusals: a cold cache, a bucket measured only
+nearby), the card is the default device (and its absence raises), and the
+port imports neither ``jax`` nor ``repro``."""
 import ast
 import json
 import os
+import subprocess
+import sys
 from pathlib import Path
 
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
@@ -155,6 +158,102 @@ def test_smoke_cli_on_cpu(capsys):
     assert tserve.main(["--smoke", "--device", "cpu"]) == 0
     out = capsys.readouterr().out
     assert "cuda.decode_attention" in out and "one packed copy" in out
+
+
+SERVED = ("linear", "matmul", "attention", "decode_attention")
+
+
+def test_strict_serving_after_warm_autotune_is_measured_and_token_equal():
+    _, tm = models()
+    prompts = _prompts(3)
+    cold = _serve(tserve.SolServer(_cfg(tserve), model=tm, device="cpu"),
+                  prompts)
+    server = tserve.SolServer(_cfg(tserve), model=tm, device="cpu",
+                              strict_provenance=True)
+    reqs = [server.submit(p, 6) for p in prompts]
+    counts = server.warm_autotune(warmup=0, iters=1)
+    assert counts["nodes"] > 0 and counts["impls"] >= counts["nodes"]
+    server.run()
+    server.close()
+    assert {k[0] for k in server.served_elections} == {"prefill", "decode"}
+    for key, rec in server.served_elections.items():
+        model = server._models[key]
+        assert model.check_provenance(kinds=SERVED) == []
+        assert server._exact_bucket_violations(model) == []
+        for kind in SERVED:
+            for name in rec["by_op"].get(kind, {}):
+                assert set(rec["provenance"][name]["sources"]) == \
+                    {"measured"}, (key, kind, name)
+    assert [r.generated for r in reqs] == [r.generated for r in cold]
+
+
+def test_strict_provenance_cold_cache_is_loud():
+    _, tm = models()
+    server = tserve.SolServer(_cfg(tserve), model=tm, device="cpu",
+                              strict_provenance=True)
+    server.submit([1, 2, 3], max_new_tokens=2)
+    with pytest.raises(tserve.ProvenanceError, match="unmeasured"):
+        server.run()
+    server.close()
+
+
+def test_strict_provenance_rejects_nearest_bucket_fallback():
+    """'measured' provenance through the nearest-bucket lookup is another
+    shape's timing: the strict server refuses it, and a second warm (which
+    skips the buckets already measured) unblocks the run."""
+    _, tm = models()
+    server = tserve.SolServer(_cfg(tserve), model=tm, device="cpu",
+                              strict_provenance=True)
+    server.submit([1, 2, 3, 4], max_new_tokens=2)
+    server.warm_autotune(warmup=0, iters=1)          # seq bucket 8 only
+    server.submit(list(range(1, 13)), max_new_tokens=2)   # opens seq 16
+    with pytest.raises(tserve.ProvenanceError, match="nearest-bucket"):
+        server.run()
+    again = server.warm_autotune(warmup=0, iters=1)
+    assert again["nodes"] > 0 and again["skipped"] > 0
+    server.run()
+    assert len(server._finished) == 2 and all(r.done for r in server._finished)
+    server.close()
+
+
+def test_warm_autotune_opens_the_workload_buckets_and_skips_measured_ones():
+    _, tm = models()
+    server = tserve.SolServer(_cfg(tserve, max_batch=4), model=tm,
+                              device="cpu")
+    with pytest.raises(ValueError):
+        server.warm_autotune()                      # nothing to derive from
+    server.submit(list(range(1, 11)), max_new_tokens=8)
+    assert server._workload_maxima() == (10, 18)
+    assert server._batch_buckets() == [1, 2, 4]
+    assert server._seq_buckets(10) == [8, 16]
+    assert server.bucket_space() == [(b, s) for b in (1, 2, 4)
+                                     for s in (8, 16, 32)]
+    graphs = list(server._warm_graphs(None))
+    # prefill at seq 8 and 16; decode caches reach 17 rows: 8, 16 and 32
+    assert len(graphs) == 3 * 2 + 3 * 3
+    first = server.warm_autotune(warmup=0, iters=1)
+    again = server.warm_autotune(warmup=0, iters=1)
+    assert first["graphs"] == again["graphs"] == len(graphs)
+    assert again["nodes"] == 0 and again["skipped"] >= first["nodes"] > 0
+    cache = TAT.get_cache()
+    for (op, dtype, backend), bucket, impl, m in cache.entries():
+        assert backend == "h100" and dtype == "float32"
+        assert m.mean_us >= m.us > 0.0
+    server.close()
+
+
+def test_strict_smoke_cli_on_cpu(tmp_path):
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--smoke",
+         "--device", "cpu"], cwd=tmp_path, env=env, capture_output=True,
+        text=True, timeout=600)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "[serve] strict: autotune warmup" in out.stdout
+    assert "every served election measured on its exact bucket" in out.stdout
+    strict = [ln for ln in out.stdout.splitlines()
+              if ln.startswith("[serve] strict: bucket")]
+    assert strict and all("sources={'measured'" in ln for ln in strict)
 
 
 def test_packed_staging_is_one_copy_of_views():

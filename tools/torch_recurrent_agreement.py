@@ -57,16 +57,17 @@ def faults(torch, name: str):
         from repro_torch.kernels.rwkv6_scan import ops
         real = ops.rwkv6_scan_cuda
 
-        def last_unset(r, k, v, logw, u, s0):
-            o, s = real(r, k, v, logw, u, s0)
+        def last_unset(r, k, v, logw, u, s0, **kw):
+            o, s = real(r, k, v, logw, u, s0, **kw)
             o[:, -1] = 0
             return o, s
 
-        def decay_bf16(r, k, v, logw, u, s0):
-            return real(r, k, v, logw.bfloat16().float().contiguous(), u, s0)
+        def decay_bf16(r, k, v, logw, u, s0, **kw):
+            return real(r, k, v, logw.bfloat16().float().contiguous(), u, s0,
+                        **kw)
 
-        def no_bonus(r, k, v, logw, u, s0):
-            o, s = real(r, k, v, logw, u, s0)
+        def no_bonus(r, k, v, logw, u, s0, **kw):
+            o, s = real(r, k, v, logw, u, s0, **kw)
             return o - (r * u * k).sum(-1, keepdim=True) * v, s
 
         return ops, "rwkv6_scan_cuda", [("last step unset", last_unset),
@@ -75,13 +76,13 @@ def faults(torch, name: str):
     from repro_torch.kernels.rglru_scan import ops
     real = ops.rglru_scan_cuda
 
-    def last_unset(a, b, h0):
-        h, hl = real(a, b, h0)
+    def last_unset(a, b, h0, **kw):
+        h, hl = real(a, b, h0, **kw)
         h[:, -1] = 0
         return h, hl
 
-    def decay_bf16(a, b, h0):
-        return real(a.bfloat16().float().contiguous(), b, h0)
+    def decay_bf16(a, b, h0, **kw):
+        return real(a.bfloat16().float().contiguous(), b, h0, **kw)
 
     return ops, "rglru_scan_cuda", [("last step unset", last_unset),
                                     ("decay in bf16", decay_bf16)]
