@@ -908,12 +908,48 @@ def kernel_of(node, hw) -> str:
     return kind
 
 
+def plain_version(node, vals):
+    """The plain PyTorch version of the kernel a node's ``cuda.*`` impl
+    runs (its family's ``ref.py``), on the same operands: what every
+    config of the impl's ``Tunable`` space is held against.  Attention,
+    decode attention and the scans take the reference tier's impls, which
+    are their families' plain versions."""
+    from repro_torch.backends import get_backend, registry
+    from repro_torch.core.executor import linear_weight_kn
+    from repro_torch.core.ir import OpKind
+    from repro_torch.kernels.avgpool.ref import avgpool_ref
+    from repro_torch.kernels.dfp_fused.program import encode_program
+    from repro_torch.kernels.dfp_fused.ref import dfp_fused_ref
+    from repro_torch.kernels.matmul.ref import matmul_ref
+    op = node.op
+    ref = {OpKind.ATTENTION: "ref.attention",
+           OpKind.DECODE_ATTENTION: "ref.decode_attention",
+           OpKind.RGLRU_SCAN: "ref.rglru_scan",
+           OpKind.RWKV6_SCAN: "ref.rwkv6_scan"}.get(op)
+    if ref is not None:
+        return registry.get_impl(ref).fn(node, vals, get_backend("torch_ref"))
+    if op is OpKind.MATMUL:
+        return matmul_ref(vals[0], vals[1])
+    if op is OpKind.LINEAR:
+        y = matmul_ref(vals[0], linear_weight_kn(node, vals[1]))
+        return y + vals[2] if len(vals) > 2 and vals[2] is not None else y
+    if op is OpKind.FUSED:
+        prog, operands = encode_program(
+            node, {id(i): v for i, v in zip(node.inputs, vals)})
+        full = next(o for o, k in zip(operands, prog.operand_kinds)
+                    if k == "full")
+        return dfp_fused_ref(prog, operands, tuple(full.shape), full.dtype)
+    if op is OpKind.AVGPOOL:        # stride 1: the window from the shapes
+        (h, w), (oh, ow) = vals[0].shape[2:], node.spec.shape[2:]
+        return avgpool_ref(vals[0], h - oh + 1, w - ow + 1)
+    raise KeyError(f"no kernel family for {op}")
+
+
 def hold_config(torch, node, vals, hw, cfg) -> float:
     """Run ``node``'s elected ``cuda.*`` impl with ``cfg`` pinned (None:
     the pin it carries) and hold it against the plain version at phase 2's
     tolerance of its dtype; returns max |error|."""
     from repro_torch.backends import get_backend, registry
-    from repro_torch.benchmarks.autotune import plain_version
     impl = registry.get_impl(node.impl)
     backend = dataclasses.replace(get_backend("h100"), hw=hw)
     saved = node.attrs.get(impl.tunable.attr)

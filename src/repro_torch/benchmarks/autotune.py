@@ -184,47 +184,6 @@ def _build(op: str, shape: Tuple[int, ...], dtype: str = "float32",
     raise KeyError(f"unknown autotune op {op!r}")
 
 
-def plain_version(node, vals: Sequence[torch.Tensor]) -> torch.Tensor:
-    """The plain PyTorch version of the kernel a node's ``cuda.*`` impl
-    runs (the family's ``ref.py``), on the same operands: what every
-    config of the impl's ``Tunable`` space is held against."""
-    from ..core.executor import linear_weight_kn
-    from ..core.ir import OpKind
-    from ..kernels.avgpool.ops import _window
-    from ..kernels.avgpool.ref import avgpool_ref
-    from ..kernels.decode_attention.ops import _decode_ref_impl
-    from ..kernels.dfp_fused.program import encode_program
-    from ..kernels.dfp_fused.ref import dfp_fused_ref
-    from ..kernels.flash_attention.ops import _attention_ref_impl
-    from ..kernels.matmul.ref import matmul_ref
-    from ..kernels.rglru_scan.ref import rglru_scan_ref
-    from ..kernels.rwkv6_scan.ref import rwkv6_scan_ref
-
-    op = node.op
-    if op is OpKind.MATMUL:
-        return matmul_ref(vals[0], vals[1])
-    if op is OpKind.LINEAR:
-        y = matmul_ref(vals[0], linear_weight_kn(node, vals[1]))
-        return y + vals[2] if len(vals) > 2 and vals[2] is not None else y
-    if op is OpKind.ATTENTION:
-        return _attention_ref_impl(node, vals, None)
-    if op is OpKind.DECODE_ATTENTION:
-        return _decode_ref_impl(node, vals, None)
-    if op is OpKind.FUSED:
-        prog, operands = encode_program(
-            node, {id(i): v for i, v in zip(node.inputs, vals)})
-        full = next(o for o, k in zip(operands, prog.operand_kinds)
-                    if k == "full")
-        return dfp_fused_ref(prog, operands, tuple(full.shape), full.dtype)
-    if op is OpKind.RGLRU_SCAN:
-        return rglru_scan_ref(*vals)[0]
-    if op is OpKind.RWKV6_SCAN:
-        return rwkv6_scan_ref(*vals)[0]
-    if op is OpKind.AVGPOOL:
-        return avgpool_ref(vals[0], *_window(node))
-    raise KeyError(f"no kernel family for {op}")
-
-
 def tune(backend_name: str = "h100", ops: Sequence[str] = DEFAULT_OPS, *,
          tiny: bool = False, warmup: int = 2, iters: int = 5, cache=None,
          dtype: str = "float32", device: DeviceLike = None,

@@ -61,15 +61,27 @@ def avgpool_tune_space(n: Node, hw) -> List[Tuple[int]]:
     """The plan's band height and every height of ``BAND_SWEEP``, each
     whose staged band fits ``hw.smem_bytes``; the configs are the distinct
     heights the plan makes of them (at most the output's rows)."""
-    out = set()
-    for rows in (0, *BAND_SWEEP):
+    return sorted(set(_heights(n, hw, (0, *BAND_SWEEP))))
+
+
+def avgpool_refine_space(n: Node, hw, cfg) -> List[Tuple[int]]:
+    """Half and twice the winning band height, as the plan makes them."""
+    rows = int(cfg[0])
+    return _heights(n, hw, (max(1, rows // 2), 2 * rows))
+
+
+def _heights(n: Node, hw, asks) -> List[Tuple[int]]:
+    """The band heights the plan makes of ``asks`` whose staged band fits
+    ``hw.smem_bytes``."""
+    out = []
+    for rows in asks:
         try:
             p = node_plan(n, rows)
         except ValueError:          # the band cannot fit a block
             continue
         if p.smem <= hw.smem_bytes:
-            out.add((p.rows,))
-    return sorted(out)
+            out.append((p.rows,))
+    return out
 
 
 def _avgpool_impl(n: Node, vals: Sequence[torch.Tensor],
@@ -81,4 +93,4 @@ def _avgpool_impl(n: Node, vals: Sequence[torch.Tensor],
 registry.register_shared_impl(
     OpKind.AVGPOOL, _avgpool_impl, name="cuda.avgpool",
     requires=("cuda",), supports=_supports,
-    tunable=Tunable(ATTR, avgpool_tune_space))
+    tunable=Tunable(ATTR, avgpool_tune_space, refine=avgpool_refine_space))

@@ -70,6 +70,12 @@ def decode_tune_space(n: Node, hw) -> List[Tuple[int]]:
     return [(s,) for s in sorted({node_plan(n, hw, w).splits for w in want})]
 
 
+def decode_refine_space(n: Node, hw, cfg) -> List[Tuple[int]]:
+    """Half and twice the winning split count, as the plan makes them."""
+    s = int(cfg[0])
+    return [(node_plan(n, hw, c).splits,) for c in (max(1, s // 2), 2 * s)]
+
+
 def _decode_cuda_impl(n: Node, vals: Sequence[torch.Tensor],
                       backend: "registry.Backend") -> torch.Tensor:
     cfg = n.attrs.get(ATTR)
@@ -95,7 +101,7 @@ def _supports(n: Node) -> bool:
 registry.register_shared_impl(
     OpKind.DECODE_ATTENTION, _decode_cuda_impl,
     name="cuda.decode_attention", requires=("cuda",), supports=_supports,
-    tunable=Tunable(ATTR, decode_tune_space))
+    tunable=Tunable(ATTR, decode_tune_space, refine=decode_refine_space))
 registry.register_reference_impl(
     OpKind.DECODE_ATTENTION, _decode_ref_impl, name="ref.decode_attention",
     memory="roundtrip")   # materializes the (B, H, S) score rows

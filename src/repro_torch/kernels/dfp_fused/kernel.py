@@ -187,13 +187,16 @@ def _pow2_ceil(n: int) -> int:
 def block_shape(rows: int, d: int, block_rows: int = 0):
     """(BLOCK_R, BLOCK_D, num_warps): d untiled; a row block of at most
     ``BLOCK_ELEMS`` elements (at least one row), or ``block_rows`` rows (a
-    tuned config, rounded up to a power of two), never more rows than the
-    call has rounded up to a power of two.  Row block i takes rows
+    tuned config, rounded up to a power of two, within four times
+    ``BLOCK_ELEMS`` elements: a config measured at a narrower d of the
+    cache bucket still fits), never more rows than the call has rounded up
+    to a power of two.  Row block i takes rows
     ``[i * BLOCK_R, (i + 1) * BLOCK_R)``, masked at the edge."""
     block_d = _pow2_ceil(d)
     most = _pow2_ceil(rows)
     if block_rows:
-        block_r = min(_pow2_ceil(block_rows), most)
+        block_r = min(_pow2_ceil(block_rows), most,
+                      max(1, 4 * BLOCK_ELEMS // block_d))
     else:
         block_r = max(1, min(BLOCK_ELEMS // block_d, most))
     warps = 8 if block_r * block_d >= BLOCK_ELEMS else 4

@@ -62,13 +62,24 @@ def dfp_fused_segmented(prog: Program, operands: Sequence[torch.Tensor],
                         max_group: int, *,
                         block_rows: int = 0) -> torch.Tensor:
     """Run a program as launches of at most ``max_group`` instructions
-    (``split_program``), each cut value stored between them in the storage
+    (``segments``), each cut value stored between them in the storage
     type, which every instruction rounds its result to anyway."""
     out = None
-    for seg, sel in split_program(prog, max_group):
+    for seg, sel in segments(prog, max_group):
         vals = [out if i == "carry" else operands[i] for i in sel]
         out = dfp_fused(seg, vals, block_rows=block_rows)
     return out
+
+
+def segments(prog: Program, max_group: int):
+    """``split_program``'s segments of at most ``max_group`` instructions
+    where every one reads a full operand (a launch takes its output's
+    shape from one), else the whole program as one segment: a config
+    measured on another program of the cache bucket still runs."""
+    segs = split_program(prog, max_group)
+    if all("full" in seg.operand_kinds for seg, _ in segs):
+        return segs
+    return [(prog, list(range(len(prog.operand_kinds))))]
 
 
 def dfp_tune_space(n: Node, hw) -> List[Tuple[int, int]]:
@@ -89,11 +100,22 @@ def dfp_tune_space(n: Node, hw) -> List[Tuple[int, int]]:
     size = len(prog.instrs)
     groups = [size]
     half = (size + 1) // 2
-    segs = split_program(prog, half)
-    if size >= 2 and len(segs) > 1 and all(
-            "full" in seg.operand_kinds for seg, _ in segs):
+    if size >= 2 and len(segments(prog, half)) > 1:
         groups.append(half)
     return [(br, grp) for br in sorted(brs) for grp in groups]
+
+
+def dfp_refine_space(n: Node, hw, cfg) -> List[Tuple[int, int]]:
+    """Half and twice the winning row block, as ``block_shape`` makes them
+    and within ``hw.smem_bytes``, each with the winning ``max_group``."""
+    rows, d = math.prod(n.spec.shape[:-1]), n.spec.shape[-1]
+    br, grp = int(cfg[0]), int(cfg[1])
+    out = []
+    for want in (max(1, br // 2), 2 * br):
+        b, bd, _ = block_shape(rows, d, want)
+        if 4 * b * bd <= hw.smem_bytes:
+            out.append((b, grp))
+    return out
 
 
 def _encodes(n: Node) -> bool:
@@ -129,4 +151,4 @@ def _dfp_fused_impl(n: Node, vals: Sequence[torch.Tensor],
 registry.register_shared_impl(
     OpKind.FUSED, _dfp_fused_impl, name="cuda.dfp_fused",
     requires=("cuda",), supports=_supports_chain, memory="streamed",
-    tunable=Tunable(ATTR, dfp_tune_space))
+    tunable=Tunable(ATTR, dfp_tune_space, refine=dfp_refine_space))

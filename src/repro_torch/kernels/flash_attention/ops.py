@@ -51,6 +51,12 @@ def attn_tune_space(n: Node, hw) -> List[Tuple[int]]:
             if flash_smem_bytes(hd, size, bq) <= hw.smem_bytes]
 
 
+def attn_refine_space(n: Node, hw, cfg) -> List[Tuple[int]]:
+    """Only the source's instances are legal, and the space already holds
+    every one that fits: nothing lies around the winner."""
+    return attn_tune_space(n, hw)
+
+
 def _attrs(n: Node) -> dict:
     return dict(causal=n.attrs.get("causal", True),
                 window=n.attrs.get("window", 0),
@@ -81,7 +87,7 @@ def _supports(n: Node) -> bool:
 registry.register_shared_impl(
     OpKind.ATTENTION, _attention_cuda_impl, name="cuda.flash_attention",
     requires=("cuda",), supports=_supports,
-    tunable=Tunable(ATTR, attn_tune_space))
+    tunable=Tunable(ATTR, attn_tune_space, refine=attn_refine_space))
 registry.register_reference_impl(
     OpKind.ATTENTION, _attention_ref_impl, name="ref.attention",
     memory="roundtrip")

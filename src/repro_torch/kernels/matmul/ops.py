@@ -103,7 +103,13 @@ def _supports_linear(n: Node) -> bool:
     return _supports_matmul(n) and "out_features" in n.attrs
 
 
-_MM_TUNABLE = Tunable(ATTR, mm_tune_space)
+def mm_refine_space(n: Node, hw, cfg) -> List[Tuple[int]]:
+    """Half and twice the winning split count, as the plan makes them."""
+    s = int(cfg[0])
+    return [(node_plan(n, hw, c).splits,) for c in (max(1, s // 2), 2 * s)]
+
+
+_MM_TUNABLE = Tunable(ATTR, mm_tune_space, refine=mm_refine_space)
 
 registry.register_shared_impl(
     OpKind.MATMUL, _matmul_impl, name="cuda.matmul", requires=("cuda",),

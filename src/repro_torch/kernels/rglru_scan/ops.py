@@ -63,6 +63,22 @@ def rglru_tune_space(n: Node, hw) -> List[Tuple[int, int]]:
     return sorted(out, reverse=True)
 
 
+def rglru_refine_space(n: Node, hw, cfg) -> List[Tuple[int, int]]:
+    """The winner's lane width and its neighbours in ``LANES`` whose
+    shared memory fits, each with half, the same and twice the winning
+    chunks, as the plan makes them."""
+    lanes, chunks = int(cfg[0]), int(cfg[1])
+    i = LANES.index(lanes)
+    out = []
+    for width in LANES[max(0, i - 1):i + 2]:
+        if static_smem_bytes(width) > hw.smem_bytes:
+            continue
+        for c in (max(1, chunks // 2), chunks, 2 * chunks):
+            p = node_plan(n, hw, width, min(c, MAX_CHUNKS))
+            out.append((p.lanes, p.chunks))
+    return out
+
+
 def _rglru_impl(n: Node, vals: Sequence[torch.Tensor],
                 backend: "registry.Backend") -> torch.Tensor:
     cfg = n.attrs.get(ATTR)
@@ -82,6 +98,6 @@ def _supports(n: Node) -> bool:
 registry.register_shared_impl(
     OpKind.RGLRU_SCAN, _rglru_impl, name="cuda.rglru_scan",
     requires=("cuda",), supports=_supports,
-    tunable=Tunable(ATTR, rglru_tune_space))
+    tunable=Tunable(ATTR, rglru_tune_space, refine=rglru_refine_space))
 registry.register_reference_impl(
     OpKind.RGLRU_SCAN, _rglru_ref_impl, name="ref.rglru_scan")

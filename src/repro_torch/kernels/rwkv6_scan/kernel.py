@@ -81,15 +81,16 @@ def rwkv6_plan(b: int, t: int, h: int, hd: int, itemsize: int,
     where even that does not.  A chunk longer than a tile is staged a
     tile at a time.  Every step lies in exactly one chunk.  The staged
     rows are f32 in every storage type, so ``itemsize`` changes only the
-    loads, not the plan.  ``chunk`` (a tuned config's: a multiple of
-    ``STEP`` up to ``MAX_CHUNK``, or at least T for one chunk) replaces
-    the plan's choice."""
-    if chunk and chunk < t and (chunk % STEP or chunk > MAX_CHUNK):
-        raise ValueError(f"rwkv6_plan: chunk {chunk} is neither a multiple "
-                         f"of {STEP} up to {MAX_CHUNK} nor all of T {t}")
+    loads, not the plan.  ``chunk`` (a tuned config's) replaces the plan's
+    choice: at least T is one chunk, and a shorter one is rounded down to
+    a multiple of ``STEP`` within [``STEP``, ``MAX_CHUNK``], so a config
+    measured at another T of the cache bucket (one chunk of 40 steps, say,
+    pinned at T = 45) still plans."""
     n = head_threads(hd)
     cap = max_tile(hd)
     want = BLOCKS_PER_SM * max(1, sm_count)
+    if chunk and chunk < t:
+        chunk = max(STEP, min(MAX_CHUNK, chunk // STEP * STEP))
     if chunk:
         chunk = min(chunk, max(t, 1))
     elif b * h >= want or t <= cap:

@@ -57,6 +57,14 @@ def rwkv6_tune_space(n: Node, hw) -> List[Tuple[int]]:
     return sorted({(p.chunk,) for p in plans if p.smem <= hw.smem_bytes})
 
 
+def rwkv6_refine_space(n: Node, hw, cfg) -> List[Tuple[int]]:
+    """Half and twice the winning chunk, as the plan makes them (a
+    multiple of ``STEP`` up to ``MAX_CHUNK``, or all of T)."""
+    c = int(cfg[0])
+    plans = [node_plan(n, hw, x) for x in (max(1, c // 2), 2 * c)]
+    return [(p.chunk,) for p in plans if p.smem <= hw.smem_bytes]
+
+
 def _rwkv6_impl(n: Node, vals: Sequence[torch.Tensor],
                 backend: "registry.Backend") -> torch.Tensor:
     cfg = n.attrs.get(ATTR)
@@ -76,6 +84,6 @@ def _supports(n: Node) -> bool:
 registry.register_shared_impl(
     OpKind.RWKV6_SCAN, _rwkv6_impl, name="cuda.rwkv6_scan",
     requires=("cuda",), supports=_supports,
-    tunable=Tunable(ATTR, rwkv6_tune_space))
+    tunable=Tunable(ATTR, rwkv6_tune_space, refine=rwkv6_refine_space))
 registry.register_reference_impl(
     OpKind.RWKV6_SCAN, _rwkv6_ref_impl, name="ref.rwkv6_scan")

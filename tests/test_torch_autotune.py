@@ -8,6 +8,7 @@ coefficients within 1e-9 relative), ``core.measure`` (min and mean,
 restored attrs, the unpin on a raise) and the ``autotune`` driver end to
 end.  On the CPU every kernel impl runs its plain version, so no test here
 asserts which impl wins by timing."""
+import importlib.util
 import json
 import os
 import subprocess
@@ -57,6 +58,16 @@ from test_torch_pipeline import IMPL_MAP, _programs, models
 
 ROOT = Path(__file__).resolve().parents[1]
 HW = get_backend("h100").hw
+
+
+def _chip_smoke():
+    """``chip_smoke.py``, loaded from the checkout: it holds the plain
+    version every tunable config is held against on the card."""
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 @pytest.fixture(autouse=True)
@@ -466,8 +477,8 @@ def test_rwkv6_configs_cover_every_step_once(b, t, h, hd, dtype):
         assert (_cover(t, [(c * chunk, (c + 1) * chunk)
                            for c in range(p.chunks)]) == 1).all()
         assert (p.chunks - 1) * chunk < max(t, 1)
-    with pytest.raises(ValueError):
-        rw_k.rwkv6_plan(b, 600, h, hd, 4, chunk=20)
+    # a chunk that is neither all of T nor a legal cut rounds down to one
+    assert rw_k.rwkv6_plan(b, 600, h, hd, 4, chunk=20).chunk == rw_k.STEP
 
 
 @pytest.mark.parametrize("shape", [(64, 32, 222, 222), (64, 64, 109, 109),
@@ -487,6 +498,120 @@ def test_avgpool_configs_cover_every_output_once(shape, dtype):
                             for i in range(p.tiles)]) == 1).all()
         assert p.groups * p.group_rows >= p.rows
         assert p.tx * p.cols_per_thread >= p.cols
+
+
+
+def _planned(impl_name: str, node, cfg):
+    """The config the kernel runs with ``cfg`` pinned on ``node``, read
+    off its plan, which must be legal at the node's shapes (raises
+    otherwise)."""
+    if impl_name in ("cuda.matmul", "cuda.linear"):
+        p = mm_ops.node_plan(node, HW, cfg[0])
+        assert (p.splits - 1) * p.k_chunk < autotune.node_shape(node)[1]
+        return (p.splits,)
+    if impl_name == "cuda.decode_attention":
+        p = dec_ops.node_plan(node, HW, cfg[0])
+        itemsize = 4 if node.spec.dtype == "float32" else 2
+        assert p.splits <= dec_k.MAX_SPLITS
+        assert p.chunk % dec_k.tile_rows(node.spec.shape[-1], itemsize) == 0
+        return (p.splits,)
+    if impl_name == "cuda.flash_attention":
+        assert cfg in fa_ops.attn_tune_space(node, HW)
+        return tuple(cfg)
+    if impl_name == "cuda.dfp_fused":
+        rows, d = int(np.prod(node.spec.shape[:-1])), node.spec.shape[-1]
+        br, bd, _ = dfp_k.block_shape(rows, d, cfg[0])
+        assert 4 * br * bd <= HW.smem_bytes
+        prog, _ = tprogram.encode_program(
+            node, {id(i): i.spec for i in node.inputs})
+        segs = dfp_ops.segments(prog, cfg[1])
+        assert all("full" in seg.operand_kinds for seg, _ in segs)
+        return (br, cfg[1])
+    if impl_name == "cuda.rglru_scan":
+        p = rg_ops.node_plan(node, HW, *cfg)
+        assert p.chunks <= rg_k.MAX_CHUNKS and p.chunks % (32 // p.lanes) == 0
+        assert rg_k.static_smem_bytes(p.lanes) <= HW.smem_bytes
+        return (p.lanes, p.chunks)
+    if impl_name == "cuda.rwkv6_scan":
+        p = rw_ops.node_plan(node, HW, cfg[0])
+        t = node.spec.shape[1]
+        assert p.chunk >= t or (p.chunk % rw_k.STEP == 0
+                                and p.chunk <= rw_k.MAX_CHUNK)
+        assert p.smem <= HW.smem_bytes and (p.chunks - 1) * p.chunk < t
+        return (p.chunk,)
+    if impl_name == "cuda.avgpool":
+        p = avg_ops.node_plan(node, cfg[0])
+        assert p.smem <= HW.smem_bytes
+        return (p.rows,)
+    raise KeyError(impl_name)
+
+
+@pytest.mark.parametrize("impl_name", sorted(FAMILY_NODES))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_refine_space_configs_are_legal_plans(impl_name, dtype):
+    """Around every config of a family's space, the neighbourhood a
+    gap-driven planner would probe holds only configs the plan builds and
+    keeps as they are."""
+    R._load_entry_points()
+    tunable = R.get_impl(impl_name).tunable
+    node = drv._node(*FAMILY_NODES[impl_name], dtype)
+    for win in tunable.tune_space(node, HW):
+        for cfg in tunable.refine_space(node, HW, win):
+            assert _planned(impl_name, node, cfg) == cfg, (win, cfg)
+
+
+# a family's config measured at the first shape is pinned by the election at
+# the second (the same cache bucket) and the third (the nearest bucket)
+PIN_CASES = [
+    ("cuda.linear", "linear", (512, 1536, 6144), (560, 1700, 6000),
+     (4, 1536, 6144)),
+    ("cuda.matmul", "matmul", (512, 1536, 1536), (480, 1600, 1500),
+     (4, 1536, 1536)),
+    ("cuda.flash_attention", "attention", (4, 128, 12, 2, 128),
+     (4, 100, 12, 2, 128), (4, 256, 12, 2, 128)),
+    ("cuda.decode_attention", "decode_attention", (4, 128, 12, 2, 128),
+     (4, 100, 12, 2, 128), (4, 256, 12, 2, 128)),
+    ("cuda.dfp_fused", "fused", (512, 6144), (600, 7000), (4, 1536)),
+    ("cuda.rglru_scan", "rglru_scan", (4, 512, 4096), (4, 600, 5000),
+     (4, 1024, 4096)),
+    ("cuda.rwkv6_scan", "rwkv6_scan", (4, 512, 32, 64), (4, 600, 32, 64),
+     (4, 1024, 32, 64)),
+    ("cuda.rwkv6_scan", "rwkv6_scan", (32, 40, 32, 64), (32, 45, 32, 64),
+     (32, 100, 32, 64)),
+    ("cuda.rwkv6_scan", "rwkv6_scan", (32, 512, 32, 64), (32, 600, 32, 64),
+     (32, 1024, 32, 64)),
+    ("cuda.avgpool", "avgpool", (64, 32, 222, 222), (64, 32, 200, 250),
+     (64, 64, 109, 109)),
+]
+
+
+@pytest.mark.parametrize("impl_name,op,at,same,near", PIN_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_pinned_configs_plan_across_the_bucket(impl_name, op, at, same, near,
+                                               dtype):
+    """Every config measured at one shape, pinned by a measured election
+    on another shape of its bucket or on one whose nearest bucket it is,
+    builds a legal plan there."""
+    R._load_entry_points()
+    impl = R.get_impl(impl_name)
+    nodes = [drv._node(op, shape, dtype) for shape in (at, same, near)]
+    key, same_key, near_key = (bucket_shape(autotune.node_shape(n))
+                               for n in nodes)
+    assert same_key == key != near_key
+    space = impl.tunable.tune_space(nodes[0], HW)
+    assert space
+    cache = AutotuneCache()
+    cache.record(impl.op.value, autotune.node_shape(nodes[0]), dtype, "h100",
+                 impl_name, 1.0, config=space[-1])
+    for node, where in ((nodes[1], "exact"), (nodes[2], "nearest")):
+        hit, conf = cache.lookup_with_confidence(
+            impl.op.value, autotune.node_shape(node), dtype, "h100")
+        assert conf == where and hit[impl_name].config == space[-1]
+        for cfg in space:       # whichever of them won
+            _planned(impl_name, node, cfg)
+            impl.tunable.bind_config(node, cfg)
+            assert impl.admissible(get_backend("h100"), node)
+            impl.tunable.bind_config(node, None)
 
 
 # -- measured election ----------------------------------------------------------
@@ -562,7 +687,7 @@ def test_pinned_configs_execute_and_match_the_reference():
     for impl_name, (op, _shape) in FAMILY_NODES.items():
         node, vals = drv._build(op, drv.TINY_SHAPES[op][0], device="cpu")
         impl = R.get_impl(impl_name)
-        want = drv.plain_version(node, vals)
+        want = _chip_smoke().plain_version(node, vals)
         for cfg in impl.tunable.tune_space(node, HW):
             impl.tunable.bind_config(node, cfg)
             got = impl.fn(node, vals, backend)
@@ -846,5 +971,5 @@ def test_plain_version_equals_the_reference_impl(op):
     ref = get_backend("torch_ref").resolve(node)
     assert ref.name.startswith("ref.")
     want = ref.fn(node, vals, get_backend("torch_ref"))
-    torch.testing.assert_close(drv.plain_version(node, vals), want,
+    torch.testing.assert_close(_chip_smoke().plain_version(node, vals), want,
                                rtol=1e-5, atol=1e-5)

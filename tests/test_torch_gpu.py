@@ -937,6 +937,18 @@ CONFIG_CASES = [
 ]
 
 
+def _chip_smoke():
+    """``chip_smoke.py``, loaded from the checkout: it holds the plain
+    version every tunable config is held against."""
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("op,shape", CONFIG_CASES)
 def test_every_tunable_config_matches_plain(dev, op, shape, dtype):
@@ -950,7 +962,7 @@ def test_every_tunable_config_matches_plain(dev, op, shape, dtype):
                 if i.name.startswith("cuda."))
     space = impl.tunable.tune_space(node, backend.hw)
     assert space
-    want = drv.plain_version(node, vals)
+    want = _chip_smoke().plain_version(node, vals)
     for cfg in space:
         impl.tunable.bind_config(node, cfg)
         try:
