@@ -7,7 +7,8 @@ Qwen2-1.5B attention width through ``SolServer``, runs the Griffin and
 RWKV6 block stacks at full width and three CNNs at ImageNet resolution
 through ``optimize()``, runs the transformer, both stacks and the Listing-3
 CNN again in bf16, serves the transformer once more under a strict
-measured-provenance audit, and checks every path against the plain path.
+measured-provenance audit, ranks the measured kernels by their distance
+from the card's bound, and checks every path against the plain path.
 
     python3 chip_smoke.py          # one CUDA card, run from the repo root
 
@@ -128,6 +129,21 @@ Phases, each failing loudly:
    reported); tokens/s beside phases 3 and 4.  Then the driver's ``tune``
    at the bf16 transformer's products (phase 7's shapes) prints which impl
    measurement elects there, with no gate on the winner.
+9. SOL — on phase 8's measurements (the serve's cache and the bf16
+   tune's): (a) every cell's fastest impl ranked by measured ÷ bound
+   (``repro_torch.core.sol``, the bound at the peak of the unit that runs
+   the impl), printed as ``[sol]`` lines; a non-finite ratio fails, and so
+   does a ratio below 1.0 with more bytes than the 50 MB L2 (smaller ones
+   are printed as L2-warm); (b) ``impl_report(sol=True)`` of every served
+   prefill and decode bucket model, where every LINEAR, MATMUL, ATTENTION
+   and DECODE_ATTENTION row must be measured on its exact bucket; (c) the
+   gap-driven planner (``refine_plan``, top 3 cells, 2 rounds, 24 configs)
+   with the real measure, each config it records held to the plain
+   version at phase 2's tolerance; (d) the port's benchmark tables
+   (``repro_torch.benchmarks.run`` effort, inference, layouts, matmul,
+   serving and sol, into ``chiprun_out/BENCH_torch*.json``) must return 0,
+   and ``serve_rows`` serves phase 3's model at full width: phase 3's four
+   prompts and three more sets of their lengths, ``GEN`` tokens each.
 
 The second-to-last lines are the card's ``nvidia-smi`` line and a JSON
 ``kernels`` line (an entry per kernel in f32, and one per kernel in bf16
@@ -181,10 +197,6 @@ HALF_TOL = {"bfloat16": (2.0 ** -7, 1e-4), "float16": (2.0 ** -10, 1e-4)}
 # band heights the plans sweep forces on both Listing-3 pools
 AVGPOOL_SWEEP = (4, 8, 16, 24, 32, 48, 64)
 
-PEAK_F32 = 67e12        # FLOP/s, f32 outside the tensor cores (H100 SXM)
-PEAK_3XTF32 = 495e12 / 3    # FLOP/s, f32-accurate products as 3 TF32 passes
-PEAK_16BIT = 989e12     # FLOP/s, bf16 and f16 products on the tensor cores
-HBM = 3.35e12           # bytes/s
 
 FULL = dict(d_model=1536, n_heads=12, n_kv_heads=2, n_layers=28,
             vocab=151936, max_seq=256, max_batch=4, slots=8)
@@ -249,10 +261,18 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> dict:
     return {"device": device, "launch": start.elapsed_time(end) / iters}
 
 
-def bound(flops: float, nbytes: float, peak: float = PEAK_F32):
-    t_ops, t_bytes = flops / peak, nbytes / HBM
-    return (1e3 * max(t_ops, t_bytes),
-            "operations" if t_ops >= t_bytes else "bytes")
+def bound(flops: float, nbytes: float, unit: str = "simt"):
+    """(ms, "operations" or "bytes"): the roofline bound of the work on
+    this card, through ``repro_torch.core.sol`` on the card's spec, its
+    operations at the peak of ``unit`` (``registry.UNITS``: 67 TFLOP/s
+    SIMT f32, 165 3xTF32, 989 for the 16-bit tensor cores on the SXM
+    card), its bytes over 3.35 TB/s."""
+    import torch
+    from repro_torch.backends import h100_spec
+    from repro_torch.core.sol import sol_bound_us
+    us, dom = sol_bound_us(h100_spec(torch.cuda.get_device_name(0)), flops,
+                           nbytes, unit)
+    return 1e-3 * us, "operations" if dom == "compute" else "bytes"
 
 
 def max_err(a, b) -> float:
@@ -272,7 +292,7 @@ def phase_kernels(gen) -> dict:
     shape per kernel.  A half-precision row runs the same random values rounded
     to its storage type, counts bytes at the storage size, and takes a
     tensor-core matmul row's operations at the 16-bit tensor cores' rate
-    (PEAK_16BIT); its library call runs in the same dtype.  Each row
+    (``tensor16``); its library call runs in the same dtype.  Each row
     carries its ``node_key``."""
     import torch
     import torch.nn.functional as F
@@ -285,8 +305,10 @@ def phase_kernels(gen) -> dict:
     from repro_torch.kernels.dfp_fused.ref import dfp_fused_ref
     from repro_torch.kernels.flash_attention.kernel import \
         flash_attention_cuda
+    from repro_torch.kernels.flash_attention.ops import attn_unit
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     from repro_torch.kernels.matmul.kernel import matmul_cuda, plan
+    from repro_torch.kernels.matmul.ops import mm_unit
     from repro_torch.kernels.matmul.ref import matmul_ref
     from repro_torch.kernels.rglru_scan.kernel import (rglru_plan,
                                                        rglru_scan_cuda)
@@ -316,12 +338,12 @@ def phase_kernels(gen) -> dict:
     cases = []
 
     def record(name, shape, err, fn, plain, library, flops, nbytes,
-               replaces, source, route, key, on_path=True, peak=PEAK_F32,
+               replaces, source, route, key, on_path=True, unit="simt",
                extra=None, dtype="float32", within=None):
         t = {"": time_ms(fn), "plain_": time_ms(plain)}
         if library is not None:
             t["library_"] = time_ms(library)
-        b_ms, b_by = bound(flops, nbytes, peak)
+        b_ms, b_by = bound(flops, nbytes, unit)
         tol = KERNEL_TOL[name] if within is None else HALF_TOL[dtype]
         row = {"name": name, "dtype": dtype, "shape": shape, "route": route,
                "source": source, "replaces": replaces, "max_abs_err": err,
@@ -349,9 +371,9 @@ def phase_kernels(gen) -> dict:
         cases.append(row)
 
     # matmul: (M, K) @ (K, N); 'oi' cases read an (N, K) weight transposed.
-    # Each row names the kernel its plan picks, and its bound takes that
-    # kernel's peak: on the tensor cores 3xTF32 (f32) or 16-bit wgmma
-    # (bf16, f16), else f32 outside them
+    # Each row names the kernel its plan picks, and its bound takes the
+    # impl's unit (``mm_unit``), that kernel's: on the tensor cores 3xTF32
+    # (f32) or 16-bit wgmma (bf16, f16), else f32 outside them
     def matmul_case(m, k, n, oi, label="", rtol=None, dt="float32"):
         x = randn(m, k, dt=dt)
         w = (randn(n, k, scale=k ** -0.5, dt=dt).T if oi
@@ -364,15 +386,12 @@ def phase_kernels(gen) -> dict:
         size = x.element_size()
         p = plan(m, n, k, x.stride(0), w.stride(0), w.stride(1),
                  x.data_ptr(), w.data_ptr(), itemsize=size)
-        peak = PEAK_F32
-        if p.kernel == "tensor_core":
-            peak = PEAK_3XTF32 if dt == "float32" else PEAK_16BIT
         shape = f"{m}x{k}x{n}{' (out,in)' if oi else ''}{label}"
         record("matmul", shape, err, lambda: matmul_cuda(x, w),
                lambda: matmul_ref(x, w), lambda: torch.matmul(x, w),
                2.0 * m * k * n, float(size) * (m * k + k * n + m * n),
                "src/repro/kernels/matmul/kernel.py:85", csrc + "matmul.cu",
-               "cuda", ("matmul", m, k, n, oi), peak=peak,
+               "cuda", ("matmul", m, k, n, oi), unit=mm_unit((m, k, n), dt),
                extra={"kernel": p.kernel, "splits": p.splits, "vec": p.vec,
                       "rel_err": rel}, dtype=dt, within=within)
         if rtol is not None and not rel <= rtol:
@@ -421,7 +440,7 @@ def phase_kernels(gen) -> dict:
                "src/repro/kernels/flash_attention/kernel.py:82",
                csrc + "flash_attention.cu", "cuda",
                ("flash_attention", b, s, h, kv, hd, causal, window, cap),
-               peak=PEAK_16BIT if half else PEAK_3XTF32,
+               unit=attn_unit(None, dt),
                extra={"units": "16-bit mma.sync" if half
                       else "3xTF32 mma.sync"}, dtype=dt, within=within)
 
@@ -1257,7 +1276,7 @@ def dfp_in_path(sol, breakdown: dict, label: str) -> dict:
     for n in groups:
         by_program[n.name] = by_program.get(n.name, 0) + 1
     out = {"groups": len(groups), "by_program": by_program,
-           "bound_ms": 1e3 * nbytes / HBM,
+           "bound_ms": bound(0.0, nbytes)[0],
            "family_ms": breakdown.get("device_ms_by_family", {}).get(
                "dfp_fused")}
     if out["family_ms"]:
@@ -2304,10 +2323,12 @@ def measured_table(cache, tag: str) -> list:
 
 
 def phase_measured_serve(torch, counters, dev, serve, serve_ref,
-                         bf16_products) -> dict:
+                         bf16_products):
     """Phase 3's model and requests on a strict measured-provenance server,
     with a fresh autotune cache installed for the phase (the cold cache of
-    phases 3 and 5-7 comes back in a ``finally``)."""
+    phases 3 and 5-7 comes back in a ``finally``).  Returns what phase 9
+    reads (the serve's cache, the bf16 tune's cache and the served bucket
+    models) and the phase's record."""
     import numpy as np
     from repro_torch.backends import h100_spec, registry
     from repro_torch.benchmarks import autotune as drv
@@ -2328,7 +2349,8 @@ def phase_measured_serve(torch, counters, dev, serve, serve_ref,
         counts = server.warm_autotune(warmup=MEASURE_WARMUP,
                                       iters=MEASURE_ITERS)
         warm_s = time.perf_counter() - t0
-        table = measured_table(AT.get_cache(), "serve")
+        cache = AT.get_cache()
+        table = measured_table(cache, "serve")
         log(f"[measured] warm_autotune: {counts['impls']} impl timings "
             f"over {counts['nodes']} (op, shape) keys of {counts['graphs']} "
             f"programs in {warm_s:.1f} s")
@@ -2454,13 +2476,15 @@ def phase_measured_serve(torch, counters, dev, serve, serve_ref,
     finally:
         AT.set_cache(prev)
     phase_s = time.perf_counter() - t_phase
+    state = {"cache": cache, "bf16_cache": bf16_cache,
+             "models": dict(server._models)}
     wins = {}
     for row in table + bf16_table:
         k = (row["op"], row["dtype"], row["winner"])
         wins[k] = wins.get(k, 0) + 1
     log(f"[measured] winners by (op, dtype, impl): {wins}; phase 8 took "
         f"{phase_s:.1f} s (warm {warm_s:.1f} s, bf16 tune {bf16_s:.1f} s)")
-    return {"warm": counts, "warm_s": warm_s, "first_pass_s": first_s,
+    return state, {"warm": counts, "warm_s": warm_s, "first_pass_s": first_s,
             "table": table, "bf16_table": bf16_table, "by_kind": by_kind,
             "buckets": served, "launches": launches,
             "pinned_held": [{"key": k[0], "config": k[1], "max_abs_err": e}
@@ -2471,6 +2495,136 @@ def phase_measured_serve(torch, counters, dev, serve, serve_ref,
             "phase4_tokens_per_s": serve["torch_ref"]["tokens_per_s"],
             "dmas": summary["dmas"], "forwards": summary["forwards"],
             "phase_s": phase_s, "bf16_tune_s": bf16_s}
+
+
+# ---------------------------------------------------------------------------
+# phase 9: SOL gap analysis on phase 8's measurements
+# ---------------------------------------------------------------------------
+
+# the H100's L2: a measurement below its bound is possible only where the
+# operands fit it (phase 8 times with a warm L2), so a row under 1.0 that
+# moves more bytes than this means a count or a peak is wrong
+L2_BYTES = 50 * 1024 ** 2
+SOL_KINDS = ("linear", "matmul", "attention", "decode_attention")
+# serve_rows at full width: phase 3's prompts (seed 7) and three more sets
+# of the same lengths, GEN new tokens each: 16 requests, 256 tokens
+SERVE_ROWS_SEEDS = (7, 8, 9, 10)
+
+
+def phase_sol(torch, dev, state) -> dict:
+    """(a) the ranked SOL table of phase 8's caches (the serve's and the
+    bf16 tune's), (b) ``impl_report(sol=True)`` of every served prefill and
+    decode bucket model, (c) the gap-driven planner with the real measure,
+    each config it records held to the plain version, (d) the port's
+    benchmark tables on the card and ``serve_rows`` at phase 3's width."""
+    from repro_torch.backends import h100_spec
+    from repro_torch.benchmarks import autotune as drv
+    from repro_torch.benchmarks import run as bench_run
+    from repro_torch.benchmarks.serving import serve_rows
+    from repro_torch.core import autotune as AT
+    from repro_torch.core import sol as SOL
+
+    t_phase = time.perf_counter()
+    hw = h100_spec(torch.cuda.get_device_name(0))
+    cache = AT.AutotuneCache()
+    for part in (state["cache"], state["bf16_cache"]):
+        for (op, dt, bk), bucket, impl, m in part.entries():
+            cache.record(op, bucket, dt, bk, impl, m.us, config=m.config,
+                         flops=m.flops, nbytes=m.nbytes, mean_us=m.mean_us)
+
+    # (a) every cell's fastest impl, worst gap first
+    ranked = SOL.rank(SOL.cache_rows(cache, best_only=True, device=dev))
+    for line in SOL.render(ranked).splitlines():
+        log(f"[sol] {line}")
+    warm = []
+    for r in ranked:
+        cell = f"{r.op} {r.dtype} {'x'.join(map(str, r.bucket))} {r.impl}"
+        if not math.isfinite(r.ratio):
+            fail(f"phase 9: {cell} has a non-finite SOL ratio {r.ratio}")
+        if r.ratio < 1.0:
+            if r.nbytes > L2_BYTES:
+                fail(f"phase 9: {cell} reads {r.us:.2f} µs under its bound "
+                     f"{r.bound_us:.2f} µs with {r.nbytes:.3g} bytes, more "
+                     f"than the L2 holds: a count or a peak is wrong")
+            warm.append(cell)
+    log(f"[sol] {len(ranked)} cells; below their bound, L2-warm (operands "
+        f"within the {L2_BYTES >> 20} MB L2): {warm or 'none'}")
+
+    # (b) the served bucket models, each node read from its exact bucket
+    prev = AT.get_cache()
+    AT.set_cache(state["cache"])
+    reports = {}
+    try:
+        for key, model in sorted(state["models"].items()):
+            if key[0] not in ("prefill", "decode"):
+                continue
+            rows = model.impl_report(sol=True)
+            bad = [r for r in rows if r["op"] in SOL_KINDS
+                   and (r["source"], r["confidence"]) != ("measured",
+                                                          "exact")]
+            if bad:
+                fail(f"phase 9: bucket {key} reports {len(bad)} served "
+                     f"node(s) not measured on their exact bucket, e.g. "
+                     f"{bad[0]}")
+            top = rows[0]
+            log(f"[sol] impl_report(sol=True) {key}: {len(rows)} nodes; "
+                f"worst {top['node']} {top['impl']} {top['us']:.2f} µs / "
+                f"bound {top['bound_us']:.3f} ({top['unit']}) = ratio "
+                f"{top['ratio']:.2f}")
+            reports[str(key)] = rows
+    finally:
+        AT.set_cache(prev)
+
+    # (c) the planner on the worst cells, with the real measure
+    plans = drv.refine_plan(cache, "h100", top_k=3, rounds=2, budget=24,
+                            device=dev)
+    gen = torch.Generator(dev).manual_seed(9)
+    held = []
+    for rep in plans:
+        for cfg in rep["recorded"]:
+            node, _ = drv._build(rep["op"], rep["bucket"], rep["dtype"], dev)
+            node.impl = rep["refined_impl"]
+            held.append({"cell": [rep["op"], rep["dtype"], rep["bucket"]],
+                         "config": cfg, "max_abs_err": hold_config(
+                             torch, node, node_operands(torch, node, gen),
+                             hw, cfg)})
+        log(f"[sol] plan {rep['op']} {rep['dtype']} "
+            f"{'x'.join(map(str, rep['bucket']))}: {rep['impl']} "
+            f"{rep['before_us']:.2f} → {rep['after_us']:.2f} µs, ratio "
+            f"{rep['before_ratio']:.2f} → {rep['after_ratio']:.2f} (bound "
+            f"{rep['bound_us']:.3f} µs); refined {rep['refined_impl']} over "
+            f"{rep['rounds']} round(s), {rep['configs_measured']} configs, "
+            f"config {rep['config']}, recorded {rep['recorded']}, outside "
+            f"the space {rep['outside_space']}, rewrite candidate "
+            f"{rep['rewrite_candidate']}"
+            + (f"; {rep['note']}" if rep["note"] else ""))
+    log(f"[sol] {len(held)} recorded config(s) held to the plain version: "
+        + (", ".join(f"{h['cell']} {h['config']} {h['max_abs_err']:.3g}"
+                     for h in held) or "none"))
+
+    # (d) the benchmark tables on the card, and the serving rows at full
+    # width on phase 3's model
+    t0 = time.perf_counter()
+    rc = bench_run.main(["effort", "inference", "layouts", "matmul",
+                         "serving", "sol", "--json",
+                         str(OUT_DIR / "BENCH_torch.json")])
+    if rc != 0:
+        fail(f"phase 9: repro_torch.benchmarks.run returned {rc}")
+    tables_s = time.perf_counter() - t0
+    model, cfg = serve_model(torch, dev)
+    workload = [(p, GEN) for seed in SERVE_ROWS_SEEDS
+                for p in _workload(cfg.vocab, seed)]
+    t0 = time.perf_counter()
+    full = serve_rows(cfg=cfg, model=model, workload=workload, device=dev)
+    for name, us, derived in full:
+        log(f"[sol] serve_rows at full width: {name} {us:.1f} µs {derived}")
+    phase_s = time.perf_counter() - t_phase
+    log(f"[sol] phase 9 took {phase_s:.1f} s (tables {tables_s:.1f} s, "
+        f"full-width serve_rows {time.perf_counter() - t0:.1f} s)")
+    return {"cells": [r.to_json() for r in ranked], "l2_warm": warm,
+            "impl_reports": reports, "plans": plans, "plans_held": held,
+            "serve_rows_full": full, "tables_s": tables_s,
+            "phase_s": phase_s}
 
 
 def main() -> int:
@@ -2547,8 +2701,10 @@ def main() -> int:
                       cnn, held)
     gc.collect()
     torch.cuda.empty_cache()
-    measured = phase_measured_serve(torch, counters, torch.device("cuda"),
-                                    serve, serve_ref, kern["bf16_products"])
+    measured_state, measured = phase_measured_serve(
+        torch, counters, torch.device("cuda"), serve, serve_ref,
+        kern["bf16_products"])
+    sol = phase_sol(torch, torch.device("cuda"), measured_state)
 
     # launches per main path: the served set and one forward of each stack
     # and each CNN in f32; the bf16 paths' runs for the bf16 entries
@@ -2588,7 +2744,7 @@ def main() -> int:
          "kernels": kern["cases"], "plans": kern["plans"],
          "serve": serve,
          "recurrent": recurrent, "cnn": cnn, "bf16": bf16,
-         "measured_serve": measured,
+         "measured_serve": measured, "sol": sol,
          "seconds": time.perf_counter() - t_start},
         indent=1, default=str))
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")

@@ -17,14 +17,25 @@ Two backends: ``torch_ref`` (capabilities ``{"torch"}``, the reference tier
 only — the counterpart of ``xla``; it runs wherever its tensors are) and
 ``h100`` (``{"torch", "cuda"}`` — the counterpart of ``pallas_tpu``).
 Backward (grad) tables come with the training slice.
+
+Peaks by unit.  The election costs every FLOP at the bf16 tensor-core
+peak, as the JAX package does (``HardwareSpec.compute_s``'s default unit),
+so elections equal its elections.  A speed-of-light bound
+(``core.sol``) takes each FLOP at the peak of the unit that runs it
+(:data:`UNITS`): each :class:`Impl` says which unit runs a node.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
-from ..core.autotune import Tunable
+from ..core.autotune import Tunable, node_shape
 from ..core.ir import Node, OpKind
+
+# the compute units a node's FLOPs can run on: f32 outside the tensor cores,
+# f32-accurate products as three TF32 passes, and bf16/f16 tensor cores
+UNITS = ("simt", "tf32x3", "tensor16")
+HALF_DTYPES = ("bfloat16", "float16")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,6 +48,7 @@ class HardwareSpec:
     name: str
     peak_flops_bf16: float        # FLOP/s, dense tensor cores
     peak_flops_f32: float         # FLOP/s, f32 outside the tensor cores
+    peak_flops_tf32: float        # FLOP/s, dense TF32 tensor cores
     hbm_bandwidth: float          # bytes/s
     link_bandwidth: float         # bytes/s per NVLink direction
     hbm_bytes: int                # device memory
@@ -45,8 +57,20 @@ class HardwareSpec:
     warp: int = 32                # threads per warp
     sms: int = 132                # streaming multiprocessors
 
-    def compute_s(self, flops: float) -> float:
-        return flops / self.peak_flops_bf16
+    def peak_flops(self, unit: str) -> float:
+        """The peak FLOP/s of one of :data:`UNITS`."""
+        if unit == "simt":
+            return self.peak_flops_f32
+        if unit == "tf32x3":
+            return self.peak_flops_tf32 / 3.0
+        if unit == "tensor16":
+            return self.peak_flops_bf16
+        raise ValueError(f"unknown compute unit {unit!r}; have {UNITS}")
+
+    def compute_s(self, flops: float, unit: str = "tensor16") -> float:
+        """FLOPs over the peak of ``unit``; by default the bf16 peak (the
+        election's cost, the JAX package's)."""
+        return flops / self.peak_flops(unit)
 
     def memory_s(self, nbytes: float) -> float:
         return nbytes / self.hbm_bandwidth
@@ -55,30 +79,39 @@ class HardwareSpec:
         return nbytes / self.link_bandwidth
 
     def roofline_s(self, flops: float, nbytes: float,
-                   link_bytes: float = 0.0) -> float:
-        """Time lower bound: the dominant of compute / memory / links."""
-        return max(self.compute_s(flops), self.memory_s(nbytes),
+                   link_bytes: float = 0.0,
+                   unit: str = "tensor16") -> float:
+        """Time lower bound: the dominant of compute (at ``unit``'s peak,
+        by default the bf16 peak) / memory / links."""
+        return max(self.compute_s(flops, unit), self.memory_s(nbytes),
                    self.collective_s(link_bytes))
 
 
-# NVIDIA H100 data sheet, dense rates.  SXM5: 989 TFLOP/s bf16, 67 TFLOP/s
-# f32 (no tensor cores), 3.35 TB/s HBM3, 80 GB, 132 SMs, 227 KiB of shared
-# memory per block, NVLink 900 GB/s (450 each way).
+# NVIDIA H100 data sheet, dense rates.  SXM5: 989 TFLOP/s bf16, 495 TF32,
+# 67 TFLOP/s f32 (no tensor cores), 3.35 TB/s HBM3, 80 GB, 132 SMs, 227 KiB
+# of shared memory per block, NVLink 900 GB/s (450 each way).
 H100_SXM = HardwareSpec(
     name="h100_sxm", peak_flops_bf16=989e12, peak_flops_f32=67e12,
-    hbm_bandwidth=3.35e12, link_bandwidth=450e9, hbm_bytes=80 * 1024 ** 3,
-    smem_bytes=227 * 1024, sms=132)
+    peak_flops_tf32=495e12, hbm_bandwidth=3.35e12, link_bandwidth=450e9,
+    hbm_bytes=80 * 1024 ** 3, smem_bytes=227 * 1024, sms=132)
 
-# PCIe card: 756 TFLOP/s bf16, 51 TFLOP/s f32, 2.0 TB/s HBM2e, 114 SMs.
+# PCIe card: 756 TFLOP/s bf16, 378 TF32, 51 TFLOP/s f32, 2.0 TB/s HBM2e,
+# 114 SMs.
 H100_PCIE = HardwareSpec(
     name="h100_pcie", peak_flops_bf16=756e12, peak_flops_f32=51e12,
-    hbm_bandwidth=2.0e12, link_bandwidth=300e9, hbm_bytes=80 * 1024 ** 3,
-    smem_bytes=227 * 1024, sms=114)
+    peak_flops_tf32=378e12, hbm_bandwidth=2.0e12, link_bandwidth=300e9,
+    hbm_bytes=80 * 1024 ** 3, smem_bytes=227 * 1024, sms=114)
 
 
 def h100_spec(device_name: str) -> HardwareSpec:
     """The spec matching a CUDA device name (PCIe values when it says so)."""
     return H100_PCIE if "pcie" in device_name.lower() else H100_SXM
+
+
+def library_unit(shape: Tuple[int, ...], dtype: str) -> str:
+    """The unit of a library product in its own dtype: bf16/f16 on the
+    tensor cores, f32 outside them (the port keeps TF32 off)."""
+    return "tensor16" if dtype in HALF_DTYPES else "simt"
 
 
 # ---------------------------------------------------------------------------
@@ -88,6 +121,10 @@ def h100_spec(device_name: str) -> HardwareSpec:
 # fn(node, vals, backend) -> Tensor; vals are the lowered inputs of the node
 # (for FUSED nodes: the side inputs, in node.inputs order).
 ImplFn = Callable[[Node, Sequence[Any], "Backend"], Any]
+# unit(shape, dtype) -> one of UNITS, from the node's autotune key shape
+# (``core.autotune.node_shape``) and dtype, so a cache entry's bucket and a
+# live node answer alike
+UnitFn = Callable[[Tuple[int, ...], str], str]
 
 TIER_BACKEND = 0      # backend-specific kernel
 TIER_SHARED = 1       # shared hand-written kernel (capability-gated)
@@ -109,6 +146,15 @@ class Impl:
     # 'roundtrip' impls materialize every intermediate
     memory: str = "streamed"
     tunable: Optional[Tunable] = None
+    unit: Optional[UnitFn] = None                # None: "simt"
+
+    def unit_at(self, shape: Optional[Tuple[int, ...]], dtype: str) -> str:
+        """The unit that runs this impl at a node's key shape and dtype."""
+        return self.unit(shape, dtype) if self.unit and shape else "simt"
+
+    def unit_of(self, node: Node) -> str:
+        """The unit that runs this impl on ``node``."""
+        return self.unit_at(node_shape(node), node.spec.dtype)
 
     def admissible(self, backend: "Backend", node: Node) -> bool:
         if self.backend is not None and self.backend != backend.name:
@@ -148,22 +194,24 @@ def register_shared_impl(op: OpKind, fn: ImplFn, *, name: str,
                          requires: Sequence[str] = (),
                          supports: Optional[Callable[[Node], bool]] = None,
                          memory: str = "streamed",
-                         tunable: Optional[Tunable] = None) -> Impl:
+                         tunable: Optional[Tunable] = None,
+                         unit: Optional[UnitFn] = None) -> Impl:
     """Register a shared kernel (tier 1), admitted for any backend whose
     capabilities cover ``requires``."""
     impl = _index(Impl(name, op, fn, TIER_SHARED,
                        requires=frozenset(requires), supports=supports,
-                       memory=memory, tunable=tunable))
+                       memory=memory, tunable=tunable, unit=unit))
     _SHARED_IMPLS.setdefault(op, []).insert(0, impl)
     return impl
 
 
 def register_reference_impl(op: OpKind, fn: ImplFn, *,
                             name: Optional[str] = None,
-                            memory: str = "streamed") -> Impl:
+                            memory: str = "streamed",
+                            unit: Optional[UnitFn] = None) -> Impl:
     """Register the always-available PyTorch reference (tier 2)."""
     impl = _index(Impl(name or f"ref.{op.value}", op, fn, TIER_REFERENCE,
-                       memory=memory))
+                       memory=memory, unit=unit))
     _REFERENCE_IMPLS[op] = impl
     return impl
 
@@ -287,8 +335,33 @@ def get_backend(name: str) -> Backend:
     return _REGISTRY[name]
 
 
+def set_layout_preference(name: str, *, linear: Optional[str] = None,
+                          conv: Optional[str] = None) -> Backend:
+    """Session-scoped layout override: re-register ``name`` with measured
+    layout winners (``repro_torch.benchmarks.layouts --apply``)."""
+    b = get_backend(name)
+    return register_backend(dataclasses.replace(
+        b,
+        linear_weight_layout=linear or b.linear_weight_layout,
+        conv_layout=conv or b.conv_layout))
+
+
 def available_backends() -> Dict[str, Backend]:
     return dict(_REGISTRY)
+
+
+def for_device(backend: Backend, device: Any) -> Backend:
+    """``backend`` with the spec of the H100 at ``device`` (PCIe values on
+    a PCIe card, by its name): where a server, a compiled graph and a SOL
+    bound on a CUDA device read the card's spec.  Off CUDA, or for a
+    backend whose spec is not an H100's, ``backend`` itself."""
+    if getattr(device, "type", None) != "cuda" or \
+            backend.hw not in (H100_SXM, H100_PCIE):
+        return backend
+    import torch
+    hw = h100_spec(torch.cuda.get_device_name(device))
+    return backend if hw == backend.hw else dataclasses.replace(backend,
+                                                                hw=hw)
 
 
 # The reference backend: every node runs as PyTorch ops on whatever device

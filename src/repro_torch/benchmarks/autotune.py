@@ -22,9 +22,13 @@ block config pinned (``attention_flip_proof``).  On the CPU every kernel
 impl runs its plain version, so the times say nothing about the card; the
 run checks the write → read → election round trip.
 
-The JAX driver's gap-driven ``refine_plan`` and its ``sol_rows`` table
-wait for the port's ``core/sol.py``; the backward sweep
-(``sweep_node_grad``) waits for the port's grad tables.
+``refine_plan`` is the gap-driven planner: it ranks the cache's cells by
+their SOL ratio (``core.sol``) and probes each worst cell's
+``Tunable.refine_space``; ``sol_rows`` (the ``sol`` table of
+``repro_torch.benchmarks.run``) tunes the tiny shapes, plans and ranks, and
+``matmul_rows`` (the ``matmul`` table) holds the matmul kernel to
+``torch.matmul``.  The backward sweep (``sweep_node_grad``) waits for the
+port's grad tables.
 """
 from __future__ import annotations
 
@@ -194,10 +198,11 @@ def tune(backend_name: str = "h100", ops: Sequence[str] = DEFAULT_OPS, *,
     times (with winning configs) into ``cache``.  ``shapes`` replaces the
     sweep's shapes (``SHAPES``, or ``TINY_SHAPES`` with ``tiny``).  Returns
     (name, µs, derived) rows."""
-    from ..backends import get_backend
+    from ..backends import for_device, get_backend
     from ..core.measure import sweep_node
 
-    backend = get_backend(backend_name)
+    device = resolve_device(device)
+    backend = for_device(get_backend(backend_name), device)
     cache = cache if cache is not None else AT.get_cache()
     table = shapes or (TINY_SHAPES if tiny else SHAPES)
     rows: List[Tuple[str, float, str]] = []
@@ -212,6 +217,224 @@ def tune(backend_name: str = "h100", ops: Sequence[str] = DEFAULT_OPS, *,
                     derived += ";best=" + "x".join(str(d) for d in m.config)
                 rows.append((f"autotune_{backend_name}_{dtype}_{op}_{tag}_"
                              f"{m.impl}", m.us, derived))
+    return rows
+
+
+def refine_plan(cache, backend_name: str, *, top_k: int = 4,
+                rounds: int = 3, budget: int = 32, min_gain: float = 0.05,
+                rewrite_ratio: float = 10.0, warmup: int = 1,
+                iters: int = 3, measure=None, device: DeviceLike = None
+                ) -> List[dict]:
+    """Gap-driven tuning planner: rank the cache's (op, bucket, dtype,
+    backend) cells by SOL ratio (``core.sol``) and spend the measurement
+    ``budget`` where the gap is worst.
+
+    For each of the ``top_k`` worst cells, the fastest impl that declares a
+    ``Tunable`` and holds a tuned config there (the winner, or the tunable
+    family a reference impl beats) has its ``refine_space`` probed around
+    its config for up to ``rounds`` rounds, re-centring on each improvement
+    and stopping when a round closes the gap by less than ``min_gain``
+    (relative).  Each improvement is recorded into ``cache`` (its config
+    also in the report's ``recorded``), so a later election pins it.  A cell
+    whose ratio stays above ``rewrite_ratio``, or that has nothing to
+    tune, is a ``rewrite_candidate``: no config in the family's
+    neighbourhood reaches the hardware, the kernel or its host path needs
+    work.
+
+    Probes run on a node rebuilt at the cell's bucket (``_build``), in the
+    cell's dtype, on ``device`` (the card unless the CPU is asked for).
+    The bucket is the served shape rounded to the nearest power of two, so
+    it may do less or more work than the shape the cache's time was taken
+    at: each round measures the incumbent config in the same call as its
+    probes, a probe wins only against that reading, and the cell's cached
+    time is scaled by the winner's relative gain before it is recorded
+    (with the cell's own roofline terms).
+    ``measure(node, vals, backend, impl, configs)`` is injectable for
+    tests; the default measures through ``core.measure.measure_impl_configs``
+    with per-config errors skipped.  Returns one report dict per cell."""
+    from ..backends import for_device, get_backend
+    from ..backends import registry as R
+    from ..core import sol as SOL
+    from ..core.measure import measure_impl_configs
+
+    dev = resolve_device(device)
+    backend = for_device(get_backend(backend_name), dev)
+    hw = backend.hw
+
+    if measure is None:
+        def measure(node, vals, bk, impl, configs):
+            return measure_impl_configs(node, vals, bk, impl, configs,
+                                        warmup=warmup, iters=iters,
+                                        skip_errors=True)
+
+    cells = [r for r in SOL.rank(SOL.cache_rows(
+        cache, backends=[backend_name], best_only=True, device=dev))
+        if r.ratio > 0.0]
+    reports: List[dict] = []
+    for row in cells[:top_k]:
+        rep = {"op": row.op, "bucket": row.bucket, "dtype": row.dtype,
+               "backend": row.backend, "impl": row.impl,
+               "before_us": row.us, "before_ratio": row.ratio,
+               "after_us": row.us, "after_ratio": row.ratio,
+               "bound_us": row.bound_us, "rounds": 0,
+               "configs_measured": 0, "config": row.config,
+               "refined_impl": None, "outside_space": False,
+               "rewrite_candidate": False, "recorded": [], "note": ""}
+        reports.append(rep)
+        target_impl, target_m = None, None
+        for impl_name, m in cache.lookup(row.op, row.bucket, row.dtype,
+                                         backend_name).items():
+            impl = R.get_impl(impl_name)
+            if impl is None or impl.tunable is None or m.config is None:
+                continue
+            if target_m is None or m.us < target_m.us:
+                target_impl, target_m = impl, m
+        if target_impl is None:
+            rep["note"] = "nothing to refine (no impl with a tuned config)"
+            rep["rewrite_candidate"] = row.ratio > rewrite_ratio
+            continue
+        try:
+            node, vals = _build(row.op, row.bucket, row.dtype, dev)
+        except KeyError:
+            rep["note"] = f"no synthetic builder for op {row.op!r}"
+            rep["rewrite_candidate"] = row.ratio > rewrite_ratio
+            continue
+        rep["refined_impl"] = target_impl.name
+        tun = target_impl.tunable
+        flops, nbytes = target_m.flops, target_m.nbytes
+        initial_space = set(tun.tune_space(node, hw))
+        seen = initial_space | {tuple(target_m.config)}
+        cur_us, cur_cfg = target_m.us, tuple(target_m.config)
+        cur_mean = target_m.mean_us
+        for _round in range(rounds):
+            if budget <= 0:
+                rep["note"] = "budget exhausted"
+                break
+            cfgs = [c for c in tun.refine_space(node, hw, cur_cfg)
+                    if c not in seen][:budget]
+            if not cfgs:
+                rep["note"] = rep["note"] or "neighbourhood exhausted"
+                break
+            budget -= len(cfgs)
+            seen |= set(cfgs)
+            results = [r for r in measure(node, vals, backend, target_impl,
+                                          [cur_cfg] + cfgs)
+                       if r.error is None]
+            rep["configs_measured"] += len(cfgs)
+            rep["rounds"] += 1
+            inc = next((r for r in results if tuple(r.config) == cur_cfg),
+                       None)
+            probes = [r for r in results if tuple(r.config) != cur_cfg]
+            if inc is None or not probes:
+                if inc is None:
+                    rep["note"] = "the incumbent config failed to measure"
+                break
+            best = min(probes, key=lambda r: r.us)
+            if best.us < inc.us * (1.0 - min_gain):
+                cur_us *= best.us / inc.us
+                if inc.mean_us > 0.0:
+                    cur_mean *= best.mean_us / inc.mean_us
+                cur_cfg = tuple(best.config)
+                cache.record(row.op, row.bucket, row.dtype, backend_name,
+                             target_impl.name, cur_us, config=cur_cfg,
+                             flops=flops, nbytes=nbytes, mean_us=cur_mean)
+                rep["recorded"].append(cur_cfg)
+            else:
+                break                     # the gap stopped closing
+        rep["config"] = cur_cfg
+        # the cell's election after refinement: the refined family takes
+        # it only where it now beats the previous winner, and then the
+        # cell's bound is its own (its unit's peak)
+        bound = row.bound_us
+        if cur_us < row.us:
+            rep["impl"] = target_impl.name
+            bound, _ = SOL.sol_bound_us(
+                hw, flops, nbytes, target_impl.unit_at(row.bucket, row.dtype))
+        rep["after_us"] = min(cur_us, row.us)
+        rep["after_ratio"] = SOL.sol_ratio(rep["after_us"], bound)
+        rep["outside_space"] = cur_cfg not in initial_space
+        rep["rewrite_candidate"] = rep["after_ratio"] > rewrite_ratio
+    return reports
+
+
+def _plan_row(rep: dict) -> Tuple[str, float, str]:
+    bucket = "x".join(str(d) for d in rep["bucket"])
+    cfg = "x".join(str(d) for d in rep["config"]) if rep["config"] else "-"
+    derived = (f"ratio={rep['before_ratio']:.2f}->{rep['after_ratio']:.2f};"
+               f"cfg={cfg};outside_space={rep['outside_space']};"
+               f"rewrite={rep['rewrite_candidate']};rounds={rep['rounds']};"
+               f"measured={rep['configs_measured']}")
+    if rep["note"]:
+        derived += f";note={rep['note']}"
+    return (f"sol_refine_{rep['backend']}_{rep['dtype']}_{rep['op']}_"
+            f"{bucket}", rep["after_us"], derived)
+
+
+def sol_rows(backends: Sequence[str] = ("h100",), device: DeviceLike = None
+             ) -> List[Tuple[str, float, str]]:
+    """The ``sol`` table: tune every op at the tiny shapes into a cache of
+    its own, run the gap-driven planner on each backend's worst cells, then
+    rank every cell's fastest impl by measured ÷ bound.  Renders the ranked
+    table to stderr and returns the rows (SOL cells first, then one
+    ``sol_refine_*`` row per planned cell)."""
+    from ..core import sol as SOL
+
+    dev = resolve_device(device)
+    cache = AT.AutotuneCache()
+    for backend in backends:
+        tune(backend, tiny=True, cache=cache, device=dev)
+    plan_reports = []
+    for backend in backends:
+        plan_reports += refine_plan(cache, backend, top_k=3, rounds=2,
+                                    budget=24, iters=3, device=dev)
+    ranked = SOL.rank(SOL.cache_rows(cache, best_only=True, device=dev))
+    print(SOL.render(ranked), file=sys.stderr)
+    rows: List[Tuple[str, float, str]] = []
+    for r in ranked:
+        bucket = "x".join(str(d) for d in r.bucket)
+        cfg = "x".join(str(d) for d in r.config) if r.config else "-"
+        rows.append((f"sol_{r.backend}_{r.dtype}_{r.op}_{bucket}_{r.impl}",
+                     r.us, f"bound_us={r.bound_us:.4f};ratio={r.ratio:.2f};"
+                     f"unit={r.unit};bneck={r.bottleneck};"
+                     f"conf={r.confidence};src={r.source};cfg={cfg}"))
+    rows += [_plan_row(rep) for rep in plan_reports]
+    wins = [rep for rep in plan_reports
+            if rep["outside_space"] and rep["after_us"] < rep["before_us"]]
+    print(f"[sol] {dev}: the planner refined {len(wins)} cell(s) to a "
+          f"config outside the declared tune_space; "
+          f"{sum(r['rewrite_candidate'] for r in plan_reports)} rewrite "
+          f"candidate(s)", file=sys.stderr)
+    return rows
+
+
+MATMUL_SHAPES = ((128, 128, 128), (96, 80, 56), (64, 256, 128))
+
+
+def matmul_rows(device: DeviceLike = None) -> List[Tuple[str, float, str]]:
+    """The ``matmul`` table: the matmul kernel's wrapper against
+    ``torch.matmul`` (TF32 off) on aligned and ragged shapes, each
+    ``core.measure`` time (CUDA events on the card), with the kernel's max
+    |Δ| from ``torch.matmul`` in the derived column.  On the CPU the
+    wrapper runs its plain version."""
+    from ..core.measure import full_f32, time_call_stats
+    from ..kernels.matmul.ops import matmul
+
+    dev = resolve_device(device)
+    gen = torch.Generator(dev).manual_seed(0)
+    rows: List[Tuple[str, float, str]] = []
+    for m, k, n in MATMUL_SHAPES:
+        x = torch.randn((m, k), generator=gen, device=dev)
+        w = torch.randn((k, n), generator=gen, device=dev)
+        with full_f32():
+            t_ref = time_call_stats(lambda: torch.matmul(x, w), 2, 5, dev)
+            t_ker = time_call_stats(lambda: matmul(x, w), 2, 5, dev)
+            err = float((matmul(x, w) - torch.matmul(x, w)).abs().max())
+        tag = f"matmul_{m}x{k}x{n}"
+        rows.append((f"{tag}_ref_torch_matmul", t_ref.min_us,
+                     f"mean_us={t_ref.mean_us:.3f};{dev.type}"))
+        rows.append((f"{tag}_cuda_matmul", t_ker.min_us,
+                     f"mean_us={t_ker.mean_us:.3f};{dev.type};"
+                     f"max_abs_err={err:.2e}"))
     return rows
 
 

@@ -188,8 +188,13 @@ _REFERENCE_OPS = (
 def _register_reference_impls() -> None:
     """Invoked by ``registry._load_entry_points`` (not at import), so the
     executor↔registry import cycle stays one-directional."""
+    # the library's products and convs run in the graph's dtype: bf16/f16
+    # on the tensor cores, f32 outside them (TF32 off); the rest is SIMT
+    products = (OpKind.LINEAR, OpKind.MATMUL, OpKind.CONV2D)
     for _op in _REFERENCE_OPS:
-        registry.register_reference_impl(_op, _lower_node)
+        registry.register_reference_impl(
+            _op, _lower_node,
+            unit=registry.library_unit if _op in products else None)
     registry.register_reference_impl(OpKind.FUSED, compose_fused,
                                      name="ref.compose", memory="roundtrip")
 

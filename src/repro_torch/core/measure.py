@@ -29,6 +29,7 @@ individually timed calls (a hiccup inflates a mean, never a min) and
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Callable, List, Optional, Sequence, Tuple
@@ -103,6 +104,22 @@ def time_call(fn: Callable[[], object], warmup: int = 2, iters: int = 5,
     """Election-grade time of ``fn`` in µs: the min over ``iters``
     individually timed calls after warmup."""
     return time_call_stats(fn, warmup, iters, device).min_us
+
+
+@contextlib.contextmanager
+def full_f32():
+    """PyTorch's own f32 products and convolutions in full f32 (TF32 off,
+    as the port's reference tier runs them) for the block; the flags are
+    restored after it."""
+    prev = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = prev
 
 
 def _device_of(vals: Sequence[object]) -> Optional[torch.device]:

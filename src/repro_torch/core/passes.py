@@ -243,14 +243,16 @@ def _node_cost_terms(n: Node) -> Tuple[float, float, float]:
 
 
 def node_roofline_terms(n: Node, hw: "object",
-                        memory: str = "streamed"
+                        memory: str = "streamed",
+                        unit: str = "tensor16"
                         ) -> Tuple[float, float, float]:
-    """The node's (flops, nbytes, bound_s) under the given impl memory mode,
-    with the bound from the same ``HardwareSpec.roofline_s`` the election
-    costs with."""
+    """The node's (flops, nbytes, bound_s) under the given impl memory mode:
+    the election's own counts, with the bound from the same
+    ``HardwareSpec.roofline_s`` it costs with, its FLOPs at the peak of
+    ``unit`` (by default the bf16 peak, as the election takes them)."""
     flops, streamed, roundtrip = _node_cost_terms(n)
     nbytes = roundtrip if memory == "roundtrip" else streamed
-    return flops, nbytes, hw.roofline_s(flops, nbytes)
+    return flops, nbytes, hw.roofline_s(flops, nbytes, unit=unit)
 
 
 def elect_implementations(g: Graph, backend: "object") -> Graph:

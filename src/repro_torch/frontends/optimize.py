@@ -14,7 +14,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 from torch import nn as tnn
 
-from ..backends import Backend, get_backend
+from ..backends import Backend, for_device, get_backend
 from ..core import passes
 from ..core.executor import lower_graph
 from .extract import extract
@@ -69,12 +69,22 @@ class SolModel(tnn.Module):
         return self.graph.stats()
 
     def impl_report(self, by_kind: bool = False,
-                    provenance: bool = False) -> Any:
+                    provenance: bool = False, sol: bool = False) -> Any:
         """Elected-implementation report.  Default: impl name → node count.
         ``by_kind=True``: ``{op value → {impl name → count}}``.
         ``provenance=True``: ``{impl name → {"count": n, "sources":
         {"measured"|"calibrated"|"analytical" → n}, "pinned": [cfg, ...]}}``
-        (``"pinned"`` only when non-empty)."""
+        (``"pinned"`` only when non-empty).  ``sol=True``: the
+        speed-of-light view (``core.sol.node_rows`` over the process-wide
+        autotune cache), one JSON dict per elected node, worst gap first:
+        the bound at the unit that runs the node, the measured (or
+        calibrated) ``us``, their ``ratio`` and its provenance."""
+        if sol:
+            from ..core import autotune
+            from ..core import sol as sol_mod
+            rows = sol_mod.node_rows(self.graph, self.backend,
+                                     autotune.get_cache())
+            return [r.to_json() for r in sol_mod.rank(rows)]
         if provenance:
             prov = getattr(self.graph, "election_provenance", {})
             pins = getattr(self.graph, "election_pinned", {})
@@ -145,5 +155,6 @@ def compile_graph(model: tnn.Module, graph, backend: str | Backend = "h100",
             "port")
     bk = backend if isinstance(backend, Backend) else get_backend(backend)
     dev = resolve_device(device)
+    bk = for_device(bk, dev)            # a PCIe card's spec on a PCIe card
     graph = passes.run_pipeline(graph, bk)
     return SolModel(model, graph, bk, lower_graph(graph, bk), dev)

@@ -102,6 +102,8 @@ registry.register_shared_impl(
     OpKind.DECODE_ATTENTION, _decode_cuda_impl,
     name="cuda.decode_attention", requires=("cuda",), supports=_supports,
     tunable=Tunable(ATTR, decode_tune_space, refine=decode_refine_space))
+# it materializes the (B, H, S) score rows, and computes in f32 in every
+# dtype (``ref.py``): the default unit, SIMT
 registry.register_reference_impl(
     OpKind.DECODE_ATTENTION, _decode_ref_impl, name="ref.decode_attention",
-    memory="roundtrip")   # materializes the (B, H, S) score rows
+    memory="roundtrip")

@@ -84,10 +84,19 @@ def _supports(n: Node) -> bool:
             and n.spec.shape[-1] in HEAD_DIMS)
 
 
+def attn_unit(shape, dtype: str) -> str:
+    """The kernel's products run on the tensor cores: 16-bit ``mma.sync``
+    in bf16 and f16, 3xTF32 in f32."""
+    return "tf32x3" if dtype == "float32" else "tensor16"
+
+
 registry.register_shared_impl(
     OpKind.ATTENTION, _attention_cuda_impl, name="cuda.flash_attention",
     requires=("cuda",), supports=_supports,
-    tunable=Tunable(ATTR, attn_tune_space, refine=attn_refine_space))
+    tunable=Tunable(ATTR, attn_tune_space, refine=attn_refine_space),
+    unit=attn_unit)
+# the plain version computes in f32 in every dtype (``ref.py``), so the
+# reference impl keeps the default unit, SIMT
 registry.register_reference_impl(
     OpKind.ATTENTION, _attention_ref_impl, name="ref.attention",
     memory="roundtrip")

@@ -23,7 +23,8 @@ from ...backends import registry
 from ...core.autotune import Tunable, node_shape
 from ...core.ir import Node, OpKind
 from ..dtypes import same_float
-from .kernel import SKINNY_MIN_K_CHUNK, TC_MIN_K_CHUNK, matmul_cuda, plan
+from .kernel import (SKINNY, SKINNY_MIN_K_CHUNK, TC_MIN_K_CHUNK, matmul_cuda,
+                     plan)
 from .ref import matmul_ref
 
 ATTR = "cuda_mm_block"
@@ -109,11 +110,25 @@ def mm_refine_space(n: Node, hw, cfg) -> List[Tuple[int]]:
     return [(node_plan(n, hw, c).splits,) for c in (max(1, s // 2), 2 * s)]
 
 
+def mm_unit(shape: Tuple[int, int, int], dtype: str) -> str:
+    """The unit of the kernel ``plan`` picks at (M, K, N): the skinny
+    kernel's f32 FMAs (M or N up to ``SKINNY``, in every dtype; such a
+    product is bound by its bytes at any peak), else the tensor cores:
+    3xTF32 in f32, 16-bit ``wgmma`` in bf16 and f16.  A key of another
+    rank (a cache file's malformed bucket) reads SIMT."""
+    if len(shape) != 3:
+        return "simt"
+    m, _k, n = shape
+    if m <= SKINNY or n <= SKINNY:
+        return "simt"
+    return "tf32x3" if dtype == "float32" else "tensor16"
+
+
 _MM_TUNABLE = Tunable(ATTR, mm_tune_space, refine=mm_refine_space)
 
 registry.register_shared_impl(
     OpKind.MATMUL, _matmul_impl, name="cuda.matmul", requires=("cuda",),
-    supports=_supports_matmul, tunable=_MM_TUNABLE)
+    supports=_supports_matmul, tunable=_MM_TUNABLE, unit=mm_unit)
 registry.register_shared_impl(
     OpKind.LINEAR, _linear_impl, name="cuda.linear", requires=("cuda",),
-    supports=_supports_linear, tunable=_MM_TUNABLE)
+    supports=_supports_linear, tunable=_MM_TUNABLE, unit=mm_unit)

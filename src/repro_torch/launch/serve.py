@@ -49,7 +49,7 @@ import numpy as np
 import torch
 from torch import nn as tnn
 
-from ..backends import get_backend, h100_spec
+from ..backends import for_device, get_backend
 from ..core import autotune as AT
 from ..core import measure, passes
 from ..core.executor import TORCH_DTYPES
@@ -369,11 +369,7 @@ class SolServer:
                 "mesh serving arrives with the sharded-serving slice of the "
                 "port; use mesh=(1, 1)")
         self.device = resolve_device(device)
-        self.backend = get_backend(self.cfg.backend)
-        if self.device.type == "cuda" and self.backend.name == "h100":
-            self.backend = dataclasses.replace(
-                self.backend,
-                hw=h100_spec(torch.cuda.get_device_name(self.device)))
+        self.backend = for_device(get_backend(self.cfg.backend), self.device)
         self.embed = embedding_table(self.cfg)
         self.queue = AsyncQueue()
         self._models: Dict[Tuple, Any] = {}

@@ -13,6 +13,8 @@ than the plain versions (tiles, online softmax, split K) on O(1) values,
 which leaves ~1e-6 of rounding; 1e-4 keeps a wide margin over that while
 any indexing or masking fault shows as an O(1) error.
 """
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -1018,3 +1020,42 @@ def test_strict_serving_on_the_card(dev):
     for key, model_ in strict._models.items():
         assert model_.check_provenance(kinds=kinds) == []
     assert [r.generated for r in reqs] == [r.generated for r in creqs]
+
+
+def test_matmul_rows_hold_the_kernel_to_torch_matmul_on_the_card(dev):
+    from repro_torch.benchmarks.autotune import matmul_rows
+    rows = matmul_rows(device=dev)
+    errs = [float(d.split("max_abs_err=")[1]) for n, _, d in rows
+            if n.endswith("_cuda_matmul")]
+    assert len(errs) == 3 and max(errs) <= 1e-4
+    assert all(us > 0 for _, us, _ in rows)
+
+
+def test_inference_fig3_outputs_agree_on_the_card(dev):
+    """The five B=1 cases' SOL models agree with the eager forward within
+    README's f32 row on the card (the table raises otherwise)."""
+    from repro_torch.benchmarks.paper_tables import inference_fig3
+    rows = inference_fig3(device=dev)
+    assert len(rows) == 10 and all(us > 0 for _, us, _ in rows)
+
+
+def test_sol_rows_on_the_card_rank_finite_ratios(dev):
+    """The ``sol`` table on the card: every tuned cell's ratio finite and
+    non-negative at its unit's peak, on this card's spec."""
+    from repro_torch.backends import h100_spec
+    from repro_torch.benchmarks.autotune import sol_rows
+    from repro_torch.core import autotune as AT
+    from repro_torch.core import sol
+    rows = sol_rows(device=dev)
+    cells = [d for n, _, d in rows if not n.startswith("sol_refine_")]
+    assert cells
+    for d in cells:
+        fields = dict(kv.split("=") for kv in d.split(";"))
+        ratio = float(fields["ratio"])
+        assert math.isfinite(ratio) and ratio >= 0.0
+    c = AT.AutotuneCache()
+    c.record("matmul", (4, 1536, 1536), "float32", "h100", "ref.matmul",
+             30.0, flops=2.0 * 4 * 1536 * 1536, nbytes=9.48e6)
+    (row,) = sol.cache_rows(c, device=dev)
+    hw = h100_spec(torch.cuda.get_device_name(dev))
+    assert row.bound_us == pytest.approx(9.48e6 / hw.hbm_bandwidth * 1e6)
