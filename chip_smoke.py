@@ -8,7 +8,9 @@ RWKV6 block stacks at full width and three CNNs at ImageNet resolution
 through ``optimize()``, runs the transformer, both stacks and the Listing-3
 CNN again in bf16, serves the transformer once more under a strict
 measured-provenance audit, ranks the measured kernels by their distance
-from the card's bound, and checks every path against the plain path.
+from the card's bound, trains three 4-block stacks through the elected
+forward and backward impls, and checks every path against the plain
+path.
 
     python3 chip_smoke.py          # one CUDA card, run from the repo root
 
@@ -144,19 +146,46 @@ Phases, each failing loudly:
    serving and sol, into ``chiprun_out/BENCH_torch*.json``) must return 0,
    and ``serve_rows`` serves phase 3's model at full width: phase 3's four
    prompts and three more sets of their lengths, ``GEN`` tokens each.
+10. training — three 4-block f32 stacks at full width (the serve model's
+   transformer block, d 1536 with 12/2 heads; Griffin d 4096; RWKV6 d 2048
+   with 32 heads; MLPs ×4, ×3, ×3) on (4, 512, d) through
+   ``optimize(..., training=True)``: (a) every backward impl of each
+   graph at its own shapes (and ``conv.avgpool_bwd`` at the first
+   Listing-3 pool) against autograd of the reference forward in f32
+   (1e-5 of each cotangent's scale, 1e-4 for the scans), with its device
+   time (cold L2), back-to-back time, plain version's and library call's
+   time (autograd of ``F.linear``, SDPA or ``F.avg_pool2d``) and the bound
+   at twice the forward's cost terms; (b) the heavy kinds elect no
+   ``ref.*`` backward, the matmul (and Griffin's RG-LRU scan) launch
+   during a backward; step 0's gradient of every parameter agrees with
+   ``torch_ref``'s (h100's backward impls alone, every forward on its
+   plain version, within 1e-4 of each gradient's norm; h100 whole within
+   the forward kernels' error times the gradients' amplification of an
+   input change), with each ``cuda.*`` forward swapped for its plain
+   version beside it to show where the gap comes from; 6 AdamW steps
+   (``make_sol_train_step``, each stack's ``TRAIN_LR``) on ``h100`` and
+   ``torch_ref`` from the same weights agree (each loss within 1e-4, the
+   final params within rtol 1e-3, atol 1e-4) with the loss falling; a
+   planted product backward whose dw drops the last token must fail every
+   one of these gates; (c) median fwd and fwd+bwd times (``train_bench``'s
+   calls) and one profiled fwd+bwd; (d) ``python -m
+   repro_torch.launch.train --sol`` for each ``--sol-model`` (d 256):
+   the warm-up, both gates and the falling loss.
 
 The second-to-last lines are the card's ``nvidia-smi`` line and a JSON
 ``kernels`` line (an entry per kernel in f32, and one per kernel in bf16
 named ``<kernel>_bf16`` with its launches on the bf16 paths); the last line
 is ``{"ok": true, "device": ...}``; the ``kernels`` line's launches are
-phases 3 and 5-7's.  The
+phases 3, 5-7 and 10's (its six h100 steps a stack).  The
 full record goes to ``chiprun_out/chip_smoke.json``.  The script imports
 nothing of JAX or of the JAX package ``src/repro``; it exits non-zero,
 printing no result, without a CUDA card or without the package.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 import gc
 import json
 import math
@@ -1182,21 +1211,21 @@ FAMILIES = (("tc_kernel", "matmul"), ("tc16_kernel", "matmul"),
 
 # tiny device kernels each profile runs ahead of the measured calls: the
 # first device events of a profile can be lost (in this script's later
-# phases 11-14 of them; none in a fresh process), whatever the host waits
+# phases 11-25 of them; none in a fresh process), whatever the host waits
 # first, and the profiled Listing-3 forward then showed part of its span
 # and one of its two pools or none.  Only events after the last pad count.
+# Now and then the loss runs past every pad and into the measured calls:
+# a profile that recorded no pad is taken again, at most PROFILE_TRIES times.
 PROFILE_PAD = 256
+PROFILE_TRIES = 3
 PAD_KERNEL = "spin_kernel"      # torch.cuda._sleep's kernel
 
 
-def device_breakdown(torch, run, calls: int = 1) -> dict:
-    """Run ``PROFILE_PAD`` one-cycle ``torch.cuda._sleep`` kernels, then
-    ``run()`` ``calls`` times back to back, under one ``torch.profiler`` session
-    (CUDA activity only), and return per call the device time and
-    launches per family of the events after the last pad, the span from
-    the first of them to the last, and the device's busy share over it:
-    the union of device events over that span.  ``pad_events_lost``: the
-    pads the profile did not record."""
+def profile_events(torch, run, calls: int) -> list:
+    """The device events, as (start µs, end µs, name), of one
+    ``torch.profiler`` session (CUDA activity only) that runs
+    ``PROFILE_PAD`` one-cycle ``torch.cuda._sleep`` kernels, then ``run()``
+    ``calls`` times back to back."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -1206,14 +1235,34 @@ def device_breakdown(torch, run, calls: int = 1) -> dict:
         for _ in range(calls):
             run()
         torch.cuda.synchronize()
-    events = [(e.time_range.start, e.time_range.end, e.name)
-              for e in prof.events() if e.device_type == DeviceType.CUDA]
-    pads = [e for e in events if PAD_KERNEL in e[2]]
+    return [(e.time_range.start, e.time_range.end, e.name)
+            for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+def device_breakdown(torch, run, calls: int = 1) -> dict:
+    """Profile ``calls`` calls of ``run()`` behind the pads
+    (``profile_events``), taken again while no pad was recorded, and
+    return per call the device time and launches per family of the events
+    after the last pad, the span from the first of them to the last, and
+    the device's busy share over it: the union of device events over that
+    span.  ``pad_events_lost``: the pads the kept profile did not record;
+    ``retakes``: the profiles dropped because they recorded no pad."""
+    for take in range(1, PROFILE_TRIES + 1):
+        events = profile_events(torch, run, calls)
+        pads = [e for e in events if PAD_KERNEL in e[2]]
+        if pads or take == PROFILE_TRIES:
+            break
+        log(f"[profile] none of the {PROFILE_PAD} pad kernels was recorded: "
+            f"events of the measured calls may be lost too, profiling again")
+    retakes = take - 1
+    if not pads:
+        log(f"[profile] {PROFILE_TRIES} profiles recorded no pad kernel: the "
+            f"kept one may lack the first events of the measured calls")
     cut = max((e[1] for e in pads), default=float("-inf"))
     spans = sorted(e for e in events
                    if PAD_KERNEL not in e[2] and e[0] >= cut)
     if not spans:
-        return {"measured": False,
+        return {"measured": False, "retakes": retakes,
                 "pad_events_lost": PROFILE_PAD - len(pads)}
     busy, (lo, hi) = 0.0, spans[0][:2]
     by_family: dict = {}
@@ -1230,7 +1279,7 @@ def device_breakdown(torch, run, calls: int = 1) -> dict:
     busy += hi - lo
     span = spans[-1][1] - spans[0][0]
     return {"measured": True, "calls": calls, "events": len(spans),
-            "pad_events_lost": PROFILE_PAD - len(pads),
+            "pad_events_lost": PROFILE_PAD - len(pads), "retakes": retakes,
             "span_ms": span / 1e3 / calls, "busy_ms": busy / 1e3 / calls,
             "busy_share": busy / span,
             "device_ms_by_family": dict(sorted(
@@ -1254,7 +1303,8 @@ def profiled(torch, label: str, run, digits: int = 2,
             f"({100 * breakdown['busy_share']:.1f}%); device ms by family: "
             f"{fams}; launches by family: "
             f"{breakdown['launches_by_family']}; of {PROFILE_PAD} pad "
-            f"kernels ahead, {breakdown['pad_events_lost']} not recorded")
+            f"kernels ahead, {breakdown['pad_events_lost']} not recorded"
+            f" ({breakdown['retakes']} profiles retaken)")
     else:
         log(f"[profile] {label}: torch.profiler recorded no device events: "
             f"device busy share not measured")
@@ -2627,6 +2677,555 @@ def phase_sol(torch, dev, state) -> dict:
             "phase_s": phase_s}
 
 
+# ---------------------------------------------------------------------------
+# phase 10: training through elected kernels
+# ---------------------------------------------------------------------------
+
+# The serve model's widths (Qwen2-1.5B's attention, build_lm's block),
+# RecurrentGemma-9B's (src/repro/configs/recurrentgemma_9b.py) and
+# RWKV6-1.6B's (src/repro/configs/rwkv6_1_6b.py), as in phases 3 and 5,
+# each cut to TRAIN_BLOCKS blocks so that two backends' training runs of
+# all three fit the script's time limit
+TRAIN_STACKS = (
+    ("transformer", dict(d_model=1536, n_heads=12, n_kv_heads=2,
+                         mlp_mult=4)),
+    ("griffin", dict(d_model=4096, mlp_mult=3)),
+    ("rwkv6", dict(d_model=2048, n_heads=32, mlp_mult=3)),
+)
+TRAIN_BLOCKS = 4
+TRAIN_SHAPE_BT = (4, 512)
+TRAIN_STEPS = 6
+# h100 against torch_ref from the same weights: each step's loss, relative;
+# the final params at tests/test_train_sol.py's own tolerances
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_PARAM_TOL = dict(rtol=1e-3, atol=1e-4)
+# Adam steps every element by about lr whatever its gradient's size, so an
+# element whose gradient is as small as its rounding can step either way
+# and two correct f32 runs part by up to 2·lr a step there.  Each stack's
+# lr lies where h100 holds TRAIN_PARAM_TOL against torch_ref and a dw
+# missing its last token (``dw_fault``) does not: phase 10 runs that fault
+# at this lr and fails if the gate lets it through
+TRAIN_LR = {"transformer": 1e-4, "griffin": 1e-4, "rwkv6": 2e-5}
+# step 0's gradient of each parameter against torch_ref's, ‖Δ‖ over ‖g‖
+# (``grad_gap``).  With every forward on its plain version, h100's backward
+# impls alone: at most GRAD_BWD_RTOL.  With its own forward kernels, whose
+# f32 rounding (at most MATMUL_ACCURACY_RTOL of their output's scale) the
+# stack's gradients amplify: at most that error times the amplification,
+# read as torch_ref's own gradient change per unit of a GRAD_NUDGE input
+# change.  The planted dw fault must exceed both limits
+GRAD_BWD_RTOL = 1e-4
+GRAD_NUDGE = 2.0 ** -23
+# each backward impl against autograd of the reference forward in f32,
+# relative to each cotangent's scale: products and sums in another order
+# keep ~1e-6; the scans' recurrences over 512 steps 1e-4
+BWD_RTOL = 1e-5
+BWD_SCAN_RTOL = 1e-4
+HEAVY_KINDS = ("linear", "matmul", "attention", "rglru_scan", "rwkv6_scan")
+# the backward impls each stack must elect, by backward kind
+TRAIN_BWD = {"transformer": {"linear_bwd": "cuda.linear_bwd",
+                             "matmul_bwd": "cuda.matmul_bwd",
+                             "attention_bwd": "flash.attention_bwd"},
+             "griffin": {"linear_bwd": "cuda.linear_bwd",
+                         "matmul_bwd": "cuda.matmul_bwd",
+                         "rglru_scan_bwd": "cuda.rglru_scan_bwd"},
+             "rwkv6": {"linear_bwd": "cuda.linear_bwd",
+                       "matmul_bwd": "cuda.matmul_bwd",
+                       "rwkv6_scan_bwd": "ckpt.rwkv6_scan_bwd"}}
+# kernels whose launches must rise during a backward, by stack
+BWD_KERNELS = {"transformer": ("matmul",), "griffin": ("matmul",
+                                                      "rglru_scan"),
+               "rwkv6": ("matmul",)}
+TRAIN_TIMED = 5          # fwd and fwd+bwd calls timed per stack
+AVGPOOL_BWD_SHAPE = (64, 32, 222, 222)   # the first Listing-3 pool's output
+TRAIN_CLI_TIMEOUT = 600
+
+
+def _train_stack(torch, name: str, cfg: dict, dev, gen):
+    from repro_torch.frontends import nn
+    from torch import nn as tnn
+    d = cfg["d_model"]
+    if name == "transformer":
+        def block():
+            return nn.transformer_block(d, cfg["n_heads"], cfg["n_kv_heads"],
+                                        cfg["mlp_mult"], device=dev,
+                                        generator=gen)
+    elif name == "griffin":
+        def block():
+            return nn.griffin_block(d, cfg["mlp_mult"], device=dev,
+                                    generator=gen)
+    else:
+        def block():
+            return nn.rwkv6_block(d, cfg["n_heads"], cfg["mlp_mult"],
+                                  device=dev, generator=gen)
+    return tnn.Sequential(*[block() for _ in range(TRAIN_BLOCKS)])
+
+
+def bwd_key(n) -> tuple:
+    """A backward case: the elected backward impl, the node (a FUSED
+    group by its program's ops) and its input shapes."""
+    return (n.impl_bwd, n.name if n.name.startswith("fused[")
+            else n.op.value, tuple(tuple(i.spec.shape) for i in n.inputs))
+
+
+def grad_nodes(sol) -> dict:
+    """bwd_key -> [first node, nodes with it] of a training graph."""
+    out: dict = {}
+    for n in sol.graph.topo():
+        if getattr(n, "impl_bwd", None):
+            out.setdefault(bwd_key(n), [n, 0])[1] += 1
+    return out
+
+
+def library_bwd(torch, node, vals, ct):
+    """One PyTorch call's backward computing the node's cotangents, its
+    graph built once: autograd of ``F.linear`` (a product), SDPA (causal
+    GQA attention) or ``F.avg_pool2d``, in the node's dtype; None where no
+    single call computes them (the scans, a DFP group)."""
+    import torch.nn.functional as F
+    from repro_torch.core.executor import linear_weight_kn
+    from repro_torch.core.ir import OpKind
+    op = node.op
+    if op in (OpKind.LINEAR, OpKind.MATMUL):
+        w = vals[1] if op is OpKind.MATMUL else linear_weight_kn(node,
+                                                                 vals[1])
+        leaves = [vals[0].detach().requires_grad_(True),
+                  w.T.detach().requires_grad_(True)] + [
+            v.detach().requires_grad_(True) for v in vals[2:]]
+        y = F.linear(*leaves)
+    elif op is OpKind.ATTENTION and not node.attrs.get("window") \
+            and not node.attrs.get("cap"):
+        leaves = [v.detach().transpose(1, 2).requires_grad_(True)
+                  for v in vals]
+        y = F.scaled_dot_product_attention(
+            *leaves, is_causal=node.attrs.get("causal", True),
+            enable_gqa=True).transpose(1, 2)
+    elif op is OpKind.AVGPOOL:
+        leaves = [vals[0].detach().requires_grad_(True)]
+        (h, w), (oh, ow) = vals[0].shape[2:], node.spec.shape[2:]
+        y = F.avg_pool2d(leaves[0], (h - oh + 1, w - ow + 1), stride=1)
+    else:
+        return None
+    return lambda: torch.autograd.grad(y, leaves, ct, retain_graph=True)
+
+
+def bwd_case(torch, node, count: int, gen, backend, stack: str) -> dict:
+    """One backward impl at a path node's shapes: its cotangents against
+    the plain version's (``executor.reference_vjp_grad``: autograd of the
+    reference forward in f32) relative to each one's scale, its device time
+    (cold L2) and back-to-back launch time, the plain version's and the
+    library call's, and the bound at twice the forward's cost terms at the
+    peak of the unit that runs it."""
+    from repro_torch.backends import registry
+    from repro_torch.core import executor
+    from repro_torch.core.ir import OpKind
+    from repro_torch.core.passes import node_roofline_terms
+    gi = registry.get_grad_impl(node.impl_bwd)
+    if node.op is OpKind.FUSED and node.impl != "cuda.dfp_fused":
+        # a group the DFP encoder refuses (Griffin's softplus and √): its
+        # constants at their fill, the rest at half scale
+        vals = [torch.full(i.spec.shape, i.attrs["fill"], device=gen.device)
+                if i.op is OpKind.CONST else
+                torch.randn(i.spec.shape, device=gen.device, generator=gen)
+                * 0.5 for i in node.inputs]
+    else:
+        vals = node_operands(torch, node, gen)
+    with torch.no_grad():
+        out = registry.get_impl(node.impl).fn(node, vals, backend)
+    ct = torch.randn(out.shape, device=out.device, generator=gen).to(
+        out.dtype)
+    res = (vals, out)
+    got = gi.fn(node, res, ct, backend)
+    want = executor.reference_vjp_grad(node, res, ct, backend)
+    torch.cuda.synchronize()
+    # relative to each cotangent's scale (absolute where it is all zero)
+    errs = [max_err(g, w) / max(float(w.abs().max()), 1.0
+                                if not bool(w.any()) else 0.0)
+            for g, w in zip(got, want) if w is not None]
+    scan = node.op in (OpKind.RGLRU_SCAN, OpKind.RWKV6_SCAN)
+    tol = BWD_SCAN_RTOL if scan else BWD_RTOL
+    label = f"{gi.name} {stack} {bwd_key(node)[1]} " \
+            f"{[tuple(v.shape) for v in vals]}"
+    if not max(errs) <= tol:
+        fail(f"{label}: cotangents differ from autograd of the reference "
+             f"forward by {[f'{e:.3g}' for e in errs]} of their scales "
+             f"(rtol {tol})")
+    iters, warmup = (5, 1) if scan else (20, 3)
+    t = time_ms(lambda: gi.fn(node, res, ct, backend), iters, warmup)
+    plain = time_ms(lambda: executor.reference_vjp_grad(node, res, ct,
+                                                        backend),
+                    iters, warmup)
+    lib_fn = library_bwd(torch, node, vals, ct)
+    lib = time_ms(lib_fn, iters, warmup)["device"] if lib_fn else None
+    unit = gi.unit_of(node)
+    flops, nbytes, _ = node_roofline_terms(node, backend.hw, gi.memory, unit)
+    b_ms, b_by = bound(2 * flops, 2 * nbytes, unit)
+    row = {"impl": gi.name, "stack": stack, "node": bwd_key(node)[1],
+           "shapes": [list(v.shape) for v in vals], "per_step": count,
+           "rel_err": errs, "rtol": tol, "ms": t["device"],
+           "launch_ms": t["launch"], "plain_ms": plain["device"],
+           "library_ms": lib, "bound_ms": b_ms, "bound_by": b_by,
+           "unit": unit}
+    log(f"[train-bwd] {label} ×{count} a step: {t['device']:.4f} ms "
+        f"(back to back {t['launch']:.4f}), bound {b_ms:.4f} ({b_by}, "
+        f"{unit}), plain {plain['device']:.4f}, library "
+        + (f"{lib:.4f}" if lib is not None else "none")
+        + f"; rel err {max(errs):.3g} (rtol {tol})")
+    return row
+
+
+def avgpool_bwd_case(torch, gen, backend) -> dict:
+    """``conv.avgpool_bwd`` at the first Listing-3 pool (64, 32, 224,
+    224), 3×3."""
+    from repro_torch.backends import registry
+    from repro_torch.benchmarks.autotune import _node
+    node = _node("avgpool", AVGPOOL_BWD_SHAPE)
+    node.impl = "cuda.avgpool"
+    node.impl_bwd = registry.resolve_grad(backend, node).name
+    if node.impl_bwd != "conv.avgpool_bwd":
+        fail(f"the Listing-3 pool elects {node.impl_bwd} for its backward")
+    return bwd_case(torch, node, 1, gen, backend, "listing3_cnn")
+
+
+def check_train_elections(sol, name: str) -> dict:
+    """The forward elections as phase 5 requires them, every heavy kind's
+    backward a non-reference impl, and the stack's expected backward impls
+    elected."""
+    by_kind = check_cuda_elected(sol, name)
+    for kind in HEAVY_KINDS:
+        refs = [i for i in by_kind.get(f"{kind}_bwd", {})
+                if i.startswith("ref.")]
+        if refs:
+            fail(f"train {name}: {kind}_bwd elected {refs}")
+    for kind, impl in TRAIN_BWD[name].items():
+        if set(by_kind.get(kind, {})) != {impl}:
+            fail(f"train {name}: {kind} elected {by_kind.get(kind)}, not "
+                 f"{impl}")
+    return by_kind
+
+
+def param_grads(torch, fn, params: dict, x, y) -> dict:
+    """Step 0's gradient of the MSE loss for every parameter through the
+    training lowering ``fn`` (a ``SolModel._fn`` or ``lowered``'s)."""
+    leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+    loss = ((fn(leaves, x) - y) ** 2).mean()
+    keys = sorted(leaves)
+    return dict(zip(keys, torch.autograd.grad(loss,
+                                              [leaves[k] for k in keys])))
+
+
+def grad_gap(got: dict, want: dict) -> dict:
+    """Per parameter: ‖got − want‖ over ‖want‖ (``norm``, the gate's), and
+    max |got − want| over max |want| (``max``)."""
+    out = {}
+    for k in sorted(want):
+        if got[k].shape != want[k].shape:
+            fail(f"gradient of {k}: shape {tuple(got[k].shape)}, torch_ref "
+                 f"{tuple(want[k].shape)}")
+        d = got[k] - want[k]
+        out[k] = {"norm": float(d.norm() / want[k].norm().clamp_min(1e-30)),
+                  "max": float(d.abs().max()
+                               / want[k].abs().max().clamp_min(1e-30))}
+    return out
+
+
+def lowered(sol, fwd=frozenset(), bwd: bool = False):
+    """``sol``'s training lowering with the nodes whose forward impl is in
+    ``fwd`` on their op's reference forward, and with ``bwd`` every
+    backward on its op's reference backward; the elections stay as they
+    were."""
+    from repro_torch.backends import registry
+    from repro_torch.core.executor import lower_graph
+    saved = [(n, n.impl, n.impl_bwd) for n in sol.graph.topo()]
+    try:
+        for n, impl, impl_bwd in saved:
+            if impl in fwd:
+                n.impl = registry._REFERENCE_IMPLS[n.op].name
+            if bwd and impl_bwd:
+                n.impl_bwd = registry._GRAD_REFERENCE_IMPLS[n.op].name
+        return lower_graph(sol.graph, sol.backend, differentiable=True)
+    finally:
+        for n, impl, impl_bwd in saved:
+            n.impl, n.impl_bwd = impl, impl_bwd
+
+
+@contextlib.contextmanager
+def dw_fault():
+    """``cuda.matmul_bwd`` and ``cuda.linear_bwd`` with a dw that misses the
+    last token's row, the ragged-edge fault a product kernel could make:
+    planted to show that phase 10's gates catch it (dx is untouched)."""
+    from repro_torch.kernels.matmul import grad
+    real = grad._dx_dw
+
+    def wrong(x, w, ct, kn, splits):
+        x = x.contiguous().clone()
+        x.view(-1, x.shape[-1])[-1] = 0
+        return real(x, w, ct, kn, splits)
+    grad._dx_dw = wrong
+    try:
+        yield
+    finally:
+        grad._dx_dw = real
+
+
+def grad_agreement(torch, name: str, sol, ref, x, y) -> dict:
+    """(b) step 0's gradient of every parameter against torch_ref's from
+    the same weights (``grad_gap``): h100's backward impls alone (every
+    forward on its plain version) within GRAD_BWD_RTOL, and h100 whole
+    within its floor (the forward kernels' error times the gradients'
+    amplification of it, from torch_ref with its input nudged by
+    GRAD_NUDGE); the planted ``dw_fault`` must fail both.  Beside them, to
+    show where the gap comes from: h100 with each ``cuda.*`` forward impl
+    on its plain version, and with every backward plain."""
+    params = sol._params_for_call()
+    want = param_grads(torch, ref._fn, ref._params_for_call(), x, y)
+    cuda_fwd = sorted({n.impl for n in sol.graph.topo()
+                       if (n.impl or "").startswith("cuda.")})
+    fns = {"h100": sol._fn}
+    fns.update({f"{impl} plain": lowered(sol, fwd={impl})
+                for impl in cuda_fwd})
+    fns["every forward plain"] = lowered(sol, fwd=set(cuda_fwd))
+    fns["every backward plain"] = lowered(sol, bwd=True)
+    gaps = {label: grad_gap(param_grads(torch, fn, params, x, y), want)
+            for label, fn in fns.items()}
+    with dw_fault():
+        for label in ("h100", "every forward plain"):
+            gaps[f"{label}, dw fault"] = grad_gap(
+                param_grads(torch, fns[label], params, x, y), want)
+    gen = torch.Generator(x.device).manual_seed(7)
+    nudged = x * (1 + GRAD_NUDGE * torch.randn(
+        x.shape, device=x.device, generator=gen))
+    gaps["torch_ref, input nudged"] = grad_gap(
+        param_grads(torch, ref._fn, ref._params_for_call(), nudged, y), want)
+    del want
+    worst = {}
+    for label, gap in gaps.items():
+        worst[label] = {m: max(((k, g[m]) for k, g in gap.items()),
+                               key=lambda kv: kv[1]) for m in ("norm", "max")}
+        log(f"[train-grad] {name} {label}: worst ‖Δ‖/‖g‖ "
+            f"{worst[label]['norm'][1]:.3g} ({worst[label]['norm'][0]}), "
+            f"worst max|Δ|/max|g| {worst[label]['max'][1]:.3g} "
+            f"({worst[label]['max'][0]})")
+    amplification = worst["torch_ref, input nudged"]["norm"][1] / GRAD_NUDGE
+    floor = amplification * MATMUL_ACCURACY_RTOL
+    for label, limit in (("every forward plain", GRAD_BWD_RTOL),
+                         ("h100", floor)):
+        (k, got), caught = worst[label]["norm"], \
+            worst[f"{label}, dw fault"]["norm"][1]
+        if not got <= limit:
+            fail(f"train {name}: step-0 gradient of {k} ({label}) differs "
+                 f"from torch_ref's by {got:.3g} of its norm (limit "
+                 f"{limit:.3g})")
+        if not caught > limit:
+            fail(f"train {name}: the planted dw fault ({label}) moves no "
+                 f"step-0 gradient past {limit:.3g} ({caught:.3g})")
+    log(f"[train-grad] {name}: backward impls within {GRAD_BWD_RTOL}; "
+        f"gradients amplify an input change {amplification:.3g}×, so h100's "
+        f"floor is {floor:.3g}")
+    return {"bwd_limit": GRAD_BWD_RTOL, "amplification": amplification,
+            "floor": floor, "worst": worst, "by_param": gaps}
+
+
+def train_run(torch, sol, x, y, steps: int, lr: float) -> tuple:
+    """``steps`` steps of ``make_sol_train_step`` (AdamW, the cosine
+    schedule to ``lr``) from the model's own weights: the losses, each
+    step's host ms to its end on the device, and the final parameters."""
+    from repro_torch.distributed.steps import StepOptions, \
+        make_sol_train_step
+    opts = StepOptions(lr=lr, warmup=1, total_steps=steps)
+    step_fn, init_state = make_sol_train_step(sol, opts)
+    state = init_state()
+    losses, step_ms = [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, {"x": x, "y": y})
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        losses.append(float(metrics["loss"]))
+    return losses, step_ms, state["params"]
+
+
+def train_gap(losses, final, ref_losses, ref_final) -> dict:
+    """A training run against torch_ref's from the same weights: each
+    step's relative loss difference, the final params' largest |Δ| and
+    elements outside TRAIN_PARAM_TOL, and the gate's violations (a loss
+    past TRAIN_LOSS_RTOL, a parameter past TRAIN_PARAM_TOL)."""
+    bad = [f"step {i} loss {a!r}, torch_ref {b!r}"
+           for i, (a, b) in enumerate(zip(losses, ref_losses))
+           if not abs(a - b) <= TRAIN_LOSS_RTOL * abs(b)]
+    worst, max_abs, outside = "", 0.0, 0
+    for k in sorted(ref_final):
+        d = (final[k] - ref_final[k]).abs()
+        n_out = int((d > TRAIN_PARAM_TOL["atol"]
+                     + TRAIN_PARAM_TOL["rtol"] * ref_final[k].abs()).sum())
+        if n_out:
+            bad.append(f"param {k}: {n_out} elements outside "
+                       f"{TRAIN_PARAM_TOL}, max |Δ| {float(d.max()):.3g}")
+        outside += n_out
+        if float(d.max()) > max_abs:
+            worst, max_abs = k, float(d.max())
+    return {"loss_rel": max(abs(a - b) / abs(b)
+                            for a, b in zip(losses, ref_losses)),
+            "max_abs": max_abs, "worst": worst, "outside": outside,
+            "violations": bad}
+
+
+def train_stack(torch, counters, dev, index: int, name: str, cfg: dict,
+                backend) -> dict:
+    """(a) each backward case of the stack's training graph, (b) step 0's
+    gradients and six steps on h100 and torch_ref from the same weights,
+    each gate run again on the planted ``dw_fault``, which it must fail,
+    (c) fwd and fwd+bwd times and one profiled fwd+bwd."""
+    import statistics
+    from repro_torch.benchmarks.train_bench import step_fns
+    from repro_torch.frontends.optimize import optimize
+
+    gen = torch.Generator(dev).manual_seed(300 + index)
+    model = _train_stack(torch, name, cfg, dev, gen)
+    shape = TRAIN_SHAPE_BT + (cfg["d_model"],)
+    x = torch.randn(shape, device=dev, generator=gen)
+    y = torch.randn(shape, device=dev, generator=gen)
+    n_params = sum(p.numel() for p in model.parameters())
+    sol = optimize(model, shape, backend="h100", training=True)
+    by_kind = check_train_elections(sol, name)
+    log(f"[train] {name}: {TRAIN_BLOCKS} blocks at d {cfg['d_model']}, "
+        f"{n_params / 1e6:.1f} M parameters, input {shape}; h100 "
+        f"elections: {by_kind}")
+
+    # (a) every backward case of the graph at its own shapes
+    cases = [bwd_case(torch, n, count, gen, sol.backend, name)
+             for n, count in grad_nodes(sol).values()]
+
+    # launches during a backward, apart from its forward's
+    fwd, fwd_bwd = step_fns(sol, x, y)
+    params = sol._params_for_call()
+    leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+    for c in counters.values():
+        c.launches = 0
+    loss = ((sol._fn(leaves, x) - y) ** 2).mean()
+    torch.cuda.synchronize()
+    fwd_launches = {k: c.launches for k, c in counters.items()}
+    for c in counters.values():
+        c.launches = 0
+    torch.autograd.grad(loss, list(leaves.values()))
+    torch.cuda.synchronize()
+    bwd_launches = {k: c.launches for k, c in counters.items()}
+    del loss, leaves
+    for kernel in BWD_KERNELS[name]:
+        if bwd_launches[kernel] <= 0:
+            fail(f"train {name}: {kernel} did not launch during backward")
+    check_matmul_kernels(f"train {name} backward", bwd_launches)
+    log(f"[train] {name} launches of one forward {fwd_launches}, of its "
+        f"backward {bwd_launches}")
+
+    # (b) step 0's gradients against torch_ref's
+    ref = optimize(model, shape, backend="torch_ref", training=True)
+    grads = grad_agreement(torch, name, sol, ref, x, y)
+
+    # (b) the main path's run: counts from 0, the h100 steps, counts read
+    lr = TRAIN_LR[name]
+    for c in counters.values():
+        c.launches = 0
+    losses, step_ms, final = train_run(torch, sol, x, y, TRAIN_STEPS, lr)
+    launches = {k: c.launches for k, c in counters.items()}
+    check_matmul_kernels(f"train {name}", launches,
+                         STACK_MATMUL_KERNELS.get(name, ("matmul_tc",)))
+
+    # (c) times: fwd and fwd+bwd in turns, one profiled fwd+bwd
+    fwd_ms = timed_calls(torch, fwd, TRAIN_TIMED)
+    bwd_ms = timed_calls(torch, fwd_bwd, TRAIN_TIMED)
+    breakdown = profiled(torch, f"train {name} h100 fwd+bwd", fwd_bwd)
+    del fwd, fwd_bwd, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    ref_losses, ref_step_ms, ref_final = train_run(torch, ref, x, y,
+                                                   TRAIN_STEPS, lr)
+    if not losses[-1] < losses[0]:
+        fail(f"train {name}: loss did not fall: {losses}")
+    sound = train_gap(losses, final, ref_losses, ref_final)
+    if sound["violations"]:
+        fail(f"train {name} at lr {lr}: {sound['violations'][:4]}")
+    del final
+    with dw_fault():
+        f_losses, _, f_final = train_run(torch, sol, x, y, TRAIN_STEPS, lr)
+    fault = train_gap(f_losses, f_final, ref_losses, ref_final)
+    if not fault["violations"]:
+        fail(f"train {name}: the planted dw fault passes the training gate "
+             f"at lr {lr} (loss within {fault['loss_rel']:.3g}, params "
+             f"within max |Δ| {fault['max_abs']:.3g})")
+    del f_final
+    log(f"[train] {name}: losses h100 {[round(v, 6) for v in losses]}, "
+        f"torch_ref {[round(v, 6) for v in ref_losses]} (worst relative "
+        f"{sound['loss_rel']:.3g}, rtol {TRAIN_LOSS_RTOL}); final params "
+        f"within max |Δ| {sound['max_abs']:.3g} ({sound['worst']}); the "
+        f"planted dw fault: loss {fault['loss_rel']:.3g}, max |Δ| "
+        f"{fault['max_abs']:.3g}, {fault['outside']} elements outside "
+        f"{TRAIN_PARAM_TOL}; step ms h100 {[round(v, 2) for v in step_ms]}, "
+        f"torch_ref {[round(v, 2) for v in ref_step_ms]}; launches in the "
+        f"h100 steps {launches}; lr {lr}")
+    f_med, b_med = statistics.median(fwd_ms), statistics.median(bwd_ms)
+    log(f"[train] {name} h100 median of {TRAIN_TIMED}: fwd {f_med:.2f} ms, "
+        f"fwd+bwd {b_med:.2f} ms, ratio {b_med / f_med:.2f}; AdamW step, "
+        f"median of {TRAIN_STEPS}: h100 {statistics.median(step_ms):.2f} "
+        f"ms, torch_ref {statistics.median(ref_step_ms):.2f} ms")
+    out = {"config": cfg, "blocks": TRAIN_BLOCKS, "shape": shape, "lr": lr,
+           "parameters": n_params, "elections": by_kind,
+           "bwd_cases": cases, "fwd_launches": fwd_launches,
+           "bwd_launches": bwd_launches, "launches": launches,
+           "step0_grads": grads, "losses": losses,
+           "torch_ref_losses": ref_losses, "fault_losses": f_losses,
+           "agreement": sound, "fault": fault,
+           "step_ms": step_ms, "torch_ref_step_ms": ref_step_ms,
+           "fwd_ms": fwd_ms, "fwdbwd_ms": bwd_ms, "fwd_ms_median": f_med,
+           "fwdbwd_ms_median": b_med, "ratio": b_med / f_med,
+           "device_breakdown": breakdown}
+    del model, sol, ref, ref_final, x, y
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_cli(name: str) -> dict:
+    """``python -m repro_torch.launch.train --sol --sol-model name`` (d 256
+    on the card): warm-up, both gates, the loss falling; its backward
+    elections with their provenance are printed."""
+    import os
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--sol",
+         "--sol-model", name], cwd=ROOT, env=env, capture_output=True,
+        text=True, timeout=TRAIN_CLI_TIMEOUT)
+    seconds = time.perf_counter() - t0
+    lines = [ln for ln in proc.stdout.splitlines()
+             if ln.startswith("[train --sol]")]
+    for ln in lines:
+        log(f"[train-cli] {ln}")
+    if proc.returncode != 0 or "strict provenance clean" not in proc.stdout \
+            or "(improved)" not in proc.stdout:
+        fail(f"launch.train --sol --sol-model {name} exited "
+             f"{proc.returncode}: {proc.stderr[-2000:]}")
+    log(f"[train-cli] {name}: both gates passed, the loss fell "
+        f"({seconds:.1f} s)")
+    return {"seconds": seconds, "lines": lines}
+
+
+def phase_train(torch, counters, dev) -> dict:
+    """Phase 10: each stack's training path, the Listing-3 pool's
+    backward, and the training CLI for each zoo block."""
+    from repro_torch.backends import for_device, get_backend
+    t0 = time.perf_counter()
+    backend = for_device(get_backend("h100"), dev)
+    gen = torch.Generator(dev).manual_seed(299)
+    stacks = {name: train_stack(torch, counters, dev, i, name, cfg, backend)
+              for i, (name, cfg) in enumerate(TRAIN_STACKS)}
+    pool = avgpool_bwd_case(torch, gen, backend)
+    cli = {name: train_cli(name) for name, _ in TRAIN_STACKS}
+    log(f"[train] phase 10 took {time.perf_counter() - t0:.1f} s")
+    return {"stacks": stacks, "avgpool_bwd": pool, "cli": cli}
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "__init__.py").is_file():
         print("chip_smoke: src/repro_torch not found next to this script; "
@@ -2705,12 +3304,21 @@ def main() -> int:
         torch, counters, torch.device("cuda"), serve, serve_ref,
         kern["bf16_products"])
     sol = phase_sol(torch, torch.device("cuda"), measured_state)
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_counters = {**mm, "flash_attention": flash_attention_cuda,
+                      "dfp_fused": dfp_fused_triton,
+                      "rglru_scan": rglru_scan_cuda,
+                      "rwkv6_scan": rwkv6_scan_cuda}
+    train = phase_train(torch, train_counters, torch.device("cuda"))
 
     # launches per main path: the served set and one forward of each stack
     # and each CNN in f32; the bf16 paths' runs for the bf16 entries
     by_path = {"serve": serve["launches"]}
     by_path.update({name: r["launches"] for name, r in recurrent.items()})
     by_path.update({name: r["launches"] for name, r in cnn.items()})
+    by_path.update({f"train_{name}": r["launches"]
+                    for name, r in train["stacks"].items()})
     bf16_by_path = {name: r["launches"] for name, r in bf16.items()}
     line = []
     # one entry per kernel and dtype (f32, and bf16 with the suffix _bf16):
@@ -2744,7 +3352,7 @@ def main() -> int:
          "kernels": kern["cases"], "plans": kern["plans"],
          "serve": serve,
          "recurrent": recurrent, "cnn": cnn, "bf16": bf16,
-         "measured_serve": measured, "sol": sol,
+         "measured_serve": measured, "sol": sol, "train": train,
          "seconds": time.perf_counter() - t_start},
         indent=1, default=str))
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")

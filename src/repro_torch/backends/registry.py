@@ -16,7 +16,12 @@ executor resolves ``node → impl`` through a fallback chain:
 Two backends: ``torch_ref`` (capabilities ``{"torch"}``, the reference tier
 only — the counterpart of ``xla``; it runs wherever its tensors are) and
 ``h100`` (``{"torch", "cuda"}`` — the counterpart of ``pallas_tpu``).
-Backward (grad) tables come with the training slice.
+
+Backward (grad) tables sit beside the forward ones, with the same
+:class:`Impl`, tiers and capability gating; a grad impl's ``fn`` follows
+:data:`GradFn` and its measurements live under the ``_bwd`` cache key
+(:func:`grad_cache_op`), so a node's forward and backward elections are
+independent.
 
 Peaks by unit.  The election costs every FLOP at the bf16 tensor-core
 peak, as the JAX package does (``HardwareSpec.compute_s``'s default unit),
@@ -121,6 +126,11 @@ def library_unit(shape: Tuple[int, ...], dtype: str) -> str:
 # fn(node, vals, backend) -> Tensor; vals are the lowered inputs of the node
 # (for FUSED nodes: the side inputs, in node.inputs order).
 ImplFn = Callable[[Node, Sequence[Any], "Backend"], Any]
+# fn(node, (vals, out), ct, backend) -> one cotangent per input of the node
+# (None where the input is an integer or gets no gradient); the residuals
+# are the node's inputs and its forward output
+GradFn = Callable[[Node, Tuple[Sequence[Any], Any], Any, "Backend"],
+                  Sequence[Any]]
 # unit(shape, dtype) -> one of UNITS, from the node's autotune key shape
 # (``core.autotune.node_shape``) and dtype, so a cache entry's bucket and a
 # live node answer alike
@@ -170,6 +180,11 @@ _BACKEND_IMPLS: Dict[Tuple[str, OpKind], List[Impl]] = {}
 _SHARED_IMPLS: Dict[OpKind, List[Impl]] = {}
 _REFERENCE_IMPLS: Dict[OpKind, Impl] = {}
 _IMPLS_BY_NAME: Dict[str, Impl] = {}
+# the backward tables, parallel to the forward ones
+_GRAD_BACKEND_IMPLS: Dict[Tuple[str, OpKind], List[Impl]] = {}
+_GRAD_SHARED_IMPLS: Dict[OpKind, List[Impl]] = {}
+_GRAD_REFERENCE_IMPLS: Dict[OpKind, Impl] = {}
+_GRAD_IMPLS_BY_NAME: Dict[str, Impl] = {}
 
 
 def _index(impl: Impl) -> Impl:
@@ -243,6 +258,14 @@ def _load_entry_points() -> None:
         from ..kernels.matmul import ops as _m               # noqa: F401
         from ..kernels.rglru_scan import ops as _rg          # noqa: F401
         from ..kernels.rwkv6_scan import ops as _rw          # noqa: F401
+        # backward entry points (each grad.py registers its impls)
+        from ..kernels.avgpool import grad as _apg           # noqa: F401
+        from ..kernels.decode_attention import grad as _dag  # noqa: F401
+        from ..kernels.dfp_fused import grad as _dg          # noqa: F401
+        from ..kernels.flash_attention import grad as _fg    # noqa: F401
+        from ..kernels.matmul import grad as _mg             # noqa: F401
+        from ..kernels.rglru_scan import grad as _rgg        # noqa: F401
+        from ..kernels.rwkv6_scan import grad as _rwg        # noqa: F401
     except BaseException:
         _ENTRY_POINTS_STATE = "unloaded"
         raise
@@ -286,6 +309,111 @@ def resolve(backend: "Backend", node: Node) -> Impl:
         raise NotImplementedError(
             f"no implementation of {node.op} for backend {backend.name!r}")
     return cands[0]
+
+
+# ---------------------------------------------------------------------------
+# backward implementations
+# ---------------------------------------------------------------------------
+
+GRAD_SUFFIX = "_bwd"
+
+
+def grad_cache_op(op: OpKind) -> str:
+    """The autotune-cache op key of ``op``'s backward impls, suffixed so
+    backward timings and configs never collide with the forward's."""
+    return f"{op.value}{GRAD_SUFFIX}"
+
+
+def register_grad_impl(backend: str, op: OpKind, fn: GradFn, *,
+                       name: Optional[str] = None,
+                       supports: Optional[Callable[[Node], bool]] = None,
+                       memory: str = "streamed",
+                       tunable: Optional[Tunable] = None,
+                       unit: Optional[UnitFn] = None) -> Impl:
+    """Register a backend-specific backward impl (tier 0)."""
+    impl = Impl(name or f"{backend}.{op.value}{GRAD_SUFFIX}", op, fn,
+                TIER_BACKEND, supports=supports, backend=backend,
+                memory=memory, tunable=tunable, unit=unit)
+    _GRAD_IMPLS_BY_NAME[impl.name] = impl
+    _GRAD_BACKEND_IMPLS.setdefault((backend, op), []).insert(0, impl)
+    return impl
+
+
+def register_shared_grad_impl(
+        op: OpKind, fn: GradFn, *, name: str, requires: Sequence[str] = (),
+        supports: Optional[Callable[[Node], bool]] = None,
+        memory: str = "streamed", tunable: Optional[Tunable] = None,
+        unit: Optional[UnitFn] = None) -> Impl:
+    """Register a shared backward impl (tier 1, capability-gated)."""
+    impl = Impl(name, op, fn, TIER_SHARED, requires=frozenset(requires),
+                supports=supports, memory=memory, tunable=tunable, unit=unit)
+    _GRAD_IMPLS_BY_NAME[impl.name] = impl
+    _GRAD_SHARED_IMPLS.setdefault(op, []).insert(0, impl)
+    return impl
+
+
+def register_reference_grad_impl(op: OpKind, fn: GradFn, *,
+                                 name: Optional[str] = None,
+                                 memory: str = "roundtrip") -> Impl:
+    """Register the always-available backward reference (tier 2), usually
+    autograd of the forward reference recomputed from the primals
+    (``core.executor.reference_vjp_grad``)."""
+    impl = Impl(name or f"ref.{op.value}{GRAD_SUFFIX}", op, fn,
+                TIER_REFERENCE, memory=memory)
+    _GRAD_IMPLS_BY_NAME[impl.name] = impl
+    _GRAD_REFERENCE_IMPLS[op] = impl
+    return impl
+
+
+def get_grad_impl(name: str) -> Optional[Impl]:
+    _load_entry_points()
+    return _GRAD_IMPLS_BY_NAME.get(name)
+
+
+def grad_tunables_for(op: OpKind) -> List[Tunable]:
+    """Every Tunable any backward impl declares for ``op`` (the backward
+    election clears all of them before pinning its winner's)."""
+    _load_entry_points()
+    out: List[Tunable] = []
+    for (_b, o), impls in _GRAD_BACKEND_IMPLS.items():
+        if o is op:
+            out += [i.tunable for i in impls if i.tunable is not None]
+    out += [i.tunable for i in _GRAD_SHARED_IMPLS.get(op, ())
+            if i.tunable is not None]
+    return out
+
+
+def grad_candidates(backend: "Backend", node: Node) -> List[Impl]:
+    """Admissible backward impls for (backend, node): backend-specific
+    first, then shared.
+
+    The reference backward is a candidate only when no kernel-tier
+    backward is admissible: it materializes what the kernels exist to
+    avoid (the S×S attention matrix, every recurrent state), so a timing
+    race at small shapes would elect it and then exhaust device memory at
+    real ones.  Alone, it keeps every op differentiable on every
+    backend."""
+    _load_entry_points()
+    out: List[Impl] = []
+    for impl in _GRAD_BACKEND_IMPLS.get((backend.name, node.op), []):
+        if impl.admissible(backend, node):
+            out.append(impl)
+    for impl in _GRAD_SHARED_IMPLS.get(node.op, []):
+        if impl.admissible(backend, node):
+            out.append(impl)
+    if not out:
+        ref = _GRAD_REFERENCE_IMPLS.get(node.op)
+        if ref is not None and ref.admissible(backend, node):
+            out.append(ref)
+    return out
+
+
+def resolve_grad(backend: "Backend", node: Node) -> Optional[Impl]:
+    """The first admissible backward impl, or None: an op with no
+    registered backward is differentiated by autograd through its forward
+    impl's torch ops."""
+    cands = grad_candidates(backend, node)
+    return cands[0] if cands else None
 
 
 # ---------------------------------------------------------------------------

@@ -27,8 +27,10 @@ their SOL ratio (``core.sol``) and probes each worst cell's
 ``Tunable.refine_space``; ``sol_rows`` (the ``sol`` table of
 ``repro_torch.benchmarks.run``) tunes the tiny shapes, plans and ranks, and
 ``matmul_rows`` (the ``matmul`` table) holds the matmul kernel to
-``torch.matmul``.  The backward sweep (``sweep_node_grad``) waits for the
-port's grad tables.
+``torch.matmul``.  The CLI also sweeps each node's backward impls
+(``tune(grads=True)``: ``sweep_node_grad``, under the ``_bwd`` cache
+keys), and ``--verify`` checks their round trip through the backward
+election as well.
 """
 from __future__ import annotations
 
@@ -191,15 +193,17 @@ def _build(op: str, shape: Tuple[int, ...], dtype: str = "float32",
 def tune(backend_name: str = "h100", ops: Sequence[str] = DEFAULT_OPS, *,
          tiny: bool = False, warmup: int = 2, iters: int = 5, cache=None,
          dtype: str = "float32", device: DeviceLike = None,
-         shapes: Optional[Dict[str, List[Tuple[int, ...]]]] = None
-         ) -> List[Tuple[str, float, str]]:
+         shapes: Optional[Dict[str, List[Tuple[int, ...]]]] = None,
+         grads: bool = False) -> List[Tuple[str, float, str]]:
     """Measure every admissible impl of each (op, shape) through the
     dispatch table, each impl's ``Tunable`` space swept, and record best
-    times (with winning configs) into ``cache``.  ``shapes`` replaces the
-    sweep's shapes (``SHAPES``, or ``TINY_SHAPES`` with ``tiny``).  Returns
-    (name, µs, derived) rows."""
+    times (with winning configs) into ``cache``; with ``grads`` each
+    node's backward impls too, under the ``_bwd`` keys (rows named
+    ``..._<op>_bwd_...``).  ``shapes`` replaces the sweep's shapes
+    (``SHAPES``, or ``TINY_SHAPES`` with ``tiny``).  Returns (name, µs,
+    derived) rows."""
     from ..backends import for_device, get_backend
-    from ..core.measure import sweep_node
+    from ..core.measure import sweep_node, sweep_node_grad
 
     device = resolve_device(device)
     backend = for_device(get_backend(backend_name), device)
@@ -210,13 +214,17 @@ def tune(backend_name: str = "h100", ops: Sequence[str] = DEFAULT_OPS, *,
         for shape in table.get(op, ()):
             node, vals = _build(op, shape, dtype, device)
             tag = "x".join(str(d) for d in shape)
-            for m in sweep_node(node, vals, backend, cache, warmup=warmup,
-                                iters=iters):
-                derived = f"configs={m.n_configs};mean_us={m.mean_us:.3f}"
-                if m.config is not None:
-                    derived += ";best=" + "x".join(str(d) for d in m.config)
-                rows.append((f"autotune_{backend_name}_{dtype}_{op}_{tag}_"
-                             f"{m.impl}", m.us, derived))
+            sweeps = [("", sweep_node)] + ([("_bwd", sweep_node_grad)]
+                                           if grads else [])
+            for sfx, sweep in sweeps:
+                for m in sweep(node, vals, backend, cache, warmup=warmup,
+                               iters=iters):
+                    derived = f"configs={m.n_configs};mean_us={m.mean_us:.3f}"
+                    if m.config is not None:
+                        derived += ";best=" + "x".join(str(d)
+                                                       for d in m.config)
+                    rows.append((f"autotune_{backend_name}_{dtype}_{op}{sfx}_"
+                                 f"{tag}_{m.impl}", m.us, derived))
     return rows
 
 
@@ -525,7 +533,8 @@ def attention_flip_proof(cache, device: DeviceLike = None) -> int:
 
 def verify_cache(path: str, device: DeviceLike = None) -> int:
     """Reload ``path`` from disk, install it, and prove each tuned
-    (backend, op) in the file yields a measured election on a fresh graph,
+    (backend, op) in the file yields a measured election on a fresh graph
+    (a ``_bwd`` op through the backward election of its forward node),
     then the attention flip proof."""
     from ..backends import get_backend
     from ..backends import registry as R
@@ -547,9 +556,10 @@ def verify_cache(path: str, device: DeviceLike = None) -> int:
     measured, cold = [], []
     try:
         for (op, dtype, backend_name), bucket in sorted(groups.items()):
+            is_bwd = op.endswith(R.GRAD_SUFFIX)
             try:
                 backend = get_backend(backend_name)
-                node = _node(op, bucket, dtype)
+                node = _node(op.removesuffix(R.GRAD_SUFFIX), bucket, dtype)
             except (KeyError, ValueError):       # foreign backend / op kind
                 continue
             ins = [i for i in node.inputs if i.op is OpKind.INPUT]
@@ -557,8 +567,13 @@ def verify_cache(path: str, device: DeviceLike = None) -> int:
                       if i.op is OpKind.PARAM}
             g = Graph(ins, [node], params)
             passes.elect_implementations(g, backend)
-            elected = node.impl
-            impl = R.get_impl(elected)
+            if is_bwd:
+                passes.elect_grad_implementations(g, backend)
+                elected = node.impl_bwd
+                impl = R.get_grad_impl(elected) if elected else None
+            else:
+                elected = node.impl
+                impl = R.get_impl(elected)
             tag = f"{backend_name}:{dtype}:{op}→{elected}"
             if impl is not None and impl.tunable is not None:
                 cfg = node.attrs.get(impl.tunable.attr)
@@ -597,7 +612,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ap.add_argument("--iters", type=int, default=5)
     ap.add_argument("--verify", action="store_true",
                     help="after saving, reload the cache from disk and "
-                         "check measured elections and the attention flip")
+                         "check measured elections (forward and backward) "
+                         "and the attention flip")
     args = ap.parse_args(argv)
 
     cache = AT.AutotuneCache.load(args.cache)   # merge into prior runs
@@ -605,7 +621,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     for backend in args.backend or ["h100"]:
         rows += tune(backend, args.ops, tiny=args.tiny, warmup=args.warmup,
                      iters=args.iters, cache=cache, dtype=args.dtype,
-                     device=args.device)
+                     device=args.device, grads=True)
     cache.save(args.cache)
     print("name,us_per_call,derived")
     for name, us, derived in rows:

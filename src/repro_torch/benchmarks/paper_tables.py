@@ -6,7 +6,10 @@
   * ``inference_fig3`` Fig. 3 left: B=1 inference, the eager ``nn.Module``
                        forward against ``optimize(..., backend="h100")``,
                        on the card unless ``device="cpu"``.
-  * ``training_fig3``  Fig. 3 right: waits for the training slice.
+  * ``training_fig3``  Fig. 3 right: a training step's gradients, eager
+                       autograd of the module against autograd through
+                       ``optimize(..., training=True)``, B=64 MLP and
+                       B=16 CNN.
 
 The paper's speedups are its devices'; what a run here shows is the
 direction on this card, where the port's wrappers and its Python dispatch
@@ -110,6 +113,61 @@ def inference_fig3(device: DeviceLike = None) -> List[Row]:
 
 
 def training_fig3(device: DeviceLike = None) -> List[Row]:
-    raise NotImplementedError(
-        "Fig. 3 right (training) waits for training through elected kernels "
-        "(ROADMAP §1 item 3)")
+    """The JAX table's two cases: d(mean(y²))/d(params) by eager autograd
+    of the module (in eval mode) and by autograd through its ``h100``
+    training program, on one seeded input.  The losses and every
+    parameter's gradient must agree within README's f32 row before any
+    time counts; then ``core.measure`` times both (outside
+    ``inference_mode``; the min of 5 calls, the mean beside it)."""
+    from ..core.measure import full_f32, time_call_stats
+    from ..frontends import nn
+    from ..frontends.optimize import optimize
+
+    dev = resolve_device(device)
+    gen = torch.Generator(dev).manual_seed(0)
+    kw = dict(device=dev, generator=gen)
+    cases = [("mlp_B64", nn.mlp_8192(3, 1024, 1024, 256, **kw), (64, 1024)),
+             ("small_cnn_B16", nn.small_cnn(**kw), (16, 3, 32, 32))]
+    rows: List[Row] = []
+    rtol, atol = F32_TOL
+    with full_f32():
+        for name, model, shape in cases:
+            model = model.eval()
+            x = torch.randn(shape, generator=torch.Generator(
+                dev).manual_seed(1), device=dev)
+            sol = optimize(model, shape, backend="h100", training=True,
+                           device=dev)
+            params = sol._params_for_call()
+            named = dict(model.named_parameters())
+            keys = sorted(k for k in params if k in named)   # no buffers
+            eager_p = [named[k] for k in keys]
+
+            def sol_grad():
+                leaves = [params[k].detach().requires_grad_(True)
+                          for k in keys]
+                loss = (sol._fn({**params, **dict(zip(keys, leaves))}, x)
+                        ** 2).mean()
+                return loss, torch.autograd.grad(loss, leaves)
+
+            def eager_grad():
+                loss = (model(x) ** 2).mean()
+                return loss, torch.autograd.grad(loss, eager_p)
+
+            (l_s, g_s), (l_e, g_e) = sol_grad(), eager_grad()
+            err = max(float((a - b).detach().abs().max())
+                      for a, b in zip((l_s, *g_s), (l_e, *g_e)))
+            if not all(torch.allclose(a, b, rtol=rtol, atol=atol)
+                       for a, b in zip((l_s, *g_s), (l_e, *g_e))):
+                raise RuntimeError(
+                    f"training {name}: the h100 SOL gradients differ from "
+                    f"eager autograd by max |Δ| {err:.3g} (rtol {rtol}, "
+                    f"atol {atol})")
+            ref = time_call_stats(eager_grad, 1, 5, dev, inference=False)
+            opt = time_call_stats(sol_grad, 1, 5, dev, inference=False)
+            rows.append((f"train_{name}_reference", ref.min_us,
+                         f"mean_us={ref.mean_us:.3f};{dev.type}"))
+            rows.append((f"train_{name}_sol", opt.min_us,
+                         f"speedup={ref.min_us / opt.min_us:.2f}x;"
+                         f"mean_us={opt.mean_us:.3f};max_abs_err={err:.2e};"
+                         f"{dev.type}"))
+    return rows

@@ -14,9 +14,14 @@ one function per table, printed as ``name,us_per_call,derived`` CSV.
   sol         speed-of-light gap analysis: every tuned cell ranked by
               measured ÷ bound at its unit's peak, plus the gap-driven
               planner's per-cell outcomes
+  training    the paper's Fig. 3 right: a training step's gradients by
+              eager autograd against ``optimize(..., training=True)``,
+              gradients held together before any time counts
+  train       fwd and fwd+bwd through each zoo family's training program,
+              with their ratio
 
-``training``, ``roofline`` and ``train`` wait for later slices of the
-port: asking for one fails that table, as an unknown table does.
+``roofline`` waits for a later slice of the port: asking for it fails
+that table, as an unknown table does.
 
     PYTHONPATH=src python -m repro_torch.benchmarks.run [table ...] \\
         [--json PATH] [--device cpu|cuda]
@@ -24,11 +29,11 @@ port: asking for one fails that table, as an unknown table does.
 Tables run on the CUDA card unless ``--device cpu`` is given (there every
 kernel runs its plain version, so the times say nothing of the card).
 ``--json PATH`` also writes the rows as a JSON document (its directory
-made if missing); whenever the
-``matmul``, ``serving`` or ``sol`` table ran, a side file with its rows
-alone (``BENCH_torch_matmul.json``, ``BENCH_torch_serve.json``,
-``BENCH_torch_sol.json``) goes to the JSON's directory (else the current
-one), named apart from the JAX package's ``BENCH_*.json`` series;
+made if missing); whenever the ``matmul``, ``serving``, ``sol`` or
+``train`` table ran, a side file with its rows alone
+(``BENCH_torch_matmul.json``, ``BENCH_torch_serve.json``,
+``BENCH_torch_sol.json``, ``BENCH_torch_train.json``) goes to the JSON's
+directory (else the current one), named apart from the JAX package's ``BENCH_*.json`` series;
 ``tools/bench_diff.py`` diffs any two of them.  Exits 1 if any requested
 table raised.
 """
@@ -47,13 +52,12 @@ DEFAULT_TABLES = ("effort", "inference", "layouts", "matmul", "autotune",
                   "serving")
 # tables of the JAX harness whose modules are not ported yet, and the
 # ROADMAP §1 item each waits for
-LATER = {"training": "training through elected kernels (ROADMAP §1 item 3)",
-         "train": "training through elected kernels (ROADMAP §1 item 3)",
-         "roofline": "models/backbone, configs and the dry run (ROADMAP §1 "
+LATER = {"roofline": "models/backbone, configs and the dry run (ROADMAP §1 "
                      "item 7)"}
 SIDE_FILES = (("matmul", "BENCH_torch_matmul.json"),
               ("serving", "BENCH_torch_serve.json"),
-              ("sol", "BENCH_torch_sol.json"))
+              ("sol", "BENCH_torch_sol.json"),
+              ("train", "BENCH_torch_train.json"))
 
 
 def table_rows(name: str, device=None) -> List[Row]:
@@ -63,6 +67,12 @@ def table_rows(name: str, device=None) -> List[Row]:
     if name == "inference":
         from . import paper_tables
         return paper_tables.inference_fig3(device)
+    if name == "training":
+        from . import paper_tables
+        return paper_tables.training_fig3(device)
+    if name == "train":
+        from . import train_bench
+        return train_bench.csv_rows(device)
     if name == "layouts":
         from . import layouts
         return layouts.csv_rows(device)

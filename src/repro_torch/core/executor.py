@@ -1,15 +1,22 @@
-"""SOL execution (counterpart of ``repro.core.executor``, forward only).
+"""SOL execution (counterpart of ``repro.core.executor``).
 
 ``lower_graph`` turns an elected graph into a Python function over tensors:
 each node runs the impl the election pass annotated on ``node.impl`` (or the
 first admissible one in the fallback chain backend kernel → shared kernel →
 the PyTorch reference lowerings below).  This module registers the
-**reference tier** for every op it can lower; it knows nothing about which
-backends exist.  PyTorch runs eagerly, so the lowered function is the
-compiled program: there is no tracing step.
+**reference tier** for every op it can lower, forward and backward; it
+knows nothing about which backends exist.  PyTorch runs eagerly, so the
+lowered function is the compiled program: there is no tracing step.
+
+``lower_graph(..., differentiable=True)`` wraps every node whose op has a
+backward impl in a ``torch.autograd.Function`` (:class:`_NodeFunction`)
+that pairs the elected forward with the elected backward (``node.impl`` and
+``node.impl_bwd``); autograd of the lowered function then runs the elected
+kernels in both directions.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Callable, Dict, List, Sequence
 
 import torch
@@ -185,6 +192,47 @@ _REFERENCE_OPS = (
 )
 
 
+def vjp(fn: Callable[..., Tensor], vals: Sequence[Any], ct: Tensor
+        ) -> List[Any]:
+    """Autograd of ``fn(*vals)`` against the output cotangent ``ct``,
+    recomputed from the primals: one cotangent per value, None for an
+    integer value or one the output does not depend on.  It runs in
+    backward, where grad mode is off, so it records on detached leaf copies
+    under ``torch.enable_grad()``."""
+    diff = [i for i, v in enumerate(vals)
+            if isinstance(v, Tensor) and v.is_floating_point()]
+    with torch.enable_grad():
+        full = list(vals)
+        for i in diff:
+            full[i] = vals[i].detach().requires_grad_(True)
+        out = fn(*full)
+        cts = torch.autograd.grad(out, [full[i] for i in diff], ct,
+                                  allow_unused=True)
+    grads: List[Any] = [None] * len(vals)
+    for i, c in zip(diff, cts):
+        grads[i] = c
+    return grads
+
+
+def reference_vjp_grad(n: Node, res, ct: Tensor,
+                       backend: "registry.Backend") -> List[Any]:
+    """The universal tier-2 backward: autograd of the op's reference
+    forward, recomputed from the saved primals (no residual beyond the
+    default ``(inputs, output)`` pair).  Works for any op with a reference
+    forward, FUSED groups included."""
+    vals, _out = res
+    ref = registry._REFERENCE_IMPLS[n.op]
+    return vjp(lambda *xs: ref.fn(n, list(xs), backend), vals, ct)
+
+
+# Ops whose elected forward can be a hand-written kernel (no autograd of
+# its own) must carry a registered backward; these join with the reference
+# backward so theirs can be elected and swept.  Elementwise and norm ops
+# differentiate through their torch lowerings.
+_GRAD_REFERENCE_OPS = (OpKind.LINEAR, OpKind.MATMUL, OpKind.CONV2D,
+                       OpKind.AVGPOOL, OpKind.FUSED)
+
+
 def _register_reference_impls() -> None:
     """Invoked by ``registry._load_entry_points`` (not at import), so the
     executor↔registry import cycle stays one-directional."""
@@ -197,6 +245,8 @@ def _register_reference_impls() -> None:
             unit=registry.library_unit if _op in products else None)
     registry.register_reference_impl(OpKind.FUSED, compose_fused,
                                      name="ref.compose", memory="roundtrip")
+    for _op in _GRAD_REFERENCE_OPS:
+        registry.register_reference_grad_impl(_op, reference_vjp_grad)
 
 
 # ---------------------------------------------------------------------------
@@ -214,11 +264,64 @@ def _impl_for(n: Node, backend: "registry.Backend") -> registry.Impl:
     return registry.resolve(backend, n)
 
 
-def lower_graph(g: Graph, backend: "registry.Backend"
-                ) -> Callable[..., Any]:
+def _grad_impl_for(n: Node, backend: "registry.Backend"
+                   ) -> registry.Impl | None:
+    """Honour the backward election's annotation when it is still
+    admissible, else the first admissible backward in the chain; None when
+    the op registers no backward (autograd differentiates its forward
+    impl's torch ops)."""
+    if n.impl_bwd:
+        impl = registry.get_grad_impl(n.impl_bwd)
+        if impl is not None and impl.op is n.op \
+                and impl.admissible(backend, n):
+            return impl
+    return registry.resolve_grad(backend, n)
+
+
+class _NodeFunction(torch.autograd.Function):
+    """One node of a differentiable lowering: its elected forward impl, and
+    its elected backward impl on the default residuals, the node's inputs
+    and its output.  The backward's cotangents are checked for count; an
+    integer input (decode ``lens``) gets None, a None cotangent of a float
+    input zeros, and every other is cast to its input's dtype."""
+
+    @staticmethod
+    def forward(ctx, node: Node, impl: registry.Impl,
+                grad_impl: registry.Impl, backend: "registry.Backend",
+                *vals: Tensor) -> Tensor:
+        out = impl.fn(node, list(vals), backend)
+        ctx.node, ctx.grad_impl, ctx.backend = node, grad_impl, backend
+        ctx.save_for_backward(*vals, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, ct: Tensor):
+        *vals, out = ctx.saved_tensors
+        n, grad_impl = ctx.node, ctx.grad_impl
+        cts = grad_impl.fn(n, (vals, out), ct, ctx.backend)
+        cts = tuple(cts) if isinstance(cts, (tuple, list)) else (cts,)
+        if len(cts) != len(vals):
+            raise ValueError(
+                f"{grad_impl.name} returned {len(cts)} cotangents for "
+                f"{len(vals)} inputs of {n}")
+        fixed = []
+        for v, c in zip(vals, cts):
+            if not v.is_floating_point():
+                fixed.append(None)
+            elif c is None:
+                fixed.append(torch.zeros_like(v))
+            else:
+                fixed.append(c.to(v.dtype))
+        return (None, None, None, None, *fixed)
+
+
+def lower_graph(g: Graph, backend: "registry.Backend", *,
+                differentiable: bool = False) -> Callable[..., Any]:
     """Return fn(params: dict, *inputs) -> outputs evaluating the graph.
     CONST sources are materialized once per device, on the device of the
-    first input."""
+    first input, outside ``inference_mode``.  With ``differentiable=True``
+    every node whose op has a backward impl runs through
+    :class:`_NodeFunction`, its impls bound once here."""
     order = g.topo()
     input_ids = [id(i) for i in g.inputs]
     param_items = sorted(g.params.items())
@@ -227,16 +330,29 @@ def lower_graph(g: Graph, backend: "registry.Backend"
         if n.op not in (OpKind.INPUT, OpKind.PARAM, OpKind.CONST,
                         OpKind.OUTPUT)
     }
+    calls: Dict[int, Callable[..., Any]] = {}
+    if differentiable:
+        for n in order:
+            if id(n) not in impls:
+                continue
+            gi = _grad_impl_for(n, backend)
+            if gi is not None:
+                calls[id(n)] = functools.partial(
+                    _NodeFunction.apply, n, impls[id(n)], gi, backend)
     consts = [n for n in order if n.op is OpKind.CONST]
     const_cache: Dict[torch.device, Dict[int, Tensor]] = {}
 
     def fn(params: Dict[str, Tensor], *inputs: Tensor):
         dev = inputs[0].device if inputs else torch.device("cpu")
         if dev not in const_cache:
-            const_cache[dev] = {
-                id(n): torch.full(n.spec.shape, n.attrs.get("fill", 0.0),
-                                  dtype=TORCH_DTYPES[n.spec.dtype],
-                                  device=dev) for n in consts}
+            # normal tensors even when the first call runs under
+            # inference_mode: a later differentiated call saves them
+            with torch.inference_mode(False):
+                const_cache[dev] = {
+                    id(n): torch.full(n.spec.shape,
+                                      n.attrs.get("fill", 0.0),
+                                      dtype=TORCH_DTYPES[n.spec.dtype],
+                                      device=dev) for n in consts}
         env: Dict[int, Tensor] = dict(const_cache[dev])
         for nid, x in zip(input_ids, inputs):
             env[nid] = x
@@ -247,8 +363,10 @@ def lower_graph(g: Graph, backend: "registry.Backend"
                 continue
             if n.op in (OpKind.INPUT, OpKind.PARAM):
                 raise ValueError(f"unbound source node {n}")
-            env[id(n)] = impls[id(n)].fn(n, [env[id(i)] for i in n.inputs],
-                                         backend)
+            vals = [env[id(i)] for i in n.inputs]
+            call = calls.get(id(n))
+            env[id(n)] = (call(*vals) if call is not None
+                          else impls[id(n)].fn(n, vals, backend))
         outs = tuple(env[id(o)] for o in g.outputs)
         return outs[0] if len(outs) == 1 else outs
 

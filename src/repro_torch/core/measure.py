@@ -8,8 +8,14 @@ best time (with the winning config and the impl's roofline terms) into an
 ``repro_torch.benchmarks.autotune`` and ``SolServer.warm_autotune`` both
 measure through it, so the two paths cannot drift.
 
+``sweep_node_grad`` does the same for the node's backward impls, each
+called on the residuals ``(vals, out)`` and the cotangent
+``ones_like(out)``, and records under the ``_bwd`` cache key
+(``registry.grad_cache_op``) that the backward election reads.
+
 What the number is.  Each call of ``impl.fn(node, vals, backend)`` runs
-under ``torch.inference_mode()`` and is timed on its own:
+under ``torch.inference_mode()`` (a backward impl's outside it: some
+record autograd graphs of their own) and is timed on its own:
 
 * on the card, a ``torch.cuda.Event`` pair is recorded on the current
   stream around the call and the host synchronizes after it.  The time is
@@ -85,12 +91,16 @@ def _timer(device: Optional[torch.device]) -> Callable[[Callable], float]:
 
 def time_call_stats(fn: Callable[[], object], warmup: int = 2,
                     iters: int = 5,
-                    device: Optional[torch.device] = None) -> Timing:
+                    device: Optional[torch.device] = None,
+                    inference: bool = True) -> Timing:
     """Time ``fn`` per call (µs) after ``warmup`` calls and return the min
     and the mean over ``iters`` calls, each timed on its own (module
-    docstring); ``device`` is where ``fn`` runs."""
+    docstring); ``device`` is where ``fn`` runs.  ``inference=False``
+    times outside ``torch.inference_mode()``, for a ``fn`` that records
+    autograd graphs (a backward, or a forward to differentiate)."""
     once = _timer(device)
-    with torch.inference_mode():
+    with (torch.inference_mode() if inference
+          else contextlib.nullcontext()):
         for _ in range(max(warmup, 1)):
             fn()
         if device is not None and device.type == "cuda":
@@ -127,27 +137,21 @@ def _device_of(vals: Sequence[object]) -> Optional[torch.device]:
                 None)
 
 
-def measure_impl_configs(node, vals: Sequence[object], backend, impl,
-                         configs: Sequence[Optional[Tuple[int, ...]]], *,
-                         warmup: int = 2, iters: int = 5,
-                         skip_errors: bool = False
-                         ) -> List[ConfigMeasurement]:
-    """Time ``impl`` on ``node`` once per config in ``configs`` (``None``
-    is the impl's default).  The node's tunable attr is cleared in a
-    ``try/finally``: an impl raising mid-measurement never leaves a swept
-    config pinned on the node.  With ``skip_errors=True`` a raising config
-    yields a ``ConfigMeasurement`` with ``error`` set instead of
-    propagating."""
+def _measure_configs(node, impl, configs, call, dev, inference: bool,
+                     warmup: int, iters: int, skip_errors: bool
+                     ) -> List[ConfigMeasurement]:
+    """Time ``call()`` once per config of ``impl`` pinned on ``node``; the
+    node's tunable attr is cleared in a ``try/finally``, and a raising
+    config, with ``skip_errors``, yields a ``ConfigMeasurement`` with
+    ``error`` set."""
     tun = impl.tunable
-    dev = _device_of(vals)
     out: List[ConfigMeasurement] = []
     try:
         for cfg in configs:
             if tun is not None:
                 tun.bind_config(node, cfg)
             try:
-                t = time_call_stats(lambda: impl.fn(node, list(vals), backend),
-                                    warmup, iters, dev)
+                t = time_call_stats(call, warmup, iters, dev, inference)
             except Exception as e:
                 if not skip_errors:
                     raise
@@ -161,6 +165,89 @@ def measure_impl_configs(node, vals: Sequence[object], backend, impl,
     return out
 
 
+def measure_impl_configs(node, vals: Sequence[object], backend, impl,
+                         configs: Sequence[Optional[Tuple[int, ...]]], *,
+                         warmup: int = 2, iters: int = 5,
+                         skip_errors: bool = False
+                         ) -> List[ConfigMeasurement]:
+    """Time ``impl`` on ``node`` once per config in ``configs`` (``None``
+    is the impl's default).  The node's tunable attr is cleared in a
+    ``try/finally``: an impl raising mid-measurement never leaves a swept
+    config pinned on the node.  With ``skip_errors=True`` a raising config
+    yields a ``ConfigMeasurement`` with ``error`` set instead of
+    propagating."""
+    return _measure_configs(
+        node, impl, configs, lambda: impl.fn(node, list(vals), backend),
+        _device_of(vals), True, warmup, iters, skip_errors)
+
+
+def measure_grad_impl_configs(node, res, ct, backend, impl,
+                              configs: Sequence[Optional[Tuple[int, ...]]],
+                              *, warmup: int = 2, iters: int = 5,
+                              skip_errors: bool = False
+                              ) -> List[ConfigMeasurement]:
+    """The backward mirror of :func:`measure_impl_configs`: times a grad
+    impl (``fn(node, res, ct, backend)``) once per config, outside
+    ``inference_mode``.  ``res`` is the residual pair ``(inputs,
+    output)`` and ``ct`` the output's cotangent."""
+    return _measure_configs(
+        node, impl, configs, lambda: impl.fn(node, res, ct, backend),
+        _device_of(res[0]), False, warmup, iters, skip_errors)
+
+
+def _sweep(node, impls, measure, backend, cache, op_key: str,
+           cost_scale: float) -> List[ImplMeasurement]:
+    """Sweep each impl's ``Tunable`` space through ``measure(impl,
+    configs)`` and record its best under ``op_key``, with the node's
+    roofline terms times ``cost_scale``."""
+    from . import autotune as AT
+    from .passes import _node_cost_terms
+
+    flops, streamed, roundtrip = (cost_scale * t
+                                  for t in _node_cost_terms(node))
+    out: List[ImplMeasurement] = []
+    for impl in impls:
+        tun = impl.tunable
+        configs: List[Optional[Tuple[int, ...]]] = [None]
+        if tun is not None:
+            space = tun.tune_space(node, backend.hw)
+            if space:
+                configs = list(space)
+        results = measure(impl, configs)
+        best = min(results, key=lambda r: r.us)
+        nbytes = roundtrip if impl.memory == "roundtrip" else streamed
+        cache.record(op_key, AT.node_shape(node), node.spec.dtype,
+                     backend.cache_name, impl.name, best.us,
+                     config=best.config,
+                     flops=flops, nbytes=nbytes, mean_us=best.mean_us)
+        out.append(ImplMeasurement(impl.name, best.us, best.config,
+                                   len(configs), mean_us=best.mean_us))
+    return out
+
+
+def sweep_node_grad(node, vals: Sequence[object], backend, cache, *,
+                    warmup: int = 2, iters: int = 5
+                    ) -> List[ImplMeasurement]:
+    """Measure every admissible backward impl of ``node`` (each one's own
+    ``Tunable`` space swept, as the forwards are) on the residuals of the
+    reference forward at ``vals`` and the cotangent ``ones_like(out)``,
+    and record each impl's best time under the ``_bwd`` op key, with
+    twice the forward's roofline terms.  Returns the per-impl results."""
+    from ..backends import registry as R
+
+    grads = R.grad_candidates(backend, node)
+    if not grads:
+        return []
+    ref = R._REFERENCE_IMPLS[node.op]
+    with torch.no_grad():
+        out = ref.fn(node, list(vals), backend)
+    res = (tuple(vals), out)
+    ct = torch.ones_like(out)
+    return _sweep(node, grads, lambda impl, configs: measure_grad_impl_configs(
+        node, res, ct, backend, impl, configs, warmup=warmup, iters=iters),
+        backend, cache, R.grad_cache_op(node.op), 2.0)
+
+
 def sweep_node(node, vals: Sequence[object], backend, cache, *,
                warmup: int = 2, iters: int = 5) -> List[ImplMeasurement]:
     """Measure every admissible impl of ``node`` on ``backend`` on the
@@ -168,25 +255,9 @@ def sweep_node(node, vals: Sequence[object], backend, cache, *,
     time into ``cache`` under the node's autotune bucket.  Returns the
     per-impl results for reporting."""
     from ..backends import registry as R
-    from . import autotune as AT
-    from .passes import _node_cost_terms
 
-    flops, streamed, roundtrip = _node_cost_terms(node)
-    out: List[ImplMeasurement] = []
-    for impl in R.candidates(backend, node):
-        tun = impl.tunable
-        configs: List[Optional[Tuple[int, ...]]] = [None]
-        if tun is not None:
-            space = tun.tune_space(node, backend.hw)
-            if space:
-                configs = list(space)
-        results = measure_impl_configs(node, vals, backend, impl, configs,
-                                       warmup=warmup, iters=iters)
-        best = min(results, key=lambda r: r.us)
-        nbytes = roundtrip if impl.memory == "roundtrip" else streamed
-        cache.record(node.op.value, AT.node_shape(node), node.spec.dtype,
-                     backend.cache_name, impl.name, best.us, config=best.config,
-                     flops=flops, nbytes=nbytes, mean_us=best.mean_us)
-        out.append(ImplMeasurement(impl.name, best.us, best.config,
-                                   len(configs), mean_us=best.mean_us))
-    return out
+    return _sweep(node, R.candidates(backend, node),
+                  lambda impl, configs: measure_impl_configs(
+                      node, vals, backend, impl, configs, warmup=warmup,
+                      iters=iters),
+                  backend, cache, node.op.value, 1.0)

@@ -1,5 +1,5 @@
 """SOL compiler passes (paper Sec. III-A; counterpart of
-``repro.core.passes``, forward only).
+``repro.core.passes``).
 
   1. ``simplify``          — ReLU⊕MaxPool folding, transpose cancellation,
                              identity/dropout removal.
@@ -16,6 +16,8 @@
                              has them, else with the backend's roofline; the
                              cheapest wins (ties break toward the more
                              specific tier) and lands on ``node.impl``.
+  6. ``elect_grad_implementations`` — with ``training``, the same over the
+                             backward impls, onto ``node.impl_bwd``.
 
 The decisions are framework-neutral: for the same graph they equal the JAX
 package's, with ``cuda.*`` impls where it elects ``pallas.*``.
@@ -255,34 +257,42 @@ def node_roofline_terms(n: Node, hw: "object",
     return flops, nbytes, hw.roofline_s(flops, nbytes, unit=unit)
 
 
-def elect_implementations(g: Graph, backend: "object") -> Graph:
-    """Cost-based per-node impl election over the backend dispatch table.
-
-    Measured timings from the autotune cache win when present
-    (``'measured'`` provenance, with the winner's tuned config pinned through
-    its ``Tunable``); otherwise every admissible impl is costed with the
-    backend's roofline — scaled by calibrated coefficients when the cache
-    has them (``'calibrated'``, else ``'analytical'``) — and the cheapest
-    wins, ties breaking toward the more specific tier."""
-    from ..backends import registry as R
+def _elect(g: Graph, backend: "object", candidates, tunables_for,
+           op_key, cost_scale: float, attr: str, fresh: bool) -> Graph:
+    """One election pass over ``g``'s nodes: each node's admissible impls
+    (``candidates(backend, n)``; a node with none keeps ``attr`` None) are
+    elected from the autotune cache's measurements under ``op_key(n)``
+    when it has them (``'measured'``, the winner's config pinned through
+    its ``Tunable`` after every tunable of ``tunables_for(n.op)`` is
+    cleared), else by the roofline of the node's cost terms times
+    ``cost_scale``, scaled by calibrated coefficients where the cache has
+    them (``'calibrated'``, else ``'analytical'``), ties breaking toward
+    the more specific tier.  The winner lands on ``n.<attr>``; elections,
+    provenance and pins are kept per ``op_key``, anew with ``fresh`` or
+    merged into the graph's."""
     from . import autotune
 
     cache = autotune.get_cache()
-    elections: Dict[str, int] = {}
-    by_op: Dict[str, Dict[str, int]] = {}
-    provenance: Dict[str, Dict[str, int]] = {}
-    pinned: Dict[str, List[Tuple[int, ...]]] = {}
+
+    def kept(name: str):
+        return {} if fresh else (getattr(g, name, {}) or {})
+    elections: Dict[str, int] = kept("elections")
+    by_op: Dict[str, Dict[str, int]] = kept("elections_by_op")
+    provenance: Dict[str, Dict[str, int]] = kept("election_provenance")
+    pinned: Dict[str, List[Tuple[int, ...]]] = kept("election_pinned")
     for n in g.topo():
         if n.op in SOURCE_OPS or n.op is OpKind.OUTPUT:
             continue
-        cands = R.candidates(backend, n)
+        cands = candidates(backend, n)
         if not cands:
-            raise NotImplementedError(
-                f"no implementation of {n.op} for backend {backend.name!r}")
-        flops, streamed, roundtrip = _node_cost_terms(n)
+            setattr(n, attr, None)
+            continue
+        key = op_key(n)
+        flops, streamed, roundtrip = (cost_scale * t
+                                      for t in _node_cost_terms(n))
         by_name = {c.name: c for c in cands}
         measured = {name: m for name, m in cache.lookup(
-            n.op.value, autotune.node_shape(n), n.spec.dtype,
+            key, autotune.node_shape(n), n.spec.dtype,
             backend.cache_name).items() if name in by_name}
 
         cfg = None
@@ -294,9 +304,9 @@ def elect_implementations(g: Graph, backend: "object") -> Graph:
             cfg = measured[best_name].config
             source = "measured"
         else:
-            cal = cache.calibration(backend.cache_name, n.op.value)
+            cal = cache.calibration(backend.cache_name, key)
 
-            def cost(impl: "R.Impl") -> Tuple[float, int]:
+            def cost(impl) -> Tuple[float, int]:
                 nbytes = roundtrip if impl.memory == "roundtrip" else streamed
                 if cal:
                     t = cal["s_per_flop"] * flops + cal["s_per_byte"] * nbytes
@@ -306,14 +316,14 @@ def elect_implementations(g: Graph, backend: "object") -> Graph:
 
             best = min(cands, key=cost)
             source = "calibrated" if cal else "analytical"
-        for t in R.tunables_for(n.op):
+        for t in tunables_for(n.op):
             t.bind_config(n, None)
         if cfg and best.tunable is not None:
             best.tunable.bind_config(n, tuple(cfg))
             pinned.setdefault(best.name, []).append(tuple(cfg))
-        n.impl = best.name
+        setattr(n, attr, best.name)
         elections[best.name] = elections.get(best.name, 0) + 1
-        per = by_op.setdefault(n.op.value, {})
+        per = by_op.setdefault(key, {})
         per[best.name] = per.get(best.name, 0) + 1
         src = provenance.setdefault(best.name, {})
         src[source] = src.get(source, 0) + 1
@@ -324,18 +334,63 @@ def elect_implementations(g: Graph, backend: "object") -> Graph:
     return g
 
 
+def elect_implementations(g: Graph, backend: "object") -> Graph:
+    """Cost-based per-node impl election over the backend dispatch table.
+
+    Measured timings from the autotune cache win when present
+    (``'measured'`` provenance, with the winner's tuned config pinned through
+    its ``Tunable``); otherwise every admissible impl is costed with the
+    backend's roofline — scaled by calibrated coefficients when the cache
+    has them (``'calibrated'``, else ``'analytical'``) — and the cheapest
+    wins, ties breaking toward the more specific tier."""
+    from ..backends import registry as R
+
+    def candidates(backend, n):
+        cands = R.candidates(backend, n)
+        if not cands:
+            raise NotImplementedError(
+                f"no implementation of {n.op} for backend {backend.name!r}")
+        return cands
+    return _elect(g, backend, candidates, R.tunables_for,
+                  lambda n: n.op.value, 1.0, "impl", fresh=True)
+
+
+def elect_grad_implementations(g: Graph, backend: "object") -> Graph:
+    """Backward election, the mirror of :func:`elect_implementations` over
+    the grad tables (``registry.grad_candidates``).
+
+    Measured timings come from the autotune cache under the ``_bwd`` op key
+    (``registry.grad_cache_op``); without them a backward is costed as two
+    forward-sized programs (dX and dW, dKV and dQ), calibrated or on the
+    roofline.  The winner lands on ``node.impl_bwd`` and its measured
+    config pins through its own ``Tunable`` (attrs ending ``_bwd``, so
+    clearing them never drops a forward pin).  Elections and provenance
+    merge into the graph's election dicts under the ``_bwd`` op key, so
+    ``impl_report`` and ``check_provenance`` see the backward as they see
+    the forward.  A node with no backward impl keeps ``impl_bwd`` None:
+    autograd differentiates its forward's torch ops."""
+    from ..backends import registry as R
+    return _elect(g, backend, R.grad_candidates, R.grad_tunables_for,
+                  lambda n: R.grad_cache_op(n.op), 2.0, "impl_bwd",
+                  fresh=False)
+
+
 # ----------------------------------------------------------------------------
 # pipeline
 # ----------------------------------------------------------------------------
 
-def run_pipeline(g: Graph, backend: "object") -> Graph:
-    """Forward pipeline; dropout nodes are inference identities here."""
+def run_pipeline(g: Graph, backend: "object",
+                 training: bool = False) -> Graph:
+    """The passes in order; dropout follows ``training`` (an inference
+    identity without it), and ``training`` adds the backward election."""
     for n in g.topo():
         if n.op is OpKind.DROPOUT:
-            n.attrs["training"] = False
+            n.attrs["training"] = training
     g = simplify(g)
     g = assign_modules(g)
     g = form_fusion_groups(g)
     g = assign_layouts(g, backend)
     g = elect_implementations(g, backend)
+    if training:
+        g = elect_grad_implementations(g, backend)
     return g

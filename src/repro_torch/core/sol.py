@@ -98,10 +98,11 @@ def sol_ratio(us: float, bound_us: float) -> float:
 
 
 def _unit(impl_name: str, shape, dtype: str) -> str:
-    """The unit an impl declares at a key shape and dtype; the bf16 peak's
-    (the election's) for an impl this process does not know."""
+    """The unit an impl, forward or backward, declares at a key shape and
+    dtype; the bf16 peak's (the election's) for an impl this process does
+    not know."""
     from ..backends import registry as R
-    impl = R.get_impl(impl_name)
+    impl = R.get_impl(impl_name) or R.get_grad_impl(impl_name)
     return impl.unit_at(shape, dtype) if impl is not None else "tensor16"
 
 

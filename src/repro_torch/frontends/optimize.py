@@ -137,16 +137,23 @@ def provenance_violations(by_op: Dict[str, Any], prov: Dict[str, Any],
 
 
 def optimize(model: tnn.Module, input_shape: Tuple[int, ...], *,
-             backend: str | Backend = "h100", dtype: str = "float32",
-             device: DeviceLike = None, mesh=None) -> SolModel:
+             backend: str | Backend = "h100", training: bool = False,
+             dtype: str = "float32", device: DeviceLike = None,
+             mesh=None) -> SolModel:
     """Extract → optimize → lower → inject.  ``device=None`` is the device
-    API's selection: the CUDA card unless the caller chose the CPU."""
+    API's selection: the CUDA card unless the caller chose the CPU.  With
+    ``training=True`` the backward impls are elected too and ``_fn`` is
+    differentiable through them (``forward`` itself stays gradient-free:
+    a train step differentiates ``_fn``, as
+    ``distributed.steps.make_sol_train_step`` does)."""
     graph = extract(model, input_shape, dtype)
-    return compile_graph(model, graph, backend, device=device, mesh=mesh)
+    return compile_graph(model, graph, backend, training=training,
+                         device=device, mesh=mesh)
 
 
 def compile_graph(model: tnn.Module, graph, backend: str | Backend = "h100",
-                  *, device: DeviceLike = None, mesh=None) -> SolModel:
+                  *, training: bool = False, device: DeviceLike = None,
+                  mesh=None) -> SolModel:
     """Optimize → lower → inject for a pre-built graph (the serving prefill
     and decode programs)."""
     if mesh is not None:
@@ -156,5 +163,6 @@ def compile_graph(model: tnn.Module, graph, backend: str | Backend = "h100",
     bk = backend if isinstance(backend, Backend) else get_backend(backend)
     dev = resolve_device(device)
     bk = for_device(bk, dev)            # a PCIe card's spec on a PCIe card
-    graph = passes.run_pipeline(graph, bk)
-    return SolModel(model, graph, bk, lower_graph(graph, bk), dev)
+    graph = passes.run_pipeline(graph, bk, training=training)
+    return SolModel(model, graph, bk,
+                    lower_graph(graph, bk, differentiable=training), dev)

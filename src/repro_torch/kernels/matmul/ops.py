@@ -76,22 +76,27 @@ def node_plan(n: Node, hw, splits: int = 0):
                 splits=splits)
 
 
-def mm_tune_space(n: Node, hw) -> List[Tuple[int]]:
-    """K splits around the plan's own: 1, the plan's, half and twice it,
-    each keeping a chunk of at least the kernel's least K chunk
+def split_space(plan_at, k: int) -> List[Tuple[int]]:
+    """K splits around a product's own plan (``plan_at(splits)``, 0 for
+    the plan's choice; ``k`` its reduction length): 1, the plan's, half and
+    twice it, each keeping a chunk of at least the kernel's least K chunk
     (``TC_MIN_K_CHUNK``, or ``SKINNY_MIN_K_CHUNK`` of the streamed
     operand's layout) unless it is 1 or the plan's; the configs are the
     distinct split counts those give."""
-    p = node_plan(n, hw)
-    k = node_shape(n)[1]
+    p = plan_at(0)
     least = (TC_MIN_K_CHUNK if p.kernel == "tensor_core"
              else SKINNY_MIN_K_CHUNK[p.big_kmajor])
     want = {1, p.splits, max(1, p.splits // 2), 2 * p.splits}
     out = set()
     for s in want:
         if s in (1, p.splits) or -(-k // s) >= least:
-            out.add(node_plan(n, hw, s).splits)
+            out.add(plan_at(s).splits)
     return [(s,) for s in sorted(out)]
+
+
+def mm_tune_space(n: Node, hw) -> List[Tuple[int]]:
+    """``split_space`` of the node's own product."""
+    return split_space(lambda s: node_plan(n, hw, s), node_shape(n)[1])
 
 
 def _supports_matmul(n: Node) -> bool:

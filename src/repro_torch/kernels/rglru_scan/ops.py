@@ -40,14 +40,17 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor, *,
                            lanes=lanes, chunks=chunks)
 
 
-def node_plan(n: Node, hw, lanes: int = 0, chunks: int = 0):
-    """``rglru_plan`` at a node's shapes on ``hw``."""
+def node_plan(n: Node, hw, lanes: int = 0, chunks: int = 0,
+              itemsize: int = 0):
+    """``rglru_plan`` at a node's shapes on ``hw``, in the node's dtype
+    unless ``itemsize`` is given (the backward's scan runs in f32)."""
     b, t, d = n.spec.shape
-    return rglru_plan(b, t, d, 2 if n.spec.dtype != "float32" else 4,
-                      hw.sms, lanes, chunks)
+    itemsize = itemsize or (2 if n.spec.dtype != "float32" else 4)
+    return rglru_plan(b, t, d, itemsize, hw.sms, lanes, chunks)
 
 
-def rglru_tune_space(n: Node, hw) -> List[Tuple[int, int]]:
+def rglru_tune_space(n: Node, hw, itemsize: int = 0
+                     ) -> List[Tuple[int, int]]:
     """Every lane width whose chunk kernel's shared memory fits
     ``hw.smem_bytes``, each with the chunks a tile its plan takes and half
     of them (whole warps, at least one); the configs are the distinct
@@ -56,14 +59,15 @@ def rglru_tune_space(n: Node, hw) -> List[Tuple[int, int]]:
     for lanes in LANES:
         if static_smem_bytes(lanes) > hw.smem_bytes:
             continue
-        full = node_plan(n, hw, lanes).chunks
+        full = node_plan(n, hw, lanes, itemsize=itemsize).chunks
         for chunks in (full, max(1, full // 2)):
-            p = node_plan(n, hw, lanes, min(chunks, MAX_CHUNKS))
+            p = node_plan(n, hw, lanes, min(chunks, MAX_CHUNKS), itemsize)
             out.add((p.lanes, p.chunks))
     return sorted(out, reverse=True)
 
 
-def rglru_refine_space(n: Node, hw, cfg) -> List[Tuple[int, int]]:
+def rglru_refine_space(n: Node, hw, cfg, itemsize: int = 0
+                       ) -> List[Tuple[int, int]]:
     """The winner's lane width and its neighbours in ``LANES`` whose
     shared memory fits, each with half, the same and twice the winning
     chunks, as the plan makes them."""
@@ -74,7 +78,7 @@ def rglru_refine_space(n: Node, hw, cfg) -> List[Tuple[int, int]]:
         if static_smem_bytes(width) > hw.smem_bytes:
             continue
         for c in (max(1, chunks // 2), chunks, 2 * chunks):
-            p = node_plan(n, hw, width, min(c, MAX_CHUNKS))
+            p = node_plan(n, hw, width, min(c, MAX_CHUNKS), itemsize)
             out.append((p.lanes, p.chunks))
     return out
 

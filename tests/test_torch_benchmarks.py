@@ -1,8 +1,8 @@
 """The port's benchmark harness on the CPU (``repro_torch.benchmarks``):
 ``run.py``'s tables, CSV and JSON schema, its side files beside the JSON
 and its exit codes, the tables that wait for later slices, the paper's
-effort table and Fig. 3 inference rows (outputs held to the eager module
-first), the layouts table and ``--apply``, the matmul rows, the serving
+effort table and Fig. 3 inference and training rows (outputs and
+gradients held to the eager module first), the training-step rows, the layouts table and ``--apply``, the matmul rows, the serving
 rows' ``main``, and ``tools/bench_diff.py`` on the port's JSON.  On the CPU
 every kernel runs its plain version, so no test reads a time as the
 card's."""
@@ -111,8 +111,7 @@ def test_effort_counts_the_cuda_sources(harness):
     assert rows["loc_kernels_all"] > cuda
 
 
-@pytest.mark.parametrize("table", ["nosuchtable", "training", "roofline",
-                                   "train"])
+@pytest.mark.parametrize("table", ["nosuchtable", "roofline"])
 def test_run_exits_1_for_an_unknown_or_later_table(table, tmp_path, capsys):
     out = tmp_path / "out.json"
     assert run.main([table, "--device", "cpu", "--json", str(out)]) == 1
@@ -122,12 +121,46 @@ def test_run_exits_1_for_an_unknown_or_later_table(table, tmp_path, capsys):
         assert "NotImplementedError" in err and "ROADMAP" in err
 
 
-@pytest.mark.parametrize("fn", [paper_tables.training_fig3,
-                                serving.mesh_scaling_rows,
+@pytest.mark.parametrize("fn", [serving.mesh_scaling_rows,
                                 serving.fleet_rows, serving.decode_bench])
 def test_later_slices_raise_not_implemented(fn):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         fn()
+
+
+def test_training_tables_run_and_leave_their_side_file(tmp_path):
+    """``training`` (Fig. 3 right) and ``train`` run on the CPU; ``train``
+    leaves ``BENCH_torch_train.json`` beside the JSON, its fwd+bwd rows
+    carrying the ratio."""
+    out = tmp_path / "out.json"
+    assert run.main(["training", "train", "--device", "cpu", "--json",
+                     str(out)]) == 0
+    names = [r["name"] for r in json.loads(out.read_text())["rows"]]
+    assert names[:4] == [f"train_{c}_{k}" for c in ("mlp_B64",
+                                                     "small_cnn_B16")
+                         for k in ("reference", "sol")]
+    side = json.loads((tmp_path / "BENCH_torch_train.json").read_text())
+    assert [r["name"] for r in side["rows"]] == [
+        f"train_{f}_{k}" for f in ("transformer", "griffin", "rwkv6")
+        for k in ("fwd", "fwdbwd")]
+    assert all("ratio=" in r["derived"] for r in side["rows"]
+               if r["name"].endswith("_fwdbwd"))
+
+
+def test_training_fig3_holds_the_gradients_then_times(monkeypatch):
+    """A SOL program whose gradients drift past README's f32 row fails
+    before any time counts."""
+    from repro_torch.core import executor
+    real = executor.lower_graph
+
+    def drifting(g, backend, differentiable=False):
+        fn = real(g, backend, differentiable=differentiable)
+        return lambda params, *xs: fn(params, *xs) * (1 + 1e-3)
+    import sys
+    monkeypatch.setattr(sys.modules["repro_torch.frontends.optimize"],
+                        "lower_graph", drifting)
+    with pytest.raises(RuntimeError, match="differ from eager autograd"):
+        paper_tables.training_fig3(device="cpu")
 
 
 def test_inference_fig3_holds_the_outputs_then_times(monkeypatch):

@@ -1059,3 +1059,120 @@ def test_sol_rows_on_the_card_rank_finite_ratios(dev):
     (row,) = sol.cache_rows(c, device=dev)
     hw = h100_spec(torch.cuda.get_device_name(dev))
     assert row.bound_us == pytest.approx(9.48e6 / hw.hbm_bandwidth * 1e6)
+
+
+# -- the backward impls through autograd on the card --------------------------
+
+def _grad_graph(model, shape, dev):
+    """An h100 ``training=True`` SOL model and its parameters as
+    leaves."""
+    sm = optimize(model, shape, backend="h100", training=True, device=dev)
+    params = {k: v.detach().clone().requires_grad_(True)
+              for k, v in sm._params_for_call().items()}
+    return sm, params
+
+
+def _linear_node(m, k, n, layout, bias):
+    """A LINEAR node on x (m, k), its weight stored (out, in) for "oi" or
+    (in, out) for "io", with an optional bias."""
+    from repro_torch.core.ir import Node, OpKind, TensorSpec, input_node, \
+        param_node
+    w = (n, k) if layout == "oi" else (k, n)
+    ins = [input_node((m, k)), param_node(w, name="weight")]
+    if bias:
+        ins.append(param_node((n,), name="bias"))
+    node = Node(OpKind.LINEAR, ins, TensorSpec((m, n)),
+                attrs={"out_features": n, "in_features": k})
+    node.layout = "io"
+    return node
+
+
+@pytest.mark.parametrize("layout", ["oi", "io"])
+@pytest.mark.parametrize("bias", [True, False])
+def test_linear_bwd_through_autograd_on_the_card(dev, layout, bias):
+    """``backward()`` through ``cuda.linear_bwd`` (a weight stored (out,
+    in) or (in, out)) runs dx and dw on the matmul kernel, on autograd's
+    device thread (its launches rise during backward), and equals autograd
+    of ``F.linear``; dw comes back in the weight's own layout."""
+    from repro_torch.backends import get_backend
+    from repro_torch.core.executor import _NodeFunction
+    from repro_torch.kernels.matmul.kernel import KERNELS
+    m, k, n = 51, 96, 80
+    node = _linear_node(m, k, n, layout, bias)
+    impl = registry.get_impl("cuda.linear")
+    gi = registry.get_grad_impl("cuda.linear_bwd")
+    x = _randn(dev, 2, m, k)
+    w_oi = _randn(dev, 3, n, k) * k ** -0.5
+    w = w_oi if layout == "oi" else w_oi.T.contiguous()
+    vals = [x, w] + ([_randn(dev, 4, n)] if bias else [])
+    ct = _randn(dev, 5, m, n)
+    leaves = [v.clone().requires_grad_(True) for v in vals]
+    before = sum(c.launches for c in KERNELS.values())
+    y = _NodeFunction.apply(node, impl, gi, get_backend("h100"), *leaves)
+    y.backward(ct)
+    torch.cuda.synchronize()
+    assert sum(c.launches for c in KERNELS.values()) - before == 3
+    want = [v.clone().requires_grad_(True)
+            for v in [x, w_oi] + vals[2:]]
+    torch.nn.functional.linear(*want).backward(ct)
+    torch.testing.assert_close(leaves[0].grad, want[0].grad, **TOL)
+    dw = want[1].grad if layout == "oi" else want[1].grad.T
+    assert leaves[1].grad.shape == w.shape
+    torch.testing.assert_close(leaves[1].grad, dw, **TOL)
+    if bias:
+        torch.testing.assert_close(leaves[2].grad, want[2].grad, **TOL)
+
+
+@pytest.mark.parametrize("splits", [None, 1, 3])
+def test_matmul_bwd_with_a_pinned_split_on_the_card(dev, splits):
+    """``cuda.matmul_bwd`` in a transformer block's q/k/v/o products, with
+    a pinned K split of the dx product (``cuda_mm_block_bwd``), equals the
+    block's eager autograd; the elected graph's gradients of every
+    parameter agree."""
+    blk = nn.transformer_block(64, 4, 2, device=dev,
+                               generator=torch.Generator(dev).manual_seed(3))
+    sm, params = _grad_graph(blk, (2, 24, 64), dev)
+    assert set(sm.impl_report(by_kind=True)["matmul_bwd"]) == {
+        "cuda.matmul_bwd"}
+    if splits is not None:
+        for n in sm.graph.topo():
+            if n.impl_bwd == "cuda.matmul_bwd":
+                n.attrs["cuda_mm_block_bwd"] = (splits,)
+    x = _randn(dev, 4, 2, 24, 64)
+    loss = sm._fn(params, x).square().mean()
+    loss.backward()
+    blk.zero_grad()
+    blk(x).square().mean().backward()
+    torch.cuda.synchronize()
+    for k, p in blk.named_parameters():
+        torch.testing.assert_close(params[k].grad, p.grad, **TOL)
+
+
+def test_rglru_bwd_through_autograd_on_the_card(dev):
+    """``backward()`` through ``cuda.rglru_scan_bwd`` launches the RG-LRU
+    kernel for the reverse recurrence and equals autograd of the plain
+    scan, h0 ≠ 0, at a ragged T."""
+    from repro_torch.backends import get_backend
+    from repro_torch.core.executor import _NodeFunction
+    from repro_torch.core.ir import Node, OpKind, TensorSpec, input_node
+    b, t, d = 2, 77, 130
+    ins = [input_node((b, t, d), "float32", name=nm) for nm in "abh"]
+    ins[2] = input_node((b, d), "float32", name="h0")
+    node = Node(OpKind.RGLRU_SCAN, ins, TensorSpec((b, t, d), "float32"))
+    bk = get_backend("h100")
+    impl = registry.get_impl("cuda.rglru_scan")
+    gi = registry.get_grad_impl("cuda.rglru_scan_bwd")
+    g = torch.Generator(dev).manual_seed(5)
+    a = (torch.rand(b, t, d, device=dev, generator=g) * 0.5 + 0.5)
+    bb = torch.randn(b, t, d, device=dev, generator=g)
+    h0 = torch.randn(b, d, device=dev, generator=g)
+    ct = torch.randn(b, t, d, device=dev, generator=g)
+    leaves = [v.clone().requires_grad_(True) for v in (a, bb, h0)]
+    before = rglru_scan_cuda.launches
+    _NodeFunction.apply(node, impl, gi, bk, *leaves).backward(ct)
+    torch.cuda.synchronize()
+    assert rglru_scan_cuda.launches - before == 2     # forward, backward
+    want = [v.clone().requires_grad_(True) for v in (a, bb, h0)]
+    rglru_scan_ref(*want)[0].backward(ct)
+    for got, ref in zip(leaves, want):
+        torch.testing.assert_close(got.grad, ref.grad, **TOL)
