@@ -9,8 +9,9 @@ through ``optimize()``, runs the transformer, both stacks and the Listing-3
 CNN again in bf16, serves the transformer once more under a strict
 measured-provenance audit, ranks the measured kernels by their distance
 from the card's bound, trains three 4-block stacks through the elected
-forward and backward impls, and checks every path against the plain
-path.
+forward and backward impls, serves the transformer again from deploy
+artifacts and runs every other kernel through one, and checks every path
+against the plain path.
 
     python3 chip_smoke.py          # one CUDA card, run from the repo root
 
@@ -171,12 +172,28 @@ Phases, each failing loudly:
    calls) and one profiled fwd+bwd; (d) ``python -m
    repro_torch.launch.train --sol`` for each ``--sol-model`` (d 256):
    the warm-up, both gates and the falling loss.
+11. deploy — ``export_artifacts()`` of phase 8's strict measured server
+   (one ``torch.export`` artifact a bucket, ``frontends/deploy.py``), then
+   ``SolServer(cfg, deployed=..., strict_provenance=True)`` on phase 3's
+   requests: tokens equal phase 8's second pass and every served step's
+   logits within ``DEPLOY_RTOL`` of its scale; every kernel the buckets
+   elect launches through the artifacts (counts from 0, read after the
+   pass) and no other; tokens/s of a live strict serve of the same model
+   and of the artifact serve in turns; export seconds, blob MB, load
+   seconds and host bytes.  The ``repro_torch::matmul`` op's dispatch cost
+   against its direct entry at 4x1536x1536.  Then ``deploy``/``load`` of a
+   2-block Griffin and RWKV6 at full width (f32, (4, 512, d)) and of the
+   Listing-3 CNN in bf16 at (64, 3, 224, 224): each artifact's output
+   within ``DEPLOY_RTOL`` of its live model's, its scan or pool launching
+   through it; every one of the seven kernels launches through some
+   artifact.
 
 The second-to-last lines are the card's ``nvidia-smi`` line and a JSON
 ``kernels`` line (an entry per kernel in f32, and one per kernel in bf16
 named ``<kernel>_bf16`` with its launches on the bf16 paths); the last line
 is ``{"ok": true, "device": ...}``; the ``kernels`` line's launches are
-phases 3, 5-7 and 10's (its six h100 steps a stack).  The
+phases 3, 5-7, 10's (its six h100 steps a stack) and 11's (its checked
+artifact serve pass and one call of each other artifact).  The
 full record goes to ``chiprun_out/chip_smoke.json``.  The script imports
 nothing of JAX or of the JAX package ``src/repro``; it exits non-zero,
 printing no result, without a CUDA card or without the package.
@@ -2527,7 +2544,9 @@ def phase_measured_serve(torch, counters, dev, serve, serve_ref,
         AT.set_cache(prev)
     phase_s = time.perf_counter() - t_phase
     state = {"cache": cache, "bf16_cache": bf16_cache,
-             "models": dict(server._models)}
+             "models": dict(server._models), "server": server,
+             "model": model, "cfg": server.cfg, "prompts": prompts,
+             "trace": second}
     wins = {}
     for row in table + bf16_table:
         k = (row["op"], row["dtype"], row["winner"])
@@ -3226,6 +3245,224 @@ def phase_train(torch, counters, dev) -> dict:
     return {"stacks": stacks, "avgpool_bwd": pool, "cli": cli}
 
 
+# ---------------------------------------------------------------------------
+# phase 11: deploy artifacts
+# ---------------------------------------------------------------------------
+
+# an artifact against its live model, relative to the output's scale: the
+# same impls with the same pinned configs on the same inputs, so bit-equal
+# is expected; 1e-6 only admits an f32 rounding step, and any op the
+# export lowers another way would show above it
+DEPLOY_RTOL = 1e-6
+# the recurrent stacks deployed at full width, cut to this depth
+DEPLOY_BLOCKS = 2
+# the kernels each artifact leg must launch (the serve's are read from its
+# elections, as phase 8 reads them)
+DEPLOY_KERNELS = {"griffin": ("matmul", "dfp_fused", "rglru_scan"),
+                  "rwkv6": ("matmul", "dfp_fused", "rwkv6_scan"),
+                  "listing3_cnn_bf16": ("matmul", "avgpool")}
+ALL_KERNELS = ("matmul", "flash_attention", "decode_attention", "dfp_fused",
+               "rglru_scan", "rwkv6_scan", "avgpool")
+
+
+def blob_mb(blobs) -> float:
+    return sum(len(b) for b in blobs) / 2 ** 20
+
+
+def deployed_leg(torch, counters, name: str, sol, x) -> dict:
+    """``deploy``/``load`` of one live ``SolModel`` on the card: export
+    seconds, blob MB, load seconds, the artifact's output against the live
+    model's (at most ``DEPLOY_RTOL`` of its scale) and the launches of its
+    kernels in one artifact call (counts from 0 just before it)."""
+    from repro_torch.frontends import deploy as D
+    live = sol(x)
+    t0 = time.perf_counter()
+    blob = D.deploy(sol)
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    art = D.load(blob, sol.device)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    if art.impl_report(provenance=True) != sol.impl_report(provenance=True):
+        fail(f"deploy {name}: the artifact's election report differs from "
+             f"the live model's")
+    for c in counters.values():
+        c.launches = 0
+    y = art(x)
+    torch.cuda.synchronize()
+    launches = {k: c.launches for k, c in counters.items()}
+    if y.shape != live.shape or y.dtype != live.dtype or \
+            not bool(torch.isfinite(y.float()).all()):
+        fail(f"deploy {name}: output {tuple(y.shape)} {y.dtype} is not a "
+             f"finite {tuple(live.shape)} {live.dtype}")
+    err = rel_err(y, live)
+    if err > DEPLOY_RTOL:
+        fail(f"deploy {name}: the artifact's output lies {err:.3g} of its "
+             f"scale from the live model's (limit {DEPLOY_RTOL})")
+    for k in DEPLOY_KERNELS[name]:
+        if launches[k] <= 0:
+            fail(f"deploy {name}: {k} did not launch through the artifact")
+    rec = {"export_s": export_s, "blob_mb": blob_mb([blob]),
+           "load_s": load_s, "host_bytes": art.host_bytes, "rel_err": err,
+           "bit_equal": bool(torch.equal(y, live)), "launches": launches}
+    log(f"[deploy] {name}: exported in {export_s:.2f} s, "
+        f"{rec['blob_mb']:.1f} MB, loaded in {load_s:.2f} s; output "
+        f"{'bit-equal to' if rec['bit_equal'] else f'{err:.3g} from'} the "
+        f"live model's; launches through the artifact {launches}")
+    return rec
+
+
+def dispatch_us(torch) -> dict:
+    """Back-to-back launch time of the matmul's custom op against its
+    direct entry call at the serve's 4x1536x1536 decode product: the op's
+    dispatch cost a call."""
+    from repro_torch.kernels import library
+    from repro_torch.kernels.matmul.ops import matmul
+    gen = torch.Generator("cuda").manual_seed(11)
+    x = torch.randn(4, 1536, device="cuda", generator=gen)
+    w = torch.randn(1536, 1536, device="cuda", generator=gen) / 40.0
+    op = time_ms(lambda: library.matmul(x, w, 0), iters=200)["launch"]
+    direct = time_ms(lambda: matmul(x, w), iters=200)["launch"]
+    return {"op_us": 1e3 * op, "direct_us": 1e3 * direct,
+            "dispatch_us": 1e3 * (op - direct)}
+
+
+def phase_deploy(torch, counters, dev, state) -> dict:
+    """The serve leg: ``export_artifacts()`` of phase 8's strict measured
+    server, then ``SolServer(deployed=..., strict_provenance=True)`` on
+    phase 3's requests, tokens and every served step's logits held to
+    phase 8's second pass, the elected kernels' launches read in that
+    pass; tokens/s of the artifact serve and a live strict serve of the
+    same model in turns.  Then ``deploy``/``load`` of a 2-block Griffin and
+    RWKV6 at full width and of the bf16 Listing-3 CNN, each held to its
+    live model."""
+    import numpy as np
+    from repro_torch.core import autotune as AT
+    from repro_torch.frontends.optimize import optimize
+    from repro_torch.launch.serve import SolServer
+
+    t_phase = time.perf_counter()
+    cfg, prompts = state["cfg"], state["prompts"]
+    t0 = time.perf_counter()
+    arts = state["server"].export_artifacts()
+    export_s = time.perf_counter() - t0
+    sizes = {str(k): len(b) / 2 ** 20 for k, b in arts.items()}
+    t0 = time.perf_counter()
+    replay = SolServer(cfg, deployed=arts, device=dev,
+                       strict_provenance=True)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    host_bytes = sum(m.host_bytes for m in replay._models.values())
+    log(f"[deploy] serve: {len(arts)} bucket artifacts {sorted(arts)} "
+        f"exported in {export_s:.2f} s, {blob_mb(arts.values()):.1f} MB "
+        f"({sizes}); loaded and audited (strict, from the manifests) in "
+        f"{load_s:.2f} s, {host_bytes / 1e9:.2f} GB of params staged from "
+        f"the host")
+    del arts
+    elected = {name for rec in replay.served_elections.values()
+               for impls in rec["by_op"].values() for name in impls}
+    for c in counters.values():
+        c.launches = 0
+    _, got, wall = serve_trace(replay, prompts, GEN)
+    launches = {k: c.launches for k, c in counters.items()}
+    for impl, counter in SERVED_IMPLS.items():
+        used = any(n in elected for n, c in SERVED_IMPLS.items()
+                   if c == counter)
+        if used and launches[counter] <= 0:
+            fail(f"deploy serve: {impl} was elected but {counter} did not "
+                 f"launch through the artifacts")
+        if not used and launches[counter] != 0:
+            fail(f"deploy serve: {counter} launched {launches[counter]} "
+                 f"times with no node electing it")
+    worst, n_steps = 0.0, 0
+    for i, ((g_tok, g_log), (w_tok, w_log)) in enumerate(zip(got,
+                                                             state["trace"])):
+        if g_tok != w_tok:
+            fail(f"deploy serve request {i}: tokens {g_tok} != phase 8's "
+                 f"{w_tok}")
+        for pos, (a, b) in enumerate(zip(g_log, w_log)):
+            err = float(np.abs(a - b).max()) / float(np.abs(b).max())
+            worst = max(worst, err)
+            n_steps += 1
+            if err > DEPLOY_RTOL:
+                fail(f"deploy serve request {i} step {pos}: logits lie "
+                     f"{err:.3g} of their scale from phase 8's")
+    log(f"[deploy] serve through the artifacts: tokens equal phase 8's; "
+        f"logits at {n_steps} served steps within {worst:.3g} of their "
+        f"scale (limit {DEPLOY_RTOL}); elected {sorted(elected)}; launches "
+        f"{launches}")
+
+    # the live strict serve of the same model and the artifact serve, in
+    # turns (live, artifact, artifact, live), on phase 8's measurements
+    prev = AT.get_cache()
+    AT.set_cache(state["cache"])
+    try:
+        live = SolServer(cfg, model=state["model"], device=dev,
+                         strict_provenance=True)
+        serve_trace(live, prompts, GEN)         # opens its buckets
+        walls = {"live": [], "artifact": []}
+        for which in ("live", "artifact", "artifact", "live"):
+            reqs, _, w = serve_trace(live if which == "live" else replay,
+                                     prompts, GEN)
+            walls[which].append(sum(len(r.generated) for r in reqs) / w)
+        live.close()
+    finally:
+        AT.set_cache(prev)
+    replay.close()
+    tps = {k: sum(v) / len(v) for k, v in walls.items()}
+    log(f"[deploy] tokens/s in turns (live, artifact, artifact, live): live "
+        f"{[round(v, 2) for v in walls['live']]} mean {tps['live']:.2f}, "
+        f"artifact {[round(v, 2) for v in walls['artifact']]} mean "
+        f"{tps['artifact']:.2f}; the checked artifact pass "
+        f"{sum(len(t) for t, _ in got) / wall:.2f}")
+    # the replay and the live serve no longer need their card memory
+    del live, replay
+    state.pop("server")
+    state["models"].clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    disp = dispatch_us(torch)
+    log(f"[deploy] 4x1536x1536 product back to back: the custom op "
+        f"{disp['op_us']:.2f} µs a call, the direct entry "
+        f"{disp['direct_us']:.2f} µs: dispatch {disp['dispatch_us']:.2f} µs")
+
+    # the kernels off the serving path, each through an artifact
+    legs = {}
+    for index, (name, cfg_) in enumerate(STACKS):
+        gen = torch.Generator(dev).manual_seed(300 + index)
+        cut = dict(cfg_, layers=DEPLOY_BLOCKS)
+        model = _build_stack(name, cut, dev, gen)
+        shape = REC_SHAPE_BT + (cut["d_model"],)
+        x = torch.randn(*shape, device=dev, generator=gen)
+        sol = optimize(model, shape, backend="h100")
+        check_elections(sol, name)
+        legs[name] = deployed_leg(torch, counters, name, sol, x)
+        del model, sol, x
+    gen = torch.Generator(dev).manual_seed(302)
+    model = _build_cnn(torch, "listing3_cnn", dev, gen).to(torch.bfloat16)
+    x16 = torch.randn(*CNN_SHAPE, device=dev, generator=gen).to(
+        torch.bfloat16)
+    sol = optimize(model, CNN_SHAPE, backend="h100", dtype="bfloat16")
+    if sol.impl_report(by_kind=True).get("avgpool") != {"cuda.avgpool": 2}:
+        fail(f"deploy listing3_cnn bf16: elections "
+             f"{sol.impl_report(by_kind=True)}")
+    legs["listing3_cnn_bf16"] = deployed_leg(torch, counters,
+                                             "listing3_cnn_bf16", sol, x16)
+    moved = {k for leg in [launches] + [r["launches"] for r in legs.values()]
+             for k, n in leg.items() if n > 0}
+    missing = sorted(set(ALL_KERNELS) - moved)
+    if missing:
+        fail(f"deploy: {missing} launched through no artifact")
+    phase_s = time.perf_counter() - t_phase
+    log(f"[deploy] phase 11 took {phase_s:.1f} s")
+    return {"serve": {"export_s": export_s, "blob_mb": sizes,
+                      "load_s": load_s, "host_bytes": host_bytes,
+                      "logit_rel_err": worst, "steps": n_steps,
+                      "launches": launches, "elected": sorted(elected),
+                      "tokens_per_s": walls, "tokens_per_s_mean": tps},
+            "dispatch": disp, "legs": legs, "phase_s": phase_s}
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "__init__.py").is_file():
         print("chip_smoke: src/repro_torch not found next to this script; "
@@ -3311,6 +3548,10 @@ def main() -> int:
                       "rglru_scan": rglru_scan_cuda,
                       "rwkv6_scan": rwkv6_scan_cuda}
     train = phase_train(torch, train_counters, torch.device("cuda"))
+    gc.collect()
+    torch.cuda.empty_cache()
+    deploy = phase_deploy(torch, bf16_counters, torch.device("cuda"),
+                          measured_state)
 
     # launches per main path: the served set and one forward of each stack
     # and each CNN in f32; the bf16 paths' runs for the bf16 entries
@@ -3319,7 +3560,12 @@ def main() -> int:
     by_path.update({name: r["launches"] for name, r in cnn.items()})
     by_path.update({f"train_{name}": r["launches"]
                     for name, r in train["stacks"].items()})
+    by_path["deploy_serve"] = deploy["serve"]["launches"]
+    by_path.update({f"deploy_{name}": deploy["legs"][name]["launches"]
+                    for name, _ in STACKS})
     bf16_by_path = {name: r["launches"] for name, r in bf16.items()}
+    bf16_by_path["deploy_listing3_cnn"] = \
+        deploy["legs"]["listing3_cnn_bf16"]["launches"]
     line = []
     # one entry per kernel and dtype (f32, and bf16 with the suffix _bf16):
     # the matmul rows by the kernel their plan picked
@@ -3353,6 +3599,7 @@ def main() -> int:
          "serve": serve,
          "recurrent": recurrent, "cnn": cnn, "bf16": bf16,
          "measured_serve": measured, "sol": sol, "train": train,
+         "deploy": deploy,
          "seconds": time.perf_counter() - t_start},
         indent=1, default=str))
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")

@@ -1,6 +1,6 @@
-from . import extract, nn, offload
+from . import deploy, extract, nn, offload
 from .offload import device as device_api
 from .optimize import SolModel, compile_graph, optimize
 
-__all__ = ["nn", "extract", "offload", "optimize", "compile_graph",
+__all__ = ["nn", "extract", "offload", "deploy", "optimize", "compile_graph",
            "SolModel", "device_api"]

@@ -87,7 +87,11 @@ def _heights(n: Node, hw, asks) -> List[Tuple[int]]:
 def _avgpool_impl(n: Node, vals: Sequence[torch.Tensor],
                   backend: "registry.Backend") -> torch.Tensor:
     cfg = n.attrs.get(ATTR)
-    return avgpool(vals[0], *_window(n), rows=int(cfg[0]) if cfg else 0)
+    rows = int(cfg[0]) if cfg else 0
+    if torch.compiler.is_exporting():
+        from ..library import avgpool as op
+        return op(vals[0], *_window(n), rows)
+    return avgpool(vals[0], *_window(n), rows=rows)
 
 
 registry.register_shared_impl(

@@ -79,8 +79,12 @@ def decode_refine_space(n: Node, hw, cfg) -> List[Tuple[int]]:
 def _decode_cuda_impl(n: Node, vals: Sequence[torch.Tensor],
                       backend: "registry.Backend") -> torch.Tensor:
     cfg = n.attrs.get(ATTR)
-    return decode_attention(*vals, **_attrs(n),
-                            splits=int(cfg[0]) if cfg else 0)
+    splits = int(cfg[0]) if cfg else 0
+    if torch.compiler.is_exporting():
+        from ..library import decode_attention as op
+        a = _attrs(n)
+        return op(*vals, a["window"], a["cap"], splits)
+    return decode_attention(*vals, **_attrs(n), splits=splits)
 
 
 def _decode_ref_impl(n: Node, vals: Sequence[torch.Tensor],

@@ -28,7 +28,8 @@ from ...core.autotune import Tunable
 from ...core.ir import Node, OpKind
 from ..dtypes import same_float
 from .kernel import BLOCK_ELEMS, block_shape, dfp_fused_triton
-from .program import Program, encode_program, split_program
+from .program import Program, encode_program, program_to_str, \
+    split_program
 from .ref import dfp_fused_ref
 
 ATTR = "cuda_dfp_block"
@@ -142,6 +143,10 @@ def _dfp_fused_impl(n: Node, vals: Sequence[torch.Tensor],
         n, {id(i): v for i, v in zip(n.inputs, vals)})
     cfg = n.attrs.get(ATTR)
     block_rows, max_group = (int(cfg[0]), int(cfg[1])) if cfg else (0, 0)
+    if torch.compiler.is_exporting():
+        from ..library import dfp_fused as op
+        return op(list(operands), program_to_str(program), block_rows,
+                  max_group)
     if max_group and max_group < len(program.instrs):
         return dfp_fused_segmented(program, operands, max_group,
                                    block_rows=block_rows)

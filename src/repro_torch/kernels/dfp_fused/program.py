@@ -7,7 +7,9 @@ every group with the same ``Program.key()``.
 
 ``split_program`` cuts a program into segments that run as successive
 launches of the same kernel (a tuned ``max_group``; JAX
-``dfp_fused/program.py:147-244``).
+``dfp_fused/program.py:147-244``).  ``program_to_str`` and
+``program_from_str`` carry a program through an exported graph, as the
+DFP custom op's string argument (``kernels/library.py``).
 
 Register model: r0..rk hold values of the chain's output shape.
 Operands:
@@ -24,6 +26,7 @@ gates are such groups, and the port runs them through the kernel.
 from __future__ import annotations
 
 import dataclasses
+import json
 from typing import Any, Dict, List, Optional, Tuple
 
 from ...core.ir import Node, OpKind
@@ -46,6 +49,22 @@ class Program:
 
     def key(self):
         return (self.instrs, self.operand_kinds, self.out_reg)
+
+
+def program_to_str(prog: Program) -> str:
+    """``prog.key()`` as JSON: the DFP op's argument in an exported graph.
+    JSON writes each float as its shortest repr, so it reads back exactly."""
+    return json.dumps(prog.key(), separators=(",", ":"))
+
+
+def _tuples(v):
+    return tuple(_tuples(x) for x in v) if isinstance(v, list) else v
+
+
+def program_from_str(text: str) -> Program:
+    """The program ``program_to_str`` wrote, with an equal ``key()``."""
+    instrs, kinds, out_reg = json.loads(text)
+    return Program(_tuples(instrs), tuple(kinds), int(out_reg))
 
 
 def encode_program(fused: Node, env: Dict[int, Any]):

@@ -67,8 +67,12 @@ def _attention_cuda_impl(n: Node, vals: Sequence[torch.Tensor],
                          backend: "registry.Backend") -> torch.Tensor:
     q, k, v = vals
     cfg = n.attrs.get(ATTR)
-    return flash_attention(q, k, v, **_attrs(n),
-                           block_q=int(cfg[0]) if cfg else BLOCK_Q)
+    block_q = int(cfg[0]) if cfg else BLOCK_Q
+    if torch.compiler.is_exporting():
+        from ..library import flash_attention as op
+        a = _attrs(n)
+        return op(q, k, v, a["causal"], a["window"], a["cap"], block_q)
+    return flash_attention(q, k, v, **_attrs(n), block_q=block_q)
 
 
 def _attention_ref_impl(n: Node, vals: Sequence[torch.Tensor],

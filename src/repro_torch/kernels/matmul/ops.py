@@ -47,16 +47,24 @@ def _splits(n: Node) -> int:
     return int(cfg[0]) if cfg else 0
 
 
+def _product(n: Node, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The node's product through the entry; while exporting, through the
+    custom op (``kernels/library.py``) that calls it."""
+    if torch.compiler.is_exporting():
+        from ..library import matmul as op
+        return op(x, w, _splits(n))
+    return matmul(x, w, splits=_splits(n))
+
+
 def _matmul_impl(n: Node, vals: Sequence[torch.Tensor],
                  backend: "registry.Backend") -> torch.Tensor:
-    return matmul(vals[0], vals[1], splits=_splits(n))
+    return _product(n, vals[0], vals[1])
 
 
 def _linear_impl(n: Node, vals: Sequence[torch.Tensor],
                  backend: "registry.Backend") -> torch.Tensor:
     from ...core.executor import linear_weight_kn
-    y = matmul(vals[0], linear_weight_kn(n, vals[1]),   # (K, N) view
-               splits=_splits(n))
+    y = _product(n, vals[0], linear_weight_kn(n, vals[1]))   # (K, N) view
     if len(vals) > 2 and vals[2] is not None:
         y = y + vals[2]
     return y

@@ -87,6 +87,9 @@ def _rglru_impl(n: Node, vals: Sequence[torch.Tensor],
                 backend: "registry.Backend") -> torch.Tensor:
     cfg = n.attrs.get(ATTR)
     lanes, chunks = (int(cfg[0]), int(cfg[1])) if cfg else (0, 0)
+    if torch.compiler.is_exporting():
+        from ..library import rglru_scan as op
+        return op(*vals, lanes, chunks)[0]
     return rglru_scan(*vals, lanes=lanes, chunks=chunks)[0]
 
 

@@ -68,7 +68,11 @@ def rwkv6_refine_space(n: Node, hw, cfg) -> List[Tuple[int]]:
 def _rwkv6_impl(n: Node, vals: Sequence[torch.Tensor],
                 backend: "registry.Backend") -> torch.Tensor:
     cfg = n.attrs.get(ATTR)
-    return rwkv6_scan(*vals, chunk=int(cfg[0]) if cfg else 0)[0]
+    chunk = int(cfg[0]) if cfg else 0
+    if torch.compiler.is_exporting():
+        from ..library import rwkv6_scan as op
+        return op(*vals, chunk)[0]
+    return rwkv6_scan(*vals, chunk=chunk)[0]
 
 
 def _rwkv6_ref_impl(n: Node, vals: Sequence[torch.Tensor],

@@ -30,8 +30,15 @@ With ``strict_provenance`` a bucket model whose served-kind elections did
 not come from measurements of that node's exact bucket raises
 :class:`ProvenanceError` instead of serving roofline guesses.
 
-This slice serves on one device.  Deploy artifacts, meshes and fleets are
-later slices: asking for them raises ``NotImplementedError``.
+**Deploy artifacts** (paper Sec. III-C).  ``export_artifacts`` deploys
+every bucket model the server compiled (``frontends/deploy.py``);
+``SolServer(deployed={key: blob})`` serves from those artifacts alone: a
+bucket with no artifact raises ``KeyError`` instead of compiling, the
+strict audit reads each artifact's manifest, and there are no live graphs
+to warm.
+
+This slice serves on one device.  Meshes and fleets are later slices:
+asking for them raises ``NotImplementedError``.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke [--device cpu]
 """
@@ -171,9 +178,9 @@ def build_lm(cfg: ServeConfig, *, n_kv_heads: Optional[int] = None,
     framework modules (the server never calls their eager forward).
     ``device=None`` is the CUDA card unless the CPU was selected; weights
     come from ``generator``, by default one seeded with ``cfg.seed`` on
-    that device."""
+    that device (``"meta"`` gives the shapes alone, with no weights)."""
     dev = resolve_device(device)
-    if generator is None:
+    if generator is None and dev.type != "meta":
         generator = torch.Generator(dev).manual_seed(cfg.seed)
     blocks = [nn.transformer_block(cfg.d_model, cfg.n_heads, n_kv_heads,
                                    device=dev, generator=generator)
@@ -351,7 +358,11 @@ class SolServer:
     the CPU, where every kernel runs its plain version.
     ``strict_provenance``: every bucket model's served-kind elections must
     come from measurements of their exact buckets (``warm_autotune``),
-    else compiling the bucket raises :class:`ProvenanceError`."""
+    else compiling the bucket raises :class:`ProvenanceError`.
+    ``deployed`` switches the server to artifact mode: a map of those keys
+    to deploy blobs or ``DeployedModel``s (loaded on ``device``); a bucket
+    outside it raises ``KeyError`` instead of compiling a live model, and
+    the strict audit reads each artifact's manifest."""
 
     def __init__(self, cfg: Optional[ServeConfig] = None,
                  model: Optional[tnn.Module] = None, *,
@@ -360,10 +371,6 @@ class SolServer:
                  strict_provenance: bool = False):
         self.cfg = cfg or ServeConfig()
         self.strict_provenance = strict_provenance
-        if deployed is not None:
-            raise NotImplementedError(
-                "serving deploy artifacts arrives with the deploy slice of "
-                "the port")
         if tuple(self.cfg.mesh) != (1, 1):
             raise NotImplementedError(
                 "mesh serving arrives with the sharded-serving slice of the "
@@ -374,18 +381,22 @@ class SolServer:
         self.queue = AsyncQueue()
         self._models: Dict[Tuple, Any] = {}
         self.served_elections: Dict[Tuple, Dict[str, Any]] = {}
-        self.model = model if model is not None else build_lm(
-            self.cfg, device=self.device)
-        if self.cfg.decode:
-            # the decode program's cache inputs fix the arena's row shapes
-            g = extract_decode(self.model, 1, self.cfg.max_seq,
-                               self.cfg.d_model)
-            self._kv_row_shapes = [tuple(n.spec.shape[2:])
-                                   for n in g.inputs[2:]]
-        else:
-            self._kv_row_shapes = []
+        self._deploy_only = deployed is not None
+        loaded: Dict[Tuple, Any] = {}
+        if deployed is not None:
+            from ..frontends import deploy as D
+            loaded = {tuple(k): D.load(a, self.device)
+                      if isinstance(a, bytes) else a
+                      for k, a in deployed.items()}
+        self.model = model if model is not None else (
+            None if self._deploy_only else build_lm(self.cfg,
+                                                    device=self.device))
+        self._kv_row_shapes = (self._kv_rows(loaded) if self.cfg.decode
+                               else [])
         self.arena = SlotArena(self.queue, self.cfg.slots, self.cfg.max_seq,
                                kv_row_shapes=self._kv_row_shapes)
+        for key, m in loaded.items():
+            self._models[key] = self._audit(m, key)
         self._pending: "deque[Request]" = deque()
         self._active: List[Request] = []
         self._finished: List[Request] = []
@@ -398,6 +409,20 @@ class SolServer:
                       "evicted": 0, "buckets": {},
                       "forward_ms": {"prefill": [], "decode": [],
                                      "full": []}}
+
+    def _kv_rows(self, loaded: Dict[Tuple, Any]) -> List[Tuple[int, ...]]:
+        """The arena's KV row shapes: the decode program's cache inputs,
+        read from a decode artifact's input specs when serving artifacts
+        alone, else from a decode extraction of the model (built on the
+        meta device when there is none: shapes without weights)."""
+        if self.model is None:
+            dec = [m for k, m in sorted(loaded.items()) if k[0] == "decode"]
+            if dec:
+                return [tuple(shape[2:]) for shape, _ in dec[0].inputs[2:]]
+        model = self.model if self.model is not None else build_lm(
+            self.cfg, device="meta")
+        g = extract_decode(model, 1, self.cfg.max_seq, self.cfg.d_model)
+        return [tuple(n.spec.shape[2:]) for n in g.inputs[2:]]
 
     # -- request lifecycle ---------------------------------------------------
 
@@ -668,6 +693,11 @@ class SolServer:
         m = self._models.get(key)
         if m is not None:
             return m
+        if self._deploy_only:
+            raise KeyError(
+                f"bucket {key} is not among the deployed artifacts "
+                f"{sorted(self._models)}: deploy-mode serving never falls "
+                f"back to a live compile")
         program, b, s = key
         d = self.cfg.d_model
         if program == "full":
@@ -697,8 +727,11 @@ class SolServer:
             "provenance": prov,
         }
         if self.strict_provenance:
-            viol = (provenance_violations(by_kind, prov, kinds=served)
-                    + self._exact_bucket_violations(model))
+            # an artifact's manifest holds its provenance; the exact-bucket
+            # check reads a live graph against the live cache
+            viol = provenance_violations(by_kind, prov, kinds=served)
+            if isinstance(model, SolModel):
+                viol += self._exact_bucket_violations(model)
             if viol:
                 raise ProvenanceError(
                     f"bucket {key} would serve unmeasured elections (warm "
@@ -723,6 +756,15 @@ class SolServer:
                            f"nearest-bucket fallback, not this bucket")
         return out
 
+    def export_artifacts(self) -> Dict[Tuple, bytes]:
+        """Deploy every live bucket model (Sec. III-C); the blobs feed
+        ``SolServer(deployed=...)``.  Input specs come from each program's
+        graph, so the multi-input decode program exports as the others
+        do."""
+        from ..frontends import deploy as D
+        return {key: D.deploy(m) for key, m in self._models.items()
+                if isinstance(m, SolModel)}
+
     # -- autotune warmup -----------------------------------------------------
 
     def warm_autotune(self, max_len: Optional[int] = None, *,
@@ -733,6 +775,9 @@ class SolServer:
         (``autotune.get_cache()``: install another with
         ``autotune.set_cache`` before warming).  (op, shape, dtype) keys
         already measured are skipped."""
+        if self._deploy_only:
+            raise RuntimeError("deploy-mode serving has no live graphs to "
+                               "warm; tune before deploying instead")
         cache = AT.get_cache()
         counts = {"nodes": 0, "impls": 0, "skipped": 0, "graphs": 0}
         seen = set()
@@ -836,7 +881,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--smoke", action="store_true",
                     help="tiny model, a few requests, elections printed, "
-                         "then the strict measured-provenance leg")
+                         "then the strict measured-provenance leg and the "
+                         "deploy round-trip leg")
     ap.add_argument("--backend", default="h100")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
@@ -852,6 +898,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ap.add_argument("--no-decode", action="store_true",
                     help="serve with the full re-forward baseline")
     ap.add_argument("--json", help="write the serve summary to this path")
+    ap.add_argument("--no-deploy-roundtrip", action="store_true",
+                    help="skip the artifact round-trip leg of --smoke")
     args = ap.parse_args(argv)
 
     if args.smoke:
@@ -887,15 +935,20 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         with open(args.json, "w") as f:
             json.dump(summary, f, indent=2)
         print(f"[serve] wrote {args.json}")
-    if args.smoke:
-        return _strict_leg(cfg, args.device, workload, server)
-    return 0
+    if not args.smoke:
+        return 0
+    rc, strict = _strict_leg(cfg, args.device, workload, server)
+    if rc or args.no_deploy_roundtrip:
+        return rc
+    return _deploy_leg(cfg, args.device, workload, strict)
 
 
-def _strict_leg(cfg: ServeConfig, device, workload, cold) -> int:
+def _strict_leg(cfg: ServeConfig, device, workload, cold
+                ) -> Tuple[int, "SolServer"]:
     """The same workload on a strict-provenance server after
     ``warm_autotune``: every served election must come from measurements
-    of its exact bucket, and the tokens must equal the cold server's."""
+    of its exact bucket, and the tokens must equal the cold server's.
+    Returns the exit code and the strict server."""
     server = SolServer(cfg, model=cold.model, device=device,
                        strict_provenance=True)
     reqs = [server.submit(p, g) for p, g in workload]
@@ -924,15 +977,48 @@ def _strict_leg(cfg: ServeConfig, device, workload, cold) -> int:
     if failures:
         print(f"[serve] unmeasured elections served: {failures}",
               file=sys.stderr)
-        return 1
+        return 1, server
     cold_tokens = {r.rid: r.generated for r in cold._finished}
     if any(r.generated != cold_tokens[r.rid] for r in reqs):
         print("[serve] strict: tokens differ from the cold server's",
               file=sys.stderr)
-        return 1
+        return 1, server
     print(f"[serve] strict: {summary['tokens']} tokens, every served "
           f"election measured on its exact bucket, tokens equal to the cold "
           f"server's")
+    return 0, server
+
+
+def _deploy_leg(cfg: ServeConfig, device, workload, live) -> int:
+    """Deploy every bucket model of the strict server and replay the
+    workload from the artifacts alone, under the strict audit of their
+    manifests: the tokens must equal the live server's."""
+    t0 = time.perf_counter()
+    arts = live.export_artifacts()
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    replay = SolServer(cfg, deployed=arts, device=device,
+                       strict_provenance=True)
+    load_s = time.perf_counter() - t0
+    reqs = [replay.submit(p, g) for p, g in workload]
+    replay.run()
+    replay.close()
+    live_by_rid = {r.rid: r for r in live._finished}
+    for r in reqs:
+        want = live_by_rid[r.rid]
+        if r.generated != want.generated:
+            print(f"[serve] deploy round-trip DIVERGED for request {r.rid}: "
+                  f"{r.generated} != {want.generated}", file=sys.stderr)
+            return 1
+    worst = max(float(np.abs(r.last_logits
+                             - live_by_rid[r.rid].last_logits).max())
+                for r in reqs)
+    mb = sum(len(b) for b in arts.values()) / 2**20
+    print(f"[serve] deploy round-trip: {len(arts)} bucket artifacts "
+          f"({mb:.2f} MB, exported in {export_s:.2f} s, loaded in "
+          f"{load_s:.2f} s) served {len(reqs)} requests with the live "
+          f"server's tokens under the strict audit (last logits max|Δ| "
+          f"{worst:.3g})")
     return 0
 
 

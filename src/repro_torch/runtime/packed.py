@@ -10,6 +10,12 @@ current stream, and hands back views of the device buffer — no per-array
 copies on either side.  PyTorch's host allocator keeps the pinned buffer
 alive until the copy that reads it has finished.  On a CPU device the
 buffer itself is returned, unpinned, and no copy happens.
+
+``transfer`` applies the paper's policy split, as the JAX package does: a
+singleton, or a batch under ``LATENCY_THRESHOLD_BYTES``, goes direct (one
+copy an array, latency first); anything larger goes as one packed copy.
+NumPy has no bfloat16, so a bf16 array crosses as its ``uint16`` bit
+pattern; the caller views the device tensor back as ``torch.bfloat16``.
 """
 from __future__ import annotations
 
@@ -18,9 +24,11 @@ from typing import Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 
-# transfer accounting: how many packed DMAs were issued and how many host
-# bytes crossed
-TRANSFER_STATS = {"packed_dmas": 0, "bytes": 0}
+LATENCY_THRESHOLD_BYTES = 1 << 14     # smaller batches go direct
+
+# transfer accounting: how many packed and direct DMAs were issued and how
+# many host bytes crossed
+TRANSFER_STATS = {"packed_dmas": 0, "direct_dmas": 0, "bytes": 0}
 
 _ALIGN = 128
 
@@ -29,13 +37,14 @@ _TORCH_OF = {np.dtype(np.float32): torch.float32,
              np.dtype(np.float16): torch.float16,
              np.dtype(np.int32): torch.int32,
              np.dtype(np.int64): torch.int64,
+             np.dtype(np.uint16): torch.uint16,
              np.dtype(np.uint8): torch.uint8,
              np.dtype(np.bool_): torch.bool}
 
 
 def reset_transfer_stats() -> Dict[str, int]:
     prev = dict(TRANSFER_STATS)
-    TRANSFER_STATS.update(packed_dmas=0, bytes=0)
+    TRANSFER_STATS.update(packed_dmas=0, direct_dmas=0, bytes=0)
     return prev
 
 
@@ -65,6 +74,21 @@ def _view(buf: torch.Tensor, shape: Tuple[int, ...], dtype: np.dtype,
           off: int) -> torch.Tensor:
     n = int(np.prod(shape, dtype=np.int64)) * dtype.itemsize
     return buf[off:off + n].view(_TORCH_OF[dtype]).view(shape)
+
+
+def transfer(arrays: Sequence[np.ndarray],
+             device: torch.device) -> List[torch.Tensor]:
+    """Stage host arrays on ``device`` by the policy split: a singleton or
+    a batch under ``LATENCY_THRESHOLD_BYTES`` one direct copy an array,
+    else ONE packed copy (the device tensors are views of its buffer)."""
+    arrays = [np.asarray(a, order="C") for a in arrays]     # keeps 0-d
+    total = sum(a.nbytes for a in arrays)
+    if len(arrays) == 1 or total < LATENCY_THRESHOLD_BYTES:
+        TRANSFER_STATS["direct_dmas"] += len(arrays)
+        TRANSFER_STATS["bytes"] += total
+        return [torch.from_numpy(a).to(device, copy=True) for a in arrays]
+    buf, layout = _pack(arrays, device)
+    return [_view(buf, *entry) for entry in layout]
 
 
 def stage_inputs(arrays: Sequence[np.ndarray],

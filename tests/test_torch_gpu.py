@@ -13,6 +13,7 @@ than the plain versions (tiles, online softmax, split K) on O(1) values,
 which leaves ~1e-6 of rounding; 1e-4 keeps a wide margin over that while
 any indexing or masking fault shows as an O(1) error.
 """
+import functools
 import math
 
 import numpy as np
@@ -1176,3 +1177,81 @@ def test_rglru_bwd_through_autograd_on_the_card(dev):
     rglru_scan_ref(*want)[0].backward(ct)
     for got, ref in zip(leaves, want):
         torch.testing.assert_close(got.grad, ref.grad, **TOL)
+
+
+# ---------------------------------------------------------------------------
+# the custom ops an exported graph calls (kernels/library.py)
+# ---------------------------------------------------------------------------
+
+def _op_case(dev, name):
+    """(op args, the direct entry call, the kernel's wrapper) at one shape
+    of the paths: the serve's decode-step q/o product, prefill and decode
+    attention and a layernorm group at Qwen2-1.5B's attention widths, both
+    scans at the recurrent stacks' widths, the Listing-3 CNN's first pool."""
+    from repro_torch.kernels.avgpool.ops import avgpool
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.kernels.dfp_fused.ops import dfp_fused
+    from repro_torch.kernels.dfp_fused.program import program_to_str
+    from repro_torch.kernels.flash_attention.kernel import BLOCK_Q
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.matmul.ops import matmul
+    from repro_torch.kernels.rglru_scan.ops import rglru_scan
+    from repro_torch.kernels.rwkv6_scan.ops import rwkv6_scan
+    r = functools.partial(_randn, dev)
+    if name == "matmul":
+        x, w = r(1, 4, 1536), _weight(dev, 2, 1536, 1536, True)
+        return (x, w, 0), lambda: matmul(x, w), matmul_cuda
+    if name == "flash_attention":
+        q, k, v = r(1, 4, 128, 12, 128), r(2, 4, 128, 2, 128), \
+            r(3, 4, 128, 2, 128)
+        return ((q, k, v, True, 0, 0.0, BLOCK_Q),
+                lambda: flash_attention(q, k, v), flash_attention_cuda)
+    if name == "decode_attention":
+        q, kn, vn = r(1, 4, 1, 12, 128), r(2, 4, 1, 2, 128), \
+            r(3, 4, 1, 2, 128)
+        k, v = r(4, 4, 128, 2, 128), r(5, 4, 128, 2, 128)
+        lens = torch.tensor([0, 37, 100, 127], device=dev,
+                            dtype=torch.int32)
+        return ((q, k, v, kn, vn, lens, 0, 0.0, 0),
+                lambda: decode_attention(q, k, v, kn, vn, lens),
+                decode_attention_cuda)
+    if name == "dfp_fused":
+        prog = Program((("layernorm", 0, ("op", 0), 1, 2, 1e-5),),
+                       ("full", "vec", "vec"), 0)
+        ops = [r(1, 512, 1536), 1.0 + 0.1 * r(2, 1536), r(3, 1536)]
+        return ((ops, program_to_str(prog), 0, 0),
+                lambda: dfp_fused(prog, ops), dfp_fused_triton)
+    if name == "rglru_scan":
+        a = torch.sigmoid(r(1, 4, 512, 4096))
+        b, h0 = r(2, 4, 512, 4096), r(3, 4, 4096)
+        return (a, b, h0, 0, 0), lambda: rglru_scan(a, b, h0), \
+            rglru_scan_cuda
+    if name == "rwkv6_scan":
+        rr, kk, vv = (0.1 * r(i, 4, 512, 32, 64) for i in (1, 2, 3))
+        logw = -torch.exp(r(4, 4, 512, 32, 64) - 1.0)
+        u, s0 = 0.1 * r(5, 32, 64), torch.zeros(4, 32, 64, 64, device=dev)
+        return ((rr, kk, vv, logw, u, s0, 0),
+                lambda: rwkv6_scan(rr, kk, vv, logw, u, s0), rwkv6_scan_cuda)
+    x = r(1, 64, 32, 112, 112)
+    return (x, 3, 3, 0), lambda: avgpool(x, 3, 3), avgpool_cuda
+
+
+@pytest.mark.parametrize("name", ["matmul", "flash_attention",
+                                  "decode_attention", "dfp_fused",
+                                  "rglru_scan", "rwkv6_scan", "avgpool"])
+def test_custom_op_equals_its_entry_on_the_card(dev, name):
+    """The ``repro_torch::*`` op on CUDA tensors launches its kernel (the
+    wrapper's count moves) and equals the direct entry call bit for bit."""
+    from repro_torch.kernels import library
+    args, entry, wrapper = _op_case(dev, name)
+    before = wrapper.launches
+    got = library.OPS[name](*args)
+    torch.cuda.synchronize()
+    assert wrapper.launches > before
+    want = entry()
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    assert len(got) == len(want)
+    for g_, w_ in zip(got, want):
+        assert g_.is_cuda and g_.dtype == w_.dtype
+        assert torch.equal(g_, w_)

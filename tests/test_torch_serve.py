@@ -150,14 +150,21 @@ def test_no_card_and_no_cpu_request_raises(monkeypatch):
 def test_later_slices_refuse_loudly():
     with pytest.raises(NotImplementedError):
         tserve.SolServer(_cfg(tserve, mesh=(2, 1)), device="cpu")
-    with pytest.raises(NotImplementedError):
-        tserve.SolServer(_cfg(tserve), deployed={}, device="cpu")
+    # deploy mode with no artifacts serves nothing: the first bucket raises
+    # instead of compiling a live model
+    server = tserve.SolServer(_cfg(tserve), deployed={}, device="cpu")
+    assert server.model is None and not server._models
+    server.submit([1, 2, 3], max_new_tokens=2)
+    with pytest.raises(KeyError, match="deploy"):
+        server.step()
+    server.close()
 
 
 def test_smoke_cli_on_cpu(capsys):
     assert tserve.main(["--smoke", "--device", "cpu"]) == 0
     out = capsys.readouterr().out
     assert "cuda.decode_attention" in out and "one packed copy" in out
+    assert "deploy round-trip" in out and "live server's tokens" in out
 
 
 SERVED = ("linear", "matmul", "attention", "decode_attention")
