@@ -10,8 +10,10 @@ CNN again in bf16, serves the transformer once more under a strict
 measured-provenance audit, ranks the measured kernels by their distance
 from the card's bound, trains three 4-block stacks through the elected
 forward and backward impls, serves the transformer again from deploy
-artifacts and runs every other kernel through one, and checks every path
-against the plain path.
+artifacts and runs every other kernel through one, serves it on a (2, 2)
+mesh of four ranks sharing the card and through a fleet of three replicas
+with one replica killed mid-stream, and checks every path against the
+plain path.
 
     python3 chip_smoke.py          # one CUDA card, run from the repo root
 
@@ -43,7 +45,12 @@ Phases, each failing loudly:
    time by pass).  Then an f32
    row at every kernel node that phases 3, 5 and 6 run and no row above
    holds (``path_nodes``: two-block versions of the serve's programs at
-   the buckets phase 3 opens, of both stacks and of the three CNNs); then
+   the buckets phase 3 opens and at every bucket a replica of phase 13's
+   fleet can open (``fleet_buckets``), of both stacks and of the three
+   CNNs, and the per-shard programs of phase 12's (2, 2) mesh at those buckets,
+   decided by ``shard_graph`` alone: heads 6 and KV heads 1, q 768 and
+   k/v 128 features, the row-parallel o and MLP down products, the
+   75968-wide vocab shard); then
    every kernel in bf16 at the f32 rows' shapes, in bf16 at every shape
    and DFP program that phase 7's paths run and no row above holds (the
    transformer's 1024-row products, LM head and S 256 attention, its
@@ -54,7 +61,7 @@ Phases, each failing loudly:
    kernel (the matmul's two), every config of its ``Tunable`` space pinned
    on the first f32 and the first bf16 path node that runs it, through the
    impl, held to the plain version at the same tolerances (one
-   ``[configs]`` line per kernel).  Phases 3, 5, 6 and 7
+   ``[configs]`` line per kernel).  Phases 3, 5, 6, 7, 12 and 13
    fail on a kernel node of their paths that no row of their dtype holds
    (``node_key``, ``check_held``).
 3. serve — 28 × ``transformer_block(1536, 12, n_kv_heads=2)`` + a
@@ -187,13 +194,34 @@ Phases, each failing loudly:
    within ``DEPLOY_RTOL`` of its live model's, its scan or pool launching
    through it; every one of the seven kernels launches through some
    artifact.
+12. mesh serve — phase 3's model (the same seed, built on the card by
+   each rank) and requests on ``SolServer(ServeConfig(mesh=(2, 2)))``:
+   four ranks sharing the one card (``launch.mesh.run_on_mesh``, gloo;
+   each rank's output lines prefixed with its rank, every rank joined
+   before the parent goes on), two passes, the second counted.  Gates:
+   every rank's greedy tokens equal phase 3's (near ties reported), rank
+   0's logits at every step within ``LOGIT_RTOL`` of phase 3's scale,
+   every served node held by phase 2 and on a ``cuda.*`` impl, and
+   matmul, flash attention, decode attention and DFP launched on every
+   rank.  Logged: tokens/s, decode step p50 and the all-reduces of a
+   decode step; four ranks on one card measure no scaling.
+13. fleet — a ``SolFleet`` of 3 replicas of phase 3's model (full width
+   and depth) on the card serves phase 3's requests twice over, sampled
+   with seeds, and one replica is killed after two ticks
+   (``fleet.kill_replay``).  Gates: zero drops, ``kills == 1`` and
+   ``respawns == 1``, tokens identical to an undisturbed one-replica
+   fleet's, the serve kernels launched, and every node of every bucket
+   that any replica of either fleet served (the killed one and the
+   respawn included) held by phase 2 and on a ``cuda.*`` impl.  Logged:
+   the recovery time (kill to respawn).
 
 The second-to-last lines are the card's ``nvidia-smi`` line and a JSON
 ``kernels`` line (an entry per kernel in f32, and one per kernel in bf16
 named ``<kernel>_bf16`` with its launches on the bf16 paths); the last line
 is ``{"ok": true, "device": ...}``; the ``kernels`` line's launches are
-phases 3, 5-7, 10's (its six h100 steps a stack) and 11's (its checked
-artifact serve pass and one call of each other artifact).  The
+phases 3, 5-7, 10's (its six h100 steps a stack), 11's (its checked
+artifact serve pass and one call of each other artifact), 12's (summed
+over the ranks, path ``mesh_serve``) and 13's (path ``fleet``).  The
 full record goes to ``chiprun_out/chip_smoke.json``.  The script imports
 nothing of JAX or of the JAX package ``src/repro``; it exits non-zero,
 printing no result, without a CUDA card or without the package.
@@ -210,6 +238,7 @@ import re
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -248,6 +277,9 @@ FULL = dict(d_model=1536, n_heads=12, n_kv_heads=2, n_layers=28,
             vocab=151936, max_seq=256, max_batch=4, slots=8)
 PROMPT_LENS = (17, 40, 64, 100)
 GEN = 16
+MESH = (2, 2)                   # phase 12's (data, model) ranks, one card
+MESH_TIMEOUT_S = 420
+FLEET_REPLICAS = 3
 
 
 def fail(msg: str) -> None:
@@ -364,6 +396,7 @@ def phase_kernels(gen) -> dict:
                                                        rwkv6_scan_cuda)
     from repro_torch.kernels.rwkv6_scan.ref import rwkv6_scan_ref
 
+    t_phase = time.perf_counter()
     dev = torch.device("cuda")
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     tdt = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -797,7 +830,10 @@ def phase_kernels(gen) -> dict:
     # the RWKV6 (d 2048, MLP 6144) and Griffin (d 4096, MLP 12288) dense
     # products on their 2048 rows, a K = 12288 accuracy row, the groups its
     # graphs add, the scans), then the Listing-3 pools and edge cases
+    t0 = time.perf_counter()
     nodes32 = path_nodes(torch, dev, "float32")
+    log(f"[kernels] {len(nodes32)} f32 path nodes read in "
+        f"{time.perf_counter() - t0:.1f} s")
     serving = serving_programs(nodes32)
     for m, k, n, oi in serve_mm:
         matmul_case(m, k, n, oi)
@@ -915,6 +951,8 @@ def phase_kernels(gen) -> dict:
     products = sorted({key[1:] for key, (path, _) in nodes16.items()
                        if key[0] == "matmul" and path.startswith(
                            "transformer")})
+    log(f"[kernels] phase 2 took {time.perf_counter() - t_phase:.1f} s, "
+        f"{len(cases)} rows")
     return {"cases": cases, "plans": plans, "configs": configs,
             "bf16_products": products}
 
@@ -1515,7 +1553,7 @@ def phase_serve(torch, counters, dev, held):
     return {"h100": m, "summary": s, "launches": launches,
             "device_breakdown": breakdown, "torch_ref": rm,
             "logit_rel_err": worst, "near_ties": ties,
-            "decode_vs_reforward_near_ties": ties2}, ref
+            "decode_vs_reforward_near_ties": ties2}, ref, got
 
 
 # ---------------------------------------------------------------------------
@@ -1977,13 +2015,27 @@ def serve_buckets(server) -> list:
     return keys
 
 
+def fleet_buckets(server) -> list:
+    """Every bucket a replica of phase 13's fleet can open, by
+    ``SolServer``'s own rule: its batch buckets times its sequence buckets
+    from the shortest prompt's to the longest context's (max(PROMPT_LENS)
+    + GEN), for prefill and decode.  How the router splits the requests,
+    and what a kill re-queues, decides which of them open."""
+    low = server._seq_bucket(min(PROMPT_LENS))
+    seqs = [s for s in server._seq_buckets(max(PROMPT_LENS) + GEN)
+            if s >= low]
+    return [(program, b, s) for program in ("prefill", "decode")
+            for b in server._batch_buckets() for s in seqs]
+
+
 def path_nodes(torch, dev, dtype: str) -> dict:
     """node_key -> (path, node) of every kernel node that a phase runs in
     ``dtype``, read from two-block versions of its paths at full width (a
     path's blocks are alike; nothing is launched).  float32: the serve's
     programs at the buckets phase 3 opens (``serve_buckets``, built by a
-    two-layer ``SolServer``), both stacks (phase 5) and the three CNNs
-    (phase 6).  bfloat16 (phase 7): the transformer's full program and
+    two-layer ``SolServer``) and at those phase 13's fleet can open
+    (``fleet_buckets``), both stacks (phase 5), the three CNNs (phase 6)
+    and phase 12's per-shard programs.  bfloat16 (phase 7): the transformer's full program and
     decode step with the LM head, each stack, the Listing-3 CNN."""
     from repro_torch.frontends import extract
     from repro_torch.frontends.optimize import compile_graph, optimize
@@ -2015,6 +2067,9 @@ def path_nodes(torch, dev, dtype: str) -> dict:
         server = SolServer(cfg, model=lm, device=dev)
         for key in serve_buckets(server):
             add(server._model_for(key), f"serve {key[0]}")
+        for key in fleet_buckets(server):
+            add(server._model_for(key), f"fleet {key[0]}")
+        mesh_graphs = mesh_serve_graphs(lm, server, dev)
         server.close()
     del lm
     for name, stack in STACKS:
@@ -2027,6 +2082,31 @@ def path_nodes(torch, dev, dtype: str) -> dict:
         with torch.no_grad():
             m = _build_cnn(torch, name, dev, gen).to(tdt)
         add(optimize(m, CNN_SHAPE, backend="h100", device=dev, **kw), name)
+    if not half:
+        for key, g in mesh_graphs:
+            add(types.SimpleNamespace(graph=g), f"mesh_serve {key[0]}")
+    return out
+
+
+def mesh_serve_graphs(lm, server, dev) -> list:
+    """(bucket key, elected per-shard graph) of the buckets phase 12's
+    (2, 2) mesh serve opens, decided from ``shard_graph`` alone (no process
+    group): the mesh server's bucket rule, the tagged backend's
+    elections."""
+    from repro_torch.backends import for_device, get_backend
+    from repro_torch.core import passes
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.frontends import extract
+
+    am = shd.AbstractMesh(MESH)
+    bk = shd.mesh_backend(for_device(get_backend("h100"), dev), am)
+    d, out = FULL["d_model"], []
+    for program, b, s in serve_buckets(server):
+        b = max(b, MESH[0])          # the mesh's smallest batch bucket
+        g = (extract.extract_prefill(lm, (b, s, d)) if program == "prefill"
+             else extract.extract_decode(lm, b, s, d))
+        out.append(((program, b, s),
+                    passes.run_pipeline(shd.shard_graph(g, am), bk)))
     return out
 
 
@@ -3463,6 +3543,225 @@ def phase_deploy(torch, counters, dev, state) -> dict:
             "dispatch": disp, "legs": legs, "phase_s": phase_s}
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the mesh serve, four ranks on the one card
+# ---------------------------------------------------------------------------
+
+SERVE_KERNELS = ("matmul", "flash_attention", "decode_attention", "dfp_fused")
+
+
+def serve_counters():
+    """The serve's kernel counters: ``matmul_cuda`` counts every product,
+    each of its two kernels its own launches."""
+    from repro_torch.kernels.decode_attention.kernel import \
+        decode_attention_cuda
+    from repro_torch.kernels.dfp_fused.kernel import dfp_fused_triton
+    from repro_torch.kernels.flash_attention.kernel import \
+        flash_attention_cuda
+    from repro_torch.kernels.matmul.kernel import KERNELS, matmul_cuda
+    return {"matmul": matmul_cuda, "matmul_tc": KERNELS["tensor_core"],
+            "matmul_skinny": KERNELS["skinny"],
+            "flash_attention": flash_attention_cuda,
+            "decode_attention": decode_attention_cuda,
+            "dfp_fused": dfp_fused_triton}
+
+
+def mesh_serve_rank(mesh, prompts, held) -> dict:
+    """One rank of phase 12 (run by ``run_on_mesh``): phase 3's weights
+    built on the card from the same seed, served on the mesh twice; the
+    second pass is counted and timed.  Fails the rank (and so the run) on
+    a node phase 2 did not hold, an election off the kernels, a serve
+    kernel that did not launch or a copy count off one per forward."""
+    import torch
+    from repro_torch.core.ir import OpKind
+    from repro_torch.launch.serve import SolServer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    model, cfg = serve_model(torch, mesh.device)
+    server = SolServer(dataclasses.replace(cfg, mesh=tuple(mesh.sizes)),
+                       model=model, device=mesh.device)
+    counters = serve_counters()
+    calls = {}
+
+    def reset_counts():
+        for c in counters.values():
+            c.launches = 0
+        calls.update(mesh.calls)
+
+    got, m = measured_serve(server, prompts, reset_counts)
+    launches = {name: c.launches for name, c in counters.items()}
+    collectives = {k: v - calls[k] for k, v in mesh.calls.items()}
+    s = server.summary()
+    for key, sol in sorted(server._models.items()):
+        check_held(sol, f"mesh bucket {key}", held, "float32")
+    for key, rec in sorted(server.served_elections.items()):
+        for kind in CUDA_KINDS:
+            for impl in rec["by_op"].get(kind, {}):
+                if not impl.startswith("cuda."):
+                    fail(f"mesh bucket {key}: {kind} elected {impl}")
+    if s["dmas"] != s["forwards"]:
+        fail("mesh serve: more than one packed copy per forward")
+    check_matmul_kernels("mesh serve", launches)
+    for name in SERVE_KERNELS:
+        if launches[name] <= 0:
+            fail(f"mesh serve: {name} was not launched on rank {mesh.rank}")
+    dec = [sol for key, sol in server._models.items() if key[0] == "decode"]
+    psum = sum(1 for n in dec[0].graph.topo() if n.attrs.get("psum_axes"))
+    gathers = len(dec[0].graph.outputs)
+    shapes = sorted({(n.op.value, tuple(n.spec.shape))
+                     for n in dec[0].graph.topo()
+                     if n.op in (OpKind.DECODE_ATTENTION,)})
+    print(f"[mesh] {mesh}: {m['tokens_per_s']:.2f} tok/s, decode step p50 "
+          f"{m['decode_p50_ms']:.2f} ms, {psum} all-reduces and one "
+          f"all-gather (of {gathers} outputs) a decode step, collectives "
+          f"in the pass {collectives}; launches {launches}; decode "
+          f"attention at {shapes}; {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    server.close()
+    return {"rank": mesh.rank, "coords": dict(mesh.coords),
+            "tokens": [t for t, _ in got],
+            "trace": got if mesh.rank == 0 else None,
+            "launches": launches, "tokens_per_s": m["tokens_per_s"],
+            "decode_p50_ms": m["decode_p50_ms"],
+            "first_pass_s": m["first_pass_s"],
+            "all_reduce_per_decode_step": psum,
+            "gathers_per_forward": gathers, "collectives": collectives,
+            "buckets": sorted(server._models), "summary": s}
+
+
+def phase_mesh_serve(torch, serve_got, held) -> dict:
+    """Phase 12: phase 3's model and requests on a (2, 2) mesh, four ranks
+    on the one card (``run_on_mesh``, gloo); every rank's tokens equal
+    phase 3's (near ties reported) and rank 0's logits at every step within
+    ``LOGIT_RTOL`` of phase 3's scale."""
+    import numpy as np
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import run_on_mesh
+
+    t_phase = time.perf_counter()
+    build.build_all()                 # the ranks load what the parent built
+    prompts = _workload(FULL["vocab"])
+    ranks = run_on_mesh(mesh_serve_rank, *MESH, device="cuda",
+                        dist_backend="gloo", timeout_s=MESH_TIMEOUT_S,
+                        args=(prompts, held))
+    got = ranks[0]["trace"]
+    worst = 0.0
+    for i, ((g_tok, g_log), (r_tok, r_log)) in enumerate(zip(got,
+                                                             serve_got)):
+        for pos, (a, b) in enumerate(zip(g_log, r_log)):
+            scale = float(np.abs(b).max())
+            err = float(np.abs(a - b).max())
+            worst = max(worst, err / scale)
+            if err > LOGIT_RTOL * scale:
+                fail(f"mesh serve request {i} step {pos}: logits differ by "
+                     f"{err:.3g} from phase 3's (scale {scale:.3g})")
+            if g_tok[pos] != r_tok[pos]:
+                break
+    ties = compare_tokens("mesh serve vs phase 3", got, serve_got,
+                          lambda row: LOGIT_RTOL * float(np.abs(row).max()))
+    for r in ranks[1:]:
+        if r["tokens"] != ranks[0]["tokens"]:
+            fail(f"mesh serve: rank {r['rank']}'s tokens differ from rank "
+                 f"0's")
+    launches = {k: sum(r["launches"][k] for r in ranks)
+                for k in ranks[0]["launches"]}
+    phase_s = time.perf_counter() - t_phase
+    log(f"[mesh] (2, 2) on one card: tokens equal phase 3's"
+        + (f" except near ties {ties}" if ties else "")
+        + f" on every rank; logits worst {worst:.3g} of scale (rtol "
+        f"{LOGIT_RTOL}); rank 0 {ranks[0]['tokens_per_s']:.2f} tok/s, "
+        f"decode step p50 {ranks[0]['decode_p50_ms']:.2f} ms, "
+        f"{ranks[0]['all_reduce_per_decode_step']} all-reduces a decode "
+        f"step; launches summed over ranks {launches}; phase 12 took "
+        f"{phase_s:.1f} s (four ranks share the card: no scaling measured)")
+    for r in ranks:
+        r.pop("trace", None)
+    return {"ranks": ranks, "launches": launches, "logit_rel_err": worst,
+            "near_ties": ties, "phase_s": phase_s}
+
+
+# ---------------------------------------------------------------------------
+# phase 13: the fleet, three replicas on the card, one kill
+# ---------------------------------------------------------------------------
+
+def phase_fleet(torch, dev, held) -> dict:
+    """Phase 13: a ``SolFleet`` of 3 replicas of phase 3's model (its
+    weights, full width and depth) on the card serves phase 3's requests
+    twice over, sampled with seeds, with one kill after two ticks, then an
+    undisturbed one-replica fleet serves them again (``kill_replay``).
+    Every request completes (zero drops), ``kills == 1`` and
+    ``respawns == 1``, and the tokens equal the undisturbed fleet's.  Each
+    replica of either fleet is audited as it leaves (``on_leave``): every
+    kernel node of every bucket it compiled was held by phase 2, and every
+    served kind elected a ``cuda.*`` impl.  The serve kernels' launches
+    are counted over both fleets' runs."""
+    from repro_torch.launch.fleet import kill_replay
+    from repro_torch.launch.serve import SamplingParams
+
+    t_phase = time.perf_counter()
+    model, cfg = serve_model(torch, dev)
+    prompts = _workload(cfg.vocab) * 2
+    workload = [(p, GEN, SamplingParams(temperature=0.8, seed=1000 + i))
+                for i, p in enumerate(prompts)]
+    audited = {}
+
+    def audit(rep):
+        server = rep.server
+        name = f"fleet {len(audited)} (replica {rep.id})"
+        for key, sol in sorted(server._models.items()):
+            check_held(sol, f"{name} bucket {key}", held, "float32")
+        for key, rec in sorted(server.served_elections.items()):
+            for kind in CUDA_KINDS:
+                for impl in rec["by_op"].get(kind, {}):
+                    if not impl.startswith("cuda."):
+                        fail(f"{name} bucket {key}: {kind} elected {impl}")
+        audited[name] = sorted(server._models)
+
+    counters = serve_counters()
+    for c in counters.values():
+        c.launches = 0
+    n = FLEET_REPLICAS
+    s = kill_replay(cfg, model, workload, replicas=n, kill_at_tick=2,
+                    device=dev, on_leave=audit)
+    launches = {name: c.launches for name, c in counters.items()}
+    if s["dropped"]:
+        fail(f"fleet: requests {s['dropped']} dropped after the kill")
+    if s["kills"] != 1 or s["respawns"] != 1:
+        fail(f"fleet: kills {s['kills']}, respawns {s['respawns']}, not 1 "
+             f"and 1")
+    if s["diverged"]:
+        fail(f"fleet: tokens of requests {s['diverged']} differ from the "
+             f"undisturbed fleet's")
+    # the drilled fleet's replicas and its respawn, then the baseline's one
+    if len(audited) != n + 2:
+        fail(f"fleet: {len(audited)} replicas audited, not {n + 2}")
+    check_matmul_kernels("fleet", launches)
+    for name in SERVE_KERNELS:
+        if launches[name] <= 0:
+            fail(f"fleet: {name} was not launched")
+    buckets = sorted({tuple(k) for keys in audited.values() for k in keys})
+    phase_s = time.perf_counter() - t_phase
+    rec = {"replicas": n, "requests": len(workload), "killed": s["killed"],
+           "requeued": s["requeued"], "kills": s["kills"],
+           "respawns": s["respawns"], "recovery_s": s["recovery_s"]["max"],
+           "tokens_per_s": s["tokens_per_s"], "ticks": s["ticks"],
+           "served_by": s["served_by"], "audited": audited,
+           "launches": launches, "phase_s": phase_s}
+    log(f"[fleet] {n} replicas of the {cfg.n_layers}-block model: "
+        f"{len(workload)} "
+        f"requests, {s['tokens']} tokens in {s['ticks']} ticks "
+        f"({s['tokens_per_s']:.2f} tok/s); killed replica {s['killed']} at "
+        f"tick 2, {s['requeued']} requests re-queued, 0 dropped, respawns "
+        f"{s['respawns']}, recovery {1e3 * s['recovery_s']['max']:.1f} ms; "
+        f"tokens identical to an undisturbed one-replica fleet's; "
+        f"{len(audited)} replicas audited over buckets {buckets}, every "
+        f"node held by phase 2 and on cuda.*; launches over both fleets "
+        f"{launches}; phase 13 took {phase_s:.1f} s")
+    return rec
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "__init__.py").is_file():
         print("chip_smoke: src/repro_torch not found next to this script; "
@@ -3513,12 +3812,10 @@ def main() -> int:
     # own launches
     mm = {"matmul": matmul_cuda, "matmul_tc": KERNELS["tensor_core"],
           "matmul_skinny": KERNELS["skinny"]}
-    counters = {**mm, "flash_attention": flash_attention_cuda,
-                "decode_attention": decode_attention_cuda,
-                "dfp_fused": dfp_fused_triton}
+    counters = serve_counters()
     held32 = {c["key"] for c in kern["cases"] if c["dtype"] == "float32"}
-    serve, serve_ref = phase_serve(torch, counters, torch.device("cuda"),
-                                   held32)
+    serve, serve_ref, serve_got = phase_serve(
+        torch, counters, torch.device("cuda"), held32)
     rec_counters = {**mm, "dfp_fused": dfp_fused_triton,
                     "rglru_scan": rglru_scan_cuda,
                     "rwkv6_scan": rwkv6_scan_cuda}
@@ -3552,6 +3849,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     deploy = phase_deploy(torch, bf16_counters, torch.device("cuda"),
                           measured_state)
+    del measured_state
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh = phase_mesh_serve(torch, serve_got, held32)
+    del serve_got
+    fleet = phase_fleet(torch, torch.device("cuda"), held32)
 
     # launches per main path: the served set and one forward of each stack
     # and each CNN in f32; the bf16 paths' runs for the bf16 entries
@@ -3563,6 +3866,8 @@ def main() -> int:
     by_path["deploy_serve"] = deploy["serve"]["launches"]
     by_path.update({f"deploy_{name}": deploy["legs"][name]["launches"]
                     for name, _ in STACKS})
+    by_path["mesh_serve"] = mesh["launches"]
+    by_path["fleet"] = fleet["launches"]
     bf16_by_path = {name: r["launches"] for name, r in bf16.items()}
     bf16_by_path["deploy_listing3_cnn"] = \
         deploy["legs"]["listing3_cnn_bf16"]["launches"]
@@ -3599,7 +3904,7 @@ def main() -> int:
          "serve": serve,
          "recurrent": recurrent, "cnn": cnn, "bf16": bf16,
          "measured_serve": measured, "sol": sol, "train": train,
-         "deploy": deploy,
+         "deploy": deploy, "mesh_serve": mesh, "fleet": fleet,
          "seconds": time.perf_counter() - t_start},
         indent=1, default=str))
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")

@@ -25,9 +25,15 @@ Rows (``name,us_per_call,derived``):
 Times are host wall clock around work that ends on the host (a served
 token is copied back), on the card unless ``device="cpu"``; each server
 serves its workload once to open (compile) its buckets before the timed
-pass.  The mesh
-scaling rows, the fleet replay and the per-architecture backbone decode
-rows wait for later slices of the port (``NotImplementedError``).
+pass.
+
+  serve_<backend>_mesh1x1_tok    decode µs/token on one device, and on a
+  serve_<backend>_mesh<D>x<M>_tok  (data, model) mesh of spawned ranks
+  serve_<backend>_fleet<R>_*     an open-loop replay through a SolFleet of
+                                 R replicas with one injected kill
+
+The per-architecture backbone decode rows wait for a later slice of the
+port (``NotImplementedError``).
 
     PYTHONPATH=src python -m repro_torch.benchmarks.serving [--device cpu]
 """
@@ -217,16 +223,137 @@ def decode_flatness(backend: str = "h100", lengths=(128, 1024),
     return rows
 
 
-def mesh_scaling_rows(*args, **kwargs) -> List[Row]:
-    raise NotImplementedError(
-        "the mesh scaling rows wait for the sharded-serving slice of the "
-        "port (ROADMAP §1 item 5)")
+def _mesh_scaling_rank(mesh, backend: str, cfg_kw: dict, workload
+                       ) -> Tuple[float, float]:
+    """One rank of ``mesh_scaling_rows``: rank 0 serves on its own device
+    (the others wait), then every rank serves the mesh; each server's
+    compile pass opens its buckets, the second pass is timed.  One private
+    autotune cache holds both servers' measurements, the mesh's under its
+    tagged backend key."""
+    from ..core import autotune as AT
+    from ..launch.serve import ServeConfig, SolServer, build_lm
+
+    AT.set_cache(AT.AutotuneCache())
+    base = ServeConfig(backend=backend, **cfg_kw)
+    model = build_lm(base, device=mesh.device)
+
+    def tokens_per_s(cfg) -> float:
+        server = SolServer(cfg, model, device=mesh.device,
+                           strict_provenance=True)
+        for p, g in workload:          # compile pass: builds the buckets
+            server.submit(p, g)
+        server.warm_autotune(warmup=1, iters=3)
+        server.run()
+        toks0 = server.stats["tokens"]
+        t0 = time.perf_counter()
+        for p, g in workload:          # timed pass: warm buckets only
+            server.submit(p, g)
+        server.run()
+        dt = time.perf_counter() - t0
+        server.close()
+        return (server.stats["tokens"] - toks0) / dt
+
+    single = tokens_per_s(base) if mesh.rank == 0 else 0.0
+    mesh.barrier()
+    return single, tokens_per_s(
+        dataclasses.replace(base, mesh=tuple(mesh.sizes)))
 
 
-def fleet_rows(*args, **kwargs) -> List[Row]:
-    raise NotImplementedError(
-        "the fleet replay waits for the fleet slice of the port (ROADMAP "
-        "§1 item 6)")
+def mesh_scaling_rows(backend: str = "h100", mesh: Tuple[int, int] = (2, 2),
+                      *, requests: int = 8, gen: int = 24,
+                      device: DeviceLike = None) -> List[Row]:
+    """Decode tokens/s on one device against a (data, model) mesh, on the
+    same weights and requests: ``data·model`` ranks started here
+    (``launch.mesh.run_on_mesh``), rank 0's times.  Where the ranks share
+    one card (every rank of this machine's run does), the rows are no
+    scaling measurement: the ranks split one card's time."""
+    from ..launch.mesh import run_on_mesh
+
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        from ..kernels import build
+        build.build_all()
+    cfg_kw = dict(d_model=128, n_heads=4, n_layers=2, vocab=128,
+                  max_seq=128, max_batch=8, slots=8)
+    rng = np.random.default_rng(7)
+    workload = [(rng.integers(0, cfg_kw["vocab"], int(rng.integers(4, 8)),
+                              dtype=np.int32), gen)
+                for _ in range(requests)]
+    need = int(mesh[0]) * int(mesh[1])
+    # gloo: the CPU, and ranks sharing one card
+    (single, sharded), *_ = run_on_mesh(
+        _mesh_scaling_rank, *mesh, device=dev.type, dist_backend="gloo",
+        timeout_s=900, args=(backend, cfg_kw, workload))
+    speedup = sharded / single if single else 0.0
+    return [
+        (f"serve_{backend}_mesh1x1_tok", 1e6 / single if single else 0.0,
+         f"{single:.1f}tok/s;devices=1;{dev.type}"),
+        (f"serve_{backend}_mesh{mesh[0]}x{mesh[1]}_tok",
+         1e6 / sharded if sharded else 0.0,
+         f"{sharded:.1f}tok/s;x{speedup:.2f}_vs_single;ranks={need};"
+         f"{dev.type}"),
+    ]
+
+
+def fleet_rows(backend: str = "h100", *, replicas: int = 3,
+               requests: int = 1000, gen: int = 4, rate: int = 3,
+               kill_at_tick: Optional[int] = None, verify: bool = True,
+               device: DeviceLike = None) -> List[Row]:
+    """Open-loop traffic replay against a ``launch/fleet.SolFleet`` with ONE
+    injected replica kill mid-replay (``fleet.kill_replay``; by default
+    halfway through the arrivals): ``rate`` requests arrive per watcher
+    tick whatever completes (queueing delay shows in the latency rows).
+    Every request must complete with zero drops, and with ``verify`` the
+    tokens must equal an undisturbed one-replica run's on the same weights
+    and seeds.  Rows: ``serve_<backend>_fleet<R>_{tok, latency_p50,
+    latency_p99, ttft_p50, recovery}`` (µs; recovery: the kill to the
+    respawn that replaced it)."""
+    from ..core import autotune as AT
+    from ..launch.fleet import kill_replay
+    from ..launch.serve import SamplingParams, ServeConfig, build_lm
+
+    dev = resolve_device(device)
+    cfg = ServeConfig(d_model=32, n_heads=2, n_layers=1, vocab=64,
+                      max_seq=32, max_batch=8, slots=16, backend=backend)
+    model = build_lm(cfg, device=dev)
+    rng = np.random.default_rng(11)
+    workload = [(rng.integers(0, cfg.vocab, int(rng.integers(4, 12)),
+                              dtype=np.int32), gen,
+                 SamplingParams(temperature=0.8, seed=10_000 + i))
+                for i in range(requests)]
+    if kill_at_tick is None:
+        kill_at_tick = -(-requests // rate) // 2
+    prev = AT.get_cache()
+    AT.set_cache(AT.AutotuneCache())   # private cache: measure, don't leak
+    try:
+        s = kill_replay(cfg, model, workload, replicas=replicas,
+                        kill_at_tick=kill_at_tick, rate=rate, verify=verify,
+                        device=dev)
+    finally:
+        AT.set_cache(prev)
+    if s["dropped"]:
+        raise RuntimeError(f"fleet replay dropped requests {s['dropped']} "
+                           f"after the injected kill")
+    if s["diverged"]:
+        raise RuntimeError(f"fleet replay tokens diverged from the "
+                           f"undisturbed same-seed run for {s['diverged']}")
+    ident = ";identical=yes" if verify else ""
+    tag = f"fleet{replicas}"
+    tok_us = (1e6 / s["tokens_per_s"]) if s["tokens_per_s"] else 0.0
+    return [
+        (f"serve_{backend}_{tag}_tok", tok_us,
+         f"{s['tokens_per_s']:.1f}tok/s;requests={s['requests']};"
+         f"requeued={s['requeued']}{ident};{dev.type}"),
+        (f"serve_{backend}_{tag}_latency_p50",
+         s["latency_ms"]["p50"] * 1e3, f"open_loop_rate={rate}/tick"),
+        (f"serve_{backend}_{tag}_latency_p99",
+         s["latency_ms"]["p99"] * 1e3, ""),
+        (f"serve_{backend}_{tag}_ttft_p50", s["ttft_ms"]["p50"] * 1e3,
+         f"replicas={replicas}"),
+        (f"serve_{backend}_{tag}_recovery", s["recovery_s"]["max"] * 1e6,
+         f"killed_replica={s['killed']};kill_tick={kill_at_tick};"
+         f"respawns={s['respawns']}"),
+    ]
 
 
 def decode_bench(*args, **kwargs) -> List[Row]:
@@ -242,9 +369,9 @@ def csv_rows(device: DeviceLike = None) -> List[Row]:
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
-    """The serving rows alone (``serve``); ``--json`` writes or merges them
-    into a BENCH-schema file, keeping its rows of other names.  The
-    ``fleet`` mode and a mesh other than 1,1 wait for later slices."""
+    """The serving rows (``serve``), the mesh scaling rows (``--mesh`` other
+    than 1,1) or the fleet replay (``fleet``); ``--json`` writes or merges
+    them into a BENCH-schema file, keeping its rows of other names."""
     ap = argparse.ArgumentParser(description=main.__doc__)
     ap.add_argument("mode", nargs="?", default="serve",
                     choices=["serve", "fleet"])
@@ -252,16 +379,20 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ap.add_argument("--mesh", default="1,1", metavar="DATA,MODEL")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
+    ap.add_argument("--requests", type=int, default=None,
+                    help="requests of the fleet replay or the mesh rows")
     ap.add_argument("--json", help="write/merge rows into this BENCH file")
     args = ap.parse_args(argv)
     mesh = tuple(int(a) for a in args.mesh.split(","))
     if len(mesh) != 2:
         print("--mesh wants 'data,model'", file=sys.stderr)
         return 2
+    more = {} if args.requests is None else {"requests": args.requests}
     if args.mode == "fleet":
-        rows = fleet_rows(args.backend)
+        rows = fleet_rows(args.backend, device=args.device, **more)
     elif mesh != (1, 1):
-        rows = mesh_scaling_rows(args.backend, mesh)
+        rows = mesh_scaling_rows(args.backend, mesh, device=args.device,
+                                 **more)
     else:
         rows = serve_rows(args.backend, device=args.device)
     print("name,us_per_call,derived")

@@ -306,21 +306,31 @@ class AutotuneCache:
         if doc.get("schema") != SCHEMA_VERSION:
             cache.stale = True
             return cache
+        cache.merge(doc)
+        return cache
+
+    def merge(self, doc: dict) -> None:
+        """Take in the entries and calibrations of a :meth:`to_json`
+        document, keeping the best time per (key, bucket, impl) as
+        :meth:`record` does; a calibration in ``doc`` replaces this
+        cache's."""
         for key, impls in doc.get("entries", {}).items():
             parts = key.split("|")
             if len(parts) != 4:
                 continue
             op, dtype, backend, bucket_s = parts
             bucket = tuple(int(d) for d in bucket_s.split("x"))
-            per = cache._entries.setdefault((op, dtype, backend), {}) \
-                                .setdefault(bucket, {})
+            per = self._entries.setdefault((op, dtype, backend), {}) \
+                               .setdefault(bucket, {})
             for impl, m in impls.items():
-                per[impl] = Measurement.from_json(m)
+                m = Measurement.from_json(m)
+                prev = per.get(impl)
+                if prev is None or m.us < prev.us:
+                    per[impl] = m
         for backend, ops in doc.get("calibration", {}).items():
             for op, coeffs in ops.items():
-                cache._calibration[(backend, op)] = {
+                self._calibration[(backend, op)] = {
                     k: float(v) for k, v in coeffs.items()}
-        return cache
 
 
 def get_cache() -> AutotuneCache:

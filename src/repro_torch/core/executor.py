@@ -321,8 +321,25 @@ def lower_graph(g: Graph, backend: "registry.Backend", *,
     CONST sources are materialized once per device, on the device of the
     first input, outside ``inference_mode``.  With ``differentiable=True``
     every node whose op has a backward impl runs through
-    :class:`_NodeFunction`, its impls bound once here."""
+    :class:`_NodeFunction`, its impls bound once here.
+
+    A sharded graph (``distributed.sharding.shard_graph``) runs one rank's
+    shard: a row-parallel product marked with ``psum_axes`` yields partial
+    sums, and their all-reduce over the mesh's groups of those axes lowers
+    right after the node, before any downstream bias add (BIAS_ADD is its
+    own node)."""
     order = g.topo()
+    mesh = getattr(g, "mesh", None)
+    psum = {id(n): tuple(n.attrs["psum_axes"]) for n in order
+            if n.attrs.get("psum_axes")}
+    if mesh is not None and differentiable:
+        raise NotImplementedError(
+            "training on a mesh waits for the backbone stack's sharded "
+            "train step (ROADMAP §1 item 7)")
+    if psum and not hasattr(mesh, "all_reduce"):
+        raise ValueError(
+            f"{len(psum)} row-parallel products need a mesh with process "
+            f"groups (launch.mesh.make_debug_mesh), not {mesh!r}")
     input_ids = [id(i) for i in g.inputs]
     param_items = sorted(g.params.items())
     impls: Dict[int, registry.Impl] = {
@@ -367,6 +384,8 @@ def lower_graph(g: Graph, backend: "registry.Backend", *,
             call = calls.get(id(n))
             env[id(n)] = (call(*vals) if call is not None
                           else impls[id(n)].fn(n, vals, backend))
+            if id(n) in psum:
+                env[id(n)] = mesh.all_reduce(env[id(n)], psum[id(n)])
         outs = tuple(env[id(o)] for o in g.outputs)
         return outs[0] if len(outs) == 1 else outs
 

@@ -1,2 +1,3 @@
-"""Train steps over SOL models (counterpart of ``repro.distributed``;
-the mesh, sharding and serve steps wait for sharded serving)."""
+"""Train steps over SOL models and the partition rules of sharded serving
+(counterpart of ``repro.distributed``; the backbone stack's sharded steps
+wait for it)."""

@@ -1,0 +1,396 @@
+"""Partition rules over a SOL IR graph (counterpart of the serving side of
+``repro.distributed.sharding``).
+
+:func:`shard_graph` threads the rule table through the middleware: one topo
+walk gives every node a :class:`P` (PartitionSpec) of its GLOBAL shape — DP
+on the batch dim of inputs, Megatron-style TP for attention (q/k/v
+column-parallel so heads stay shard-local, o row-parallel) and for MLP
+pairs (column → elementwise → row), KV caches sharded on the kv-head axis —
+then rewrites every ``node.spec`` (and RESHAPE ``shape``, LINEAR
+``out_features``) to the per-shard LOCAL shape, and marks row-parallel
+LINEAR/MATMUL nodes with ``attrs['psum_axes']``: the all-reduce the
+executor lowers right after the partial product, before any downstream
+bias add.  Because the rewrite happens before ``passes.run_pipeline``,
+elections, autotune lookups, Tunable pinning and strict provenance all see
+per-shard shapes; :func:`mesh_backend` qualifies the autotune-cache key so
+mesh timings and single-device timings never alias.
+
+A mesh here is anything with ``shape`` (axis name → size) and
+``axis_names``: :class:`AbstractMesh` for decisions alone, or
+``launch.mesh.Mesh`` with its process groups.  The parameter, batch and
+cache rules of the JAX module read ``ArchConfig`` and wait for the
+backbone stack.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, List, Mapping, Tuple
+
+from ..core.ir import OpKind
+
+
+class P(tuple):
+    """A PartitionSpec: one entry per dim, each ``None`` (replicated), an
+    axis name, or a tuple of axis names.  A one-name tuple is stored as the
+    name, as JAX's ``PartitionSpec`` stores it, so specs compare equal to
+    JAX's entry for entry."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, tuple(
+            e[0] if isinstance(e, (tuple, list)) and len(e) == 1
+            else tuple(e) if isinstance(e, list) else e for e in entries))
+
+    def __repr__(self) -> str:
+        return f"P{tuple.__repr__(self)}"
+
+
+@dataclasses.dataclass(frozen=True)
+class AbstractMesh:
+    """A mesh's shape alone (no devices, no process groups): what
+    :func:`shard_graph` and :func:`mesh_backend` read."""
+
+    sizes: Tuple[int, ...]
+    axis_names: Tuple[str, ...] = ("data", "model")
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return dict(zip(self.axis_names, self.sizes))
+
+
+class ShardingError(ValueError):
+    """A graph cannot be partitioned as requested (a sharded dim reaches an
+    op that needs it whole, or head counts do not divide the model axis).
+    The message names the node."""
+
+
+def dp_axes(mesh) -> Tuple[str, ...]:
+    return tuple(a for a in mesh.axis_names if a in ("pod", "data"))
+
+
+def axis_size(mesh, axes) -> int:
+    if axes is None:
+        return 1
+    if isinstance(axes, str):
+        axes = (axes,)
+    out = 1
+    for a in axes:
+        out *= mesh.shape[a]
+    return out
+
+
+def _div(size: int, n: int) -> bool:
+    return n > 0 and size % n == 0
+
+
+def shard_dim(mesh, size: int, axes):
+    """``axes`` if ``size`` divides their product, else None (replicate)."""
+    return axes if _div(size, axis_size(mesh, axes)) else None
+
+
+def mesh_backend(backend, mesh):
+    """The per-mesh view of a backend: the same ``name`` (impls and
+    capabilities match unchanged) with a ``shard_tag`` qualifying every
+    autotune-cache key.  Without it a per-shard bucket could alias a
+    global one (a pow2 local shape IS some global bucket) and a mesh
+    election would serve a single-device timing."""
+    tag = "".join(f"{a}{mesh.shape[a]}" for a in mesh.axis_names)
+    return dataclasses.replace(backend, shard_tag=tag)
+
+
+def _entry(spec, i: int, rank: int):
+    """The sharding of dim ``i`` (negative allowed) under ``spec``; a spec
+    shorter than the rank replicates the trailing dims."""
+    if i < 0:
+        i += rank
+    return spec[i] if 0 <= i < len(spec) else None
+
+
+def _axes_tuple(e) -> Tuple[str, ...]:
+    if e is None:
+        return ()
+    return (e,) if isinstance(e, str) else tuple(e)
+
+
+def local_shape(mesh, shape: Tuple[int, ...], spec) -> Tuple[int, ...]:
+    return tuple(d // axis_size(mesh, _entry(spec, i, len(shape)))
+                 for i, d in enumerate(shape))
+
+
+_LOCAL_CHAIN = {OpKind.BIAS_ADD, OpKind.RELU, OpKind.GELU, OpKind.SILU,
+                OpKind.SIGMOID, OpKind.TANH, OpKind.EXP, OpKind.SOFTPLUS,
+                OpKind.SQRT, OpKind.SCALE, OpKind.SOFTCAP, OpKind.DROPOUT,
+                OpKind.IDENTITY}
+_ELEMENTWISE = _LOCAL_CHAIN - {OpKind.BIAS_ADD}
+
+
+def shard_graph(g, mesh):
+    """Partition a freshly extracted graph for ``mesh`` in place: every
+    node gets a spec of its global shape, then its per-shard local shape;
+    row-parallel products get ``attrs['psum_axes']``.  Every decision is
+    guarded by divisibility and falls back to replication; a sharded dim
+    reaching an op that needs it whole raises :class:`ShardingError`.
+    Returns ``g`` with ``mesh``, ``input_specs``, ``output_specs`` and
+    ``param_specs`` attached."""
+    dp = dp_axes(mesh)
+    m = "model" if "model" in mesh.axis_names else None
+    mp = axis_size(mesh, m)
+    spec: Dict[int, P] = {}
+    cons = g.consumers()
+    param_name = {id(n): name for name, n in g.params.items()}
+    order = list(g.topo())
+
+    def pspec(node) -> P:
+        s = spec.get(id(node))
+        if s is None:
+            s = P(*([None] * len(node.spec.shape)))
+            spec[id(node)] = s
+        return s
+
+    def ent(node, i):
+        return _entry(pspec(node), i, len(node.spec.shape))
+
+    # head-parallel attention needs every layer's query AND kv head counts
+    # divisible by the model axis (a partly sharded q/k/v set would make
+    # the attention node non-local)
+    attn_tp = mp > 1
+    for n in order:
+        if n.op in (OpKind.ATTENTION, OpKind.DECODE_ATTENTION):
+            heads = n.spec.shape[2]
+            kv = n.inputs[1].spec.shape[2]
+            if heads % mp or kv % mp:
+                attn_tp = False
+
+    def _col_ok(n) -> bool:
+        """Column-sharding ``n``'s output features is legal when the shard
+        stays local (bias, unary elementwise) until a row-parallel product
+        folds it back, or until the graph's edge, where the output gather
+        joins it (vocab-parallel head)."""
+        cur = n
+        while True:
+            users = cons.get(cur, [])
+            if not users:
+                return cur in g.outputs
+            if len(users) != 1:
+                return False
+            u = users[0]
+            if u.op in _LOCAL_CHAIN:
+                cur = u
+                continue
+            return (u.op in (OpKind.LINEAR, OpKind.MATMUL)
+                    and u.inputs[0] is cur
+                    and u.inputs[1].op is OpKind.PARAM
+                    and _div(u.inputs[1].spec.size
+                             // max(u.spec.shape[-1], 1), mp))
+
+    def _attn_proj(n) -> bool:
+        """``n`` is an attention q/k/v projection: its one consumer is a
+        RESHAPE feeding ATTENTION / DECODE_ATTENTION."""
+        users = cons.get(n, [])
+        if len(users) == 1 and users[0].op is OpKind.RESHAPE:
+            nxt = cons.get(users[0], [])
+            return (len(nxt) == 1
+                    and nxt[0].op in (OpKind.ATTENTION,
+                                      OpKind.DECODE_ATTENTION))
+        return False
+
+    def _matmul(n):
+        x, w = n.inputs[0], n.inputs[1]
+        rank = len(x.spec.shape)
+        sx = tuple(_entry(pspec(x), i, rank) for i in range(rank))
+        xlast = sx[-1]
+        out_dim = n.spec.shape[-1]
+        # LINEAR params are stored (out, in); MATMUL weights are (in, out)
+        oi = n.op is OpKind.LINEAR
+
+        def wspec(in_ax, out_ax) -> P:
+            return P(out_ax, in_ax) if oi else P(in_ax, out_ax)
+
+        if w.op is not OpKind.PARAM:
+            if xlast is not None or ent(w, 0) is not None:
+                raise ShardingError(
+                    f"{n.name}: contraction dim is sharded but the weight "
+                    f"is not a parameter: no rule to row-parallelize it")
+            spec[id(n)] = P(*(sx[: rank - 1] + (ent(w, -1),)))
+            return
+        have = spec.get(id(w))
+        if xlast is not None:
+            # row-parallel: the weight sharded on its input dim, partial
+            # sums all-reduced over the contraction axes after this node
+            want = wspec(xlast, None)
+            if have is not None and have != want:
+                raise ShardingError(
+                    f"{n.name}: shared param "
+                    f"{param_name.get(id(w), w.name)!r} already sharded as "
+                    f"{have}, row-parallel use needs {want}")
+            spec[id(w)] = want
+            n.attrs["psum_axes"] = _axes_tuple(xlast)
+            spec[id(n)] = P(*(sx[: rank - 1] + (None,)))
+            return
+        col = False
+        if m is not None and have is None and _div(out_dim, mp):
+            col = attn_tp if _attn_proj(n) else _col_ok(n)
+        if col:
+            spec[id(w)] = wspec(None, m)
+            spec[id(n)] = P(*(sx[: rank - 1] + (m,)))
+        else:
+            if have is None:
+                spec[id(w)] = wspec(None, None)
+            out_ax = _entry(spec[id(w)], 0 if oi else -1,
+                            len(w.spec.shape))
+            spec[id(n)] = P(*(sx[: rank - 1] + (out_ax,)))
+
+    def _reshape(n):
+        src = n.inputs[0]
+        a, b = src.spec.shape, tuple(n.attrs["shape"])
+        sin = pspec(src)
+        ra = len(a)
+        if len(b) == ra + 1 and a[:-1] == b[:-2] and a[-1] == b[-2] * b[-1]:
+            # split the last dim, (B,S,H·hd) → (B,S,H,hd): a feature shard
+            # holds whole heads (attn_tp), so the shard moves to the heads
+            spec[id(n)] = P(*(tuple(_entry(sin, i, ra) for i in range(ra))
+                              + (None,)))
+            return
+        if len(b) == ra - 1 and a[:-2] == b[:-1] and b[-1] == a[-2] * a[-1]:
+            # merge the last two dims, (B,S,H,hd) → (B,S,H·hd)
+            if _entry(sin, -1, ra) is not None:
+                raise ShardingError(
+                    f"{n.name}: cannot merge a sharded trailing dim")
+            spec[id(n)] = P(*tuple(_entry(sin, i, ra)
+                                   for i in range(ra - 1)))
+            return
+        if any(_entry(sin, i, ra) is not None for i in range(ra)
+               if not (i == 0 and b and b[0] == a[0])):
+            raise ShardingError(
+                f"{n.name}: general reshape of a sharded tensor "
+                f"({a} → {b} under {sin}) has no propagation rule")
+        lead = _entry(sin, 0, ra) if b and a and b[0] == a[0] else None
+        spec[id(n)] = P(*((lead,) + (None,) * (len(b) - 1)))
+
+    def _attention(n):
+        head_ents = {ent(q, 2) for q in n.inputs if len(q.spec.shape) == 4}
+        if len(head_ents) > 1:
+            raise ShardingError(
+                f"{n.name}: inconsistent head sharding across operands "
+                f"({head_ents}): the model axis must divide every layer's "
+                f"n_heads and n_kv_heads, or none")
+        spec[id(n)] = pspec(n.inputs[0])
+
+    for n in order:
+        op = n.op
+        shape = n.spec.shape
+        rank = len(shape)
+        if op is OpKind.INPUT:
+            bspec = shard_dim(mesh, shape[0], dp) if rank else None
+            if (rank == 4 and m is not None
+                    and n.name.endswith(("k_cache", "v_cache"))):
+                kv = shard_dim(mesh, shape[2], m) if attn_tp else None
+                spec[id(n)] = P(bspec, None, kv, None)
+            else:
+                spec[id(n)] = P(*((bspec,) + (None,) * (rank - 1)))
+            continue
+        if op in (OpKind.PARAM, OpKind.CONST):
+            continue           # params: set by their consumers; consts: replicated
+        if op in (OpKind.LINEAR, OpKind.MATMUL):
+            _matmul(n)
+        elif op is OpKind.RESHAPE:
+            _reshape(n)
+        elif op in (OpKind.ATTENTION, OpKind.DECODE_ATTENTION):
+            _attention(n)
+        elif op is OpKind.BIAS_ADD:
+            x, b = n.inputs[0], n.inputs[1]
+            want = P(ent(x, n.attrs.get("axis", -1)))
+            have = spec.get(id(b))
+            if have is not None and have != want:
+                raise ShardingError(
+                    f"{n.name}: bias already sharded as {have}, needs {want}")
+            spec[id(b)] = want
+            spec[id(n)] = pspec(x)
+        elif op in (OpKind.LAYERNORM, OpKind.RMSNORM):
+            if ent(n.inputs[0], -1) is not None:
+                raise ShardingError(
+                    f"{n.name}: normalization over a model-sharded feature "
+                    f"dim: insert the row-parallel product before the norm "
+                    f"(serving graphs normalize replicated activations)")
+            spec[id(n)] = pspec(n.inputs[0])
+        elif op is OpKind.SOFTMAX:
+            if ent(n.inputs[0], n.attrs.get("axis", -1)) is not None:
+                raise ShardingError(f"{n.name}: softmax over a sharded axis")
+            spec[id(n)] = pspec(n.inputs[0])
+        elif op in _ELEMENTWISE:
+            spec[id(n)] = pspec(n.inputs[0])
+        elif op is OpKind.TIME_SHIFT:
+            if ent(n.inputs[0], 1) is not None:
+                raise ShardingError(f"{n.name}: shift along a sharded axis")
+            spec[id(n)] = pspec(n.inputs[0])
+        elif op in (OpKind.ADD, OpKind.SUB, OpKind.MUL, OpKind.DIV):
+            out: List[Any] = []
+            for i in range(rank):
+                ents = []
+                for inp in n.inputs:
+                    off = rank - len(inp.spec.shape)
+                    if i - off >= 0 and inp.spec.shape[i - off] > 1:
+                        ents.append(ent(inp, i - off))
+                if len(set(ents)) > 1:
+                    raise ShardingError(
+                        f"{n.name}: operands disagree on dim {i} sharding "
+                        f"({ents})")
+                out.append(ents[0] if ents else None)
+            spec[id(n)] = P(*out)
+        elif op is OpKind.TRANSPOSE:
+            sin = pspec(n.inputs[0])
+            ri = len(n.inputs[0].spec.shape)
+            spec[id(n)] = P(*(_entry(sin, p, ri) for p in n.attrs["perm"]))
+        elif op is OpKind.FLATTEN:
+            if any(ent(n.inputs[0], i) is not None
+                   for i in range(1, len(n.inputs[0].spec.shape))):
+                raise ShardingError(f"{n.name}: flatten of a sharded tensor")
+            spec[id(n)] = P(ent(n.inputs[0], 0), None)
+        else:
+            # batch-preserving default (convs, pools, scans): a
+            # model-sharded operand has no rule here
+            for inp in n.inputs:
+                ri = len(inp.spec.shape)
+                if any(_entry(pspec(inp), i, ri) is not None
+                       for i in range(1, ri)):
+                    raise ShardingError(
+                        f"{n.name} ({op.value}): no sharding-propagation "
+                        f"rule for a model-sharded operand")
+            lead = ent(n.inputs[0], 0) if n.inputs and rank else None
+            spec[id(n)] = P(*((lead,) + (None,) * max(rank - 1, 0)))
+
+    # rewrite every node to its per-shard local shape
+    for n in order:
+        s = pspec(n)
+        local = local_shape(mesh, n.spec.shape, s)
+        if local != n.spec.shape:
+            n.spec = dataclasses.replace(n.spec, shape=local)
+        if n.op is OpKind.RESHAPE:
+            n.attrs["shape"] = local
+        if n.op is OpKind.LINEAR:
+            f = axis_size(mesh, _entry(s, -1, len(local)))
+            if f > 1:
+                n.attrs["out_features"] = n.attrs["out_features"] // f
+
+    g.mesh = mesh
+    g.input_specs = [spec[id(i)] for i in g.inputs]
+    g.output_specs = [pspec(o) for o in g.outputs]
+    g.param_specs = {name: pspec(node) for name, node in g.params.items()}
+    g.validate()
+    return g
+
+
+def shard_slices(mesh, coords: Mapping[str, int], shape: Tuple[int, ...],
+                 spec) -> Tuple[slice, ...]:
+    """The index of this rank's block of a global ``shape`` under ``spec``:
+    a dim sharded over axes (a1, a2, ...) splits into their product of
+    blocks, row-major over the axes in the order the entry names them."""
+    out = []
+    for i, d in enumerate(shape):
+        axes = _axes_tuple(_entry(spec, i, len(shape)))
+        k, n = 0, 1
+        for a in axes:
+            k = k * mesh.shape[a] + coords[a]
+            n *= mesh.shape[a]
+        step = d // n
+        out.append(slice(k * step, (k + 1) * step))
+    return tuple(out)

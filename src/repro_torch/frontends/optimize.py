@@ -25,7 +25,7 @@ class SolModel(tnn.Module):
     """The custom model SOL injects into the framework (paper Listing 2)."""
 
     def __init__(self, source: tnn.Module, graph, backend: Backend, fn,
-                 device: torch.device):
+                 device: torch.device, mesh=None):
         super().__init__()
         # a plain attribute, not a submodule: the source owns its parameters
         object.__setattr__(self, "_source", source)
@@ -33,6 +33,7 @@ class SolModel(tnn.Module):
         self.backend = backend
         self._fn = fn
         self.device = device
+        self.mesh = mesh
         self._ctx_key: Optional[Tuple] = None
         self._ctx_params: Optional[Dict[str, torch.Tensor]] = None
 
@@ -46,9 +47,48 @@ class SolModel(tnn.Module):
         params = {k: named[k] for k in self.graph.params}
         key = tuple((id(p), p._version) for p in params.values())
         if self._ctx_params is None or self._ctx_key != key:
+            if self.mesh is not None:
+                params = {k: self._shard(v.detach(), self.graph.param_specs[k])
+                          for k, v in params.items()}
             self._ctx_params = device_api.stage_params(params, self.device)
             self._ctx_key = key
         return self._ctx_params
+
+    def _shard(self, t: torch.Tensor, spec) -> torch.Tensor:
+        """This rank's block of a global tensor under ``spec``."""
+        from ..distributed.sharding import shard_slices
+        return t[shard_slices(self.mesh, self.mesh.coords, tuple(t.shape),
+                              spec)].contiguous()
+
+    def _gather(self, outs, specs) -> list:
+        """The whole outputs on every rank, as ``shard_map``'s out_specs
+        gather them: every rank's blocks of all outputs in one all-gather
+        over the mesh, each laid back at its rank's slices (a block of a
+        dim the spec replicates is the same on every rank of that axis)."""
+        from ..distributed.sharding import shard_slices
+        if all(all(a is None for a in s) for s in specs):
+            return list(outs)
+        if len({o.dtype for o in outs}) > 1:
+            return [self._gather([o], [s])[0] for o, s in zip(outs, specs)]
+        mesh = self.mesh
+        flat = torch.cat([o.reshape(-1) for o in outs])
+        blocks = mesh.all_gather(flat, mesh.axis_names, 0).view(
+            mesh.size, -1)
+        full = []
+        for o, s in zip(outs, specs):
+            gshape = tuple(d * mesh.span(a) if a is not None else d
+                           for d, a in zip(o.shape, tuple(s) + (None,) * (
+                               o.dim() - len(s))))
+            full.append(torch.empty(gshape, dtype=o.dtype, device=o.device))
+        for r in range(mesh.size):
+            coords = mesh.coords_of(r)
+            off = 0
+            for o, s, g in zip(outs, specs, full):
+                n = o.numel()
+                g[shard_slices(mesh, coords, g.shape, s)] = \
+                    blocks[r, off:off + n].view(o.shape)
+                off += n
+        return full
 
     def load_state_dict(self, sd, strict: bool = True, assign: bool = False):
         return self._source.load_state_dict(sd, strict=strict, assign=assign)
@@ -60,7 +100,14 @@ class SolModel(tnn.Module):
     def forward(self, *xs) -> Any:
         params = self._params_for_call()
         staged = [device_api.stage_input(x, self.device) for x in xs]
+        if self.mesh is not None:
+            staged = [self._shard(x, s)
+                      for x, s in zip(staged, self.graph.input_specs)]
         y = self._fn(params, *staged)
+        if self.mesh is not None:
+            outs = self._gather(y if isinstance(y, tuple) else (y,),
+                                self.graph.output_specs)
+            y = tuple(outs) if isinstance(y, tuple) else outs[0]
         if isinstance(y, tuple):     # multi-output serving programs
             return tuple(device_api.fetch_output(o) for o in y)
         return device_api.fetch_output(y)
@@ -145,7 +192,8 @@ def optimize(model: tnn.Module, input_shape: Tuple[int, ...], *,
     ``training=True`` the backward impls are elected too and ``_fn`` is
     differentiable through them (``forward`` itself stays gradient-free:
     a train step differentiates ``_fn``, as
-    ``distributed.steps.make_sol_train_step`` does)."""
+    ``distributed.steps.make_sol_train_step`` does).  ``mesh``: as in
+    :func:`compile_graph`."""
     graph = extract(model, input_shape, dtype)
     return compile_graph(model, graph, backend, training=training,
                          device=device, mesh=mesh)
@@ -155,14 +203,26 @@ def compile_graph(model: tnn.Module, graph, backend: str | Backend = "h100",
                   *, training: bool = False, device: DeviceLike = None,
                   mesh=None) -> SolModel:
     """Optimize → lower → inject for a pre-built graph (the serving prefill
-    and decode programs)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh compilation arrives with the sharded-serving slice of the "
-            "port")
+    and decode programs).
+
+    With ``mesh`` (``launch.mesh.make_debug_mesh``) the graph is
+    partitioned first (``distributed.sharding.shard_graph``) and the
+    backend's cache key qualified (``mesh_backend``), so the pipeline,
+    elections and autotune lookups run on per-shard shapes.  The model
+    holds this rank's parameter shards, slices each input by the graph's
+    input specs, lowers the row-parallel all-reduces inside the program
+    and all-gathers every output, so each rank returns the whole output.
+    ``device=None`` is then the mesh's device."""
     bk = backend if isinstance(backend, Backend) else get_backend(backend)
+    if mesh is not None and device is None:
+        device = getattr(mesh, "device", None)
     dev = resolve_device(device)
     bk = for_device(bk, dev)            # a PCIe card's spec on a PCIe card
+    if mesh is not None:
+        from ..distributed import sharding as shd
+        graph = shd.shard_graph(graph, mesh)
+        bk = shd.mesh_backend(bk, mesh)
     graph = passes.run_pipeline(graph, bk, training=training)
     return SolModel(model, graph, bk,
-                    lower_graph(graph, bk, differentiable=training), dev)
+                    lower_graph(graph, bk, differentiable=training), dev,
+                    mesh=mesh)

@@ -37,15 +37,29 @@ bucket with no artifact raises ``KeyError`` instead of compiling, the
 strict audit reads each artifact's manifest, and there are no live graphs
 to warm.
 
-This slice serves on one device.  Meshes and fleets are later slices:
-asking for them raises ``NotImplementedError``.
+**Mesh serving.**  ``ServeConfig(mesh=(data, model))`` serves one model
+across the ranks of the process group this process joined
+(``launch.mesh.make_debug_mesh``; ``run_on_mesh`` starts them): every
+bucket model compiles with ``mesh=`` (per-shard shapes, row-parallel
+all-reduces, gathered outputs), every autotune key carries the mesh tag,
+and the smallest batch bucket is the data axis's size, so the batch always
+shards.  Every rank runs the same scheduler and arena on the same requests;
+the outputs are gathered, so the arenas stay identical (the JAX design
+keeps the arena and scheduler host-global too).  Mesh models are served
+live: ``export_artifacts`` refuses them.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke [--device cpu]
+    PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
+        --mesh 2,2
+    PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
+        --fleet 3
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
+import io
 import json
 import sys
 import time
@@ -64,7 +78,7 @@ from ..core.ir import OpKind
 from ..frontends import nn
 from ..frontends.extract import extract, extract_decode, extract_prefill
 from ..frontends.offload import DeviceLike, resolve_device
-from ..frontends.optimize import (SolModel, compile_graph, optimize,
+from ..frontends.optimize import (SolModel, compile_graph,
                                   provenance_violations)
 from ..runtime import packed
 from ..runtime.async_queue import AsyncQueue
@@ -145,8 +159,8 @@ def sample_token(logits: np.ndarray,
 @dataclasses.dataclass(frozen=True)
 class ServeConfig:
     """Shape of the served LM + scheduler limits.  ``max_seq`` must be a
-    power of two (it is the largest sequence bucket).  ``mesh`` other than
-    (1, 1) belongs to a later slice."""
+    power of two (it is the largest sequence bucket).  ``mesh`` is the
+    (data, model) rank grid; (1, 1) serves on one device."""
 
     d_model: int = 64
     n_heads: int = 4
@@ -191,10 +205,17 @@ def build_lm(cfg: ServeConfig, *, n_kv_heads: Optional[int] = None,
 
 def embedding_table(cfg: ServeConfig) -> np.ndarray:
     """Deterministic host-side token embedding — the same numpy draw as the
-    JAX package, bit for bit."""
-    rng = np.random.default_rng(cfg.seed)
-    return (rng.standard_normal((cfg.vocab, cfg.d_model)) * 0.25
-            ).astype(np.float32)
+    JAX package, bit for bit.  Read-only and drawn once per (seed, vocab,
+    d_model): every server of a fleet, a respawn included, shares it."""
+    return _embedding(cfg.seed, cfg.vocab, cfg.d_model)
+
+
+@functools.lru_cache(maxsize=2)
+def _embedding(seed: int, vocab: int, d_model: int) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    table = (rng.standard_normal((vocab, d_model)) * 0.25).astype(np.float32)
+    table.setflags(write=False)
+    return table
 
 
 def validate_prompt(cfg: ServeConfig, prompt: Sequence[int]) -> np.ndarray:
@@ -371,12 +392,23 @@ class SolServer:
                  strict_provenance: bool = False):
         self.cfg = cfg or ServeConfig()
         self.strict_provenance = strict_provenance
+        # mesh mode: every bucket compiles sharded and every autotune key
+        # carries the mesh tag, so measurements, pinned configs and strict
+        # provenance hold on per-shard shapes
+        self.mesh = None
+        self._min_batch = 1
         if tuple(self.cfg.mesh) != (1, 1):
-            raise NotImplementedError(
-                "mesh serving arrives with the sharded-serving slice of the "
-                "port; use mesh=(1, 1)")
+            from ..distributed import sharding as shd
+            from .mesh import make_debug_mesh
+            self.mesh = make_debug_mesh(*(int(a) for a in self.cfg.mesh))
+            if device is None:
+                device = packed.replicated(self.mesh)
+            # the smallest batch bucket that still shards the batch dim
+            self._min_batch = shd.axis_size(self.mesh, shd.dp_axes(self.mesh))
         self.device = resolve_device(device)
         self.backend = for_device(get_backend(self.cfg.backend), self.device)
+        if self.mesh is not None:
+            self.backend = shd.mesh_backend(self.backend, self.mesh)
         self.embed = embedding_table(self.cfg)
         self.queue = AsyncQueue()
         self._models: Dict[Tuple, Any] = {}
@@ -623,7 +655,8 @@ class SolServer:
     def _bucket(self, n_rows: int, max_len: int) -> Tuple[int, int]:
         """The (batch, seq) pow2 bucket a batch is padded to; for decode,
         ``max_len`` is the longest resident cache length."""
-        return AT.ceil_pow2(n_rows), self._seq_bucket(max_len)
+        return (AT.ceil_pow2(max(n_rows, self._min_batch)),
+                self._seq_bucket(max_len))
 
     def _seq_bucket(self, max_len: int) -> int:
         return min(self.cfg.max_seq,
@@ -640,8 +673,8 @@ class SolServer:
 
     def _batch_buckets(self) -> List[int]:
         """Every batch bucket up to ``max_batch``'s."""
-        out, b = [], 1
-        while b <= AT.ceil_pow2(self.cfg.max_batch):
+        out, b = [], AT.ceil_pow2(self._min_batch)
+        while b <= AT.ceil_pow2(max(self.cfg.max_batch, self._min_batch)):
             out.append(b)
             b *= 2
         return out
@@ -701,16 +734,13 @@ class SolServer:
         program, b, s = key
         d = self.cfg.d_model
         if program == "full":
-            sol = optimize(self.model, (b, s, d), backend=self.backend,
-                           device=self.device)
+            g = extract(self.model, (b, s, d))
         elif program == "prefill":
-            sol = compile_graph(self.model,
-                                extract_prefill(self.model, (b, s, d)),
-                                self.backend, device=self.device)
+            g = extract_prefill(self.model, (b, s, d))
         else:
-            sol = compile_graph(self.model,
-                                extract_decode(self.model, b, s, d),
-                                self.backend, device=self.device)
+            g = extract_decode(self.model, b, s, d)
+        sol = compile_graph(self.model, g, self.backend,
+                            device=self.device, mesh=self.mesh)
         self._models[key] = self._audit(sol, key)
         return sol
 
@@ -762,6 +792,12 @@ class SolServer:
         graph, so the multi-input decode program exports as the others
         do."""
         from ..frontends import deploy as D
+        if self.mesh is not None:
+            raise RuntimeError(
+                "export_artifacts: mesh-compiled bucket models hold per-shard "
+                "parameters and gather across ranks, which a one-device "
+                "artifact cannot replay: serve them live, or serve with "
+                "mesh=(1, 1) to export")
         return {key: D.deploy(m) for key, m in self._models.items()
                 if isinstance(m, SolModel)}
 
@@ -781,8 +817,19 @@ class SolServer:
         cache = AT.get_cache()
         counts = {"nodes": 0, "impls": 0, "skipped": 0, "graphs": 0}
         seen = set()
+        if self.mesh is not None and self.mesh.rank != 0:
+            # rank 0 measures for the mesh (one card's timings elect for
+            # every rank, as one controller would); the others take its
+            # records, so every rank elects alike
+            counts = self._share_measurements(cache, counts)
+            return counts
         for g in self._warm_graphs(max_len):
             counts["graphs"] += 1
+            if self.mesh is not None:
+                # partition before the pipeline, as the serving compile
+                # does: measurements key on per-shard shapes
+                from ..distributed.sharding import shard_graph
+                g = shard_graph(g, self.mesh)
             g = passes.run_pipeline(g, self.backend)
             for node in g.topo():
                 if node.op not in SERVED_KINDS:
@@ -800,7 +847,21 @@ class SolServer:
                 counts["impls"] += len(_measure_node(
                     node, self.backend, cache, self.device, warmup=warmup,
                     iters=iters))
+        if self.mesh is not None:
+            counts = self._share_measurements(cache, counts)
         return counts
+
+    def _share_measurements(self, cache: AT.AutotuneCache,
+                            counts: Dict[str, int]) -> Dict[str, int]:
+        """Rank 0's cache and counts, broadcast to every rank of the mesh
+        and merged into each rank's cache."""
+        import torch.distributed as dist
+        box = [(cache.to_json(), counts) if self.mesh.rank == 0 else None]
+        dist.broadcast_object_list(box, src=0)
+        doc, counts = box[0]
+        if self.mesh.rank != 0:
+            cache.merge(doc)
+        return dict(counts)
 
     # -- reporting -----------------------------------------------------------
 
@@ -819,6 +880,7 @@ class SolServer:
 
         return {
             "mode": "decode" if self.cfg.decode else "reforward",
+            "mesh": list(self.cfg.mesh),
             "device": str(self.device),
             "backend": self.backend.name,
             "requests": len(done),
@@ -900,19 +962,69 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ap.add_argument("--json", help="write the serve summary to this path")
     ap.add_argument("--no-deploy-roundtrip", action="store_true",
                     help="skip the artifact round-trip leg of --smoke")
+    ap.add_argument("--mesh", default="1,1", metavar="DATA,MODEL",
+                    help="serve across data·model ranks (started here, "
+                         "one process each; rank 0's report is printed)")
+    ap.add_argument("--fleet", type=int, default=0, metavar="N",
+                    help="serve through a SolFleet of N replicas with one "
+                         "injected mid-stream kill, tokens checked against "
+                         "an undisturbed fleet (launch/fleet.py)")
     args = ap.parse_args(argv)
+    try:
+        mesh = tuple(int(a) for a in args.mesh.split(","))
+        if len(mesh) != 2:
+            raise ValueError
+    except ValueError:
+        print(f"--mesh wants 'data,model' (got {args.mesh!r})",
+              file=sys.stderr)
+        return 2
 
     if args.smoke:
         cfg = ServeConfig(d_model=32, n_heads=2, n_layers=1, vocab=64,
                           max_seq=32, max_batch=4, slots=4,
-                          backend=args.backend, decode=not args.no_decode)
+                          backend=args.backend, decode=not args.no_decode,
+                          mesh=mesh)
         args.requests, args.gen = min(args.requests, 6), min(args.gen, 6)
     else:
         cfg = ServeConfig(d_model=args.d_model, n_heads=args.n_heads,
                           n_layers=args.layers, vocab=args.vocab,
                           max_seq=args.max_seq, max_batch=args.max_batch,
                           slots=args.slots, backend=args.backend,
-                          decode=not args.no_decode)
+                          decode=not args.no_decode, mesh=mesh)
+    if args.fleet:
+        if args.fleet < 1 or mesh != (1, 1):
+            print("--fleet wants N >= 1 replicas on mesh 1,1",
+                  file=sys.stderr)
+            return 2
+        return _fleet_smoke(cfg, args.fleet,
+                            max(args.requests, 4 * args.fleet), args.gen,
+                            args.device)
+    if mesh == (1, 1):
+        return _cli(args, cfg)
+    from .mesh import run_on_mesh
+    dev = resolve_device(args.device)     # no card: raise before any rank
+    if dev.type == "cuda":
+        from ..kernels import build
+        build.build_all()                 # once, before the ranks load it
+    # gloo: the CPU, and ranks sharing one card (NCCL refuses two ranks on
+    # one device)
+    rcs = run_on_mesh(_cli_rank, *mesh, device=dev.type, dist_backend="gloo",
+                      timeout_s=900, args=(args, cfg))
+    return max(rcs)
+
+
+def _cli_rank(mesh, args, cfg: ServeConfig) -> int:
+    """One rank of ``--mesh``: the same serve on every rank, rank 0's
+    report printed."""
+    if mesh.rank != 0:
+        sys.stdout = io.StringIO()
+        args.json = None            # rank 0 writes the summary
+    return _cli(args, cfg)
+
+
+def _cli(args, cfg: ServeConfig) -> int:
+    """The serve, then with ``--smoke`` the strict leg and (on one device)
+    the deploy round-trip leg."""
     workload = smoke_workload(cfg, args.requests, args.gen)
     server = SolServer(cfg, device=args.device)
     for prompt, g in workload:
@@ -920,7 +1032,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     summary = server.run()
     server.close()
     print(f"[serve] {summary['device']} backend={summary['backend']} "
-          f"mode={summary['mode']}: {summary['requests']} requests, "
+          f"mesh={summary['mesh']} mode={summary['mode']}: "
+          f"{summary['requests']} requests, "
           f"{summary['tokens']} tokens in {summary['steps']} steps / "
           f"{summary['forwards']} forwards ({summary['tokens_per_s']:.1f} "
           f"tok/s, one packed copy per forward: {summary['dmas']})")
@@ -940,7 +1053,56 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     rc, strict = _strict_leg(cfg, args.device, workload, server)
     if rc or args.no_deploy_roundtrip:
         return rc
+    if tuple(cfg.mesh) != (1, 1):
+        print("[serve] mesh run: the deploy round-trip leg is skipped "
+              "(mesh models are served live, not exported)")
+        return rc
     return _deploy_leg(cfg, args.device, workload, strict)
+
+
+def _fleet_smoke(cfg: ServeConfig, n_replicas: int, n_requests: int,
+                 gen: int, device) -> int:
+    """``--fleet N``: the workload through a ``SolFleet`` of N
+    strict-provenance replicas with ONE injected mid-stream kill, then an
+    undisturbed one-replica fleet on the same weights and seeds
+    (``fleet.kill_replay``): every request must complete, re-queued ones
+    included, with identical tokens."""
+    from .fleet import kill_replay
+
+    model = build_lm(cfg, device=resolve_device(device))
+    workload = [(p, g, SamplingParams(temperature=0.8, seed=1000 + i))
+                for i, (p, g) in enumerate(
+                    smoke_workload(cfg, n_requests, gen))]
+    t0 = time.perf_counter()
+    warm = SolServer(cfg, model, device=device)
+    for p, g, _ in workload:
+        warm.submit(p, g)
+    counts = warm.warm_autotune()
+    warm.close()
+    print(f"[fleet] autotune warmup on {cfg.backend}: {counts['impls']} "
+          f"impl timings over {counts['nodes']} keys ({counts['skipped']} "
+          f"already cached) in {time.perf_counter() - t0:.1f} s, shared by "
+          f"all {n_replicas} replicas")
+    s = kill_replay(cfg, model, workload, replicas=n_replicas,
+                    device=device, strict_provenance=True)
+    print(f"[fleet] injected kill of replica {s['killed']} at tick 2; "
+          f"{s['requests']} requests, {s['tokens']} tokens over "
+          f"{s['replicas']} replicas in {s['ticks']} ticks "
+          f"({s['tokens_per_s']:.1f} tok/s); requeued={s['requeued']} "
+          f"respawns={s['respawns']} recovery="
+          f"{s['recovery_s']['max'] * 1e3:.1f} ms; served_by="
+          f"{s['served_by']}")
+    if s["dropped"]:
+        print(f"[fleet] DROPPED requests after the kill: {s['dropped']}",
+              file=sys.stderr)
+        return 1
+    if s["diverged"]:
+        print(f"[fleet] tokens DIVERGED from the undisturbed fleet for "
+              f"{s['diverged']}", file=sys.stderr)
+        return 1
+    print(f"[fleet] every request completed after the kill with tokens "
+          f"identical to an undisturbed fleet's")
+    return 0
 
 
 def _strict_leg(cfg: ServeConfig, device, workload, cold

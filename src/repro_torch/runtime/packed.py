@@ -48,6 +48,14 @@ def reset_transfer_stats() -> Dict[str, int]:
     return prev
 
 
+def replicated(mesh) -> torch.device:
+    """The staging target of a mesh server: every rank stages the whole
+    packed batch to its own device in one copy (so ``dmas == forwards``
+    holds per rank), and the sharded model slices its local block there;
+    the counterpart of a fully replicated sharding."""
+    return mesh.device
+
+
 def _pack(arrays: Sequence[np.ndarray], device: torch.device
           ) -> Tuple[torch.Tensor, List[Tuple[Tuple[int, ...], np.dtype, int]]]:
     """One staging buffer holding every array, moved to ``device`` in one

@@ -118,6 +118,32 @@ def test_cache_roundtrip(tmp_path):
     assert c2.to_json() == JAT.AutotuneCache.load(path).to_json()
 
 
+def test_cache_merge_keeps_the_best_time_and_takes_calibrations():
+    """``merge`` takes in another cache's ``to_json`` document (what a mesh
+    rank receives from rank 0): the lower time per (key, bucket, impl)
+    stands, entries of other keys are added, and calibrations come over."""
+    shape = (256, 256, 256)
+    mine = AutotuneCache()
+    mine.record("matmul", shape, "float32", "h100", "cuda.matmul", 10.0)
+    mine.record("matmul", shape, "float32", "h100", "ref.matmul", 30.0)
+    theirs = AutotuneCache()
+    theirs.record("matmul", shape, "float32", "h100", "cuda.matmul", 12.0,
+                  config=(2,))
+    theirs.record("matmul", shape, "float32", "h100", "ref.matmul", 25.0)
+    theirs.record("attention", (4, 128, 12, 128), "float32", "h100",
+                  "cuda.flash_attention", 7.0)
+    theirs.set_calibration("h100", "matmul", {"s_per_flop": 1e-14})
+    mine.merge(theirs.to_json())
+    got = mine.lookup("matmul", shape, "float32", "h100")
+    assert got["cuda.matmul"].us == 10.0 and got["cuda.matmul"].config is None
+    assert got["ref.matmul"].us == 25.0
+    assert mine.has_bucket("attention", (4, 128, 12, 128), "float32", "h100")
+    assert mine.calibration("h100", "matmul") == {"s_per_flop": 1e-14}
+    empty = AutotuneCache()
+    empty.merge(theirs.to_json())
+    assert empty.to_json() == theirs.to_json()
+
+
 def test_stale_and_corrupt_files_come_back_empty(tmp_path):
     stale = tmp_path / "old.json"
     stale.write_text(json.dumps({

@@ -1255,3 +1255,53 @@ def test_custom_op_equals_its_entry_on_the_card(dev, name):
     for g_, w_ in zip(got, want):
         assert g_.is_cuda and g_.dtype == w_.dtype
         assert torch.equal(g_, w_)
+
+
+def test_mesh_serve_on_the_card_equals_one_device(dev):
+    """Four ranks sharing the card (gloo) serve a small model on a (2, 2)
+    mesh: the tokens equal one device's, every rank's kernels launch."""
+    import _torch_mesh_ranks as R
+    from repro_torch.launch.mesh import run_on_mesh
+    cfg_kw = dict(d_model=64, n_heads=4, n_layers=2, vocab=128, max_seq=32,
+                  max_batch=4, slots=4)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, 128, int(rng.integers(3, 14)), dtype=np.int32)
+               for _ in range(4)]
+    cfg = serve.ServeConfig(**cfg_kw)
+    one = serve.SolServer(cfg, model=serve.build_lm(cfg, device=dev),
+                          device=dev)
+    want = [one.submit(p, 6) for p in prompts]
+    one.run()
+    one.close()
+    ranks = run_on_mesh(R.card_serve, 2, 2, device="cuda",
+                        dist_backend="gloo", timeout_s=300,
+                        args=(cfg_kw, prompts, 6))
+    for r in ranks:
+        assert r["tokens"] == [q.generated for q in want]
+        assert all(n > 0 for n in r["launches"].values()), r["launches"]
+
+
+def test_fleet_kill_on_the_card(dev):
+    """Three replicas on the card, one killed mid-stream: every request
+    completes with the tokens of an undisturbed one-replica fleet."""
+    from repro_torch.launch.fleet import FleetConfig, SolFleet
+    cfg = serve.ServeConfig(d_model=64, n_heads=4, n_layers=2, vocab=128,
+                            max_seq=32, max_batch=4, slots=4)
+    model = serve.build_lm(cfg, device=dev)
+    rng = np.random.default_rng(1)
+    work = [(rng.integers(0, 128, int(rng.integers(3, 14)), dtype=np.int32),
+             serve.SamplingParams(temperature=0.8, seed=100 + i))
+            for i in range(9)]
+    fleet = SolFleet(cfg, FleetConfig(n_replicas=3), model=model, device=dev)
+    reqs = [fleet.submit(p, 5, sampling=sp) for p, sp in work]
+    fleet.tick()
+    fleet.tick()
+    fleet.kill()
+    s = fleet.run()
+    fleet.close()
+    assert s["kills"] == 1 and s["respawns"] == 1 and s["requeued"] >= 1
+    base = SolFleet(cfg, FleetConfig(n_replicas=1), model=model, device=dev)
+    breqs = [base.submit(p, 5, sampling=sp) for p, sp in work]
+    base.run()
+    base.close()
+    assert [r.generated for r in reqs] == [b.generated for b in breqs]
