@@ -103,13 +103,14 @@ def export_fn(fn, params: Dict[str, Any], *x_specs: InputSpec,
     """Export ``fn(params, *xs)`` with ``params``, any nested dict of
     tensors or arrays, and ``xs`` of the given (shape, dtype) specs into
     the artifact format.  ``device``: where the graph is traced (default:
-    the first leaf's device, else the CPU).  ``deploy`` is the
-    ``SolModel`` front door; this is the general entry point."""
+    the first leaf's device, else the card unless ``device_api`` was set
+    to the CPU).  ``deploy`` is the ``SolModel`` front door; this is the
+    general entry point."""
     params = _tensors(params)
     if device is None:
         first = next(iter(_flat(params)), None)
-        device = first.device if first is not None else torch.device("cpu")
-    dev = torch.device(device)
+        device = first.device if first is not None else None
+    dev = resolve_device(device)
     xs = [torch.zeros(tuple(shape), dtype=dtype, device=dev)
           for shape, dtype in x_specs]
     ep = torch.export.export(_Program(fn), (params, *xs), strict=False)

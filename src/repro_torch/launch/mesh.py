@@ -10,8 +10,13 @@ Its collectives are what a sharded graph needs: ``all_reduce`` for the
 row-parallel products (``psum_axes``) and ``all_gather`` for the outputs.
 A gloo group moves CUDA tensors through host copies.
 
+A mesh's device is the card unless the caller asks for another
+(``device="cpu"``): it resolves through ``frontends.offload.resolve_device``,
+so with no card and no such request it raises ``NoDeviceError``.
 :func:`make_debug_mesh` and :func:`make_production_mesh` read the process
-group this process joined and raise when its world size is not the mesh's.
+group this process joined and raise when its world size is not the mesh's;
+under a group the mesh's device is the one asked for, else the one
+``run_on_mesh`` gave the rank, else the card torch has current.
 :func:`run_on_mesh` starts the ranks itself: ``data·model`` spawned
 processes that meet through a file store in a fresh temporary directory
 (no TCP port is picked), each running ``fn(mesh, *args)``; it returns each
@@ -31,22 +36,24 @@ import sys
 import tempfile
 import time
 import traceback
-from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
+
+from ..frontends.offload import DeviceLike, resolve_device
 
 
 class Mesh:
     """The rank grid as this process sees it."""
 
     def __init__(self, sizes: Sequence[int], axis_names: Sequence[str],
-                 rank: int = 0, device: Optional[torch.device] = None,
+                 rank: int = 0, device: DeviceLike = None,
                  backend: str = "gloo"):
         self.sizes = tuple(int(s) for s in sizes)
         self.axis_names = tuple(axis_names)
         self.rank = rank
-        self.device = device if device is not None else torch.device("cpu")
+        self.device = resolve_device(device)
         self.backend = backend
         self.coords = dict(zip(self.axis_names, _coords(rank, self.sizes)))
         self._groups: Dict[Tuple[str, ...], Any] = {}
@@ -164,15 +171,17 @@ def _rank_of(coords: Sequence[int], sizes: Sequence[int]) -> int:
 _MESHES: Dict[Tuple, Mesh] = {}
 
 
-def _mesh(sizes: Tuple[int, ...], axes: Tuple[str, ...]) -> Mesh:
-    """The mesh of this process group with ``sizes``; made once per group
-    (its sub-groups are collective to create)."""
+def _mesh(sizes: Tuple[int, ...], axes: Tuple[str, ...],
+          device: DeviceLike = None) -> Mesh:
+    """The mesh of this process group with ``sizes`` on ``device``; made
+    once per group and device (its sub-groups are collective to create).
+    With no group a one-process mesh stands alone."""
     need = 1
     for s in sizes:
         need *= s
     if not dist.is_available() or not dist.is_initialized():
         if need == 1:
-            return Mesh(sizes, axes)
+            return Mesh(sizes, axes, device=device)
         raise RuntimeError(
             f"mesh {sizes} needs a process group of world size {need}, and "
             f"this process joined none: start the ranks with "
@@ -183,27 +192,32 @@ def _mesh(sizes: Tuple[int, ...], axes: Tuple[str, ...]) -> Mesh:
         raise RuntimeError(
             f"mesh {sizes} needs world size {need}, the process group has "
             f"{world}")
-    key = (sizes, axes, id(dist.group.WORLD))
+    if device is None:
+        device = _RANK_DEVICE.get("device") or "cuda"
+    dev = resolve_device(device)
+    key = (sizes, axes, id(dist.group.WORLD), dev)
     mesh = _MESHES.get(key)
     if mesh is None:
-        dev = _RANK_DEVICE.get("device") or torch.device("cpu")
         mesh = Mesh(sizes, axes, dist.get_rank(), dev,
                     dist.get_backend())
         _MESHES[key] = mesh
     return mesh
 
 
-def make_debug_mesh(data: int = 1, model: int = 1) -> Mesh:
+def make_debug_mesh(data: int = 1, model: int = 1, *,
+                    device: DeviceLike = None) -> Mesh:
     """A (data, model) mesh over the joined process group, whose world size
-    must be ``data·model``."""
-    return _mesh((int(data), int(model)), ("data", "model"))
+    must be ``data·model``; on ``device``, the card unless asked
+    otherwise."""
+    return _mesh((int(data), int(model)), ("data", "model"), device)
 
 
-def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+def make_production_mesh(*, multi_pod: bool = False,
+                         device: DeviceLike = None) -> Mesh:
     """The (data 16, model 16) pod, or (pod 2, data 16, model 16)."""
     if multi_pod:
-        return _mesh((2, 16, 16), ("pod", "data", "model"))
-    return _mesh((16, 16), ("data", "model"))
+        return _mesh((2, 16, 16), ("pod", "data", "model"), device)
+    return _mesh((16, 16), ("data", "model"), device)
 
 
 # the device each rank of run_on_mesh serves on (the mesh's staging target)
@@ -245,7 +259,6 @@ def _rank_main(fn: Callable, args: tuple, rank: int, data: int, model: int,
     # every rank runs on this host: gloo's pairs meet on the loopback
     os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
     try:
-        from ..frontends.offload import resolve_device
         dev = resolve_device(device)
         if dev.type == "cuda":
             torch.cuda.set_device(dev)
@@ -289,7 +302,6 @@ def run_on_mesh(fn: Callable, data: int, model: int, *, device: str,
     refuses two ranks on one device).  A rank that raises, dies or outlives
     ``timeout_s`` fails the run: every child still running is killed, each
     one is reaped, and ``RuntimeError`` carries the ranks' tracebacks."""
-    from ..frontends.offload import resolve_device
     resolve_device(device)          # no card: raise before any rank starts
     world = int(data) * int(model)
     ctx = mp.get_context("spawn")

@@ -400,7 +400,8 @@ class SolServer:
         if tuple(self.cfg.mesh) != (1, 1):
             from ..distributed import sharding as shd
             from .mesh import make_debug_mesh
-            self.mesh = make_debug_mesh(*(int(a) for a in self.cfg.mesh))
+            self.mesh = make_debug_mesh(*(int(a) for a in self.cfg.mesh),
+                                        device=device)
             if device is None:
                 device = packed.replicated(self.mesh)
             # the smallest batch bucket that still shards the batch dim

@@ -33,6 +33,7 @@ from repro_torch.convert import load_numpy_state_dict
 from repro_torch.core import autotune as TAT
 from repro_torch.frontends import deploy as D
 from repro_torch.frontends import nn
+from repro_torch.frontends.offload import NoDeviceError
 from repro_torch.frontends.optimize import optimize
 from repro_torch.kernels import library
 from repro_torch.kernels.dfp_fused.program import (Program, program_from_str,
@@ -152,6 +153,20 @@ def test_export_fn_nested_pytree_roundtrip():
     np.testing.assert_allclose(m(torch.from_numpy(x)).numpy(),
                                np.asarray(JD.load(want)(jnp.asarray(x))),
                                rtol=1e-6, atol=1e-6)
+
+
+def test_export_fn_with_no_params_traces_on_the_card_unless_asked():
+    """With no parameter to read a device from, ``export_fn`` traces on
+    the card; ``device="cpu"`` traces on the CPU."""
+    def fn(p, x):
+        return x * 2.0
+
+    blob = D.export_fn(fn, {}, ((3,), torch.float32), device="cpu")
+    assert json.loads(zipfile.ZipFile(io.BytesIO(blob)).read(
+        "manifest.json"))["device_type"] == "cpu"
+    if not torch.cuda.is_available():
+        with pytest.raises(NoDeviceError):
+            D.export_fn(fn, {}, ((3,), torch.float32))
 
 
 # ---------------------------------------------------------------------------

@@ -45,6 +45,7 @@ from repro_torch.core import passes
 from repro_torch.distributed import sharding as tshd
 from repro_torch.frontends import extract as text
 from repro_torch.frontends.extract import extract_decode, extract_prefill
+from repro_torch.frontends.offload import NoDeviceError
 from repro_torch.frontends.optimize import compile_graph, optimize
 from repro_torch.launch import mesh as tmesh
 from repro_torch.launch import serve as tserve
@@ -332,9 +333,36 @@ def test_make_debug_mesh_checks_the_world_size(mesh_job):
         tmesh.make_debug_mesh(2, 2)
     with pytest.raises(RuntimeError, match="world size 256"):
         tmesh.make_production_mesh()
-    one = tmesh.make_debug_mesh(1, 1)
+    one = tmesh.make_debug_mesh(1, 1, device="cpu")
     assert one.shape == {"data": 1, "model": 1} and one.size == 1
     assert packed.replicated(one) == torch.device("cpu")
+    # with no device asked for, a one-process mesh stands on the card
+    if torch.cuda.is_available():
+        card = tmesh.make_debug_mesh(1, 1)
+        assert card.device.type == "cuda"
+        assert packed.replicated(card) == card.device
+    else:
+        with pytest.raises(NoDeviceError):
+            tmesh.make_debug_mesh(1, 1)
+
+
+@pytest.mark.parametrize("make", [
+    lambda **kw: tmesh.make_debug_mesh(1, 1, **kw),
+    lambda **kw: tmesh.Mesh((1, 1), ("data", "model"), **kw),
+    lambda **kw: tmesh.Mesh((1,), ("model",), **kw),
+], ids=["make_debug_mesh", "Mesh", "Mesh_1d"])
+def test_one_process_mesh_resolves_the_card(make):
+    """The device of a mesh made with no device is the card; ``device=``
+    is honoured, and a card that is not there raises."""
+    assert make(device="cpu").device == torch.device("cpu")
+    if torch.cuda.is_available():
+        assert make().device == torch.device(
+            "cuda", torch.cuda.current_device())
+    else:
+        with pytest.raises(NoDeviceError, match="device='cpu'"):
+            make()
+        with pytest.raises(NoDeviceError):
+            make(device="cuda")
 
 
 def test_mesh_collectives(mesh_job):
@@ -378,7 +406,7 @@ def test_sharded_graph_needs_process_groups_and_no_training():
 def test_mesh_backend_tags_cache_key():
     bk = get_backend("h100")
     assert bk.cache_name == bk.name
-    mk = tshd.mesh_backend(bk, tmesh.make_debug_mesh(1, 1))
+    mk = tshd.mesh_backend(bk, tmesh.make_debug_mesh(1, 1, device="cpu"))
     assert mk.name == bk.name
     assert mk.cache_name == "h100@data1model1"
     assert tshd.mesh_backend(bk, tshd.AbstractMesh((2, 2))).cache_name == \
