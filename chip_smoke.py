@@ -12,7 +12,9 @@ from the card's bound, trains three 4-block stacks through the elected
 forward and backward impls, serves the transformer again from deploy
 artifacts and runs every other kernel through one, serves it on a (2, 2)
 mesh of four ranks sharing the card and through a fleet of three replicas
-with one replica killed mid-stream, and checks every path against the
+with one replica killed mid-stream, serves the model-zoo backbone
+(qwen2-1.5b at full width in bf16 and f32, then the ten reduced configs)
+through its prefill and decode steps, and checks every path against the
 plain path.
 
     python3 chip_smoke.py          # one CUDA card, run from the repo root
@@ -214,6 +216,26 @@ Phases, each failing loudly:
    that any replica of either fleet served (the killed one and the
    respawn included) held by phase 2 and on a ``cuda.*`` impl.  Logged:
    the recovery time (kill to respawn).
+14. backbone serve — ``models.backbone`` through ``make_prefill_step`` and
+   ``make_decode_step`` on ``make_debug_mesh(1, 1)`` with no device (the
+   one-process mesh resolves the card): qwen2-1.5b as published (28
+   layers, d 1536, 12 heads, KV 2, hd 128, vocab 151936; random weights,
+   generator seed 0 on the card) in bf16 and in f32, batch 4, a 128-token
+   prompt prefilled into a fresh cache, 32 greedy decode steps; then the
+   ten reduced configs (``get_smoke``) in f32, batch 2, 16 tokens, 8
+   steps.  Each run is served on the kernel route (counts from 0 just
+   before, read just after) and again with ``plain=True``.  Gates: greedy
+   tokens equal (near ties reported), logits within ``BACKBONE_RTOL`` of
+   the scale (1e-4 f32, 3e-2 bf16), every decode step's logits equal to
+   one forward over the prompt and the fed tokens, the MoE routers
+   routing alike on both routes, every launch's (kernel, shape, dtype)
+   held by phase 2 (which holds ``backbone_plan_all``'s keys) and the
+   launches equal, key for key, to ``backbone_plan``: what
+   ``layers.attention_route`` predicts (28 flash launches a prefill and
+   28 decode launches a step for qwen2), with ``rglru_scan`` and
+   ``rwkv6_scan`` launched by the reduced recurrent configs.  Logged:
+   prefill ms, decode step p50, tokens/s and the phase's seconds beside
+   the card's name and power limit.
 
 The second-to-last lines are the card's ``nvidia-smi`` line and a JSON
 ``kernels`` line (an entry per kernel in f32, and one per kernel in bf16
@@ -221,7 +243,9 @@ named ``<kernel>_bf16`` with its launches on the bf16 paths); the last line
 is ``{"ok": true, "device": ...}``; the ``kernels`` line's launches are
 phases 3, 5-7, 10's (its six h100 steps a stack), 11's (its checked
 artifact serve pass and one call of each other artifact), 12's (summed
-over the ranks, path ``mesh_serve``) and 13's (path ``fleet``).  The
+over the ranks, path ``mesh_serve``), 13's (path ``fleet``) and 14's
+(paths ``backbone_qwen2``, ``backbone_smoke`` and, in bf16,
+``backbone_qwen2_bf16``).  The
 full record goes to ``chiprun_out/chip_smoke.json``.  The script imports
 nothing of JAX or of the JAX package ``src/repro``; it exits non-zero,
 printing no result, without a CUDA card or without the package.
@@ -527,7 +551,8 @@ def phase_kernels(gen) -> dict:
     # 0/37/100/127.  Library yardstick: one SDPA call (GQA, a boolean mask
     # pos <= lens[b]) on a copy of the cache holding the step's own row at
     # lens[b], made outside the timed call
-    def decode_case(dt="float32", b=4, cache=128, h=12, kv=2, hd=128):
+    def decode_case(dt="float32", b=4, cache=128, h=12, kv=2, hd=128,
+                    window=0, cap=0.0):
         if (b, cache) == (4, 128):
             lens_l = [0, 37, 100, 127]
         else:       # batch padding, then spread up to a full cache
@@ -536,14 +561,16 @@ def phase_kernels(gen) -> dict:
         qd = randn(b, 1, h, hd, dt=dt)
         kc, vc = randn(b, cache, kv, hd, dt=dt), randn(b, cache, kv, hd, dt=dt)
         kn, vn = randn(b, 1, kv, hd, dt=dt), randn(b, 1, kv, hd, dt=dt)
-        od = decode_attention_cuda(qd, kc, vc, kn, vn, lens)
+        attrs = dict(window=window, cap=cap)
+        od = decode_attention_cuda(qd, kc, vc, kn, vn, lens, **attrs)
         torch.cuda.synchronize()
-        plain = lambda: _ref_model_layout(qd, kc, vc, kn, vn, lens, 0, 0.0)  # noqa: E731
+        plain = lambda: _ref_model_layout(qd, kc, vc, kn, vn, lens, window,  # noqa: E731
+                                          cap)
         if max_err(od[0], vn[0].repeat_interleave(h // kv, 1)) != 0.0:
             fail(f"decode attention {dt} with lens 0 is not exactly v_new")
         err, within = verdict(od, plain(), dt)
         library = None
-        if max(lens_l) < cache:
+        if max(lens_l) < cache and not window and not cap:
             kfull, vfull = kc.clone(), vc.clone()
             rows = torch.arange(b, device=dev)
             kfull[rows, lens.long()] = kn[:, 0]
@@ -553,20 +580,26 @@ def phase_kernels(gen) -> dict:
                     <= lens.long()[:, None])[:, None, None, :]
             library = lambda: F.scaled_dot_product_attention(  # noqa: E731
                 qs, ks, vs, attn_mask=mask, enable_gqa=True)
-        rows_n = int(sum(lens_l))
+        # the rows this run's lens read: within the window where one is set
+        rows_n = int(sum(min(n, window - 1) if window else n
+                         for n in lens_l))
         p = decode_plan(b, kv, cache, hd, qd.element_size(),
                         torch.cuda.get_device_properties(dev)
                         .multi_processor_count)
+        tags = (f" window{window}" if window else "") + \
+            (f" cap{cap:g}" if cap else "")
         record("decode_attention", f"B{b} cache{cache} H{h} KV{kv} hd{hd} "
-               f"lens{lens_l}", err,
-               lambda: decode_attention_cuda(qd, kc, vc, kn, vn, lens), plain,
+               f"lens{lens_l}{tags}", err,
+               lambda: decode_attention_cuda(qd, kc, vc, kn, vn, lens,
+                                             **attrs), plain,
                library, 4.0 * h * hd * (rows_n + b),
                float(qd.element_size()) * (2 * b * h * hd
                                            + 2 * rows_n * kv * hd
                                            + 2 * b * kv * hd) + 4.0 * b,
                "src/repro/kernels/decode_attention/kernel.py:94",
                csrc + "decode_attention.cu", "cuda",
-               ("decode_attention", b, cache, h, kv, hd), dtype=dt,
+               ("decode_attention", b, cache, h, kv, hd)
+               + ((window, cap) if window or cap else ()), dtype=dt,
                within=within, extra={"splits": p.splits, "chunk": p.chunk,
                                      "blocks": p.splits * kv * b})
 
@@ -938,6 +971,11 @@ def phase_kernels(gen) -> dict:
     # bf16 at every kernel node of phase 7's paths that no row above holds
     nodes16 = path_nodes(torch, dev, bf)
     hold(bf, nodes16, " (bf16 path)")
+    # every (kernel, shape, dtype) phase 14's backbone launches, as
+    # attention_route predicts them
+    for dt in ("float32", bf):
+        hold(dt, {key: ("backbone", None) for key, d in
+                  backbone_plan_all() if d == dt}, " (backbone)")
     configs += sweep_configs(torch, gen, bf, nodes16)
     log_configs(configs)
     f16 = "float16"
@@ -3762,6 +3800,423 @@ def phase_fleet(torch, dev, held) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the model-zoo backbone served through its steps
+# ---------------------------------------------------------------------------
+
+# qwen2-1.5b as published (src/repro_torch/configs/qwen2_1_5b.py,
+# arXiv:2407.10671): 28 layers, d 1536, 12 heads, KV 2, hd 128, d_ff 8960,
+# vocab 151936, tied embeddings, QKV bias; random weights from a generator
+# seeded 0 on the card, in the config's bf16 and again in f32
+BACKBONE_ARCH = "qwen2_1_5b"
+BACKBONE_BATCH, BACKBONE_PROMPT, BACKBONE_GEN = 4, 128, 32
+# the ten reduced configs (get_smoke) in f32: batch, prompt, decode steps;
+# their caches (prompt + steps) stay shorter than the reduced window (32),
+# so no local layer's cache is a ring and every decode takes the kernel
+SMOKE_BATCH, SMOKE_PROMPT, SMOKE_GEN = 2, 16, 8
+# kernel route vs plain route, and decode vs forward, relative to the
+# logits' scale: README's conformance rows
+BACKBONE_RTOL = {"float32": 1e-4, "bfloat16": 3e-2}
+BACKBONE_KERNELS = ("flash_attention", "decode_attention", "rglru_scan",
+                    "rwkv6_scan")
+
+
+def backbone_runs() -> list:
+    """(path, config, batch, prompt, steps) of every phase-14 run."""
+    from repro_torch.configs import ARCH_IDS, get_config, get_smoke
+    qwen = get_config(BACKBONE_ARCH)
+    runs = [("backbone_qwen2_bf16", qwen),
+            ("backbone_qwen2", dataclasses.replace(qwen, dtype="float32"))]
+    runs = [(p, c, BACKBONE_BATCH, BACKBONE_PROMPT, BACKBONE_GEN)
+            for p, c in runs]
+    return runs + [("backbone_smoke", get_smoke(a), SMOKE_BATCH,
+                    SMOKE_PROMPT, SMOKE_GEN) for a in ARCH_IDS]
+
+
+def _prefill_len(cfg, prompt: int) -> int:
+    return prompt + (cfg.n_patches if cfg.frontend == "vision" else 0)
+
+
+def backbone_plan(cfg, b: int, prompt: int, steps: int, *,
+                  forward: bool = False) -> dict:
+    """(kernel key, dtype) -> launches of one kernel-route serve (a
+    prefill that fills the cache, the encoder once more for the decode,
+    ``steps`` decode steps), or with ``forward`` of its checking forward
+    over the prompt and the fed tokens, as ``layers.attention_route``
+    predicts them; the scans run in f32 in every dtype."""
+    from repro_torch.models import backbone as B
+    from repro_torch.models import layers as L
+    plan: dict = {}
+
+    def add(key, dt, n=1):
+        plan[(key, dt)] = plan.get((key, dt), 0) + n
+
+    dt, s = cfg.dtype, _prefill_len(cfg, prompt)
+    seq = s + steps if forward else s
+    heads = (cfg.n_heads, cfg.n_kv, cfg.hd)
+    for kind in B.layer_kinds(cfg):
+        window = cfg.window if kind == "local" else 0
+        if kind == "rglru":
+            add(("rglru_scan", b, seq, cfg.drnn), "float32")
+        elif kind == "rwkv":
+            h = cfg.d_model // cfg.rwkv_head_dim
+            add(("rwkv6_scan", b, seq, h, cfg.rwkv_head_dim), "float32")
+        elif L.attention_route(cfg, kind, "prefill", dt) == "kernel":
+            add(("flash_attention", b, seq, *heads, True, window,
+                 float(cfg.softcap_attn)), dt)
+    if cfg.enc_dec is not None and \
+            L.attention_route(cfg, "enc", "prefill", dt) == "kernel":
+        add(("flash_attention", b, cfg.enc_dec.enc_seq, *heads, False, 0,
+             0.0), dt, cfg.enc_dec.n_enc_layers * (1 if forward else 2))
+    if forward:
+        return plan
+    for kind in B.layer_kinds(cfg):
+        if kind not in ("attn", "local"):
+            continue
+        window = cfg.window if kind == "local" else 0
+        rows = min(s + steps, window) if window else s + steps
+        if L.attention_route(cfg, kind, "decode", dt,
+                             cache_len=rows) == "kernel":
+            cap = float(cfg.softcap_attn)
+            add(("decode_attention", b, rows, *heads)
+                + ((window, cap) if window or cap else ()), dt, steps)
+    return plan
+
+
+def backbone_plan_all() -> list:
+    """Every (kernel key, dtype) phase 14 launches."""
+    keys = set()
+    for _, cfg, b, prompt, steps in backbone_runs():
+        for forward in (False, True):
+            keys |= set(backbone_plan(cfg, b, prompt, steps,
+                                      forward=forward))
+    return sorted(keys, key=repr)
+
+
+@contextlib.contextmanager
+def kernel_shapes(seen: dict):
+    """Count each backbone kernel launch by (kernel key, dtype) in
+    ``seen`` while the block runs: the four kernel functions the public
+    entries call are wrapped (each still counts its own launches)."""
+    from repro_torch.kernels.decode_attention import ops as dops
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.rglru_scan import ops as gops
+    from repro_torch.kernels.rwkv6_scan import ops as wops
+
+    def flash_key(q, k, v, *, causal=True, window=0, cap=0.0, **_):
+        b, s, h, hd = q.shape
+        return ("flash_attention", b, s, h, k.shape[2], hd, bool(causal),
+                int(window), float(cap))
+
+    def decode_key(q, k, v, k_new, v_new, lens, *, window=0, cap=0.0, **_):
+        b, _, h, hd = q.shape
+        return (("decode_attention", b, k.shape[1], h, k.shape[2], hd)
+                + ((int(window), float(cap)) if window or cap else ()))
+
+    spied = [(fops, "flash_attention_cuda", flash_key),
+             (dops, "decode_attention_cuda", decode_key),
+             (gops, "rglru_scan_cuda",
+              lambda a, *_, **__: ("rglru_scan", *a.shape)),
+             (wops, "rwkv6_scan_cuda",
+              lambda r, *_, **__: ("rwkv6_scan", *r.shape))]
+    saved = []
+    for mod, name, key_of in spied:
+        orig = getattr(mod, name)
+
+        def wrapped(*a, _orig=orig, _key_of=key_of, **kw):
+            k = (_key_of(*a, **kw), str(a[0].dtype).replace("torch.", ""))
+            seen[k] = seen.get(k, 0) + 1
+            return _orig(*a, **kw)
+
+        saved.append((mod, name, orig))
+        setattr(mod, name, wrapped)
+    try:
+        yield seen
+    finally:
+        for mod, name, orig in saved:
+            setattr(mod, name, orig)
+
+
+@contextlib.contextmanager
+def moe_routes(routes: list):
+    """Append each MoE router call's (top-k ids, gates) to ``routes``."""
+    from repro_torch.models import layers as L
+    orig = L.moe_routing
+
+    def spy(p, x, moe_cfg):
+        gates, topw, topi = orig(p, x, moe_cfg)
+        routes.append((topi.cpu(), gates.cpu()))
+        return gates, topw, topi
+
+    L.moe_routing = spy
+    try:
+        yield routes
+    finally:
+        L.moe_routing = orig
+
+
+def backbone_inputs(torch, cfg, b: int, prompt: int, seed: int) -> dict:
+    """Prompt tokens and the modality stubs' embeddings, from ``seed`` on
+    the card."""
+    g = torch.Generator("cuda").manual_seed(seed)
+    out = {"tokens": torch.randint(0, cfg.vocab, (b, prompt), generator=g,
+                                   device="cuda")}
+    if cfg.frontend == "vision":
+        out["patches"] = 0.1 * torch.randn(b, cfg.n_patches, cfg.d_model,
+                                           generator=g, device="cuda")
+    if cfg.frontend == "audio":
+        out["frames"] = 0.1 * torch.randn(b, cfg.enc_dec.enc_seq,
+                                          cfg.d_model, generator=g,
+                                          device="cuda")
+    return out
+
+
+def backbone_serve(torch, cfg, params, batch: dict, steps: int,
+                   plain: bool, max_seq: int = 0) -> dict:
+    """A prefill that fills a fresh cache, then ``steps`` greedy decode
+    steps, through ``make_prefill_step`` / ``make_decode_step`` on
+    ``make_debug_mesh(1, 1)`` with no device given (the card).  Returns
+    the tokens (B, steps + 1), the logits each token was taken from, the
+    prefill's and each step's wall ms (synchronized).  The cache holds
+    ``max_seq`` rows (default: the prefill and the steps)."""
+    from repro_torch.distributed.steps import (make_decode_step,
+                                               make_prefill_step)
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import backbone as B
+
+    mesh = make_debug_mesh(1, 1)
+    if mesh.device.type != "cuda":
+        fail(f"make_debug_mesh(1, 1) resolved {mesh.device}, not the card")
+    prefill = make_prefill_step(mesh, cfg, plain=plain)
+    decode = make_decode_step(mesh, cfg, plain=plain)
+    b = batch["tokens"].shape[0]
+    s = _prefill_len(cfg, batch["tokens"].shape[1])
+    cache = B.init_cache(cfg, b, max_seq or s + steps)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, batch, cache)
+    row = logits[:, -1]
+    tok = row.argmax(-1)
+    torch.cuda.synchronize()
+    prefill_ms = 1e3 * (time.perf_counter() - t0)
+    enc_out = None
+    if cfg.enc_dec is not None:
+        with torch.inference_mode():
+            enc_out = B.run_encoder(cfg, params, batch["frames"],
+                                    plain=plain)
+    rows, toks, step_ms = [row], [tok], []
+    for j in range(steps):
+        t0 = time.perf_counter()
+        lg, cache = decode(params, cache, tok[:, None], s + j, enc_out)
+        row = lg[:, 0]
+        tok = row.argmax(-1)
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        rows.append(row)
+        toks.append(tok)
+    return {"tokens": torch.stack(toks, 1).cpu(),
+            "logits": torch.stack(rows, 1).float().cpu(),
+            "prefill_ms": prefill_ms, "step_ms": step_ms}
+
+
+def _as_requests(run: dict) -> list:
+    """compare_tokens' layout: per sequence (tokens, logits rows)."""
+    return [(run["tokens"][i].tolist(), run["logits"][i].numpy())
+            for i in range(run["tokens"].shape[0])]
+
+
+def backbone_agreement(name: str, got: dict, ref: dict, rtol: float):
+    """Greedy tokens equal (near ties reported); logits within ``rtol`` of
+    the reference's scale at every step up to a sequence's first
+    differing token.  Returns (worst relative error, near ties)."""
+    worst = 0.0
+    for i in range(got["tokens"].shape[0]):
+        for j in range(got["tokens"].shape[1]):
+            g, r = got["logits"][i, j], ref["logits"][i, j]
+            scale = float(r.abs().max())
+            err = float((g - r).abs().max())
+            worst = max(worst, err / scale)
+            if err > rtol * scale:
+                fail(f"{name}: sequence {i} step {j}: logits differ by "
+                     f"{err:.3g} (scale {scale:.3g}, rtol {rtol})")
+            if got["tokens"][i, j] != ref["tokens"][i, j]:
+                break
+    ties = compare_tokens(name, _as_requests(got), _as_requests(ref),
+                          lambda row: rtol * float(abs(row).max()))
+    return worst, ties
+
+
+def decode_vs_forward(torch, name: str, cfg, params, batch: dict,
+                      run: dict, rtol: float) -> float:
+    """Decode step t's logits against one kernel-route forward over the
+    prompt and the tokens fed to steps 0..t-1 (causal: its row at the
+    step's position).  Returns the worst relative error."""
+    from repro_torch.models import backbone as B
+    steps = run["tokens"].shape[1] - 1
+    fed = run["tokens"][:, :steps].to("cuda")
+    full = dict(batch, tokens=torch.cat([batch["tokens"], fed], 1))
+    with torch.inference_mode():
+        logits, _ = B.forward(cfg, params, full)
+    s = _prefill_len(cfg, batch["tokens"].shape[1])
+    want = logits[:, s - 1:].float().cpu()
+    worst = 0.0
+    for j in range(steps + 1):
+        err = float((run["logits"][:, j] - want[:, j]).abs().max())
+        scale = float(want[:, j].abs().max())
+        worst = max(worst, err / scale)
+        if err > rtol * scale:
+            fail(f"{name}: decode step {j} differs from the forward by "
+                 f"{err:.3g} (scale {scale:.3g}, rtol {rtol})")
+    return worst
+
+
+def compare_routes(name: str, got: list, ref: list, upto: int) -> list:
+    """The MoE routers' top-k ids of two runs, call by call over their
+    first ``upto`` calls: equal, or the reference's gates at a differing
+    token hold a near tie (k-th and next gate within 1e-5).  Returns the
+    near ties."""
+    ties = []
+    for c, ((gi, _), (ri, rg)) in enumerate(zip(got[:upto], ref[:upto])):
+        if torch_equal(gi, ri):
+            continue
+        k = ri.shape[-1]
+        diff = (gi != ri).any(-1)
+        top = rg.sort(-1, descending=True).values[..., k - 1:k + 1]
+        gap = float((top[..., 0] - top[..., 1])[diff].min())
+        if gap >= 1e-5:
+            fail(f"{name}: MoE call {c} routes differently on the two "
+                 f"routes (top-k gap {gap:.3g})")
+        ties.append({"call": c, "gap": gap})
+    return ties
+
+
+def torch_equal(a, b) -> bool:
+    return a.shape == b.shape and bool((a == b).all())
+
+
+def phase_backbone(torch, counters: dict, held: set) -> dict:
+    """Phase 14: the backbone served through ``make_prefill_step`` and
+    ``make_decode_step`` on the one-process mesh's default device (the
+    card): qwen2-1.5b at full width in bf16 and f32 (batch 4, a 128-token
+    prompt, 32 greedy decode steps), then each of the ten reduced configs
+    in f32 (batch 2, 16 tokens, 8 steps).  Each run is served on the
+    kernel route (counts from 0 just before, read just after) and again
+    with ``plain=True``.  Gates: tokens equal (near ties reported),
+    logits within ``BACKBONE_RTOL`` of the scale, each decode step equal
+    to a forward over its prefix, the MoE routers routing alike, every
+    launch's (kernel, shape, dtype) held by phase 2 and the launches
+    equal, key for key, to ``backbone_plan`` (``attention_route``'s
+    prediction)."""
+    import statistics
+
+    from repro_torch.models import backbone as B
+
+    t_phase = time.perf_counter()
+    rec: dict = {"runs": {}, "launches": {}}
+    for path, cfg, b, prompt, steps in backbone_runs():
+        t_run = time.perf_counter()
+        gen = torch.Generator("cuda").manual_seed(0)
+        params = B.init_params(cfg, gen)
+        batch = backbone_inputs(torch, cfg, b, prompt, seed=7)
+        rtol = BACKBONE_RTOL[cfg.dtype]
+        if path != "backbone_smoke":      # cuBLAS handles and heuristics, library loads
+            backbone_serve(torch, cfg, params, batch, 2, plain=False,
+                           max_seq=_prefill_len(cfg, prompt) + steps)
+        seen, routes, ref_routes = {}, [], []
+        for c in counters.values():
+            c.launches = 0
+        with kernel_shapes(seen), moe_routes(routes):
+            got = backbone_serve(torch, cfg, params, batch, steps,
+                                 plain=False)
+        launches = {k: c.launches for k, c in counters.items()}
+        with moe_routes(ref_routes):
+            ref = backbone_serve(torch, cfg, params, batch, steps,
+                                 plain=True)
+        plan = backbone_plan(cfg, b, prompt, steps)
+        if seen != plan:
+            fail(f"{path} {cfg.name}: launches {sorted(seen.items())} are "
+                 f"not attention_route's {sorted(plan.items())}")
+        missing = [k for k in seen if k not in held]
+        if missing:
+            fail(f"{path} {cfg.name}: phase 2 held no row at {missing}")
+        worst, ties = backbone_agreement(f"{cfg.name} {cfg.dtype} kernel vs "
+                                         f"plain route", got, ref, rtol)
+        # the steps before a sequence's first differing token see the
+        # same inputs on both routes
+        same = next((j for j in range(got["tokens"].shape[1])
+                     if not torch_equal(got["tokens"][:, j],
+                                        ref["tokens"][:, j])),
+                    got["tokens"].shape[1])
+        n_moe = sum(B._is_moe_layer(cfg, i, k)
+                    for i, k in enumerate(B.layer_kinds(cfg)))
+        route_ties = compare_routes(f"{cfg.name}", routes, ref_routes,
+                                    n_moe * (same + 1))
+        if n_moe and len(routes) != n_moe * (steps + 1):
+            fail(f"{cfg.name}: {len(routes)} MoE router calls, not "
+                 f"{n_moe * (steps + 1)}")
+        fwd_seen: dict = {}
+        with kernel_shapes(fwd_seen):
+            dvf = decode_vs_forward(torch, f"{cfg.name} {cfg.dtype}", cfg,
+                                    params, batch, got, rtol)
+        fwd_plan = backbone_plan(cfg, b, prompt, steps, forward=True)
+        if fwd_seen != fwd_plan:
+            fail(f"{cfg.name}: the checking forward launched "
+                 f"{sorted(fwd_seen.items())}, not attention_route's "
+                 f"{sorted(fwd_plan.items())}")
+        missing = [k for k in fwd_seen if k not in held]
+        if missing:
+            fail(f"{cfg.name}: phase 2 held no row at {missing}")
+        for name in BACKBONE_KERNELS:
+            want = sum(n for (key, _), n in plan.items() if key[0] == name)
+            if launches[name] != want:
+                fail(f"{cfg.name}: {name} launched {launches[name]} times, "
+                     f"attention_route predicts {want}")
+        p50 = statistics.median(got["step_ms"])
+        decode_s = 1e-3 * sum(got["step_ms"])
+        r = {"config": cfg.name, "dtype": cfg.dtype, "batch": b,
+             "prompt": prompt, "steps": steps, "launches": launches,
+             "shapes": {repr(k): n for k, n in sorted(seen.items(),
+                                                      key=repr)},
+             "logit_rel_err": worst, "near_ties": ties,
+             "route_near_ties": route_ties, "moe_calls": len(routes),
+             "decode_vs_forward_rel_err": dvf,
+             "prefill_ms": got["prefill_ms"], "decode_p50_ms": p50,
+             "decode_tokens_per_s": b * steps / decode_s,
+             "tokens_per_s": b * (steps + 1)
+             / (decode_s + 1e-3 * got["prefill_ms"]),
+             "plain_prefill_ms": ref["prefill_ms"],
+             "plain_decode_p50_ms": statistics.median(ref["step_ms"]),
+             "seconds": time.perf_counter() - t_run}
+        rec["runs"][f"{path}/{cfg.name}"] = r
+        total = rec["launches"].setdefault(path, {})
+        for k, n in launches.items():
+            total[k] = total.get(k, 0) + n
+        log(f"[backbone] {cfg.name} {cfg.dtype} ({cfg.n_layers} layers, d "
+            f"{cfg.d_model}) B{b} prompt {prompt} + {steps} steps: prefill "
+            f"{r['prefill_ms']:.2f} ms, decode step p50 {p50:.2f} ms, "
+            f"{r['decode_tokens_per_s']:.2f} decode tok/s, "
+            f"{r['tokens_per_s']:.2f} tok/s with the prefill (plain route: "
+            f"prefill {r['plain_prefill_ms']:.2f} ms, step p50 "
+            f"{r['plain_decode_p50_ms']:.2f} ms); launches {launches} = "
+            f"attention_route's; kernel vs plain logits {worst:.3g} of the "
+            f"scale, decode vs forward {dvf:.3g} (rtol {rtol}); tokens "
+            f"equal" + (f" except near ties {ties}" if ties else "")
+            + (f"; {len(routes)} MoE router calls alike"
+               + (f" except near ties {route_ties}" if route_ties else "")
+               if n_moe else "") + f"; {r['seconds']:.1f} s")
+        del params, got, ref
+        gc.collect()
+        torch.cuda.empty_cache()
+    smoke = rec["launches"].get("backbone_smoke", {})
+    for name in ("rglru_scan", "rwkv6_scan"):
+        if smoke.get(name, 0) <= 0:
+            fail(f"backbone_smoke: {name} was not launched")
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log(f"[backbone] phase 14 took {rec['phase_s']:.1f} s; "
+        f"{nvidia_smi()}")
+    return rec
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "__init__.py").is_file():
         print("chip_smoke: src/repro_torch not found next to this script; "
@@ -3855,6 +4310,14 @@ def main() -> int:
     mesh = phase_mesh_serve(torch, serve_got, held32)
     del serve_got
     fleet = phase_fleet(torch, torch.device("cuda"), held32)
+    gc.collect()
+    torch.cuda.empty_cache()
+    backbone = phase_backbone(
+        torch, {"flash_attention": flash_attention_cuda,
+                "decode_attention": decode_attention_cuda,
+                "rglru_scan": rglru_scan_cuda,
+                "rwkv6_scan": rwkv6_scan_cuda},
+        {(c["key"], c["dtype"]) for c in kern["cases"]})
 
     # launches per main path: the served set and one forward of each stack
     # and each CNN in f32; the bf16 paths' runs for the bf16 entries
@@ -3868,9 +4331,13 @@ def main() -> int:
                     for name, _ in STACKS})
     by_path["mesh_serve"] = mesh["launches"]
     by_path["fleet"] = fleet["launches"]
+    by_path["backbone_qwen2"] = backbone["launches"]["backbone_qwen2"]
+    by_path["backbone_smoke"] = backbone["launches"]["backbone_smoke"]
     bf16_by_path = {name: r["launches"] for name, r in bf16.items()}
     bf16_by_path["deploy_listing3_cnn"] = \
         deploy["legs"]["listing3_cnn_bf16"]["launches"]
+    bf16_by_path["backbone_qwen2_bf16"] = \
+        backbone["launches"]["backbone_qwen2_bf16"]
     line = []
     # one entry per kernel and dtype (f32, and bf16 with the suffix _bf16):
     # the matmul rows by the kernel their plan picked
@@ -3905,7 +4372,7 @@ def main() -> int:
          "recurrent": recurrent, "cnn": cnn, "bf16": bf16,
          "measured_serve": measured, "sol": sol, "train": train,
          "deploy": deploy, "mesh_serve": mesh, "fleet": fleet,
-         "seconds": time.perf_counter() - t_start},
+         "backbone": backbone, "seconds": time.perf_counter() - t_start},
         indent=1, default=str))
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     log(nvidia_smi())

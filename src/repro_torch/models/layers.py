@@ -1,0 +1,417 @@
+"""Model layers of the backbone (counterpart of ``repro.models.layers``).
+
+Pure functions over dicts of tensors named as in the JAX package; the
+einsums of the JAX layers are plain products here (``@``,
+``torch.einsum``), as they are plain products outside any Pallas kernel
+there.  Attention has two routes, chosen before any call by
+:func:`attention_route` from the kernels' declared contracts: "kernel"
+takes the flash or decode kernel's public entry (the hand-written kernel on
+a CUDA tensor, its plain version on a CPU tensor), "plain" the
+materialized or chunked attention below, the counterpart of the JAX
+package's jnp attention.
+
+The MoE is the dense single-device path; the expert-parallel
+``_moe_apply_shard_map`` and the sharding constraints wait with the
+sharded backbone (ROADMAP §1 item 7), and on one device those constraints
+are the identity.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional, Tuple, Union
+
+import torch
+import torch.nn.functional as F
+
+from ..kernels.decode_attention.kernel import HEAD_DIMS as DECODE_HEAD_DIMS
+from ..kernels.decode_attention.kernel import MAX_GROUP
+from ..kernels.dtypes import FLOAT_DTYPES
+from ..kernels.flash_attention.kernel import HEAD_DIMS as FLASH_HEAD_DIMS
+
+Tensor = torch.Tensor
+Params = Dict[str, Tensor]
+
+# attention chunk size for the flash-style scan (queries keep full length,
+# keys/values stream in chunks; online softmax carries m/l/acc)
+ATTN_CHUNK = 2048
+# use the chunked path when kv length exceeds this
+ATTN_CHUNK_THRESHOLD = 2048
+
+
+# ---------------------------------------------------------------------------
+# norms / elementwise
+# ---------------------------------------------------------------------------
+
+def rmsnorm(x: Tensor, gain: Tensor, eps: float = 1e-6) -> Tensor:
+    xf = x.float()
+    ms = (xf * xf).mean(-1, keepdim=True)
+    return (xf * torch.rsqrt(ms + eps)).to(x.dtype) * gain
+
+
+def layernorm(x: Tensor, gain: Tensor, bias: Tensor,
+              eps: float = 1e-5) -> Tensor:
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = ((xf - mu) ** 2).mean(-1, keepdim=True)
+    return ((xf - mu) * torch.rsqrt(var + eps)).to(x.dtype) * gain + bias
+
+
+def apply_norm(kind: str, x: Tensor, p: Params) -> Tensor:
+    if kind == "layernorm":
+        return layernorm(x, p["gain"], p["bias"])
+    return rmsnorm(x, p["gain"])
+
+
+def softcap(x: Tensor, cap: float) -> Tensor:
+    return torch.tanh(x / cap) * cap
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+def rope_freqs(hd: int, theta: float, device=None) -> Tensor:
+    return 1.0 / (theta ** (torch.arange(0, hd, 2, dtype=torch.float32,
+                                         device=device) / hd))
+
+
+def apply_rope(x: Tensor, positions: Tensor, theta: float) -> Tensor:
+    """x: (..., S, H, hd); positions: (S,) or broadcastable (..., S)."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, x.device)                  # (hd/2,)
+    ang = positions.float()[..., :, None] * freqs            # (..., S, hd/2)
+    cos = torch.cos(ang)[..., :, None, :]
+    sin = torch.sin(ang)[..., :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    y1 = x1 * cos - x2 * sin
+    y2 = x2 * cos + x1 * sin
+    return torch.cat([y1, y2], dim=-1).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# the route: kernel or plain
+# ---------------------------------------------------------------------------
+
+def _dtype_name(dtype: Union[str, torch.dtype]) -> str:
+    return str(dtype).replace("torch.", "")
+
+
+def attention_route(cfg, kind: str, mode: str,
+                    dtype: Union[str, torch.dtype], *,
+                    cache_len: Optional[int] = None) -> str:
+    """``"kernel"`` or ``"plain"`` for one attention of the backbone, from
+    the kernels' declared contracts alone.
+
+    ``kind``: ``"attn"`` (causal, global), ``"local"`` (causal, within
+    ``cfg.window``), ``"enc"`` (the encoder's non-causal self-attention)
+    or ``"cross"`` (decoder queries over the encoder's keys).  ``mode``:
+    ``"prefill"`` (a forward over whole sequences) or ``"decode"`` (one
+    token over a KV cache of ``cache_len`` rows).
+
+    * Both kernels take float32, bfloat16 and float16 and head dims in
+      ``HEAD_DIMS`` (16-128); any other config is plain (gemma2-9b's and
+      recurrentgemma's hd 256, stablelm-3b's hd 80).
+    * Cross attention is plain: the flash kernel attends a sequence to
+      itself (keys as long as queries), the decode kernel one query to a
+      cache.
+    * The flash kernel masks as the JAX attention does: causal, the
+      window ``q - k < window``, the softcap on the scaled scores.  The
+      encoder runs it with ``causal=False``.
+    * The decode kernel attends rows ``[0, lens)`` of the cache and the
+      step's own (k, v) at position ``lens``, within ``lens - row <
+      window``.  With ``lens = pos`` and the cache as it stood before the
+      step's write, that is JAX's ``kv_pos <= pos`` and ``pos - kv_pos <
+      window``, exactly.  A ring cache (a local layer whose cache holds
+      exactly ``window`` rows, written at ``pos % window``) has no such
+      layout once it wraps: the slot the step overwrites would still be
+      read.  So a local layer's decode is plain unless its cache is
+      shorter than the window (not a ring); ``cache_len`` None counts as
+      a ring.  The decode kernel also takes at most ``MAX_GROUP`` query
+      heads per KV head.
+    """
+    if kind not in ("attn", "local", "enc", "cross"):
+        raise ValueError(f"attention_route: no attention of kind {kind!r}")
+    if mode not in ("prefill", "decode"):
+        raise ValueError(f"attention_route: mode {mode!r}")
+    if kind == "cross" or _dtype_name(dtype) not in FLOAT_DTYPES:
+        return "plain"
+    hd = cfg.hd
+    if mode == "prefill":
+        return "kernel" if hd in FLASH_HEAD_DIMS else "plain"
+    if kind == "enc":
+        raise ValueError("attention_route: the encoder does not decode")
+    if hd not in DECODE_HEAD_DIMS or cfg.n_heads // cfg.n_kv > MAX_GROUP:
+        return "plain"
+    if kind == "local" and cfg.window and (cache_len is None
+                                           or cache_len >= cfg.window):
+        return "plain"
+    return "kernel"
+
+
+# ---------------------------------------------------------------------------
+# attention
+# ---------------------------------------------------------------------------
+
+def _grouped(q: Tensor, kv: int) -> Tensor:
+    """(B, S, H, hd) -> (B, S, KV, G, hd): GQA without materializing the
+    KV broadcast."""
+    b, s, h, hd = q.shape
+    return q.reshape(b, s, kv, h // kv, hd)
+
+
+def _direct_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool,
+                      window: int, cap: float, q_pos: Tensor,
+                      kv_pos: Tensor) -> Tensor:
+    """Materialized-logits attention.  q: (B,Sq,H,hd); k,v: (B,Skv,KV,hd).
+    The scores are f32; the softmax weights are rounded to q's dtype before
+    the product with v, as in JAX."""
+    kvh = k.shape[2]
+    qg = _grouped(q, kvh)
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    logits = torch.einsum("bqkgd,bskd->bkgqs", qg.float(), k.float()) * scale
+    if cap:
+        logits = softcap(logits, cap)
+    mask = torch.ones((q.shape[1], k.shape[1]), dtype=torch.bool,
+                      device=q.device)
+    if causal:
+        mask &= q_pos[:, None] >= kv_pos[None, :]
+    if window:
+        mask &= q_pos[:, None] - kv_pos[None, :] < window
+    logits = torch.where(mask, logits, torch.full_like(logits, -1e30))
+    w = torch.softmax(logits, dim=-1).to(q.dtype)
+    o = torch.einsum("bkgqs,bskd->bqkgd", w, v)
+    b, sq = q.shape[0], q.shape[1]
+    return o.reshape(b, sq, -1, q.shape[-1])
+
+
+def _chunked_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool,
+                       window: int, cap: float, q_pos: Tensor,
+                       kv_pos: Tensor, chunk: int = ATTN_CHUNK) -> Tensor:
+    """Flash-style online-softmax scan over KV chunks at arbitrary
+    positions (memory O(Sq·chunk) instead of O(Sq·Skv))."""
+    b, sq, h, hd = q.shape
+    kvh = k.shape[2]
+    g = h // kvh
+    skv = k.shape[1]
+    nc = (skv + chunk - 1) // chunk
+    scale = 1.0 / math.sqrt(hd)
+    qg = _grouped(q, kvh).float()
+    m = torch.full((b, kvh, g, sq), -math.inf, device=q.device)
+    l = torch.zeros((b, kvh, g, sq), device=q.device)
+    acc = torch.zeros((b, kvh, g, sq, hd), device=q.device)
+    for j in range(nc):
+        kb = k[:, j * chunk:(j + 1) * chunk]
+        vb = v[:, j * chunk:(j + 1) * chunk]
+        pb = kv_pos[j * chunk:(j + 1) * chunk]
+        logits = torch.einsum("bqkgd,bskd->bkgqs", qg, kb.float()) * scale
+        if cap:
+            logits = softcap(logits, cap)
+        mask = torch.ones((sq, kb.shape[1]), dtype=torch.bool,
+                          device=q.device)
+        if causal:
+            mask &= q_pos[:, None] >= pb[None, :]
+        if window:
+            mask &= q_pos[:, None] - pb[None, :] < window
+        logits = torch.where(mask, logits, torch.full_like(logits, -1e30))
+        m_new = torch.maximum(m, logits.amax(-1))
+        p = torch.exp(logits - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bkgqs,bskd->bkgqd", p.to(vb.dtype), vb).float()
+        m = m_new
+    out = acc / torch.clamp_min(l, 1e-30)[..., None]        # (B,KV,G,Sq,hd)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, hd).to(q.dtype)
+
+
+def multihead_attention(q: Tensor, k: Tensor, v: Tensor, *,
+                        causal: bool = True, window: int = 0,
+                        cap: float = 0.0, q_pos: Optional[Tensor] = None,
+                        kv_pos: Optional[Tensor] = None,
+                        route: str = "plain") -> Tensor:
+    """q: (B,Sq,H,hd); k,v: (B,Skv,KV,hd) with KV | H (GQA).  ``route``
+    "kernel" (natural positions, Sq == Skv) takes the flash kernel's
+    entry; "plain" the materialized attention, or past
+    ``ATTN_CHUNK_THRESHOLD`` keys the chunked scan."""
+    from .flash import flash_mha
+    sq, skv = q.shape[1], k.shape[1]
+    natural = q_pos is None and kv_pos is None and sq == skv
+    if route == "kernel":
+        if not natural:
+            raise ValueError("the flash kernel attends a sequence to itself "
+                             "at its natural positions")
+        return flash_mha(q, k, v, causal, window, cap, kernel=True)
+    if q_pos is None:
+        q_pos = torch.arange(sq, device=q.device)
+    if kv_pos is None:
+        kv_pos = torch.arange(skv, device=q.device)
+    if skv > ATTN_CHUNK_THRESHOLD and sq > 1:
+        if natural:
+            return flash_mha(q, k, v, causal, window, cap, ATTN_CHUNK)
+        return _chunked_attention(q, k, v, causal=causal, window=window,
+                                  cap=cap, q_pos=q_pos, kv_pos=kv_pos)
+    return _direct_attention(q, k, v, causal=causal, window=window, cap=cap,
+                             q_pos=q_pos, kv_pos=kv_pos)
+
+
+def decode_attention(q: Tensor, k_cache: Tensor, v_cache: Tensor,
+                     pos: Union[int, Tensor], *, window: int = 0,
+                     cap: float = 0.0) -> Tensor:
+    """Single-token decode, plain.  q: (B,1,H,hd); caches (B,S,KV,hd)
+    holding the step's own row at ``pos``; ``pos``: the current position
+    (the index of the token just written)."""
+    kvh = k_cache.shape[2]
+    qg = _grouped(q, kvh)                                    # (B,1,KV,G,hd)
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    logits = torch.einsum("bqkgd,bskd->bkgqs", qg.float(),
+                          k_cache.float()) * scale
+    if cap:
+        logits = softcap(logits, cap)
+    kv_pos = torch.arange(k_cache.shape[1], device=q.device)
+    valid = kv_pos <= pos                                    # (S,)
+    if window:
+        valid &= (pos - kv_pos) < window
+    logits = torch.where(valid, logits, torch.full_like(logits, -1e30))
+    w = torch.softmax(logits, dim=-1).to(q.dtype)
+    o = torch.einsum("bkgqs,bskd->bqkgd", w, v_cache)
+    return o.reshape(q.shape[0], 1, -1, q.shape[-1])
+
+
+def decode_attention_kernel(q: Tensor, k_cache: Tensor, v_cache: Tensor,
+                            k_new: Tensor, v_new: Tensor, pos: int, *,
+                            window: int = 0, cap: float = 0.0) -> Tensor:
+    """Single-token decode through the decode kernel's entry: q
+    (B,1,H,hd), the caches as they stood before this step's write, the
+    step's own k_new, v_new (B,1,KV,hd) at position ``pos``
+    (``attention_route`` says where this equals :func:`decode_attention`
+    after the write)."""
+    from ..kernels.decode_attention.ops import decode_attention as entry
+    lens = torch.full((q.shape[0],), int(pos), dtype=torch.int32,
+                      device=q.device)
+    return entry(q, k_cache, v_cache, k_new, v_new, lens, window=window,
+                 cap=cap)
+
+
+# ---------------------------------------------------------------------------
+# attention block (projections + rope + residual), parameterized
+# ---------------------------------------------------------------------------
+
+def attn_proj_qkv(p: Params, x: Tensor, cfg) -> Tuple[Tensor, Tensor, Tensor]:
+    b, s, _ = x.shape
+    q = x @ p["wq"]
+    k = x @ p["wk"]
+    v = x @ p["wv"]
+    if cfg.qkv_bias:
+        q = q + p["bq"]
+        k = k + p["bk"]
+        v = v + p["bv"]
+    q = q.reshape(b, s, cfg.n_heads, cfg.hd)
+    k = k.reshape(b, s, cfg.n_kv, cfg.hd)
+    v = v.reshape(b, s, cfg.n_kv, cfg.hd)
+    return q, k, v
+
+
+def attn_out(p: Params, o: Tensor) -> Tensor:
+    b, s = o.shape[:2]
+    y = o.reshape(b, s, -1) @ p["wo"]
+    if "bo" in p:
+        y = y + p["bo"]
+    return y
+
+
+# ---------------------------------------------------------------------------
+# FFN / MoE
+# ---------------------------------------------------------------------------
+
+def ffn_apply(p: Params, x: Tensor, kind: str) -> Tensor:
+    if kind == "swiglu":
+        h = F.silu(x @ p["wg"]) * (x @ p["wu"])
+        return h @ p["wd"]
+    # gelu MLP (JAX's default gelu: the tanh form)
+    h = F.gelu(x @ p["w1"] + p["b1"], approximate="tanh")
+    return h @ p["w2"] + p["b2"]
+
+
+def moe_apply(p: Params, x: Tensor, moe_cfg) -> Tuple[Tensor, Tensor]:
+    """Top-k MoE on one device (``_moe_apply_dense``); the expert-parallel
+    form waits with the sharded backbone."""
+    return _moe_apply_dense(p, x, moe_cfg)
+
+
+def _slot_tables(topi: Tensor, topw: Tensor, ng: int, gs: int, k: int,
+                 e: int, cap: int) -> Tuple[Tensor, Tensor]:
+    """(G, E, cap) token-id and weight tables from top-k routing: each
+    expert's tokens in token order, ``gs`` (the pad row) in unused slots,
+    a token past an expert's capacity dropped."""
+    dev = topi.device
+    flat_e = topi.reshape(ng, gs * k)
+    flat_w = topw.reshape(ng, gs * k)
+    flat_t = torch.arange(gs, device=dev)[:, None].expand(gs, k).reshape(-1)
+    order = torch.argsort(flat_e, dim=-1, stable=True)
+    sorted_e = torch.gather(flat_e, -1, order)
+    sorted_t = flat_t[order]
+    sorted_w = torch.gather(flat_w, -1, order)
+    seg_start = torch.cat([
+        torch.zeros((ng, 1), dtype=torch.bool, device=dev),
+        sorted_e[:, 1:] != sorted_e[:, :-1]], dim=-1)
+    pos_all = torch.arange(gs * k, device=dev)[None, :].expand_as(sorted_e)
+    run_first = torch.where(seg_start, pos_all, torch.zeros_like(pos_all))
+    run_first = torch.cummax(run_first, dim=-1).values
+    slot = pos_all - run_first
+    keep = slot < cap
+    gidx = torch.arange(ng, device=dev)[:, None].expand_as(sorted_e)
+    slot_tok = torch.full((ng, e, cap), gs, dtype=torch.int64, device=dev)
+    slot_w = torch.zeros((ng, e, cap), dtype=torch.float32, device=dev)
+    idx = (gidx[keep], sorted_e[keep], slot[keep])
+    slot_tok[idx] = sorted_t[keep]
+    slot_w[idx] = sorted_w[keep].float()
+    return slot_tok, slot_w
+
+
+def moe_routing(p: Params, x: Tensor, moe_cfg) -> Tuple[Tensor, Tensor,
+                                                        Tensor]:
+    """The router: (gates (G, gs, E) f32, top-k weights renormalized,
+    top-k expert ids), tokens cut into groups of ``group_size``."""
+    b, s, d = x.shape
+    t = b * s
+    gs = min(moe_cfg.group_size, t)
+    xg = x.reshape(t // gs, gs, d)
+    gates = torch.softmax(xg.float() @ p["router"].float(), dim=-1)
+    topw, topi = torch.topk(gates, moe_cfg.top_k, dim=-1)
+    topw = topw / torch.clamp_min(topw.sum(-1, keepdim=True), 1e-9)
+    return gates, topw, topi
+
+
+def _moe_apply_dense(p: Params, x: Tensor, moe_cfg) -> Tuple[Tensor, Tensor]:
+    """Gather-based top-k MoE with per-group capacity: the chosen tokens
+    are gathered into (G, E, cap, D), run through each expert's SwiGLU and
+    scatter-added back, weighted."""
+    b, s, d = x.shape
+    e, k = moe_cfg.n_experts, moe_cfg.top_k
+    gs = min(moe_cfg.group_size, b * s)
+    ng = (b * s) // gs
+    xg = x.reshape(ng, gs, d)
+    gates, topw, topi = moe_routing(p, x, moe_cfg)
+
+    # load-balancing auxiliary loss (Switch-style)
+    me = gates.mean(dim=(0, 1))
+    ce = torch.zeros((e,), dtype=torch.float32, device=x.device).index_add_(
+        0, topi.reshape(-1),
+        torch.full((topi.numel(),), 1.0 / (ng * gs * k), device=x.device))
+    aux = e * torch.sum(me * ce)
+
+    cap = int(math.ceil(gs * k / e * moe_cfg.capacity_factor))
+    cap = max(8, ((cap + 7) // 8) * 8)
+    slot_tok, slot_w = _slot_tables(topi, topw, ng, gs, k, e, cap)
+
+    xg_pad = torch.cat([xg, torch.zeros((ng, 1, d), dtype=xg.dtype,
+                                        device=x.device)], dim=1)
+    gidx = torch.arange(ng, device=x.device)[:, None, None]
+    xin = xg_pad[gidx, slot_tok]                             # (G,E,cap,D)
+    g = torch.einsum("gecd,edf->gecf", xin, p["wg"])
+    u = torch.einsum("gecd,edf->gecf", xin, p["wu"])
+    y = torch.einsum("gecf,efd->gecd", F.silu(g) * u, p["wd"])
+    yw = y * slot_w[..., None].to(y.dtype)
+    out = torch.zeros((ng, gs + 1, d), dtype=y.dtype, device=x.device)
+    out.index_put_((gidx.expand_as(slot_tok), slot_tok), yw, accumulate=True)
+    return out[:, :gs].reshape(b, s, d), aux

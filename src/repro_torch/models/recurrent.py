@@ -15,6 +15,13 @@ Parameters come as a dict of tensors named as in the JAX package: ``wa``,
 ``wx`` (in, out), ``lam``; ``mu_*``, ``lora_a_*`` (d, r), ``lora_b_*``
 (r, d), ``w0``, ``u``, ``wr``/``wk``/``wv``/``wg``/``wo`` (in, out),
 ``gn_gain``, ``gn_bias``.
+
+The backbone's blocks (``models.backbone``) add the Griffin block around
+the RG-LRU (``w_in``, ``w_gate``, the causal conv ``conv_w``/``conv_b``,
+``w_out``), RWKV6's channel mix (``mu_ck``, ``mu_cr``, ``ck``, ``cv``,
+``cr``), their decode steps and carried states.  Their sequence forms take
+the scan kernels' public entries (``kernel=True``: the hand-written kernel
+on a CUDA tensor, its plain version on a CPU tensor) or the plain scans.
 """
 from __future__ import annotations
 
@@ -59,6 +66,76 @@ def rglru_seq(p: Params, u: Tensor, h0: Optional[Tensor] = None
     return h.to(u.dtype), h_last.to(u.dtype)
 
 
+def _causal_conv1d(x: Tensor, w: Tensor, b: Tensor,
+                   state: Optional[Tensor] = None) -> Tuple[Tensor, Tensor]:
+    """Depthwise causal conv of width W.  x: (B, S, D); w: (W, D); b: (D,);
+    state: (B, W-1, D), the trailing inputs of the previous segment.
+    Returns (y, new_state)."""
+    bsz, s, d = x.shape
+    width = w.shape[0]
+    if state is None:
+        state = torch.zeros((bsz, width - 1, d), dtype=x.dtype,
+                            device=x.device)
+    xp = torch.cat([state, x], dim=1)
+    y = torch.zeros_like(x)
+    for i in range(width):
+        y = y + xp[:, i:i + s] * w[i]
+    new_state = xp[:, -(width - 1):] if width > 1 else state
+    return y + b, new_state
+
+
+def rglru_step(p: Params, u: Tensor, h: Tensor) -> Tuple[Tensor, Tensor]:
+    """One decode step.  u: (B, 1, dr); h: (B, dr)."""
+    log_a, b = rglru_gates(p, u)
+    a = torch.exp(log_a[:, 0])
+    h_new = a * h.float() + b[:, 0]
+    return h_new.to(u.dtype)[:, None], h_new.to(u.dtype)
+
+
+def _gelu(x: Tensor) -> Tensor:
+    return F.gelu(x, approximate="tanh")       # JAX's default gelu
+
+
+def rglru_block_seq(p: Params, x: Tensor,
+                    state: Optional[Dict[str, Tensor]] = None, *,
+                    kernel: bool = False) -> Tuple[Tensor, Dict[str, Tensor]]:
+    """The Griffin recurrent block, sequence form.  x: (B, S, D) → (B, S,
+    D), and the carry state {"h", "conv"} for a continuing segment.  The
+    recurrence runs in f32 through the RG-LRU scan's entry (``kernel``)
+    or its plain version."""
+    from ..kernels.rglru_scan.ops import rglru_scan
+    u = x @ p["w_in"]
+    g = x @ p["w_gate"]
+    conv_state = None if state is None else state["conv"]
+    u, conv_state = _causal_conv1d(u, p["conv_w"], p["conv_b"], conv_state)
+    log_a, b = rglru_gates(p, u)
+    a = torch.exp(log_a)
+    h0 = (torch.zeros(u.shape[0], u.shape[2], device=u.device)
+          if state is None else state["h"].float())
+    h, h_last = (rglru_scan if kernel else rglru_scan_ref)(a, b, h0)
+    y = h.to(u.dtype) * _gelu(g)
+    return y @ p["w_out"], {"h": h_last.to(u.dtype), "conv": conv_state}
+
+
+def rglru_block_step(p: Params, x: Tensor, state: Dict[str, Tensor]
+                     ) -> Tuple[Tensor, Dict[str, Tensor]]:
+    """One decode step of the Griffin block.  x: (B, 1, D)."""
+    u = x @ p["w_in"]
+    g = x @ p["w_gate"]
+    u, conv_state = _causal_conv1d(u, p["conv_w"], p["conv_b"],
+                                   state["conv"])
+    h, h_last = rglru_step(p, u, state["h"])
+    y = h * _gelu(g)
+    return y @ p["w_out"], {"h": h_last, "conv": conv_state}
+
+
+def rglru_init_state(bsz: int, dr: int, conv_width: int, dtype,
+                     device=None) -> Dict[str, Tensor]:
+    return {"h": torch.zeros((bsz, dr), dtype=dtype, device=device),
+            "conv": torch.zeros((bsz, conv_width - 1, dr), dtype=dtype,
+                                device=device)}
+
+
 # ---------------------------------------------------------------------------
 # RWKV6 time mix
 # ---------------------------------------------------------------------------
@@ -67,9 +144,11 @@ def _lora(x: Tensor, a: Tensor, b: Tensor) -> Tensor:
     return torch.tanh(x @ a) @ b
 
 
-def rwkv_shift(x: Tensor) -> Tensor:
-    """Token shift: the previous token's features (zeros at the start)."""
-    return torch.cat([torch.zeros_like(x[:, :1]), x[:, :-1]], dim=1)
+def rwkv_shift(x: Tensor, last: Optional[Tensor] = None) -> Tensor:
+    """Token shift: the previous token's features (zeros at the start, or
+    ``last`` (B, D), carried from the previous segment)."""
+    last = torch.zeros_like(x[:, :1]) if last is None else last[:, None, :]
+    return torch.cat([last, x[:, :-1]], dim=1)
 
 
 def rwkv_mix_inputs(p: Params, x: Tensor, xs: Tensor) -> Dict[str, Tensor]:
@@ -83,13 +162,18 @@ def rwkv_mix_inputs(p: Params, x: Tensor, xs: Tensor) -> Dict[str, Tensor]:
     return outs
 
 
-def rwkv_time_mix_seq(p: Params, x: Tensor, n_heads: int) -> Tensor:
-    """RWKV6 time mix, chunked parallel form, from a zero state (the
-    carried state of a decode step arrives with a decode slice).
-    x: (B, S, D) → (B, S, D)."""
+def rwkv_time_mix_seq(p: Params, x: Tensor, n_heads: int,
+                      state: Optional[Dict[str, Tensor]] = None, *,
+                      return_state: bool = False, kernel: bool = False):
+    """RWKV6 time mix.  x: (B, S, D) → (B, S, D), from ``state``
+    ({"last_x", "S"}) or a zero state.  The WKV recurrence takes its
+    chunked parallel form, or with ``kernel`` the RWKV6 scan's entry in
+    f32.  ``return_state``: also the carry {"last_x", "S"}."""
     bsz, s, d = x.shape
     hd = d // n_heads
-    m = rwkv_mix_inputs(p, x, rwkv_shift(x))
+    last_x = None if state is None else state["last_x"]
+    s0 = None if state is None else state["S"]
+    m = rwkv_mix_inputs(p, x, rwkv_shift(x, last_x))
     r = (m["r"] @ p["wr"]).reshape(bsz, s, n_heads, hd)
     k = (m["k"] @ p["wk"]).reshape(bsz, s, n_heads, hd)
     v = (m["v"] @ p["wv"]).reshape(bsz, s, n_heads, hd)
@@ -99,14 +183,77 @@ def rwkv_time_mix_seq(p: Params, x: Tensor, n_heads: int) -> Tensor:
     logw = logw.reshape(bsz, s, n_heads, hd)
     u = p["u"].reshape(n_heads, hd)
 
-    o, _ = _wkv_chunked(r, k, v, logw, u, None)
+    if kernel:
+        from ..kernels.rwkv6_scan.ops import rwkv6_scan
+        s0f = (torch.zeros(bsz, n_heads, hd, hd, device=x.device)
+               if s0 is None else s0.float())
+        o, s_last = rwkv6_scan(r.float(), k.float(), v.float(), logw,
+                               u.float(), s0f)
+    else:
+        o, s_last = _wkv_chunked(r, k, v, logw, u, s0)
     # per-head group norm, then gate
+    out = (_group_norm(o, bsz, s, d).to(x.dtype) * p["gn_gain"]
+           + p["gn_bias"])
+    out = (out * g) @ p["wo"]
+    if return_state:
+        return out, {"last_x": x[:, -1], "S": s_last}
+    return out
+
+
+def _group_norm(o: Tensor, *lead_and_d) -> Tensor:
+    """RWKV6's per-head group norm of o (..., H, hd) in f32, reshaped to
+    ``lead_and_d``."""
     og = o.float()
     mu = og.mean(-1, keepdim=True)
     var = ((og - mu) ** 2).mean(-1, keepdim=True)
-    og = ((og - mu) * torch.rsqrt(var + GN_EPS)).reshape(bsz, s, d)
-    og = og.to(x.dtype) * p["gn_gain"] + p["gn_bias"]
-    return (og * g) @ p["wo"]
+    return ((og - mu) * torch.rsqrt(var + GN_EPS)).reshape(*lead_and_d)
+
+
+def rwkv_time_mix_step(p: Params, x: Tensor, n_heads: int,
+                       state: Dict[str, Tensor]
+                       ) -> Tuple[Tensor, Dict[str, Tensor]]:
+    """One decode step of the RWKV6 time mix.  x: (B, 1, D)."""
+    bsz, _, d = x.shape
+    hd = d // n_heads
+    m = rwkv_mix_inputs(p, x, rwkv_shift(x, state["last_x"]))
+    r = (m["r"] @ p["wr"]).reshape(bsz, n_heads, hd)
+    k = (m["k"] @ p["wk"]).reshape(bsz, n_heads, hd)
+    v = (m["v"] @ p["wv"]).reshape(bsz, n_heads, hd)
+    g = F.silu(m["g"] @ p["wg"])[:, 0]
+    logw = -torch.exp((p["w0"] + _lora(m["w"], p["lora_a_w"],
+                                       p["lora_b_w"])).float())[:, 0]
+    logw = logw.reshape(bsz, n_heads, hd)
+    u = p["u"].reshape(n_heads, hd).float()
+    S = state["S"]
+    rf, kf, vf = r.float(), k.float(), v.float()
+    o = torch.einsum("bhk,bhkv->bhv", rf, S) + \
+        torch.einsum("bhk,bhk,bhv->bhv", rf, u[None] * kf, vf)
+    S_new = torch.exp(logw)[..., None] * S + \
+        torch.einsum("bhk,bhv->bhkv", kf, vf)
+    og = _group_norm(o, bsz, d).to(x.dtype) * p["gn_gain"] + p["gn_bias"]
+    out = ((og * g) @ p["wo"])[:, None]
+    return out, {"last_x": x[:, -1], "S": S_new}
+
+
+def rwkv_channel_mix_seq(p: Params, x: Tensor,
+                         last_x: Optional[Tensor] = None
+                         ) -> Tuple[Tensor, Tensor]:
+    """RWKV6's channel mix.  x: (B, S, D) → (out, the last token's x)."""
+    dx = rwkv_shift(x, last_x) - x
+    xk = x + dx * p["mu_ck"]
+    xr = x + dx * p["mu_cr"]
+    kk = torch.square(torch.clamp_min(xk @ p["ck"], 0.0))
+    rr = torch.sigmoid(xr @ p["cr"])
+    return rr * (kk @ p["cv"]), x[:, -1]
+
+
+def rwkv_init_state(bsz: int, d: int, n_heads: int, dtype,
+                    device=None) -> Dict[str, Tensor]:
+    hd = d // n_heads
+    return {"last_x": torch.zeros((bsz, d), dtype=dtype, device=device),
+            "S": torch.zeros((bsz, n_heads, hd, hd), dtype=torch.float32,
+                             device=device),
+            "last_xc": torch.zeros((bsz, d), dtype=dtype, device=device)}
 
 
 def _wkv_chunked(r: Tensor, k: Tensor, v: Tensor, logw: Tensor, u: Tensor,

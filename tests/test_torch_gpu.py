@@ -1305,3 +1305,86 @@ def test_fleet_kill_on_the_card(dev):
     base.run()
     base.close()
     assert [r.generated for r in reqs] == [b.generated for b in breqs]
+
+
+# ---------------------------------------------------------------------------
+# the model-zoo backbone: the kernel route against the plain route
+# ---------------------------------------------------------------------------
+
+def _backbone_serve(cfg, params, batch, steps, plain):
+    """A prefill into a fresh cache on the one-process mesh's default
+    device, then greedy decode steps: (tokens, the logits of each)."""
+    from repro_torch.distributed.steps import (make_decode_step,
+                                               make_prefill_step)
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import backbone as B
+    mesh = make_debug_mesh(1, 1)
+    assert mesh.device.type == "cuda"
+    s = batch["tokens"].shape[1]
+    cache = B.init_cache(cfg, batch["tokens"].shape[0], s + steps)
+    logits, cache = make_prefill_step(mesh, cfg, plain=plain)(
+        params, batch, cache)
+    decode = make_decode_step(mesh, cfg, plain=plain)
+    rows, toks = [logits[:, -1]], [logits[:, -1].argmax(-1)]
+    for j in range(steps):
+        lg, cache = decode(params, cache, toks[-1][:, None], s + j)
+        rows.append(lg[:, 0])
+        toks.append(lg[:, 0].argmax(-1))
+    return torch.stack(toks, 1), torch.stack(rows, 1).float()
+
+
+def _rel(got, want) -> float:
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max())
+
+
+@pytest.mark.parametrize("dtype,rtol", [("float32", 1e-4),
+                                        ("bfloat16", 3e-2)])
+def test_backbone_kernel_route_at_qwen2_width(dev, dtype, rtol):
+    """qwen2-1.5b's widths at two layers: one flash launch a layer in the
+    prefill and one decode launch a layer a step, as attention_route
+    predicts; logits within README's tolerance of the plain route's."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import backbone as B
+    from repro_torch.models.layers import attention_route
+    cfg = dataclasses.replace(get_config("qwen2_1_5b"), n_layers=2,
+                              dtype=dtype)
+    assert attention_route(cfg, "attn", "prefill", dtype) == "kernel"
+    assert attention_route(cfg, "attn", "decode", dtype,
+                           cache_len=68) == "kernel"
+    params = B.init_params(cfg, torch.Generator(dev).manual_seed(0), dev)
+    g = torch.Generator(dev).manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (4, 64), generator=g,
+                                     device=dev)}
+    f0, d0 = flash_attention_cuda.launches, decode_attention_cuda.launches
+    toks, rows = _backbone_serve(cfg, params, batch, 4, plain=False)
+    assert flash_attention_cuda.launches - f0 == 2
+    assert decode_attention_cuda.launches - d0 == 2 * 4
+    ptoks, prows = _backbone_serve(cfg, params, batch, 4, plain=True)
+    assert _rel(rows[:, 0], prows[:, 0]) <= rtol
+    if dtype == "float32":
+        assert torch.equal(toks, ptoks)
+        assert _rel(rows, prows) <= rtol
+
+
+@pytest.mark.parametrize("arch,scan", [("recurrentgemma_9b", "rglru"),
+                                       ("rwkv6_1_6b", "rwkv6")])
+def test_backbone_recurrent_config_on_the_card(dev, arch, scan):
+    """A reduced recurrent config: its scan kernel launches in the
+    prefill, and the kernel route's tokens and logits equal the plain
+    route's (1e-4 of the scale)."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import backbone as B
+    cfg = get_smoke(arch)
+    params = B.init_params(cfg, torch.Generator(dev).manual_seed(0), dev)
+    g = torch.Generator(dev).manual_seed(2)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (2, 16), generator=g,
+                                     device=dev)}
+    counter = rglru_scan_cuda if scan == "rglru" else rwkv6_scan_cuda
+    n0 = counter.launches
+    toks, rows = _backbone_serve(cfg, params, batch, 6, plain=False)
+    assert counter.launches > n0
+    ptoks, prows = _backbone_serve(cfg, params, batch, 6, plain=True)
+    assert torch.equal(toks, ptoks)
+    assert _rel(rows, prows) <= 1e-4
