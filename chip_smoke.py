@@ -8,13 +8,14 @@ RWKV6 block stacks at full width and three CNNs at ImageNet resolution
 through ``optimize()``, runs the transformer, both stacks and the Listing-3
 CNN again in bf16, serves the transformer once more under a strict
 measured-provenance audit, ranks the measured kernels by their distance
-from the card's bound, trains three 4-block stacks through the elected
+from the card's bound, trains three short stacks through the elected
 forward and backward impls, serves the transformer again from deploy
 artifacts and runs every other kernel through one, serves it on a (2, 2)
 mesh of four ranks sharing the card and through a fleet of three replicas
 with one replica killed mid-stream, serves the model-zoo backbone
 (qwen2-1.5b at full width in bf16 and f32, then the ten reduced configs)
-through its prefill and decode steps, and checks every path against the
+through its prefill and decode steps, trains it through its train step
+(the same configs) and its driver, and checks every path against the
 plain path.
 
     python3 chip_smoke.py          # one CUDA card, run from the repo root
@@ -65,7 +66,8 @@ Phases, each failing loudly:
    impl, held to the plain version at the same tolerances (one
    ``[configs]`` line per kernel).  Phases 3, 5, 6, 7, 12 and 13
    fail on a kernel node of their paths that no row of their dtype holds
-   (``node_key``, ``check_held``).
+   (``node_key``, ``check_held``), phases 14 and 15 on a launch key that
+   no row holds (rows at ``backbone_plan_all`` and ``train_plan_all``).
 3. serve — 28 × ``transformer_block(1536, 12, n_kv_heads=2)`` + a
    Linear(1536, 151936) head with random weights from a seeded generator
    (build_lm's block: pre-norm LayerNorm, 4·d tanh-GELU MLP, no RoPE — not
@@ -156,9 +158,9 @@ Phases, each failing loudly:
    serving and sol, into ``chiprun_out/BENCH_torch*.json``) must return 0,
    and ``serve_rows`` serves phase 3's model at full width: phase 3's four
    prompts and three more sets of their lengths, ``GEN`` tokens each.
-10. training — three 4-block f32 stacks at full width (the serve model's
-   transformer block, d 1536 with 12/2 heads; Griffin d 4096; RWKV6 d 2048
-   with 32 heads; MLPs ×4, ×3, ×3) on (4, 512, d) through
+10. training — three f32 stacks at full width, 4 blocks each (RWKV6 2:
+   the serve model's transformer block, d 1536 with 12/2 heads; Griffin d
+   4096; RWKV6 d 2048 with 32 heads; MLPs ×4, ×3, ×3) on (4, 512, d) through
    ``optimize(..., training=True)``: (a) every backward impl of each
    graph at its own shapes (and ``conv.avgpool_bwd`` at the first
    Listing-3 pool) against autograd of the reference forward in f32
@@ -236,6 +238,27 @@ Phases, each failing loudly:
    ``rwkv6_scan`` launched by the reduced recurrent configs.  Logged:
    prefill ms, decode step p50, tokens/s and the phase's seconds beside
    the card's name and power limit.
+15. backbone train — ``distributed.steps.make_train_step`` on
+   ``make_debug_mesh(1, 1)`` with no device given (the card), each run on
+   the kernel route and again with ``plain=True`` from the same state
+   (``init_train_state``, generator seeded 0) and the same batches
+   (``SyntheticTokenDataset(seed=0)``): qwen2-1.5b as published in f32 at
+   the JAX driver's defaults (batch 8, seq 128, remat, ZeRO specs, lr
+   3e-3), then in bf16 with f32 moments, then the ten reduced configs in
+   f32 (batch 2, seq 64, the modality stubs' inputs).  Gates: qwen2's
+   step-0 loss within ``BB_TRAIN_LOSS0_RTOL`` of the plain route's and
+   every gradient leaf within ``BB_TRAIN_GRAD_TOL`` of its norm, a planted
+   fault (D = Σ dO·O dropped from the flash backward) failing that gate;
+   the losses of 6 steps within ``BB_TRAIN_LOSS_RTOL`` and falling (3 steps
+   in bf16, 2 for each reduced config); every launch's (kernel, shape,
+   dtype) held by phase 2 and the launches equal, key for key, to
+   ``train_plan`` (a forward per layer, again for a macro block's layer
+   under remat, the RG-LRU's reverse scan in the backward); then
+   ``launch.train.run`` on recurrentgemma's reduced config resuming from
+   its checkpoint and ending on an uninterrupted run's loss within
+   ``BB_TRAIN_RESUME_RTOL``.  Logged: fwd+bwd ms, AdamW ms, step ms,
+   training tokens/s, peak memory and the phase's seconds beside the
+   card's name and power limit.
 
 The second-to-last lines are the card's ``nvidia-smi`` line and a JSON
 ``kernels`` line (an entry per kernel in f32, and one per kernel in bf16
@@ -245,7 +268,9 @@ phases 3, 5-7, 10's (its six h100 steps a stack), 11's (its checked
 artifact serve pass and one call of each other artifact), 12's (summed
 over the ranks, path ``mesh_serve``), 13's (path ``fleet``) and 14's
 (paths ``backbone_qwen2``, ``backbone_smoke`` and, in bf16,
-``backbone_qwen2_bf16``).  The
+``backbone_qwen2_bf16``) and 15's kernel-route train steps (paths
+``backbone_train_qwen2``, ``backbone_train_smoke`` and, in bf16,
+``backbone_train_qwen2_bf16``).  The
 full record goes to ``chiprun_out/chip_smoke.json``.  The script imports
 nothing of JAX or of the JAX package ``src/repro``; it exits non-zero,
 printing no result, without a CUDA card or without the package.
@@ -976,6 +1001,11 @@ def phase_kernels(gen) -> dict:
     for dt in ("float32", bf):
         hold(dt, {key: ("backbone", None) for key, d in
                   backbone_plan_all() if d == dt}, " (backbone)")
+    # and every one phase 15's training launches (forward, remat
+    # recompute and the RG-LRU's reverse scan)
+    for dt in ("float32", bf):
+        hold(dt, {key: ("train", None) for key, d in
+                  train_plan_all() if d == dt}, " (backbone train)")
     configs += sweep_configs(torch, gen, bf, nodes16)
     log_configs(configs)
     f16 = "float16"
@@ -2821,15 +2851,16 @@ def phase_sol(torch, dev, state) -> dict:
 # The serve model's widths (Qwen2-1.5B's attention, build_lm's block),
 # RecurrentGemma-9B's (src/repro/configs/recurrentgemma_9b.py) and
 # RWKV6-1.6B's (src/repro/configs/rwkv6_1_6b.py), as in phases 3 and 5,
-# each cut to TRAIN_BLOCKS blocks so that two backends' training runs of
-# all three fit the script's time limit
+# each cut to its TRAIN_BLOCKS blocks so that two backends' training runs
+# of all three fit the script's time limit: RWKV6 to 2, whose torch-op
+# scan backward (ckpt.rwkv6_scan_bwd) holds the host ≈ 0.6 s a layer
 TRAIN_STACKS = (
     ("transformer", dict(d_model=1536, n_heads=12, n_kv_heads=2,
                          mlp_mult=4)),
     ("griffin", dict(d_model=4096, mlp_mult=3)),
     ("rwkv6", dict(d_model=2048, n_heads=32, mlp_mult=3)),
 )
-TRAIN_BLOCKS = 4
+TRAIN_BLOCKS = {"transformer": 4, "griffin": 4, "rwkv6": 2}
 TRAIN_SHAPE_BT = (4, 512)
 TRAIN_STEPS = 6
 # h100 against torch_ref from the same weights: each step's loss, relative;
@@ -2894,7 +2925,7 @@ def _train_stack(torch, name: str, cfg: dict, dev, gen):
         def block():
             return nn.rwkv6_block(d, cfg["n_heads"], cfg["mlp_mult"],
                                   device=dev, generator=gen)
-    return tnn.Sequential(*[block() for _ in range(TRAIN_BLOCKS)])
+    return tnn.Sequential(*[block() for _ in range(TRAIN_BLOCKS[name])])
 
 
 def bwd_key(n) -> tuple:
@@ -3225,7 +3256,8 @@ def train_stack(torch, counters, dev, index: int, name: str, cfg: dict,
     n_params = sum(p.numel() for p in model.parameters())
     sol = optimize(model, shape, backend="h100", training=True)
     by_kind = check_train_elections(sol, name)
-    log(f"[train] {name}: {TRAIN_BLOCKS} blocks at d {cfg['d_model']}, "
+    log(f"[train] {name}: {TRAIN_BLOCKS[name]} blocks at d "
+        f"{cfg['d_model']}, "
         f"{n_params / 1e6:.1f} M parameters, input {shape}; h100 "
         f"elections: {by_kind}")
 
@@ -3306,8 +3338,8 @@ def train_stack(torch, counters, dev, index: int, name: str, cfg: dict,
         f"fwd+bwd {b_med:.2f} ms, ratio {b_med / f_med:.2f}; AdamW step, "
         f"median of {TRAIN_STEPS}: h100 {statistics.median(step_ms):.2f} "
         f"ms, torch_ref {statistics.median(ref_step_ms):.2f} ms")
-    out = {"config": cfg, "blocks": TRAIN_BLOCKS, "shape": shape, "lr": lr,
-           "parameters": n_params, "elections": by_kind,
+    out = {"config": cfg, "blocks": TRAIN_BLOCKS[name], "shape": shape,
+           "lr": lr, "parameters": n_params, "elections": by_kind,
            "bwd_cases": cases, "fwd_launches": fwd_launches,
            "bwd_launches": bwd_launches, "launches": launches,
            "step0_grads": grads, "losses": losses,
@@ -4217,6 +4249,388 @@ def phase_backbone(torch, counters: dict, held: set) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the model-zoo backbone trained through its train step
+# ---------------------------------------------------------------------------
+
+# qwen2-1.5b as published (phase 14's config) at the JAX driver's defaults
+# (repro.launch.train: batch 8, seq 128, remat, ZeRO specs, lr 3e-3, a
+# warm-up of steps // 10), batches from SyntheticTokenDataset(seed=0)
+BB_TRAIN_BATCH, BB_TRAIN_SEQ, BB_TRAIN_LR = 8, 128, 3e-3
+BB_TRAIN_STEPS = {"float32": 6, "bfloat16": 3}
+# the ten reduced configs in f32: batch 2, 2 steps; seq 64 puts the
+# reduced window (32) to work on the local layers, and its 128 tokens
+# fill whole MoE groups (64)
+SMOKE_TRAIN_BATCH, SMOKE_TRAIN_SEQ, SMOKE_TRAIN_STEPS = 2, 64, 2
+# kernel route vs plain route.  Step 0: the loss (f32 sums over the same
+# values in another order: ~1e-7) and each gradient leaf against its
+# norm (the kernels' f32 error carried through the backward; PR 23 read
+# 1.27e-4 with kernels in the forward).  Later steps: AdamW divides by
+# √v, so where a gradient element is near zero a rounding difference can
+# flip the sign of a whole lr-sized update; bf16 at README's bf16 row.
+BB_TRAIN_LOSS0_RTOL = 1e-5
+BB_TRAIN_GRAD_TOL = 1e-3
+BB_TRAIN_LOSS_RTOL = {"float32": 1e-3, "bfloat16": 3e-2}
+BB_TRAIN_RESUME_RTOL = 1e-5
+BB_TRAIN_KERNELS = ("flash_attention", "rglru_scan", "rwkv6_scan")
+
+
+def train_runs() -> list:
+    """(path, config, batch, seq, steps) of every phase-15 run."""
+    from repro_torch.configs import ARCH_IDS, get_config, get_smoke
+    qwen = get_config(BACKBONE_ARCH)
+    return ([("backbone_train_qwen2",
+              dataclasses.replace(qwen, dtype="float32"), BB_TRAIN_BATCH,
+              BB_TRAIN_SEQ, BB_TRAIN_STEPS["float32"]),
+             ("backbone_train_qwen2_bf16", qwen, BB_TRAIN_BATCH, BB_TRAIN_SEQ,
+              BB_TRAIN_STEPS["bfloat16"])]
+            + [("backbone_train_smoke", get_smoke(a), SMOKE_TRAIN_BATCH,
+                SMOKE_TRAIN_SEQ, SMOKE_TRAIN_STEPS) for a in ARCH_IDS])
+
+
+def train_plan(cfg, b: int, seq: int, steps: int, *,
+               remat: bool = True) -> dict:
+    """(kernel key, dtype) -> launches of ``steps`` kernel-route train
+    steps over ``seq`` positions (patches included), as
+    ``layers.attention_route`` predicts them: a forward per layer, again
+    for a layer of a macro block under remat (its recompute), and the
+    RG-LRU's reverse scan in the backward; the encoder runs once; the
+    scans run in f32 in every dtype."""
+    from repro_torch.models import backbone as B
+    from repro_torch.models import layers as L
+    plan: dict = {}
+
+    def add(key, dt, n):
+        plan[(key, dt)] = plan.get((key, dt), 0) + n * steps
+
+    n_head, n_macro, _ = B.macro_split(cfg)
+    macro_end = n_head + n_macro * len(cfg.layer_pattern)
+    heads = (cfg.n_heads, cfg.n_kv, cfg.hd)
+    for i, kind in enumerate(B.layer_kinds(cfg)):
+        fwd = 2 if remat and n_head <= i < macro_end else 1
+        if kind == "rglru":
+            add(("rglru_scan", b, seq, cfg.drnn), "float32", fwd + 1)
+        elif kind == "rwkv":
+            add(("rwkv6_scan", b, seq, cfg.d_model // cfg.rwkv_head_dim,
+                 cfg.rwkv_head_dim), "float32", fwd)
+        elif L.attention_route(cfg, kind, "prefill", cfg.dtype) == "kernel":
+            window = cfg.window if kind == "local" else 0
+            add(("flash_attention", b, seq, *heads, True, window,
+                 float(cfg.softcap_attn)), cfg.dtype, fwd)
+    if cfg.enc_dec is not None and \
+            L.attention_route(cfg, "enc", "prefill", cfg.dtype) == "kernel":
+        add(("flash_attention", b, cfg.enc_dec.enc_seq, *heads, False, 0,
+             0.0), cfg.dtype, cfg.enc_dec.n_enc_layers)
+    return plan
+
+
+def train_plan_all() -> list:
+    """Every (kernel key, dtype) phase 15 launches."""
+    keys = set()
+    for _, cfg, b, seq, steps in train_runs():
+        keys |= set(train_plan(cfg, b, seq, steps))
+    return sorted(keys, key=repr)
+
+
+def train_batches(torch, cfg, b: int, seq: int, steps: int) -> list:
+    """``steps`` batches of ``SyntheticTokenDataset(seed=0)`` on the card,
+    ``seq`` positions each (the patches first for a vision config), with
+    the modality stubs' inputs from a generator seeded 7."""
+    from repro_torch.data import DataConfig, SyntheticTokenDataset
+    n_tok = seq - (cfg.n_patches if cfg.frontend == "vision" else 0)
+    ds = SyntheticTokenDataset(DataConfig(seed=0, vocab=cfg.vocab,
+                                          seq_len=n_tok, global_batch=b))
+    g = torch.Generator("cuda").manual_seed(7)
+    out = []
+    for step in range(steps):
+        batch = {k: torch.from_numpy(v).to("cuda")
+                 for k, v in ds.batch(step).items()}
+        if cfg.frontend == "vision":
+            batch["patches"] = 0.1 * torch.randn(
+                b, cfg.n_patches, cfg.d_model, generator=g, device="cuda")
+        if cfg.frontend == "audio":
+            batch["frames"] = 0.1 * torch.randn(
+                b, cfg.enc_dec.enc_seq, cfg.d_model, generator=g,
+                device="cuda")
+        out.append(batch)
+    return out
+
+
+def step0_grads(torch, cfg, params, batch, plain: bool) -> tuple:
+    """(loss, {path: gradient}, fwd+bwd ms) of ``loss_fn`` with remat at
+    ``params``."""
+    from repro_torch.models import backbone as B
+    live = B.tree_map(lambda p: p.detach().requires_grad_(True), params)
+    paths, leaves = zip(*B.tree_leaves(live))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    total, _ = B.loss_fn(cfg, live, batch, remat=True, plain=plain)
+    grads = torch.autograd.grad(total, leaves, allow_unused=True)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    return float(total.detach()), {p: torch.zeros_like(x) if g is None else g
+                          for p, x, g in zip(paths, leaves, grads)}, ms
+
+
+def leaf_gap(got: dict, want: dict) -> tuple:
+    """(worst max |Δ| / ‖want‖ over the leaves, its path)."""
+    worst, at = 0.0, None
+    for path, w in want.items():
+        norm = float(w.float().norm())
+        err = float((got[path].float() - w.float()).abs().max())
+        r = err / max(norm, 1e-30)
+        if r > worst:
+            worst, at = r, path
+    return worst, at
+
+
+def train_route(torch, cfg, opts, batches, plain: bool,
+                counters=None, seen=None) -> dict:
+    """``make_train_step`` on ``make_debug_mesh(1, 1)`` with no device
+    given (the card) from ``init_train_state`` (generator seeded 0) over
+    ``batches``; with ``counters`` they are zeroed just before the steps
+    and read just after, with ``seen`` every launch's key is counted.
+    Returns the losses, grad norms, each step's wall ms and the
+    launches."""
+    from repro_torch.distributed.steps import (init_train_state,
+                                               make_train_step)
+    from repro_torch.launch.mesh import make_debug_mesh
+
+    mesh = make_debug_mesh(1, 1)
+    if mesh.device.type != "cuda":
+        fail(f"make_debug_mesh(1, 1) resolved {mesh.device}, not the card")
+    step, _ = make_train_step(mesh, cfg, opts, plain=plain)
+    state = init_train_state(cfg, opts, torch.Generator("cuda").manual_seed(0))
+    for c in (counters or {}).values():
+        c.launches = 0
+    losses, gnorms, ms = [], [], []
+    with (kernel_shapes(seen) if seen is not None
+          else contextlib.nullcontext()):
+        for batch in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            losses.append(float(metrics["loss"]))
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+            gnorms.append(float(metrics["grad_norm"]))
+    launches = {k: c.launches for k, c in (counters or {}).items()}
+    del state
+    return {"losses": losses, "grad_norms": gnorms, "step_ms": ms,
+            "launches": launches}
+
+
+def check_losses(name: str, got: list, ref: list, rtol0: float,
+                 rtol: float) -> list:
+    """Relative loss differences, step 0 within ``rtol0``, the rest within
+    ``rtol``; both routes' losses must be finite."""
+    rels = []
+    for i, (g, r) in enumerate(zip(got, ref)):
+        if not (math.isfinite(g) and math.isfinite(r)):
+            fail(f"{name}: step {i} loss {g} (plain {r}) is not finite")
+        rels.append(abs(g - r) / abs(r))
+        if rels[-1] > (rtol0 if i == 0 else rtol):
+            fail(f"{name}: step {i} loss {g} differs from the plain "
+                 f"route's {r} by {rels[-1]:.3g} relative")
+    return rels
+
+
+def train_driver(torch) -> dict:
+    """``launch.train.run`` in-process on the card: recurrentgemma's
+    reduced config for 4 steps with a checkpoint every 2 (the schedule's
+    horizon 6), the same run again (resumes at step 4, trains nothing),
+    then on to 6; its last loss against an uninterrupted 6-step run's."""
+    import shutil
+
+    from repro_torch.launch import train as T
+    base = OUT_DIR / "train_ckpt"
+    shutil.rmtree(base, ignore_errors=True)
+    common = ["--arch", "recurrentgemma-9b", "--smoke", "--ckpt-interval",
+              "2", "--total-steps", "6", "--log-every", "1"]
+    cut = common + ["--ckpt-dir", str(base / "cut")]
+    first = T.run(cut + ["--steps", "4"])
+    again = T.run(cut + ["--steps", "4"])
+    rest = T.run(cut + ["--steps", "6"])
+    whole = T.run(common + ["--steps", "6", "--ckpt-dir",
+                            str(base / "whole")])
+    if (first["start"], len(first["losses"])) != (0, 4):
+        fail(f"train CLI: the first run trained {first}")
+    if again["start"] != 4 or again["losses"]:
+        fail(f"train CLI: the second run did not resume at step 4 with "
+             f"nothing to train: {again}")
+    if rest["start"] != 4 or len(rest["losses"]) != 2:
+        fail(f"train CLI: the third run did not resume at step 4: {rest}")
+    rel = abs(rest["losses"][-1] - whole["losses"][-1]) / \
+        abs(whole["losses"][-1])
+    if rel > BB_TRAIN_RESUME_RTOL:
+        fail(f"train CLI: the resumed run ends at {rest['losses'][-1]}, "
+             f"the uninterrupted one at {whole['losses'][-1]} ({rel:.3g})")
+    shutil.rmtree(base, ignore_errors=True)
+    return {"first": first["losses"], "resumed": rest["losses"],
+            "whole": whole["losses"], "resume_rel_err": rel}
+
+
+def phase_train_backbone(torch, counters: dict, held: set) -> dict:
+    """Phase 15: the backbone trained through ``make_train_step`` on the
+    one-process mesh's default device (the card), each run on the kernel
+    route and again with ``plain=True`` from the same state and batches.
+    qwen2-1.5b in f32: step 0's loss within ``BB_TRAIN_LOSS0_RTOL`` and every
+    gradient leaf within ``BB_TRAIN_GRAD_TOL`` of its norm (a backward with
+    D = Σ dO·O dropped from the flash backward must fail that gate), six
+    steps with the losses within ``BB_TRAIN_LOSS_RTOL`` and the last three's
+    mean below the first three's; qwen2-1.5b in bf16 with f32 moments,
+    three steps; the ten reduced configs, two steps; every launch's key
+    held by phase 2 and the launches equal, key for key, to
+    ``train_plan``; the driver ``launch.train`` resuming from its
+    checkpoint."""
+    import statistics
+
+    from repro_torch.distributed.steps import StepOptions
+    from repro_torch.models import backbone as B
+    from repro_torch.models import flash as FL
+    from repro_torch.optim import AdamWConfig, adamw_update, init_opt_state
+
+    t_phase = time.perf_counter()
+    rec: dict = {"runs": {}, "launches": {}}
+    for path, cfg, b, seq, steps in train_runs():
+        t_run = time.perf_counter()
+        full = path != "backbone_train_smoke"
+        opts = StepOptions(lr=BB_TRAIN_LR, warmup=max(steps // 10, 1),
+                           total_steps=steps)
+        batches = train_batches(torch, cfg, b, seq, steps)
+        r: dict = {"config": cfg.name, "dtype": cfg.dtype, "batch": b,
+                   "seq": seq, "steps": steps}
+        if path == "backbone_train_qwen2":
+            torch.cuda.reset_peak_memory_stats()
+            params = B.init_params(cfg, torch.Generator("cuda").manual_seed(0))
+            step0_grads(torch, cfg, params, batches[0], False)  # warm-up
+            loss_k, g_k, fb_ms = step0_grads(torch, cfg, params, batches[0],
+                                             False)
+            loss_p, g_p, fb_plain_ms = step0_grads(torch, cfg, params,
+                                                   batches[0], True)
+            rel0 = abs(loss_k - loss_p) / abs(loss_p)
+            if rel0 > BB_TRAIN_LOSS0_RTOL:
+                fail(f"{cfg.name}: step-0 loss {loss_k} vs plain {loss_p} "
+                     f"({rel0:.3g})")
+            gap, at = leaf_gap(g_k, g_p)
+            if gap > BB_TRAIN_GRAD_TOL:
+                fail(f"{cfg.name}: step-0 gradient {at} differs from the "
+                     f"plain route's by {gap:.3g} of its norm")
+            del g_k
+            orig = FL.row_dsum
+            FL.row_dsum = lambda dog, og: torch.zeros_like(dog[..., 0])
+            try:
+                _, g_f, _ = step0_grads(torch, cfg, params, batches[0],
+                                        False)
+            finally:
+                FL.row_dsum = orig
+            fault_gap, fault_at = leaf_gap(g_f, g_p)
+            if fault_gap <= BB_TRAIN_GRAD_TOL:
+                fail(f"the flash backward without D = Σ dO·O passed the "
+                     f"gradient gate ({fault_gap:.3g})")
+            del g_f
+            # one AdamW update over the whole tree, timed alone
+            grads = B.tree_map_with_path(lambda path, _: g_p[path], params)
+            ocfg = AdamWConfig(lr=BB_TRAIN_LR)
+            opt = init_opt_state(params, ocfg)
+            lr = torch.tensor(BB_TRAIN_LR, device="cuda")
+            adamw_update(params, grads, opt, ocfg, lr)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            adamw_update(params, grads, opt, ocfg, lr)
+            torch.cuda.synchronize()
+            adamw_ms = 1e3 * (time.perf_counter() - t0)
+            del params, g_p, grads, opt
+            gc.collect()
+            torch.cuda.empty_cache()
+            r.update({"step0_loss_rel_err": rel0, "step0_grad_gap": gap,
+                      "step0_grad_gap_at": "/".join(map(str, at)),
+                      "fault_grad_gap": fault_gap,
+                      "fault_grad_gap_at": "/".join(map(str, fault_at)),
+                      "fwd_bwd_ms": fb_ms, "plain_fwd_bwd_ms": fb_plain_ms,
+                      "adamw_ms": adamw_ms})
+        seen: dict = {}
+        got = train_route(torch, cfg, opts, batches, False, counters, seen)
+        ref = train_route(torch, cfg, opts, batches, True)
+        launches = got["launches"]
+        plan = train_plan(cfg, b, seq, steps)
+        if seen != plan:
+            fail(f"{path} {cfg.name}: launches {sorted(seen.items())} are "
+                 f"not attention_route's {sorted(plan.items())}")
+        missing = [k for k in seen if k not in held]
+        if missing:
+            fail(f"{path} {cfg.name}: phase 2 held no row at {missing}")
+        for name in BB_TRAIN_KERNELS:
+            want = sum(n for (key, _), n in plan.items() if key[0] == name)
+            if launches[name] != want:
+                fail(f"{cfg.name}: {name} launched {launches[name]} times, "
+                     f"the plan says {want}")
+        rels = check_losses(f"{path} {cfg.name}", got["losses"],
+                            ref["losses"], BB_TRAIN_LOSS0_RTOL
+                            if cfg.dtype == "float32"
+                            else BB_TRAIN_LOSS_RTOL["bfloat16"],
+                            BB_TRAIN_LOSS_RTOL[cfg.dtype])
+        if path == "backbone_train_qwen2":
+            for name, run in (("kernel", got), ("plain", ref)):
+                ls = run["losses"]
+                if not statistics.mean(ls[-3:]) < statistics.mean(ls[:3]):
+                    fail(f"{cfg.name} {name} route: the loss did not fall "
+                         f"({ls})")
+            r["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        warm = got["step_ms"][1:] or got["step_ms"]
+        step_ms = statistics.median(warm)
+        r.update({"losses": got["losses"], "plain_losses": ref["losses"],
+                  "loss_rel_err": rels, "grad_norms": got["grad_norms"],
+                  "plain_grad_norms": ref["grad_norms"],
+                  "step_ms": got["step_ms"],
+                  "plain_step_ms": ref["step_ms"], "launches": launches,
+                  "shapes": {repr(k): n for k, n in sorted(
+                      seen.items(), key=repr)},
+                  "tokens_per_s": b * seq / (1e-3 * step_ms),
+                  "plain_tokens_per_s": b * seq / (1e-3 * statistics.median(
+                      ref["step_ms"][1:] or ref["step_ms"])),
+                  "seconds": time.perf_counter() - t_run})
+        rec["runs"][f"{path}/{cfg.name}"] = r
+        total = rec["launches"].setdefault(path, {})
+        for k, n in launches.items():
+            total[k] = total.get(k, 0) + n
+        extra = ""
+        if path == "backbone_train_qwen2":
+            extra = (f"; step 0: loss {r['step0_loss_rel_err']:.3g}, "
+                     f"gradients {r['step0_grad_gap']:.3g} of the norm at "
+                     f"{r['step0_grad_gap_at']} (fault without D: "
+                     f"{r['fault_grad_gap']:.3g} at "
+                     f"{r['fault_grad_gap_at']}); fwd+bwd "
+                     f"{r['fwd_bwd_ms']:.2f} ms (plain "
+                     f"{r['plain_fwd_bwd_ms']:.2f}), AdamW "
+                     f"{r['adamw_ms']:.2f} ms; peak "
+                     f"{r['peak_gb']:.2f} GB")
+        log(f"[train-backbone] {cfg.name} {cfg.dtype} ({cfg.n_layers} "
+            f"layers, d {cfg.d_model}) B{b} S{seq}, {steps} steps: losses "
+            f"{[round(x, 5) for x in got['losses']]} (plain "
+            f"{[round(x, 5) for x in ref['losses']]}, worst "
+            f"{max(rels):.3g}); step {step_ms:.2f} ms, "
+            f"{r['tokens_per_s']:.1f} tokens/s (plain "
+            f"{r['plain_tokens_per_s']:.1f}); launches {launches} = "
+            f"the plan{extra}; {r['seconds']:.1f} s")
+        del got, ref, batches
+        gc.collect()
+        torch.cuda.empty_cache()
+    smoke = rec["launches"].get("backbone_train_smoke", {})
+    for name in BB_TRAIN_KERNELS:
+        if smoke.get(name, 0) <= 0:
+            fail(f"backbone_train_smoke: {name} was not launched")
+    rec["cli"] = train_driver(torch)
+    log(f"[train-backbone] launch.train: recurrentgemma smoke resumed at "
+        f"step 4, last loss {rec['cli']['resumed'][-1]:.6f} vs "
+        f"uninterrupted {rec['cli']['whole'][-1]:.6f} "
+        f"({rec['cli']['resume_rel_err']:.3g})")
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log(f"[train-backbone] phase 15 took {rec['phase_s']:.1f} s; "
+        f"{nvidia_smi()}")
+    return rec
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "__init__.py").is_file():
         print("chip_smoke: src/repro_torch not found next to this script; "
@@ -4242,11 +4656,17 @@ def main() -> int:
     from repro_torch.kernels.rwkv6_scan.kernel import rwkv6_scan_cuda
 
     t_start = time.perf_counter()
+    marks = [("start", t_start)]
+
+    def mark(name: str) -> None:
+        marks.append((name, time.perf_counter()))
+
     smi = nvidia_smi()
     log(f"[device] {smi}; torch {torch.__version__} cuda "
         f"{torch.version.cuda}; {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
     built = build.build_all(force=True)
+    mark("1 build")
     log(f"[device] built {sorted(built)} in {time.perf_counter() - t0:.1f} s "
         f"(parallel nvcc)")
     for name, text in sorted(build.BUILD_LOG.items()):
@@ -4263,6 +4683,7 @@ def main() -> int:
 
     gen = torch.Generator("cuda").manual_seed(1234)
     kern = phase_kernels(gen)
+    mark("2 kernels")
     # matmul_cuda counts every product; each of its two kernels counts its
     # own launches
     mm = {"matmul": matmul_cuda, "matmul_tc": KERNELS["tensor_core"],
@@ -4271,14 +4692,17 @@ def main() -> int:
     held32 = {c["key"] for c in kern["cases"] if c["dtype"] == "float32"}
     serve, serve_ref, serve_got = phase_serve(
         torch, counters, torch.device("cuda"), held32)
+    mark("3-4 serve")
     rec_counters = {**mm, "dfp_fused": dfp_fused_triton,
                     "rglru_scan": rglru_scan_cuda,
                     "rwkv6_scan": rwkv6_scan_cuda}
     recurrent = phase_recurrent(torch, rec_counters, torch.device("cuda"),
                                 held32)
+    mark("5 recurrent")
     cnn_counters = {**mm, "dfp_fused": dfp_fused_triton,
                     "avgpool": avgpool_cuda}
     cnn = phase_cnn(torch, cnn_counters, torch.device("cuda"), held32)
+    mark("6 cnn")
     bf16_counters = {**mm, "flash_attention": flash_attention_cuda,
                      "decode_attention": decode_attention_cuda,
                      "dfp_fused": dfp_fused_triton,
@@ -4287,12 +4711,15 @@ def main() -> int:
     held = {c["key"] for c in kern["cases"] if c["dtype"] == "bfloat16"}
     bf16 = phase_bf16(torch, bf16_counters, torch.device("cuda"), recurrent,
                       cnn, held)
+    mark("7 bf16")
     gc.collect()
     torch.cuda.empty_cache()
     measured_state, measured = phase_measured_serve(
         torch, counters, torch.device("cuda"), serve, serve_ref,
         kern["bf16_products"])
+    mark("8 measured serve")
     sol = phase_sol(torch, torch.device("cuda"), measured_state)
+    mark("9 sol")
     gc.collect()
     torch.cuda.empty_cache()
     train_counters = {**mm, "flash_attention": flash_attention_cuda,
@@ -4300,16 +4727,20 @@ def main() -> int:
                       "rglru_scan": rglru_scan_cuda,
                       "rwkv6_scan": rwkv6_scan_cuda}
     train = phase_train(torch, train_counters, torch.device("cuda"))
+    mark("10 train")
     gc.collect()
     torch.cuda.empty_cache()
     deploy = phase_deploy(torch, bf16_counters, torch.device("cuda"),
                           measured_state)
+    mark("11 deploy")
     del measured_state
     gc.collect()
     torch.cuda.empty_cache()
     mesh = phase_mesh_serve(torch, serve_got, held32)
+    mark("12 mesh")
     del serve_got
     fleet = phase_fleet(torch, torch.device("cuda"), held32)
+    mark("13 fleet")
     gc.collect()
     torch.cuda.empty_cache()
     backbone = phase_backbone(
@@ -4318,6 +4749,16 @@ def main() -> int:
                 "rglru_scan": rglru_scan_cuda,
                 "rwkv6_scan": rwkv6_scan_cuda},
         {(c["key"], c["dtype"]) for c in kern["cases"]})
+    mark("14 backbone")
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_backbone = phase_train_backbone(
+        torch, {"flash_attention": flash_attention_cuda,
+                "rglru_scan": rglru_scan_cuda,
+                "rwkv6_scan": rwkv6_scan_cuda},
+        {(c["key"], c["dtype"]) for c in kern["cases"]})
+    mark("15 backbone train")
 
     # launches per main path: the served set and one forward of each stack
     # and each CNN in f32; the bf16 paths' runs for the bf16 entries
@@ -4333,11 +4774,15 @@ def main() -> int:
     by_path["fleet"] = fleet["launches"]
     by_path["backbone_qwen2"] = backbone["launches"]["backbone_qwen2"]
     by_path["backbone_smoke"] = backbone["launches"]["backbone_smoke"]
+    for path in ("backbone_train_qwen2", "backbone_train_smoke"):
+        by_path[path] = train_backbone["launches"][path]
     bf16_by_path = {name: r["launches"] for name, r in bf16.items()}
     bf16_by_path["deploy_listing3_cnn"] = \
         deploy["legs"]["listing3_cnn_bf16"]["launches"]
     bf16_by_path["backbone_qwen2_bf16"] = \
         backbone["launches"]["backbone_qwen2_bf16"]
+    bf16_by_path["backbone_train_qwen2_bf16"] = \
+        train_backbone["launches"]["backbone_train_qwen2_bf16"]
     line = []
     # one entry per kernel and dtype (f32, and bf16 with the suffix _bf16):
     # the matmul rows by the kernel their plan picked
@@ -4363,6 +4808,9 @@ def main() -> int:
                 "library_ms": rep["library_ms"], "shape": rep["shape"],
                 "launch_ms": rep["launch_ms"]}
             line.append(entry)
+    phase_seconds = {name: round(t - marks[i][1], 1)
+                     for i, (name, t) in enumerate(marks[1:])}
+    log(f"[phases] seconds by phase: {phase_seconds}")
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
         {"nvidia_smi": smi, "build_log": build.BUILD_LOG,
@@ -4372,7 +4820,9 @@ def main() -> int:
          "recurrent": recurrent, "cnn": cnn, "bf16": bf16,
          "measured_serve": measured, "sol": sol, "train": train,
          "deploy": deploy, "mesh_serve": mesh, "fleet": fleet,
-         "backbone": backbone, "seconds": time.perf_counter() - t_start},
+         "backbone": backbone, "train_backbone": train_backbone,
+         "phase_seconds": phase_seconds,
+         "seconds": time.perf_counter() - t_start},
         indent=1, default=str))
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     log(nvidia_smi())

@@ -9,9 +9,10 @@ first (``np.asarray``); this module imports neither JAX nor the JAX
 package.
 
 The backbone's trees (``models.backbone``) move over leaf for leaf: the
-JAX ``init_params`` and ``init_cache`` trees, as numpy arrays (bfloat16
-leaves as float32), become the port's trees of tensors in the leaves'
-own dtypes.
+JAX ``init_params`` and ``init_cache`` trees, and its train state
+(``{"params", "opt": {"m", "v", "step"}, "step"}``), as numpy arrays
+(bfloat16 leaves as float32), become the port's trees of tensors in the
+leaves' own dtypes.
 """
 from __future__ import annotations
 
@@ -99,3 +100,20 @@ def backbone_cache_from_numpy(cfg, tree: Dict[str, Any], batch: int,
     from .models.backbone import init_cache
     return _tree_from_numpy(init_cache(cfg, batch, max_seq, device="meta"),
                             tree, resolve_device(device), None, "")
+
+
+def train_state_from_numpy(cfg, tree: Dict[str, Any], device=None, *,
+                           moment_dtype: str = "float32") -> Dict[str, Any]:
+    """The JAX backbone's train state for ``cfg`` (``init_train_state``'s
+    tree, numpy leaves) as the port's, on ``device``: parameters in their
+    own dtypes, moments in ``moment_dtype``, the step counts int32."""
+    from .frontends.offload import resolve_device
+    from .models.backbone import param_shapes, tree_map
+    shapes = param_shapes(cfg)
+    mdt = getattr(torch, moment_dtype)
+    moments = tree_map(lambda x: x.to(mdt), shapes)
+    step = torch.empty((), dtype=torch.int32, device="meta")
+    want = {"params": shapes,
+            "opt": {"m": moments, "v": moments, "step": step},
+            "step": step}
+    return _tree_from_numpy(want, tree, resolve_device(device), None, "")

@@ -15,11 +15,18 @@ elections, autotune lookups, Tunable pinning and strict provenance all see
 per-shard shapes; :func:`mesh_backend` qualifies the autotune-cache key so
 mesh timings and single-device timings never alias.
 
+The backbone's rules (:func:`param_spec`, :func:`param_specs`,
+:func:`batch_specs`, :func:`cache_specs`) are the JAX module's, by name
+and rank with the same divisibility fallbacks: pure functions over
+(path, shape) that assign a :class:`P` to every leaf of a parameter,
+batch or cache tree (tensors, meta tensors included, or anything with a
+``shape``).  JAX's ``named`` (specs → ``NamedSharding``s for ``jit``) has
+no counterpart: it would place the trees on a mesh, and the sharded
+backbone's execution waits for ROADMAP §1 item 7.
+
 A mesh here is anything with ``shape`` (axis name → size) and
 ``axis_names``: :class:`AbstractMesh` for decisions alone, or
-``launch.mesh.Mesh`` with its process groups.  The parameter, batch and
-cache rules of the JAX module read ``ArchConfig`` and wait for the
-backbone stack.
+``launch.mesh.Mesh`` with its process groups.
 """
 from __future__ import annotations
 
@@ -27,6 +34,7 @@ import dataclasses
 from typing import Any, Dict, List, Mapping, Tuple
 
 from ..core.ir import OpKind
+from ..models.backbone import tree_map_with_path
 
 
 class P(tuple):
@@ -394,3 +402,104 @@ def shard_slices(mesh, coords: Mapping[str, int], shape: Tuple[int, ...],
         step = d // n
         out.append(slice(k * step, (k + 1) * step))
     return tuple(out)
+
+
+# ---------------------------------------------------------------------------
+# the backbone's parameter, batch and cache rules
+# ---------------------------------------------------------------------------
+
+# 2-D weights sharded on the output (column-parallel)
+_COL = {"wq", "wk", "wv", "wg", "wu", "w_in", "w_gate", "ck", "cr",
+        "xwq", "xwk", "xwv", "w1", "wr"}
+# 2-D weights sharded on the input (row-parallel)
+_ROW = {"wo", "wd", "w_out", "cv", "xwo", "w2"}
+# 1-D tensors following a column-parallel output
+_COL_BIAS = {"bq", "bk", "bv", "b1", "conv_b", "lam"}
+_REPLICATED = {"gain", "bias", "bo", "b2", "router", "u", "w0",
+               "gn_gain", "gn_bias", "enc_pos"}
+
+
+def param_spec(mesh, cfg, path: Tuple[str, ...],
+               shape: Tuple[int, ...]) -> P:
+    """The spec of one backbone parameter by its name (``path[-1]``) and
+    rank; a ``macro`` leaf's leading dim (the stack) is replicated."""
+    name = path[-1]
+    stacked = path[0] == "macro"
+    lead = (None,) if stacked else ()
+    body = shape[1:] if stacked else shape
+    m = "model"
+
+    def mk(*spec):
+        return P(*(lead + spec))
+
+    if "moe" in path[:-1]:
+        if name == "router":
+            return mk(None, None)
+        # experts (E, D, F) / (E, F, D): expert-parallel on model
+        return mk(shard_dim(mesh, body[0], m), None, None)
+    if name == "embed":
+        return P(shard_dim(mesh, shape[0], m), None)
+    if name == "lm_head":
+        return P(None, shard_dim(mesh, shape[1], m))
+    if name in _COL and len(body) == 2:
+        return mk(None, shard_dim(mesh, body[1], m))
+    if name in _ROW and len(body) == 2:
+        return mk(shard_dim(mesh, body[0], m), None)
+    if name in ("conv_w", "wa", "wx"):     # (W, dr) and the (dr, dr) gates
+        return mk(None, shard_dim(mesh, body[1], m))
+    if name in _COL_BIAS and len(body) == 1:
+        return mk(shard_dim(mesh, body[0], m))
+    return mk(*(None,) * len(body))
+
+
+def param_specs(mesh, cfg, params_tree) -> Any:
+    """A :class:`P` tree matching a parameter(-shaped) tree."""
+    return tree_map_with_path(
+        lambda path, leaf: param_spec(mesh, cfg, tuple(str(k) for k in path),
+                                      tuple(leaf.shape)), params_tree)
+
+
+def batch_specs(mesh, cfg, batch_tree) -> Any:
+    """Every batch leaf's leading dim on the data-parallel axes, where it
+    divides them."""
+    dp = dp_axes(mesh)
+
+    def walk(path, leaf):
+        b = shard_dim(mesh, leaf.shape[0], dp)
+        return P(b, *(None,) * (len(leaf.shape) - 1))
+    return tree_map_with_path(walk, batch_tree)
+
+
+def cache_specs(mesh, cfg, cache_tree) -> Any:
+    """KV caches: batch on data; KV heads on model where they divide it,
+    else the sequence (flash-decoding); recurrent states: channels or
+    heads on model."""
+    dp = dp_axes(mesh)
+    m = "model"
+
+    def walk(path, leaf):
+        names = [k if isinstance(k, str) else "" for k in path]
+        stacked = bool(names) and names[0] == "macro"
+        shape = tuple(leaf.shape[1:] if stacked else leaf.shape)
+        lead = (None,) if stacked else ()
+
+        def mk(*spec):
+            return P(*(lead + spec))
+
+        last = names[-1] if names else ""
+        bspec = shard_dim(mesh, shape[0], dp)
+        if last == "S":            # rwkv state (B, H, hd, hd)
+            return mk(bspec, shard_dim(mesh, shape[1], m), None, None)
+        if last == "h":            # rglru hidden (B, dr)
+            return mk(bspec, shard_dim(mesh, shape[1], m))
+        if last == "conv":         # (B, W-1, dr)
+            return mk(bspec, None, shard_dim(mesh, shape[2], m))
+        if last in ("last_x", "last_xc"):
+            return mk(bspec, None)
+        if len(shape) == 4:        # attention kv cache (B, S, KV, hd)
+            kv_ax = shard_dim(mesh, shape[2], m)
+            if kv_ax is not None:
+                return mk(bspec, None, kv_ax, None)
+            return mk(bspec, shard_dim(mesh, shape[1], m), None, None)
+        return mk(bspec, *(None,) * (len(shape) - 1))
+    return tree_map_with_path(walk, cache_tree)

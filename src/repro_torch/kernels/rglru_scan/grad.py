@@ -32,11 +32,12 @@ from .ops import ATTR, _supports, rglru_refine_space, rglru_scan, \
 ATTR_BWD = ATTR + "_bwd"
 
 
-def _rglru_grad_impl(n: Node, res, ct: torch.Tensor,
-                     backend: "registry.Backend"):
-    (a, _b, h0), h = res
-    cfg = n.attrs.get(ATTR_BWD)
-    lanes, chunks = (int(cfg[0]), int(cfg[1])) if cfg else (0, 0)
+def rglru_scan_vjp(a: torch.Tensor, h0: torch.Tensor, h: torch.Tensor,
+                   ct: torch.Tensor, *, lanes: int = 0, chunks: int = 0):
+    """(da, db, dh0) in f32 of h = scan(a, b, h0) against the cotangent
+    ``ct`` of h (B, T, D), the reverse recurrence run on the scan's entry
+    (``ops.rglru_scan``: the kernel on a CUDA tensor, cut as ``lanes``
+    and ``chunks`` say where they are given)."""
     af = a.float()
     a_rev = af.flip(1)
     # reversed-time coefficients: coeff_i = a_{T-i}; the first is unused,
@@ -48,6 +49,14 @@ def _rglru_grad_impl(n: Node, res, ct: torch.Tensor,
                    lanes=lanes, chunks=chunks)[0].flip(1)
     h_prev = torch.cat([h0.float()[:, None], h.float()[:, :-1]], 1)
     return g * h_prev, g, af[:, 0] * g[:, 0]
+
+
+def _rglru_grad_impl(n: Node, res, ct: torch.Tensor,
+                     backend: "registry.Backend"):
+    (a, _b, h0), h = res
+    cfg = n.attrs.get(ATTR_BWD)
+    lanes, chunks = (int(cfg[0]), int(cfg[1])) if cfg else (0, 0)
+    return rglru_scan_vjp(a, h0, h, ct, lanes=lanes, chunks=chunks)
 
 
 registry.register_shared_grad_impl(

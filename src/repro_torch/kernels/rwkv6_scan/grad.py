@@ -19,7 +19,7 @@ scan.
 from __future__ import annotations
 
 import math
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -49,12 +49,16 @@ def _chunk_fwd(rc: Tensor, kc: Tensor, vc: Tensor, wc: Tensor, u: Tensor,
     return torch.stack(outs), s
 
 
-def _rwkv6_grad_impl(n: Node, res, ct: Tensor,
-                     backend: "registry.Backend"):
-    (r, k, v, logw, u, s0), _o = res
+def rwkv6_scan_vjp(r: Tensor, k: Tensor, v: Tensor, logw: Tensor,
+                   u: Tensor, s0: Tensor, ct: Tensor,
+                   ds_last: Optional[Tensor] = None, *,
+                   bt: int = DEFAULT_BT) -> Tuple[Tensor, ...]:
+    """(dr, dk, dv, dlogw, du, ds0) in f32 of (o, s_last) = the WKV scan
+    of (r, k, v, logw, u, s0), against the cotangents ``ct`` of o and
+    ``ds_last`` of s_last (zero when None), walked in chunks of
+    gcd(bt, T) steps."""
     b, t, h, hd = r.shape
-    cfg = n.attrs.get(ATTR_BWD)
-    bt = math.gcd(int(cfg[0]) if cfg else DEFAULT_BT, t)
+    bt = math.gcd(bt, t)
     nc = t // bt
     rf, kf, vf, wf, ctf = (x.float().transpose(0, 1).reshape(nc, bt, b, h,
                                                               hd)
@@ -68,7 +72,7 @@ def _rwkv6_grad_impl(n: Node, res, ct: Tensor,
         s = _chunk_fwd(rf[c], kf[c], vf[c], wf[c], uf, s)[1]
     # pass 2: the chunks in reverse, each differentiated from its
     # checkpoint with the state cotangent carried back
-    ds = torch.zeros_like(s)
+    ds = torch.zeros_like(s) if ds_last is None else ds_last.float()
     du = torch.zeros_like(uf)
     grads: List[Tuple[Tensor, ...]] = [()] * nc
     for c in reversed(range(nc)):
@@ -85,6 +89,14 @@ def _rwkv6_grad_impl(n: Node, res, ct: Tensor,
         return torch.stack([g[i] for g in grads]).reshape(
             t, b, h, hd).transpose(0, 1)
     return unchunk(0), unchunk(1), unchunk(2), unchunk(3), du, ds
+
+
+def _rwkv6_grad_impl(n: Node, res, ct: Tensor,
+                     backend: "registry.Backend"):
+    (r, k, v, logw, u, s0), _o = res
+    cfg = n.attrs.get(ATTR_BWD)
+    return rwkv6_scan_vjp(r, k, v, logw, u, s0, ct,
+                          bt=int(cfg[0]) if cfg else DEFAULT_BT)
 
 
 def rwkv6_bwd_tune_space(n: Node, hw) -> List[Tuple[int]]:

@@ -1,7 +1,27 @@
-"""Training through the SOL pipeline (counterpart of ``repro.launch.train``'s
-``--sol`` path):
+"""Training drivers (counterpart of ``repro.launch.train``).
 
-    PYTHONPATH=src python -m repro_torch.launch.train --smoke --sol \\
+The backbone trainer:
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b \
+        --smoke --steps 50 --batch 8 --seq 128 [--device cpu]
+
+runs the JAX driver's path: the synthetic data pipeline
+(``data.SyntheticTokenDataset`` behind a prefetching ``DataLoader``) →
+``distributed.steps.make_train_step`` (rematerialization, microbatches,
+gradient compression and ZeRO specs as the flags say) → asynchronous
+checkpoints (``CheckpointManager``; a run resumes from the latest one in
+``--ckpt-dir``) → the straggler monitor.  It prints the JAX driver's
+``[train]`` lines and its closing verdict, "improved" when the mean of
+the last five losses is below the first five's.  ``--smoke`` takes the
+reduced config.  ``--total-steps`` sets the schedule's horizon (default
+``--steps``), so a run cut short and resumed follows the schedule of an
+uninterrupted one.  ``--production-mesh`` asks for the (data 16, model
+16) pod, whose sharded execution waits for ROADMAP §1 item 7 (the step
+factory raises ``NotImplementedError``).
+
+The SOL-pipeline path (``--sol``):
+
+    PYTHONPATH=src python -m repro_torch.launch.train --smoke --sol \
         [--sol-model transformer|griffin|rwkv6] [--device cpu]
 
 builds a model-zoo block (d 64 with ``--smoke``, else 256), compiles it
@@ -12,17 +32,19 @@ measurements, and then requires (gate 1) that the heavy kinds elect no
 ``ref.*`` backward and (gate 2) that every forward and backward election
 of the heavy kinds is measured, before it trains on seeded data through
 ``make_sol_train_step`` and requires the loss to fall.  Each backward
-election is printed with its provenance.  It runs on the CUDA card unless
-``--device cpu`` is given (every kernel then runs its plain version).
+election is printed with its provenance.
 
-Without ``--sol`` it exits with an error: the backbone trainer (data
-pipeline, ZeRO, checkpoints, a mesh) waits for ROADMAP §1 item 7.
+Both run on the CUDA card unless ``--device cpu`` is given (every kernel
+then runs its plain version).
 """
 from __future__ import annotations
 
 import argparse
+import os
 import sys
-from typing import Optional, Sequence
+import tempfile
+import time
+from typing import Any, Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -154,10 +176,83 @@ def _sol_main(args) -> None:
           f"forward and backward on elected impls")
 
 
-def main(argv: Optional[Sequence[str]] = None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__)
+def _backbone_main(args) -> Dict[str, Any]:
+    """The backbone trainer; returns {"start", "steps", "losses"}."""
+    from ..checkpoint import CheckpointManager
+    from ..configs import get_config, get_smoke
+    from ..data import DataConfig, DataLoader, SyntheticTokenDataset
+    from ..distributed.sharding import AbstractMesh
+    from ..distributed.steps import (StepOptions, init_train_state,
+                                     make_train_step)
+    from ..frontends.offload import resolve_device
+    from ..models import backbone as B
+    from ..runtime.straggler import StragglerMonitor
+    from .mesh import make_debug_mesh
+
+    cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
+    dev = resolve_device(args.device)
+    mesh = AbstractMesh((16, 16)) if args.production_mesh \
+        else make_debug_mesh(1, 1, device=dev)
+    total = args.total_steps or args.steps
+    opts = StepOptions(remat=not args.no_remat, microbatch=args.microbatch,
+                       grad_compression=args.grad_compression,
+                       zero=not args.no_zero, lr=args.lr,
+                       warmup=max(total // 10, 1), total_steps=total)
+
+    print(f"[train] {cfg.name}: {B.count_params(cfg):,} params, "
+          f"mesh {dict(mesh.shape)} on {dev}")
+    step_fn, _state_specs = make_train_step(mesh, cfg, opts)
+    state = init_train_state(cfg, opts,
+                             torch.Generator(dev).manual_seed(0), dev)
+    dataset = SyntheticTokenDataset(DataConfig(
+        seed=0, vocab=cfg.vocab, seq_len=args.seq, global_batch=args.batch))
+    ckpt = CheckpointManager(args.ckpt_dir, interval=args.ckpt_interval)
+    monitor = StragglerMonitor(n_hosts=1)
+
+    start = 0
+    restored_step, restored = ckpt.restore_latest(state)
+    if restored is not None:
+        state, start = restored, restored_step
+        print(f"[train] resumed from step {start}")
+
+    loader = DataLoader(dataset, start_step=start)
+    losses = []
+    try:
+        t0 = time.time()
+        for step in range(start, args.steps):
+            batch = {k: torch.from_numpy(v) for k, v in next(loader).items()}
+            state, metrics = step_fn(state, batch)
+            loss = float(metrics["loss"])
+            losses.append(loss)
+            monitor.record_step({0: time.time() - t0})
+            t0 = time.time()
+            ckpt.maybe_save(step + 1, state)
+            if step % args.log_every == 0 or step == args.steps - 1:
+                print(f"[train] step {step:5d} loss {loss:.4f} "
+                      f"lr {float(metrics['lr']):.2e} "
+                      f"gnorm {float(metrics['grad_norm']):.3f}")
+    finally:
+        ckpt.wait()
+        loader.close()
+    if not losses:
+        print(f"[train] done: resumed at step {start}, nothing left to "
+              f"train")
+    else:
+        first = np.mean(losses[:5]) if len(losses) >= 5 else losses[0]
+        last = np.mean(losses[-5:])
+        print(f"[train] done: loss {first:.4f} -> {last:.4f} "
+              f"({'improved' if last < first else 'NOT improved'})")
+    return {"start": start, "steps": args.steps, "losses": losses}
+
+
+def parse_args(argv: Optional[Sequence[str]] = None):
+    ap = argparse.ArgumentParser(
+        description="Train the model-zoo backbone, or with --sol a "
+                    "model-zoo block through the SOL pipeline.")
+    ap.add_argument("--arch", default="qwen2-1.5b")
     ap.add_argument("--smoke", action="store_true",
-                    help="d 64, at most 4 sequences of 128 (CPU-runnable)")
+                    help="the reduced config (with --sol: d 64, at most 4 "
+                         "sequences of 128); CPU-runnable")
     ap.add_argument("--sol", action="store_true",
                     help="train through the SOL pipeline: optimize("
                          "training=True), the warm-up and both gates")
@@ -167,17 +262,36 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
     ap.add_argument("--steps", type=int, default=50)
+    ap.add_argument("--total-steps", type=int, default=0,
+                    help="the schedule's horizon (default: --steps)")
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--lr", type=float, default=3e-3)
+    ap.add_argument("--microbatch", type=int, default=1)
+    ap.add_argument("--grad-compression", default="none",
+                    choices=["none", "bf16"])
+    ap.add_argument("--no-zero", action="store_true")
+    ap.add_argument("--no-remat", action="store_true")
+    ap.add_argument("--ckpt-dir", default=os.path.join(
+        tempfile.gettempdir(), "repro_torch_ckpt"))
+    ap.add_argument("--ckpt-interval", type=int, default=25)
+    ap.add_argument("--production-mesh", action="store_true")
     ap.add_argument("--log-every", type=int, default=10)
-    args = ap.parse_args(argv)
-    if not args.sol:
-        raise SystemExit(
-            "repro_torch.launch.train: only --sol is ported; the backbone "
-            "trainer (data pipeline, ZeRO, checkpoints, a mesh) waits for "
-            "ROADMAP §1 item 7")
-    _sol_main(args)
+    return ap.parse_args(argv)
+
+
+def run(argv: Optional[Sequence[str]] = None) -> Optional[Dict[str, Any]]:
+    """Parse ``argv`` and train: the backbone's record
+    (``_backbone_main``), or None after the ``--sol`` path."""
+    args = parse_args(argv)
+    if args.sol:
+        _sol_main(args)
+        return None
+    return _backbone_main(args)
+
+
+def main(argv: Optional[Sequence[str]] = None) -> int:
+    run(argv)
     return 0
 
 

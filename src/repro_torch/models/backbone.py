@@ -11,8 +11,14 @@ scans over the stacked leading dim, the port loops over it in Python.
 Pure functions over dicts of tensors.  Attention takes the flash and decode
 kernels' entries where ``layers.attention_route`` says "kernel", and the
 RG-LRU and RWKV6 blocks the scan kernels' entries; ``plain=True`` forces
-every one of them onto plain torch (the comparison route).  The loss and
-the training steps wait with the backbone's trainer (ROADMAP §1 item 7).
+every one of them onto plain torch (the comparison route).  Every entry
+on the forward is differentiable through an explicit backward, so
+:func:`loss_fn` trains on both routes (``distributed.steps.
+make_train_step``).  With ``remat`` each macro block runs under
+``torch.utils.checkpoint``: its activations are recomputed in the
+backward, where JAX's scan body saves its products' outputs
+(``dots_with_no_batch_dims_saveable``); the values are the same, the
+memory is not.
 """
 from __future__ import annotations
 
@@ -21,6 +27,7 @@ import math
 from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..frontends.offload import DeviceLike, resolve_device
 from . import layers as L
@@ -36,13 +43,29 @@ LORA_R = 32        # RWKV6 data-dependent-lerp LoRA rank
 # trees
 # ---------------------------------------------------------------------------
 
-def tree_map(fn: Callable, tree):
-    """``fn`` over every tensor leaf of a tree of dicts, tuples and lists."""
+def tree_map(fn: Callable, tree, *rest):
+    """``fn`` over every leaf of a tree of dicts, tuples and lists, and
+    the entries at the same place in each tree of ``rest`` (whatever they
+    hold there is passed whole)."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
     if isinstance(tree, (tuple, list)):
-        return type(tree)(tree_map(fn, v) for v in tree)
-    return fn(tree)
+        return type(tree)(tree_map(fn, v, *(r[i] for r in rest))
+                          for i, v in enumerate(tree))
+    return fn(tree, *rest)
+
+
+def tree_map_with_path(fn: Callable, tree, prefix: Tuple = ()):
+    """``fn(path, leaf)`` over a tree of dicts, tuples and lists; a path
+    holds the dict keys and sequence indices down to the leaf."""
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, v, prefix + (k,))
+                for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(tree_map_with_path(fn, v, prefix + (i,))
+                          for i, v in enumerate(tree))
+    return fn(prefix, tree)
 
 
 def tree_leaves(tree, prefix: Tuple = ()) -> List[Tuple[Tuple, Any]]:
@@ -267,10 +290,13 @@ def init_params(cfg: ArchConfig, generator: Optional[torch.Generator],
     return params
 
 
-def param_shapes(cfg: ArchConfig) -> Dict[str, Any]:
+def param_specs(cfg: ArchConfig) -> Dict[str, Any]:
     """The parameter tree on the meta device: shapes and dtypes, nothing
-    allocated (the counterpart of JAX's ``param_specs``)."""
+    allocated (JAX's ``ShapeDtypeStruct`` tree)."""
     return init_params(cfg, None, "meta")
+
+
+param_shapes = param_specs
 
 
 def count_params(cfg: ArchConfig) -> int:
@@ -495,13 +521,28 @@ def _index(tree, m: int):
     return tree_map(lambda x: x[m], tree)
 
 
+def _macro_block(cfg: ArchConfig, period, h: Tensor, aux: Tensor, p_m,
+                 positions: Tensor, enc_out: Optional[Tensor], first: int,
+                 plain: bool) -> Tuple[Tensor, Tensor]:
+    """One macro block of a training forward: every position of the
+    pattern in turn.  Returns (h, aux)."""
+    for i, kind in enumerate(period):
+        h, a, _ = apply_block(cfg, kind, p_m[f"pos{i}"], h, positions,
+                              is_moe=_is_moe_layer(cfg, first + i, kind),
+                              enc_kv=enc_out, plain=plain)
+        aux = aux + a
+    return h, aux
+
+
 def _run_layers(cfg: ArchConfig, params, h: Tensor, positions: Tensor,
                 enc_out: Optional[Tensor], *, mode: str = "train",
                 cache=None, decode_pos: Optional[int] = None,
-                plain: bool = False):
+                plain: bool = False, remat: bool = False):
     """Every layer in order: head, the macro blocks (each pattern position
     in turn), tail.  Returns (h, aux_loss, new_cache); new_cache holds the
-    layers' states (None outside "prefill_cached" and "decode")."""
+    layers' states (None outside "prefill_cached" and "decode").  With
+    ``remat`` (mode "train") each macro block is recomputed in the
+    backward."""
     n_head, n_macro, n_tail = macro_split(cfg)
     period = cfg.layer_pattern
     kinds = layer_kinds(cfg)
@@ -529,6 +570,12 @@ def _run_layers(cfg: ArchConfig, params, h: Tensor, positions: Tensor,
                                           range(len(period))}
         for m in range(n_macro):
             p_m = _index(params["macro"], m)
+            if remat and mode == "train":
+                h, aux_total = checkpoint(
+                    _macro_block, cfg, period, h, aux_total, p_m, positions,
+                    enc_out, n_head + m * len(period), plain,
+                    use_reentrant=False)
+                continue
             c_m = None if cache is None else _index(cache["macro"], m)
             for i, kind in enumerate(period):
                 per_pos[f"pos{i}"].append(block(
@@ -546,12 +593,32 @@ def _run_layers(cfg: ArchConfig, params, h: Tensor, positions: Tensor,
 
 
 def forward(cfg: ArchConfig, params, batch: Dict[str, Tensor], *,
-            plain: bool = False) -> Tuple[Tensor, Tensor]:
+            remat: bool = False, plain: bool = False
+            ) -> Tuple[Tensor, Tensor]:
     """Training/eval forward.  Returns (logits (B, S, V) f32, aux_loss)."""
     h, enc_out = _stack_inputs(cfg, params, batch, plain)
     positions = torch.arange(h.shape[1], device=h.device)
-    h, aux, _ = _run_layers(cfg, params, h, positions, enc_out, plain=plain)
+    h, aux, _ = _run_layers(cfg, params, h, positions, enc_out, plain=plain,
+                            remat=remat)
     return lm_logits(cfg, params, h), aux
+
+
+def loss_fn(cfg: ArchConfig, params, batch: Dict[str, Tensor], *,
+            remat: bool = False, aux_weight: float = 0.01,
+            plain: bool = False) -> Tuple[Tensor, Dict[str, Tensor]]:
+    """Next-token cross-entropy in f32 over the labels ``>= 0`` (the
+    vision patches' positions carry none), plus ``aux_weight`` times the
+    MoE balance loss.  Returns (total, {"ce", "aux"})."""
+    logits, aux = forward(cfg, params, batch, remat=remat, plain=plain)
+    labels = batch["labels"]
+    if cfg.frontend == "vision" and "patches" in batch:
+        logits = logits[:, batch["patches"].shape[1]:]
+    lse = torch.logsumexp(logits, dim=-1)
+    mask = (labels >= 0).float()
+    gold = torch.gather(logits, -1,
+                        labels.clamp_min(0).long()[..., None])[..., 0]
+    ce = ((lse - gold) * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
+    return ce + aux_weight * aux, {"ce": ce, "aux": aux}
 
 
 # -- caches -------------------------------------------------------------------
@@ -592,6 +659,13 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int,
         cache["macro"] = {f"pos{i}": one(k, (n_macro,))
                           for i, k in enumerate(period)}
     return cache
+
+
+def cache_specs(cfg: ArchConfig, batch: int, max_seq: int
+                ) -> Dict[str, Any]:
+    """The decode cache tree on the meta device (JAX's
+    ``ShapeDtypeStruct`` tree)."""
+    return init_cache(cfg, batch, max_seq, device="meta")
 
 
 def _fill_kv(cfg: ArchConfig, kind: str, old, new):

@@ -10,10 +10,12 @@ a CUDA tensor, its plain version on a CPU tensor), "plain" the
 materialized or chunked attention below, the counterpart of the JAX
 package's jnp attention.
 
-The MoE is the dense single-device path; the expert-parallel
-``_moe_apply_shard_map`` and the sharding constraints wait with the
-sharded backbone (ROADMAP §1 item 7), and on one device those constraints
-are the identity.
+The MoE is the dense single-device path.  Its dispatch gather and
+combine scatter are ``torch.autograd.Function``s whose backwards are each
+other's forwards (JAX's custom VJPs), carrying the same sharding
+constraints (``distributed.ctx.constrain``: the identity on one process).
+The expert-parallel ``_moe_apply_shard_map`` waits with the sharded
+backbone (ROADMAP §1 item 7).
 """
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ from typing import Dict, Optional, Tuple, Union
 import torch
 import torch.nn.functional as F
 
+from ..distributed.ctx import constrain
 from ..kernels.decode_attention.kernel import HEAD_DIMS as DECODE_HEAD_DIMS
 from ..kernels.decode_attention.kernel import MAX_GROUP
 from ..kernels.dtypes import FLOAT_DTYPES
@@ -406,12 +409,75 @@ def _moe_apply_dense(p: Params, x: Tensor, moe_cfg) -> Tuple[Tensor, Tensor]:
 
     xg_pad = torch.cat([xg, torch.zeros((ng, 1, d), dtype=xg.dtype,
                                         device=x.device)], dim=1)
-    gidx = torch.arange(ng, device=x.device)[:, None, None]
-    xin = xg_pad[gidx, slot_tok]                             # (G,E,cap,D)
+    xin = moe_gather(xg_pad, slot_tok)                       # (G,E,cap,D)
     g = torch.einsum("gecd,edf->gecf", xin, p["wg"])
     u = torch.einsum("gecd,edf->gecf", xin, p["wu"])
     y = torch.einsum("gecf,efd->gecd", F.silu(g) * u, p["wd"])
     yw = y * slot_w[..., None].to(y.dtype)
-    out = torch.zeros((ng, gs + 1, d), dtype=y.dtype, device=x.device)
-    out.index_put_((gidx.expand_as(slot_tok), slot_tok), yw, accumulate=True)
+    out = moe_scatter(yw, slot_tok, gs)
     return out[:, :gs].reshape(b, s, d), aux
+
+
+# dispatch and combine with explicit backwards: the gather's is the
+# scatter-add and the scatter's the gather, each under the token-local
+# constraints of its direction
+
+def _slot_index(slot_tok: Tensor) -> Tuple[Tensor, Tensor]:
+    gidx = torch.arange(slot_tok.shape[0], device=slot_tok.device)
+    return gidx[:, None, None].expand_as(slot_tok), slot_tok
+
+
+def _scatter_add(vals: Tensor, slot_tok: Tensor, rows: int) -> Tensor:
+    """(G, E, cap, D) values added into (G, rows, D) at their slots' token
+    rows."""
+    ng, _, _, d = vals.shape
+    out = constrain(torch.zeros((ng, rows, d), dtype=vals.dtype,
+                                device=vals.device), ("dp", None, None))
+    out.index_put_(_slot_index(slot_tok), vals, accumulate=True)
+    return constrain(out, ("dp", None, None))
+
+
+def _gather(x: Tensor, slot_tok: Tensor) -> Tensor:
+    """(G, rows, D) read at every slot's token row: (G, E, cap, D)."""
+    return constrain(x[_slot_index(slot_tok)], ("dp", "model", None, None))
+
+
+class _MoEGather(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, xg_pad, slot_tok):
+        ctx.save_for_backward(slot_tok)
+        ctx.rows = xg_pad.shape[1]
+        return _gather(xg_pad, slot_tok)
+
+    @staticmethod
+    def backward(ctx, ct):
+        (slot_tok,) = ctx.saved_tensors
+        ct = constrain(ct, ("dp", "model", None, None))
+        return _scatter_add(ct, slot_tok, ctx.rows), None
+
+
+class _MoEScatter(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, yw, slot_tok, gs):
+        ctx.save_for_backward(slot_tok)
+        return _scatter_add(yw, slot_tok, gs + 1)
+
+    @staticmethod
+    def backward(ctx, ct):
+        (slot_tok,) = ctx.saved_tensors
+        ct = constrain(ct, ("dp", None, None))
+        return _gather(ct, slot_tok), None, None
+
+
+def moe_gather(xg_pad: Tensor, slot_tok: Tensor) -> Tensor:
+    """The dispatch: xg_pad (G, gs + 1, D), its last row zeros, read at
+    each slot's token id (G, E, cap) → (G, E, cap, D)."""
+    return _MoEGather.apply(xg_pad, slot_tok)
+
+
+def moe_scatter(yw: Tensor, slot_tok: Tensor, gs: int) -> Tensor:
+    """The combine: yw (G, E, cap, D) added at each slot's token row of a
+    zero (G, gs + 1, D); the pad row gs collects the unused slots."""
+    return _MoEScatter.apply(yw, slot_tok, gs)

@@ -22,6 +22,11 @@ the RG-LRU (``w_in``, ``w_gate``, the causal conv ``conv_w``/``conv_b``,
 ``cr``), their decode steps and carried states.  Their sequence forms take
 the scan kernels' public entries (``kernel=True``: the hand-written kernel
 on a CUDA tensor, its plain version on a CPU tensor) or the plain scans.
+The entries are wrapped in ``torch.autograd.Function``s whose backwards
+are explicit (:func:`rglru_scan_kernel`, :func:`rwkv6_scan_kernel`): the
+RG-LRU's reverse-time recurrence runs on the same entry, RWKV6's is the
+chunk-checkpointed walk, the math the dispatch table's backward impls
+run (``kernels/*/grad.py``).
 """
 from __future__ import annotations
 
@@ -84,6 +89,34 @@ def _causal_conv1d(x: Tensor, w: Tensor, b: Tensor,
     return y + b, new_state
 
 
+class _RGLRUScan(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, a, b, h0):
+        from ..kernels.rglru_scan.ops import rglru_scan
+        h, h_last = rglru_scan(a, b, h0)
+        ctx.save_for_backward(a, h0, h)
+        ctx.dtypes = (a.dtype, b.dtype, h0.dtype)
+        return h, h_last
+
+    @staticmethod
+    def backward(ctx, dh, dh_last):
+        from ..kernels.rglru_scan.grad import rglru_scan_vjp
+        a, h0, h = ctx.saved_tensors
+        ct = dh.float().clone()
+        ct[:, -1] += dh_last.float()            # h_last is h's last row
+        grads = rglru_scan_vjp(a, h0, h, ct)
+        return tuple(g.to(dt) for g, dt in zip(grads, ctx.dtypes))
+
+
+def rglru_scan_kernel(a: Tensor, b: Tensor, h0: Tensor
+                      ) -> Tuple[Tensor, Tensor]:
+    """The RG-LRU scan's public entry, (h, h_last) of h_t = a_t·h_{t-1} +
+    b_t, differentiable: its backward scans the cotangents in reverse
+    time on the same entry."""
+    return _RGLRUScan.apply(a, b, h0)
+
+
 def rglru_step(p: Params, u: Tensor, h: Tensor) -> Tuple[Tensor, Tensor]:
     """One decode step.  u: (B, 1, dr); h: (B, dr)."""
     log_a, b = rglru_gates(p, u)
@@ -103,7 +136,6 @@ def rglru_block_seq(p: Params, x: Tensor,
     D), and the carry state {"h", "conv"} for a continuing segment.  The
     recurrence runs in f32 through the RG-LRU scan's entry (``kernel``)
     or its plain version."""
-    from ..kernels.rglru_scan.ops import rglru_scan
     u = x @ p["w_in"]
     g = x @ p["w_gate"]
     conv_state = None if state is None else state["conv"]
@@ -112,7 +144,7 @@ def rglru_block_seq(p: Params, x: Tensor,
     a = torch.exp(log_a)
     h0 = (torch.zeros(u.shape[0], u.shape[2], device=u.device)
           if state is None else state["h"].float())
-    h, h_last = (rglru_scan if kernel else rglru_scan_ref)(a, b, h0)
+    h, h_last = (rglru_scan_kernel if kernel else rglru_scan_ref)(a, b, h0)
     y = h.to(u.dtype) * _gelu(g)
     return y @ p["w_out"], {"h": h_last.to(u.dtype), "conv": conv_state}
 
@@ -184,11 +216,10 @@ def rwkv_time_mix_seq(p: Params, x: Tensor, n_heads: int,
     u = p["u"].reshape(n_heads, hd)
 
     if kernel:
-        from ..kernels.rwkv6_scan.ops import rwkv6_scan
         s0f = (torch.zeros(bsz, n_heads, hd, hd, device=x.device)
                if s0 is None else s0.float())
-        o, s_last = rwkv6_scan(r.float(), k.float(), v.float(), logw,
-                               u.float(), s0f)
+        o, s_last = rwkv6_scan_kernel(r.float(), k.float(), v.float(), logw,
+                                      u.float(), s0f)
     else:
         o, s_last = _wkv_chunked(r, k, v, logw, u, s0)
     # per-head group norm, then gate
@@ -198,6 +229,29 @@ def rwkv_time_mix_seq(p: Params, x: Tensor, n_heads: int,
     if return_state:
         return out, {"last_x": x[:, -1], "S": s_last}
     return out
+
+
+class _RWKV6Scan(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, r, k, v, logw, u, s0):
+        from ..kernels.rwkv6_scan.ops import rwkv6_scan
+        ctx.save_for_backward(r, k, v, logw, u, s0)
+        return rwkv6_scan(r, k, v, logw, u, s0)
+
+    @staticmethod
+    def backward(ctx, do, ds_last):
+        from ..kernels.rwkv6_scan.grad import rwkv6_scan_vjp
+        ins = ctx.saved_tensors
+        grads = rwkv6_scan_vjp(*ins, do, ds_last)
+        return tuple(g.to(x.dtype) for g, x in zip(grads, ins))
+
+
+def rwkv6_scan_kernel(r: Tensor, k: Tensor, v: Tensor, logw: Tensor,
+                      u: Tensor, s0: Tensor) -> Tuple[Tensor, Tensor]:
+    """The RWKV6 scan's public entry, (o, s_last), differentiable: its
+    backward is the chunk-checkpointed walk of the recurrence."""
+    return _RWKV6Scan.apply(r, k, v, logw, u, s0)
 
 
 def _group_norm(o: Tensor, *lead_and_d) -> Tensor:

@@ -1388,3 +1388,93 @@ def test_backbone_recurrent_config_on_the_card(dev, arch, scan):
     ptoks, prows = _backbone_serve(cfg, params, batch, 6, plain=True)
     assert torch.equal(toks, ptoks)
     assert _rel(rows, prows) <= 1e-4
+
+
+# -- the backbone trainer's explicit backwards and its step -------------------
+
+def _grads_of(fn, *xs):
+    leaves = [x.detach().clone().requires_grad_(True) for x in xs]
+    outs = fn(*leaves)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    g = torch.Generator(outs[0].device).manual_seed(9)
+    loss = sum((o.float() * torch.randn(o.shape, generator=g,
+                                        device=o.device)).sum() for o in outs)
+    return torch.autograd.grad(loss, leaves)
+
+
+def _grad_gap(got, want) -> float:
+    return max(float((a.float() - b.float()).abs().max()
+                     / b.float().norm()) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("window,cap", [(0, 0.0), (24, 30.0)])
+def test_flash_mha_backward_on_the_card(dev, window, cap):
+    """The flash kernel's forward with the explicit backward against the
+    plain scan's forward with the same backward: gradients within 1e-4
+    of their norms; the kernel launches once."""
+    from repro_torch.models.flash import flash_mha
+    g = torch.Generator(dev).manual_seed(3)
+    q = torch.randn(2, 96, 4, 64, generator=g, device=dev)
+    k, v = (torch.randn(2, 96, 2, 64, generator=g, device=dev)
+            for _ in range(2))
+    n0 = flash_attention_cuda.launches
+    got = _grads_of(lambda *a: flash_mha(*a, True, window, cap,
+                                         kernel=True), q, k, v)
+    assert flash_attention_cuda.launches - n0 == 1
+    want = _grads_of(lambda *a: flash_mha(*a, True, window, cap), q, k, v)
+    assert _grad_gap(got, want) <= 1e-4
+
+
+def test_scan_backwards_on_the_card(dev):
+    """The RG-LRU and RWKV6 scan entries' explicit backwards on the card
+    against autograd of the plain scans: within 1e-4 of the norms; the
+    RG-LRU's reverse scan launches its kernel."""
+    from repro_torch.models import recurrent as R
+    g = torch.Generator(dev).manual_seed(4)
+    a = torch.rand(2, 64, 128, generator=g, device=dev) * 0.5 + 0.5
+    b, h0 = (torch.randn(*s, generator=g, device=dev)
+             for s in ((2, 64, 128), (2, 128)))
+    n0 = rglru_scan_cuda.launches
+    got = _grads_of(R.rglru_scan_kernel, a, b, h0)
+    assert rglru_scan_cuda.launches - n0 == 2
+    assert _grad_gap(got, _grads_of(rglru_scan_ref, a, b, h0)) <= 1e-4
+    r, k, v = (0.5 * torch.randn(2, 64, 4, 32, generator=g, device=dev)
+               for _ in range(3))
+    logw = -torch.exp(torch.randn(2, 64, 4, 32, generator=g, device=dev)
+                      - 1.0)
+    u = 0.3 * torch.randn(4, 32, generator=g, device=dev)
+    s0 = 0.2 * torch.randn(2, 4, 32, 32, generator=g, device=dev)
+    ins = (r, k, v, logw, u, s0)
+    got = _grads_of(R.rwkv6_scan_kernel, *ins)
+    assert _grad_gap(got, _grads_of(rwkv6_scan_ref, *ins)) <= 1e-4
+
+
+def test_backbone_train_step_on_the_card(dev):
+    """Two train steps of a reduced recurrent config on the one-process
+    mesh's default device (the card), kernel route against plain route:
+    losses within 1e-5 at step 0 and 1e-3 at step 1."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.data import DataConfig, SyntheticTokenDataset
+    from repro_torch.distributed.steps import (StepOptions,
+                                               init_train_state,
+                                               make_train_step)
+    from repro_torch.launch.mesh import make_debug_mesh
+    cfg = get_smoke("recurrentgemma_9b")
+    opts = StepOptions(lr=3e-3, warmup=0, total_steps=2)
+    ds = SyntheticTokenDataset(DataConfig(vocab=cfg.vocab, seq_len=64,
+                                          global_batch=2))
+    losses = {}
+    for plain in (False, True):
+        step, _ = make_train_step(make_debug_mesh(1, 1), cfg, opts,
+                                  plain=plain)
+        state = init_train_state(cfg, opts,
+                                 torch.Generator(dev).manual_seed(0))
+        losses[plain] = []
+        for i in range(2):
+            batch = {k: torch.from_numpy(x).to(dev)
+                     for k, x in ds.batch(i).items()}
+            state, m = step(state, batch)
+            losses[plain].append(float(m["loss"]))
+    for i, tol in enumerate((1e-5, 1e-3)):
+        assert abs(losses[False][i] - losses[True][i]) <= \
+            tol * abs(losses[True][i])
