@@ -245,12 +245,15 @@ Phases, each failing loudly:
    (``SyntheticTokenDataset(seed=0)``): qwen2-1.5b as published in f32 at
    the JAX driver's defaults (batch 8, seq 128, remat, ZeRO specs, lr
    3e-3), then in bf16 with f32 moments, then the ten reduced configs in
-   f32 (batch 2, seq 64, the modality stubs' inputs).  Gates: qwen2's
-   step-0 loss within ``BB_TRAIN_LOSS0_RTOL`` of the plain route's and
-   every gradient leaf within ``BB_TRAIN_GRAD_TOL`` of its norm, a planted
-   fault (D = Σ dO·O dropped from the flash backward) failing that gate;
-   the losses of 6 steps within ``BB_TRAIN_LOSS_RTOL`` and falling (3 steps
-   in bf16, 2 for each reduced config); every launch's (kernel, shape,
+   f32 (batch 2, seq 64, the modality stubs' inputs, no warm-up).  Gates:
+   in every f32 run, step 0's loss within ``BB_TRAIN_LOSS0_RTOL`` of the
+   plain route's and every gradient leaf within ``BB_TRAIN_GRAD_TOL`` of
+   its norm, with planted faults failing that gate (D = Σ dO·O dropped
+   from the flash backward on qwen2, the RG-LRU reverse scan's
+   coefficients unshifted, RWKV6's du dropped, the MoE combine's backward
+   on the wrong slots); the losses of 6 steps within
+   ``BB_TRAIN_LOSS_RTOL`` and falling (3 steps in bf16, 2 for each
+   reduced config); every launch's (kernel, shape,
    dtype) held by phase 2 and the launches equal, key for key, to
    ``train_plan`` (a forward per layer, again for a macro block's layer
    under remat, the RG-LRU's reverse scan in the backward); then
@@ -281,6 +284,7 @@ import contextlib
 import dataclasses
 import functools
 import gc
+import inspect
 import json
 import math
 import re
@@ -4258,18 +4262,20 @@ def phase_backbone(torch, counters: dict, held: set) -> dict:
 # warm-up of steps // 10), batches from SyntheticTokenDataset(seed=0)
 BB_TRAIN_BATCH, BB_TRAIN_SEQ, BB_TRAIN_LR = 8, 128, 3e-3
 BB_TRAIN_STEPS = {"float32": 6, "bfloat16": 3}
-# the ten reduced configs in f32: batch 2, 2 steps; seq 64 puts the
-# reduced window (32) to work on the local layers, and its 128 tokens
-# fill whole MoE groups (64)
+# the ten reduced configs in f32: batch 2, 2 steps with no warm-up (the
+# first update moves the weights, so step 1's loss reads the backward);
+# seq 64 puts the reduced window (32) to work on the local layers, and
+# its 128 tokens fill whole MoE groups (64)
 SMOKE_TRAIN_BATCH, SMOKE_TRAIN_SEQ, SMOKE_TRAIN_STEPS = 2, 64, 2
 # kernel route vs plain route.  Step 0: the loss (f32 sums over the same
-# values in another order: ~1e-7) and each gradient leaf against its
-# norm (the kernels' f32 error carried through the backward; PR 23 read
-# 1.27e-4 with kernels in the forward).  Later steps: AdamW divides by
-# √v, so where a gradient element is near zero a rounding difference can
-# flip the sign of a whole lr-sized update; bf16 at README's bf16 row.
+# values in another order: ~1e-7) and each gradient leaf's largest
+# element error against the leaf's norm (the kernels' f32 rounding
+# carried through the backward: qwen2-1.5b read 9.18e-07, the flash
+# backward without D 2.89).  Later steps: AdamW divides by √v, so where a
+# gradient element is near zero a rounding difference can flip the sign
+# of a whole lr-sized update; bf16 at README's bf16 row.
 BB_TRAIN_LOSS0_RTOL = 1e-5
-BB_TRAIN_GRAD_TOL = 1e-3
+BB_TRAIN_GRAD_TOL = 1e-5
 BB_TRAIN_LOSS_RTOL = {"float32": 1e-3, "bfloat16": 3e-2}
 BB_TRAIN_RESUME_RTOL = 1e-5
 BB_TRAIN_KERNELS = ("flash_attention", "rglru_scan", "rwkv6_scan")
@@ -4372,6 +4378,98 @@ def step0_grads(torch, cfg, params, batch, plain: bool) -> tuple:
                           for p, x, g in zip(paths, leaves, grads)}, ms
 
 
+@contextlib.contextmanager
+def planted(owner, name: str, value):
+    """``owner.name`` replaced by ``value`` for the block (a planted
+    fault)."""
+    orig = inspect.getattr_static(owner, name)
+    setattr(owner, name, value)
+    try:
+        yield
+    finally:
+        setattr(owner, name, orig)
+
+
+def planted_faults(torch, cfg) -> list:
+    """(label, planted fault) of the backwards that ``cfg``'s kernel route
+    runs: the flash backward without D = Σ dO·O (qwen2-1.5b), the RG-LRU's
+    reverse scan with its coefficients unshifted (a_t where a_{t+1}
+    belongs), RWKV6's backward without the bonus u's gradient, the MoE
+    combine's backward reading each expert's slots one place over."""
+    from repro_torch.kernels.rglru_scan import grad as RG
+    from repro_torch.kernels.rglru_scan.ops import rglru_scan
+    from repro_torch.kernels.rwkv6_scan import grad as RW
+    from repro_torch.models import flash as FL
+    from repro_torch.models import layers as L
+
+    def rglru_unshifted(a, h0, h, ct, **_):
+        af = a.float()
+        g = rglru_scan(af.flip(1), ct.float().flip(1),
+                       torch.zeros_like(h0, dtype=torch.float32))[0].flip(1)
+        h_prev = torch.cat([h0.float()[:, None], h.float()[:, :-1]], 1)
+        return g * h_prev, g, af[:, 0] * g[:, 0]
+
+    rwkv_vjp = RW.rwkv6_scan_vjp
+
+    def rwkv_without_du(*args, **kw):
+        dr, dk, dv, dw, du, ds0 = rwkv_vjp(*args, **kw)
+        return dr, dk, dv, dw, torch.zeros_like(du), ds0
+
+    def scatter_next_slots(ctx, ct):
+        (slot_tok,) = ctx.saved_tensors
+        return L._gather(ct, slot_tok.roll(1, dims=-1)), None, None
+
+    faults = {
+        "qwen2-1.5b": ("the flash backward without D = Σ dO·O",
+                       planted(FL, "row_dsum", lambda dog, og:
+                               torch.zeros_like(dog[..., 0]))),
+        "recurrentgemma-9b-smoke": (
+            "the RG-LRU reverse scan with unshifted coefficients",
+            planted(RG, "rglru_scan_vjp", rglru_unshifted)),
+        "rwkv6-1.6b-smoke": ("the RWKV6 backward without du",
+                             planted(RW, "rwkv6_scan_vjp", rwkv_without_du)),
+        "olmoe-1b-7b-smoke": (
+            "the MoE combine's backward on the next slots",
+            planted(L._MoEScatter, "backward",
+                    staticmethod(scatter_next_slots))),
+    }
+    return [faults[cfg.name]] if cfg.name in faults else []
+
+
+def grad_gate(torch, cfg, params, batch) -> tuple:
+    """Step 0 on both routes from ``params``: the kernel route's loss
+    within ``BB_TRAIN_LOSS0_RTOL`` of the plain route's and each gradient
+    leaf within ``BB_TRAIN_GRAD_TOL`` of its norm; each of
+    ``planted_faults`` planted on the kernel route must fail that gate.
+    Returns (readings, the plain route's gradients)."""
+    loss_k, g_k, fb_ms = step0_grads(torch, cfg, params, batch, False)
+    loss_p, g_p, fb_plain_ms = step0_grads(torch, cfg, params, batch, True)
+    rel0 = abs(loss_k - loss_p) / abs(loss_p)
+    if not rel0 <= BB_TRAIN_LOSS0_RTOL:
+        fail(f"{cfg.name}: step-0 loss {loss_k} vs plain {loss_p} "
+             f"({rel0:.3g})")
+    gap, at = leaf_gap(g_k, g_p)
+    if not gap <= BB_TRAIN_GRAD_TOL:
+        fail(f"{cfg.name}: step-0 gradient {at} differs from the plain "
+             f"route's by {gap:.3g} of its norm")
+    del g_k
+    r = {"step0_loss_rel_err": rel0, "step0_grad_gap": gap,
+         "step0_grad_gap_at": "/".join(map(str, at or ())),
+         "fwd_bwd_ms": fb_ms, "plain_fwd_bwd_ms": fb_plain_ms,
+         "faults": {}}
+    for label, fault in planted_faults(torch, cfg):
+        with fault:
+            _, g_f, _ = step0_grads(torch, cfg, params, batch, False)
+        fault_gap, fault_at = leaf_gap(g_f, g_p)
+        del g_f
+        if fault_gap <= BB_TRAIN_GRAD_TOL:
+            fail(f"{cfg.name}: {label} passed the gradient gate "
+                 f"({fault_gap:.3g})")
+        r["faults"][label] = {"grad_gap": fault_gap,
+                              "at": "/".join(map(str, fault_at))}
+    return r, g_p
+
+
 def leaf_gap(got: dict, want: dict) -> tuple:
     """(worst max |Δ| / ‖want‖ over the leaves, its path)."""
     worst, at = 0.0, None
@@ -4437,26 +4535,26 @@ def check_losses(name: str, got: list, ref: list, rtol0: float,
 
 def train_driver(torch) -> dict:
     """``launch.train.run`` in-process on the card: recurrentgemma's
-    reduced config for 4 steps with a checkpoint every 2 (the schedule's
-    horizon 6), the same run again (resumes at step 4, trains nothing),
-    then on to 6; its last loss against an uninterrupted 6-step run's."""
+    reduced config for 6 steps with a checkpoint every 2, the same run
+    again (resumes at step 6, trains nothing), then with step 6's
+    checkpoint removed (resumes at step 4 on the same schedule): its last
+    loss against the uninterrupted run's."""
     import shutil
 
     from repro_torch.launch import train as T
-    base = OUT_DIR / "train_ckpt"
-    shutil.rmtree(base, ignore_errors=True)
-    common = ["--arch", "recurrentgemma-9b", "--smoke", "--ckpt-interval",
-              "2", "--total-steps", "6", "--log-every", "1"]
-    cut = common + ["--ckpt-dir", str(base / "cut")]
-    first = T.run(cut + ["--steps", "4"])
-    again = T.run(cut + ["--steps", "4"])
-    rest = T.run(cut + ["--steps", "6"])
-    whole = T.run(common + ["--steps", "6", "--ckpt-dir",
-                            str(base / "whole")])
-    if (first["start"], len(first["losses"])) != (0, 4):
-        fail(f"train CLI: the first run trained {first}")
-    if again["start"] != 4 or again["losses"]:
-        fail(f"train CLI: the second run did not resume at step 4 with "
+    ckpt = OUT_DIR / "train_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    argv = ["--arch", "recurrentgemma-9b", "--smoke", "--steps", "6",
+            "--ckpt-interval", "2", "--log-every", "1", "--ckpt-dir",
+            str(ckpt)]
+    whole = T.run(argv)
+    again = T.run(argv)
+    shutil.rmtree(ckpt / "step_00000006")
+    rest = T.run(argv)
+    if (whole["start"], len(whole["losses"])) != (0, 6):
+        fail(f"train CLI: the first run trained {whole}")
+    if again["start"] != 6 or again["losses"]:
+        fail(f"train CLI: the second run did not resume at step 6 with "
              f"nothing to train: {again}")
     if rest["start"] != 4 or len(rest["losses"]) != 2:
         fail(f"train CLI: the third run did not resume at step 4: {rest}")
@@ -4465,21 +4563,21 @@ def train_driver(torch) -> dict:
     if rel > BB_TRAIN_RESUME_RTOL:
         fail(f"train CLI: the resumed run ends at {rest['losses'][-1]}, "
              f"the uninterrupted one at {whole['losses'][-1]} ({rel:.3g})")
-    shutil.rmtree(base, ignore_errors=True)
-    return {"first": first["losses"], "resumed": rest["losses"],
-            "whole": whole["losses"], "resume_rel_err": rel}
+    shutil.rmtree(ckpt, ignore_errors=True)
+    return {"resumed": rest["losses"], "whole": whole["losses"],
+            "resume_rel_err": rel}
 
 
 def phase_train_backbone(torch, counters: dict, held: set) -> dict:
     """Phase 15: the backbone trained through ``make_train_step`` on the
     one-process mesh's default device (the card), each run on the kernel
     route and again with ``plain=True`` from the same state and batches.
-    qwen2-1.5b in f32: step 0's loss within ``BB_TRAIN_LOSS0_RTOL`` and every
-    gradient leaf within ``BB_TRAIN_GRAD_TOL`` of its norm (a backward with
-    D = Σ dO·O dropped from the flash backward must fail that gate), six
-    steps with the losses within ``BB_TRAIN_LOSS_RTOL`` and the last three's
-    mean below the first three's; qwen2-1.5b in bf16 with f32 moments,
-    three steps; the ten reduced configs, two steps; every launch's key
+    Every f32 run first passes ``grad_gate`` (step 0's loss and every
+    gradient leaf, and its planted faults failing).  qwen2-1.5b in f32:
+    six steps with the losses within ``BB_TRAIN_LOSS_RTOL`` and the last
+    three's mean below the first three's; qwen2-1.5b in bf16 with f32
+    moments, three steps; the ten reduced configs, two steps with no
+    warm-up, so step 1's loss follows the first update; every launch's key
     held by phase 2 and the launches equal, key for key, to
     ``train_plan``; the driver ``launch.train`` resuming from its
     checkpoint."""
@@ -4487,7 +4585,6 @@ def phase_train_backbone(torch, counters: dict, held: set) -> dict:
 
     from repro_torch.distributed.steps import StepOptions
     from repro_torch.models import backbone as B
-    from repro_torch.models import flash as FL
     from repro_torch.optim import AdamWConfig, adamw_update, init_opt_state
 
     t_phase = time.perf_counter()
@@ -4495,40 +4592,22 @@ def phase_train_backbone(torch, counters: dict, held: set) -> dict:
     for path, cfg, b, seq, steps in train_runs():
         t_run = time.perf_counter()
         full = path != "backbone_train_smoke"
-        opts = StepOptions(lr=BB_TRAIN_LR, warmup=max(steps // 10, 1),
-                           total_steps=steps)
+        # the JAX driver's warm-up for qwen2-1.5b, none for the reduced
+        # configs (their two steps)
+        opts = StepOptions(lr=BB_TRAIN_LR, warmup=max(steps // 10, 1)
+                           if full else 0, total_steps=steps)
         batches = train_batches(torch, cfg, b, seq, steps)
         r: dict = {"config": cfg.name, "dtype": cfg.dtype, "batch": b,
                    "seq": seq, "steps": steps}
         if path == "backbone_train_qwen2":
             torch.cuda.reset_peak_memory_stats()
+        if cfg.dtype == "float32":
             params = B.init_params(cfg, torch.Generator("cuda").manual_seed(0))
-            step0_grads(torch, cfg, params, batches[0], False)  # warm-up
-            loss_k, g_k, fb_ms = step0_grads(torch, cfg, params, batches[0],
-                                             False)
-            loss_p, g_p, fb_plain_ms = step0_grads(torch, cfg, params,
-                                                   batches[0], True)
-            rel0 = abs(loss_k - loss_p) / abs(loss_p)
-            if rel0 > BB_TRAIN_LOSS0_RTOL:
-                fail(f"{cfg.name}: step-0 loss {loss_k} vs plain {loss_p} "
-                     f"({rel0:.3g})")
-            gap, at = leaf_gap(g_k, g_p)
-            if gap > BB_TRAIN_GRAD_TOL:
-                fail(f"{cfg.name}: step-0 gradient {at} differs from the "
-                     f"plain route's by {gap:.3g} of its norm")
-            del g_k
-            orig = FL.row_dsum
-            FL.row_dsum = lambda dog, og: torch.zeros_like(dog[..., 0])
-            try:
-                _, g_f, _ = step0_grads(torch, cfg, params, batches[0],
-                                        False)
-            finally:
-                FL.row_dsum = orig
-            fault_gap, fault_at = leaf_gap(g_f, g_p)
-            if fault_gap <= BB_TRAIN_GRAD_TOL:
-                fail(f"the flash backward without D = Σ dO·O passed the "
-                     f"gradient gate ({fault_gap:.3g})")
-            del g_f
+            if full:
+                step0_grads(torch, cfg, params, batches[0], False)  # warm-up
+            gate, g_p = grad_gate(torch, cfg, params, batches[0])
+            r.update(gate)
+        if path == "backbone_train_qwen2":
             # one AdamW update over the whole tree, timed alone
             grads = B.tree_map_with_path(lambda path, _: g_p[path], params)
             ocfg = AdamWConfig(lr=BB_TRAIN_LR)
@@ -4539,16 +4618,12 @@ def phase_train_backbone(torch, counters: dict, held: set) -> dict:
             t0 = time.perf_counter()
             adamw_update(params, grads, opt, ocfg, lr)
             torch.cuda.synchronize()
-            adamw_ms = 1e3 * (time.perf_counter() - t0)
-            del params, g_p, grads, opt
+            r["adamw_ms"] = 1e3 * (time.perf_counter() - t0)
+            del grads, opt
+        if cfg.dtype == "float32":
+            del params, g_p
             gc.collect()
             torch.cuda.empty_cache()
-            r.update({"step0_loss_rel_err": rel0, "step0_grad_gap": gap,
-                      "step0_grad_gap_at": "/".join(map(str, at)),
-                      "fault_grad_gap": fault_gap,
-                      "fault_grad_gap_at": "/".join(map(str, fault_at)),
-                      "fwd_bwd_ms": fb_ms, "plain_fwd_bwd_ms": fb_plain_ms,
-                      "adamw_ms": adamw_ms})
         seen: dict = {}
         got = train_route(torch, cfg, opts, batches, False, counters, seen)
         ref = train_route(torch, cfg, opts, batches, True)
@@ -4595,16 +4670,16 @@ def phase_train_backbone(torch, counters: dict, held: set) -> dict:
         for k, n in launches.items():
             total[k] = total.get(k, 0) + n
         extra = ""
-        if path == "backbone_train_qwen2":
+        if "step0_grad_gap" in r:
+            faults = "".join(f"; {label}: {f['grad_gap']:.3g} at {f['at']}"
+                             for label, f in r["faults"].items())
             extra = (f"; step 0: loss {r['step0_loss_rel_err']:.3g}, "
                      f"gradients {r['step0_grad_gap']:.3g} of the norm at "
-                     f"{r['step0_grad_gap_at']} (fault without D: "
-                     f"{r['fault_grad_gap']:.3g} at "
-                     f"{r['fault_grad_gap_at']}); fwd+bwd "
-                     f"{r['fwd_bwd_ms']:.2f} ms (plain "
-                     f"{r['plain_fwd_bwd_ms']:.2f}), AdamW "
-                     f"{r['adamw_ms']:.2f} ms; peak "
-                     f"{r['peak_gb']:.2f} GB")
+                     f"{r['step0_grad_gap_at']}{faults}")
+        if path == "backbone_train_qwen2":
+            extra += (f"; fwd+bwd {r['fwd_bwd_ms']:.2f} ms (plain "
+                      f"{r['plain_fwd_bwd_ms']:.2f}), AdamW "
+                      f"{r['adamw_ms']:.2f} ms; peak {r['peak_gb']:.2f} GB")
         log(f"[train-backbone] {cfg.name} {cfg.dtype} ({cfg.n_layers} "
             f"layers, d {cfg.d_model}) B{b} S{seq}, {steps} steps: losses "
             f"{[round(x, 5) for x in got['losses']]} (plain "

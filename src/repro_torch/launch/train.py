@@ -13,9 +13,7 @@ checkpoints (``CheckpointManager``; a run resumes from the latest one in
 ``--ckpt-dir``) → the straggler monitor.  It prints the JAX driver's
 ``[train]`` lines and its closing verdict, "improved" when the mean of
 the last five losses is below the first five's.  ``--smoke`` takes the
-reduced config.  ``--total-steps`` sets the schedule's horizon (default
-``--steps``), so a run cut short and resumed follows the schedule of an
-uninterrupted one.  ``--production-mesh`` asks for the (data 16, model
+reduced config.  ``--production-mesh`` asks for the (data 16, model
 16) pod, whose sharded execution waits for ROADMAP §1 item 7 (the step
 factory raises ``NotImplementedError``).
 
@@ -193,11 +191,11 @@ def _backbone_main(args) -> Dict[str, Any]:
     dev = resolve_device(args.device)
     mesh = AbstractMesh((16, 16)) if args.production_mesh \
         else make_debug_mesh(1, 1, device=dev)
-    total = args.total_steps or args.steps
     opts = StepOptions(remat=not args.no_remat, microbatch=args.microbatch,
                        grad_compression=args.grad_compression,
                        zero=not args.no_zero, lr=args.lr,
-                       warmup=max(total // 10, 1), total_steps=total)
+                       warmup=max(args.steps // 10, 1),
+                       total_steps=args.steps)
 
     print(f"[train] {cfg.name}: {B.count_params(cfg):,} params, "
           f"mesh {dict(mesh.shape)} on {dev}")
@@ -262,8 +260,6 @@ def parse_args(argv: Optional[Sequence[str]] = None):
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
     ap.add_argument("--steps", type=int, default=50)
-    ap.add_argument("--total-steps", type=int, default=0,
-                    help="the schedule's horizon (default: --steps)")
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--lr", type=float, default=3e-3)

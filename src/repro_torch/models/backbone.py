@@ -10,10 +10,11 @@ scans over the stacked leading dim, the port loops over it in Python.
 
 Pure functions over dicts of tensors.  Attention takes the flash and decode
 kernels' entries where ``layers.attention_route`` says "kernel", and the
-RG-LRU and RWKV6 blocks the scan kernels' entries; ``plain=True`` forces
-every one of them onto plain torch (the comparison route).  Every entry
-on the forward is differentiable through an explicit backward, so
-:func:`loss_fn` trains on both routes (``distributed.steps.
+RG-LRU and RWKV6 blocks the scan kernels' entries, each differentiable
+through an explicit backward, as are the MoE's dispatch and combine;
+``plain=True`` forces every one of them onto plain torch that autograd
+differentiates (the comparison route).  :func:`loss_fn` trains on both
+routes (``distributed.steps.
 make_train_step``).  With ``remat`` each macro block runs under
 ``torch.utils.checkpoint``: its activations are recomputed in the
 backward, where JAX's scan body saves its products' outputs
@@ -382,9 +383,10 @@ def _cross_sublayer(cfg: ArchConfig, p, h, enc_out):
     return o.reshape(b, s, -1) @ p["xwo"]
 
 
-def _ffn_sublayer(cfg: ArchConfig, p, h, layer_is_moe: bool):
+def _ffn_sublayer(cfg: ArchConfig, p, h, layer_is_moe: bool,
+                  plain: bool = False):
     if layer_is_moe:
-        return L.moe_apply(p["moe"], h, cfg.moe)
+        return L.moe_apply(p["moe"], h, cfg.moe, plain=plain)
     return L.ffn_apply(p["ffn"], h, cfg.ffn), 0.0
 
 
@@ -438,7 +440,7 @@ def apply_block(cfg: ArchConfig, kind: str, p, h, positions, *,
         attn_out = _maybe_post(cfg, p, "ln1p", o)
 
     if cfg.parallel_block:
-        f, aux = _ffn_sublayer(cfg, p, hn, is_moe)
+        f, aux = _ffn_sublayer(cfg, p, hn, is_moe, plain)
         return h + attn_out + f, aux, new_state
 
     h = h + attn_out
@@ -446,7 +448,7 @@ def apply_block(cfg: ArchConfig, kind: str, p, h, positions, *,
         hx = L.apply_norm(cfg.norm, h, p["lnx"])
         h = h + _cross_sublayer(cfg, p, hx, enc_kv)
     hn2 = L.apply_norm(cfg.norm, h, p["ln2"])
-    f, aux = _ffn_sublayer(cfg, p, hn2, is_moe)
+    f, aux = _ffn_sublayer(cfg, p, hn2, is_moe, plain)
     h = h + _maybe_post(cfg, p, "ln2p", f)
     return h, aux, new_state
 

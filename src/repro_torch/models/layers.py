@@ -335,10 +335,13 @@ def ffn_apply(p: Params, x: Tensor, kind: str) -> Tensor:
     return h @ p["w2"] + p["b2"]
 
 
-def moe_apply(p: Params, x: Tensor, moe_cfg) -> Tuple[Tensor, Tensor]:
+def moe_apply(p: Params, x: Tensor, moe_cfg, *,
+              plain: bool = False) -> Tuple[Tensor, Tensor]:
     """Top-k MoE on one device (``_moe_apply_dense``); the expert-parallel
-    form waits with the sharded backbone."""
-    return _moe_apply_dense(p, x, moe_cfg)
+    form waits with the sharded backbone.  ``plain`` lets autograd
+    differentiate the dispatch and combine instead of their explicit
+    backwards (the comparison route)."""
+    return _moe_apply_dense(p, x, moe_cfg, plain=plain)
 
 
 def _slot_tables(topi: Tensor, topw: Tensor, ng: int, gs: int, k: int,
@@ -385,10 +388,12 @@ def moe_routing(p: Params, x: Tensor, moe_cfg) -> Tuple[Tensor, Tensor,
     return gates, topw, topi
 
 
-def _moe_apply_dense(p: Params, x: Tensor, moe_cfg) -> Tuple[Tensor, Tensor]:
+def _moe_apply_dense(p: Params, x: Tensor, moe_cfg, *,
+                     plain: bool = False) -> Tuple[Tensor, Tensor]:
     """Gather-based top-k MoE with per-group capacity: the chosen tokens
     are gathered into (G, E, cap, D), run through each expert's SwiGLU and
-    scatter-added back, weighted."""
+    scatter-added back, weighted; with ``plain`` the gather and the
+    scatter-add are the direct indexing that autograd differentiates."""
     b, s, d = x.shape
     e, k = moe_cfg.n_experts, moe_cfg.top_k
     gs = min(moe_cfg.group_size, b * s)
@@ -409,12 +414,14 @@ def _moe_apply_dense(p: Params, x: Tensor, moe_cfg) -> Tuple[Tensor, Tensor]:
 
     xg_pad = torch.cat([xg, torch.zeros((ng, 1, d), dtype=xg.dtype,
                                         device=x.device)], dim=1)
-    xin = moe_gather(xg_pad, slot_tok)                       # (G,E,cap,D)
+    xin = (_gather(xg_pad, slot_tok) if plain
+           else moe_gather(xg_pad, slot_tok))               # (G,E,cap,D)
     g = torch.einsum("gecd,edf->gecf", xin, p["wg"])
     u = torch.einsum("gecd,edf->gecf", xin, p["wu"])
     y = torch.einsum("gecf,efd->gecd", F.silu(g) * u, p["wd"])
     yw = y * slot_w[..., None].to(y.dtype)
-    out = moe_scatter(yw, slot_tok, gs)
+    out = (_scatter_add(yw, slot_tok, gs + 1) if plain
+           else moe_scatter(yw, slot_tok, gs))
     return out[:, :gs].reshape(b, s, d), aux
 
 

@@ -17,6 +17,7 @@
   relative), and refuses the production mesh naming what waits.
 """
 import os
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -213,25 +214,23 @@ def test_train_cli_without_a_device_raises_no_device_error(tmp_path):
 
 
 def test_train_resumes_where_an_uninterrupted_run_ends(tmp_path):
-    """4 steps with a checkpoint every 2, the same again (resumes at step
-    4, trains nothing), then on to 6: the last loss equals a 6-step run's
-    from scratch within 1e-5 relative (the schedule's horizon is 6 in
-    every run)."""
-    common = ["--arch", "recurrentgemma-9b", "--smoke", "--device", "cpu",
-              "--batch", "2", "--seq", "32", "--ckpt-interval", "2",
-              "--total-steps", "6", "--log-every", "1"]
-    cut = common + ["--ckpt-dir", str(tmp_path / "cut")]
-    first = T.run(cut + ["--steps", "4"])
-    assert first["start"] == 0 and len(first["losses"]) == 4
-    again = T.run(cut + ["--steps", "4"])
-    assert again["start"] == 4 and again["losses"] == []
-    rest = T.run(cut + ["--steps", "6"])
+    """6 steps with a checkpoint every 2, the same again (resumes at step
+    6, trains nothing), then with step 6's checkpoint removed: the run
+    resumes at step 4 and its last loss equals the uninterrupted run's
+    within 1e-5 relative."""
+    argv = ["--arch", "recurrentgemma-9b", "--smoke", "--device", "cpu",
+            "--batch", "2", "--seq", "32", "--steps", "6",
+            "--ckpt-interval", "2", "--log-every", "1",
+            "--ckpt-dir", str(tmp_path)]
+    whole = T.run(argv)
+    assert whole["start"] == 0 and len(whole["losses"]) == 6
+    again = T.run(argv)
+    assert again["start"] == 6 and again["losses"] == []
+    shutil.rmtree(tmp_path / "step_00000006")
+    rest = T.run(argv)
     assert rest["start"] == 4 and len(rest["losses"]) == 2
-    whole = T.run(common + ["--steps", "6",
-                            "--ckpt-dir", str(tmp_path / "whole")])
-    assert first["losses"] == whole["losses"][:4]
-    assert abs(rest["losses"][-1] - whole["losses"][-1]) <= \
-        1e-5 * abs(whole["losses"][-1])
+    for got, want in zip(rest["losses"], whole["losses"][4:]):
+        assert abs(got - want) <= 1e-5 * abs(want)
 
 
 def test_train_refuses_the_production_mesh_naming_what_waits(tmp_path):
