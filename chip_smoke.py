@@ -15,8 +15,9 @@ mesh of four ranks sharing the card and through a fleet of three replicas
 with one replica killed mid-stream, serves the model-zoo backbone
 (qwen2-1.5b at full width in bf16 and f32, then the ten reduced configs)
 through its prefill and decode steps, trains it through its train step
-(the same configs) and its driver, and checks every path against the
-plain path.
+(the same configs) and its driver, serves and trains it again sharded on
+a (2, 2) mesh of four ranks, and checks every path against the plain
+path.
 
     python3 chip_smoke.py          # one CUDA card, run from the repo root
 
@@ -262,6 +263,25 @@ Phases, each failing loudly:
    ``BB_TRAIN_RESUME_RTOL``.  Logged: fwd+bwd ms, AdamW ms, step ms,
    training tokens/s, peak memory and the phase's seconds beside the
    card's name and power limit.
+16. mesh backbone — the backbone's sharded steps on a (2, 2) (data,
+   model) mesh, four ranks sharing the card over gloo (``run_on_mesh``;
+   the parent builds the kernels first and computes the references):
+   each rank draws the weights from phase 14's seed and keeps its blocks
+   (``jit_serve_steps``' specs), serves its rows (a prefill into a
+   sharded cache, greedy decode steps) and takes one ZeRO train step.
+   qwen2-1.5b at full width in f32 (batch 4, a 128-token prompt, 8 decode
+   steps, train seq 128), then the ten reduced configs (batch 4, seq 64,
+   4 decode steps; olmoe and kimi expert-parallel).  Gates against the
+   one-process kernel route on the same weights, prompts and batches:
+   greedy tokens equal (near ties reported), logits within
+   ``BACKBONE_RTOL``, the step-0 loss within ``BB_TRAIN_LOSS0_RTOL`` and
+   every gradient leaf within ``BB_TRAIN_GRAD_TOL`` of its norm (the
+   reference the mean of the two data shards' gradients); planted faults
+   (the attention's row-parallel all-reduce left out, the MoE combine's
+   all-reduce left out) must fail both gates; phase 15's driver
+   checkpoint restored onto every rank's blocks (``shardings=``) equal to
+   its arrays.  Logged: launches summed over the ranks, all-reduces a
+   decode step, decode p50 beside one process's, the phase's seconds.
 
 The second-to-last lines are the card's ``nvidia-smi`` line and a JSON
 ``kernels`` line (an entry per kernel in f32, and one per kernel in bf16
@@ -271,9 +291,10 @@ phases 3, 5-7, 10's (its six h100 steps a stack), 11's (its checked
 artifact serve pass and one call of each other artifact), 12's (summed
 over the ranks, path ``mesh_serve``), 13's (path ``fleet``) and 14's
 (paths ``backbone_qwen2``, ``backbone_smoke`` and, in bf16,
-``backbone_qwen2_bf16``) and 15's kernel-route train steps (paths
+``backbone_qwen2_bf16``), 15's kernel-route train steps (paths
 ``backbone_train_qwen2``, ``backbone_train_smoke`` and, in bf16,
-``backbone_train_qwen2_bf16``).  The
+``backbone_train_qwen2_bf16``) and 16's (summed over the ranks, path
+``mesh_backbone``).  The
 full record goes to ``chiprun_out/chip_smoke.json``.  The script imports
 nothing of JAX or of the JAX package ``src/repro``; it exits non-zero,
 printing no result, without a CUDA card or without the package.
@@ -4563,9 +4584,9 @@ def train_driver(torch) -> dict:
     if rel > BB_TRAIN_RESUME_RTOL:
         fail(f"train CLI: the resumed run ends at {rest['losses'][-1]}, "
              f"the uninterrupted one at {whole['losses'][-1]} ({rel:.3g})")
-    shutil.rmtree(ckpt, ignore_errors=True)
+    # the checkpoint stays for phase 16, which restores it onto the mesh
     return {"resumed": rest["losses"], "whole": whole["losses"],
-            "resume_rel_err": rel}
+            "resume_rel_err": rel, "ckpt_dir": str(ckpt)}
 
 
 def phase_train_backbone(torch, counters: dict, held: set) -> dict:
@@ -4706,6 +4727,406 @@ def phase_train_backbone(torch, counters: dict, held: set) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the backbone sharded on a (data, model) mesh, four ranks on the
+# one card
+# ---------------------------------------------------------------------------
+
+# qwen2-1.5b as published in f32 (phase 14's config, 12 heads and 2 KV
+# heads: whole heads on each model rank), batch 4 (2 rows a data rank), a
+# 128-token prompt and 8 greedy decode steps, one train step at seq 128;
+# the ten reduced configs at batch 4, seq 64 (patches included), 4 decode
+# steps, one train step
+MB_BATCH = 4
+MB_QWEN = (128, 8)
+MB_SMOKE = (64, 4)
+MB_KERNELS = ("flash_attention", "decode_attention", "rglru_scan",
+              "rwkv6_scan")
+MB_TIMEOUT_S = 600
+# the prefill's logits held whole at its last positions
+MB_PREFILL_ROWS = 8
+
+
+def mesh_backbone_runs() -> list:
+    """(config, prompt, decode steps, train seq) of every phase-16 run."""
+    from repro_torch.configs import ARCH_IDS, get_config, get_smoke
+    qwen = dataclasses.replace(get_config(BACKBONE_ARCH), dtype="float32")
+    return ([(qwen, *MB_QWEN, MB_QWEN[0])]
+            + [(get_smoke(a), *MB_SMOKE, MB_SMOKE[0]) for a in ARCH_IDS])
+
+
+def _cpu_tree(tree):
+    from repro_torch.models import backbone as B
+    return B.tree_map(lambda x: x.detach().cpu(), tree)
+
+
+def shard_mean_grads(torch, cfg, params, batch) -> tuple:
+    """The one-process kernel route's step-0 loss and gradients, each the
+    mean over the two halves of ``batch`` (the data shards' rows, the
+    mean the mesh's train step takes)."""
+    losses, total = [], None
+    for d in range(2):
+        half = {k: v[d * MB_BATCH // 2:(d + 1) * MB_BATCH // 2]
+                for k, v in batch.items()}
+        loss, grads, _ = step0_grads(torch, cfg, params, half, False)
+        losses.append(loss)
+        total = grads if total is None else {
+            k: total[k] + g for k, g in grads.items()}
+        del grads
+    return sum(losses) / 2, {k: g / 2 for k, g in total.items()}
+
+
+def mesh_backbone_rank(mesh, cases, ckpt_dir, plant) -> dict:
+    """One rank of phase 16 (run by ``run_on_mesh``): each run's weights
+    drawn on the card from phase 14's seed and cut to this rank's blocks
+    (``jit_serve_steps``' specs), its rows of the batch served (prefill
+    into a sharded cache, greedy decode steps) and trained (one
+    ``make_train_step`` step with ZeRO), the kernels' counts zeroed just
+    before and read just after; the gradients' blocks held to the
+    one-process reference the parent saved.  ``plant``: (label, run
+    index, function) of the planted faults, each run again with that
+    collective of ``models.layers`` left out.  Then phase 15's driver checkpoint restored onto this rank's
+    blocks."""
+    import torch
+    from repro_torch.checkpoint import restore_checkpoint
+    from repro_torch.distributed import ctx
+    from repro_torch.distributed import sharding as S
+    from repro_torch.distributed import steps as ST
+    from repro_torch.kernels.decode_attention.kernel import \
+        decode_attention_cuda
+    from repro_torch.kernels.flash_attention.kernel import \
+        flash_attention_cuda
+    from repro_torch.kernels.rglru_scan.kernel import rglru_scan_cuda
+    from repro_torch.kernels.rwkv6_scan.kernel import rwkv6_scan_cuda
+    from repro_torch.models import backbone as B
+    from repro_torch.models import layers as L
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    counters = {"flash_attention": flash_attention_cuda,
+                "decode_attention": decode_attention_cuda,
+                "rglru_scan": rglru_scan_cuda, "rwkv6_scan": rwkv6_scan_cuda}
+    dev = mesh.device
+    rows = S.NamedSharding(mesh, S.P("data"))
+
+    def cut(batch):
+        return {k: rows.shard(v).to(dev) for k, v in batch.items()}
+
+    def serve(cfg, params, batch, gen, cspecs):
+        decode = ST.make_decode_step(mesh, cfg, cache_specs=cspecs)
+        prefill = ST.make_prefill_step(mesh, cfg, cache_specs=cspecs)
+        b = batch["tokens"].shape[0]
+        s = _prefill_len(cfg, batch["tokens"].shape[1])
+        cache = S.shard_tree(mesh, B.init_cache(cfg, MB_BATCH, s + gen),
+                             cspecs)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = prefill(params, batch, cache)
+        tok = logits[:, -1].argmax(-1)
+        torch.cuda.synchronize()
+        prefill_ms = 1e3 * (time.perf_counter() - t0)
+        enc_out = None
+        if cfg.enc_dec is not None:
+            with torch.inference_mode(), ctx.use_mesh(mesh):
+                enc_out = B.run_encoder(cfg, params, batch["frames"])
+        out_rows, toks, step_ms, reduces = [logits[:, -1]], [tok], [], []
+        for j in range(gen):
+            calls = mesh.calls["all_reduce"]
+            t0 = time.perf_counter()
+            lg, cache = decode(params, cache, tok[:, None], s + j, enc_out)
+            tok = lg[:, 0].argmax(-1)
+            torch.cuda.synchronize()
+            step_ms.append(1e3 * (time.perf_counter() - t0))
+            reduces.append(mesh.calls["all_reduce"] - calls)
+            out_rows.append(lg[:, 0])
+            toks.append(tok)
+        return {"tokens": torch.stack(toks, 1).cpu(),
+                "logits": torch.stack(out_rows, 1).float().cpu(),
+                "prefill_logits": logits[:, -MB_PREFILL_ROWS:].float().cpu(),
+                "prefill_ms": prefill_ms, "step_ms": step_ms,
+                "all_reduce_per_step": reduces, "batch": b}
+
+    def grad_gap(cfg, grads, ref_file):
+        ref = torch.load(ref_file, mmap=True, weights_only=True)
+        specs = dict(B.tree_leaves(S.param_specs(mesh, cfg,
+                                                 B.param_specs(cfg)),
+                                   leaf=S.P))
+        worst, at = 0.0, None
+        for path, g in B.tree_leaves(grads):
+            want = ref["/".join(map(str, path))]
+            block = want[S.NamedSharding(mesh, specs[path]).index(
+                want.shape)]
+            err = float((g.float().cpu() - block.float()).abs().max())
+            r = err / max(float(want.float().norm()), 1e-30)
+            if r > worst:
+                worst, at = r, "/".join(map(str, path))
+        return worst, at
+
+    out = {"rank": mesh.rank, "coords": dict(mesh.coords), "runs": [],
+           "faults": {}}
+    total = {k: 0 for k in counters}
+    for i, case in enumerate(cases):
+        t_run = time.perf_counter()
+        cfg, gen = case["cfg"], case["gen"]
+        opts = ST.StepOptions(lr=BB_TRAIN_LR, warmup=0, total_steps=1)
+        step, specs = ST.make_train_step(mesh, cfg, opts)
+        _, pspecs, cspecs = ST.jit_serve_steps(
+            mesh, cfg, MB_BATCH, _prefill_len(cfg, case["prompt"]) + gen)
+        full = B.init_params(cfg, torch.Generator("cuda").manual_seed(0))
+        params = S.shard_tree(mesh, full, pspecs)
+        del full
+        torch.cuda.empty_cache()
+        batch, tbatch = cut(case["batch"]), cut(case["train_batch"])
+        zeros = {"m": None, "v": None}
+        for k in zeros:
+            zeros[k] = B.tree_map(
+                lambda leaf, spec: torch.zeros(
+                    S.local_shape(mesh, tuple(leaf.shape), spec),
+                    device=dev), B.param_specs(cfg), specs["opt"][k])
+        state = {"params": params, "opt": {**zeros, "step": torch.zeros(
+            (), dtype=torch.int32, device=dev)},
+            "step": torch.zeros((), dtype=torch.int32, device=dev)}
+        for c in counters.values():
+            c.launches = 0
+        served = serve(cfg, params, batch, gen, cspecs)
+        loss, _, grads = ST.make_grad_step(mesh, cfg, opts)(params, tbatch)
+        gap, at = grad_gap(cfg, grads, case["grads_file"])
+        del grads
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        new, metrics = step(state, tbatch)
+        torch.cuda.synchronize()
+        step_ms = 1e3 * (time.perf_counter() - t0)
+        print(f"[mesh-backbone] {cfg.name}: served (prefill "
+              f"{served['prefill_ms']:.1f} ms), gradients {gap:.3g} of the "
+              f"norm, train step {step_ms:.1f} ms, peak "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; "
+              f"{time.perf_counter() - t_run:.1f} s", flush=True)
+        launches = {k: c.launches for k, c in counters.items()}
+        for k, n in launches.items():
+            total[k] += n
+        finite = all(bool(torch.isfinite(x).all())
+                     for _, x in B.tree_leaves(new["params"]))
+        del new, state
+        rec = {"config": cfg.name, "loss": float(loss),
+               "train_loss": float(metrics["loss"]), "grad_gap": gap,
+               "grad_gap_at": at, "finite": finite, "train_step_ms": step_ms,
+               "launches": launches, **served,
+               "seconds": time.perf_counter() - t_run}
+        for label, run, name in plant:
+            if run != i:
+                continue
+            with planted(L, name, lambda y: y):
+                faulty = serve(cfg, params, batch, 0, cspecs)
+                _, _, fg = ST.make_grad_step(mesh, cfg, opts)(params,
+                                                               tbatch)
+            out["faults"][label] = {
+                "config": cfg.name,
+                "prefill_logits": faulty["prefill_logits"],
+                "grad_gap": grad_gap(cfg, fg, case["grads_file"])}
+            del fg
+        out["runs"].append(rec)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        mesh.barrier()
+    out["launches"] = total
+    # phase 15's driver checkpoint onto this rank's blocks
+    from repro_torch.configs import get_smoke
+    cfg = get_smoke("recurrentgemma-9b")
+    opts = ST.StepOptions()
+    shapes = ST.train_state_shapes(cfg, opts)
+    specs = ST.make_train_state_specs(mesh, cfg, opts)
+    local = restore_checkpoint(ckpt_dir, shapes,
+                               shardings=S.named(mesh, specs))
+    whole = restore_checkpoint(ckpt_dir, B.tree_map(
+        lambda x: torch.empty(x.shape, dtype=x.dtype), shapes))
+    wants = dict(B.tree_leaves(whole))
+    sp = dict(B.tree_leaves(specs, leaf=S.P))
+    same = all(torch.equal(leaf.cpu(), S.NamedSharding(mesh, sp[path])
+                           .shard(wants[path]))
+               for path, leaf in B.tree_leaves(local))
+    out["restore"] = {"leaves": len(wants), "equal": same,
+                      "device": str(next(iter(B.tree_leaves(local)))[1]
+                                    .device)}
+    return out
+
+
+def phase_mesh_backbone(torch, ckpt_dir) -> dict:
+    """Phase 16: the backbone's sharded steps on a (2, 2) mesh, four ranks
+    on the one card (``run_on_mesh``, gloo), held to the one-process
+    kernel route on the same weights (phase 14's seed), prompts and
+    batches, computed here first: qwen2-1.5b at full width in f32 and the
+    ten reduced configs.  Gates: greedy tokens equal (near ties
+    reported) and logits within ``BACKBONE_RTOL`` of the scale; one train
+    step with ZeRO: the step-0 loss within ``BB_TRAIN_LOSS0_RTOL`` and
+    every gathered gradient leaf within ``BB_TRAIN_GRAD_TOL`` of its
+    norm, the new parameters finite; two planted faults (the attention's
+    row-parallel all-reduce left out on qwen2's reduced config, the MoE
+    combine's on olmoe's) failing both gates; phase 15's driver checkpoint
+    restored onto the ranks' blocks equal to its global arrays.  Logged:
+    launches summed over the ranks, all-reduces a decode step, the
+    phase's seconds."""
+    import os
+    import shutil
+    import statistics
+    import tempfile
+
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import run_on_mesh
+    from repro_torch.models import backbone as B
+
+    t_phase = time.perf_counter()
+    build.build_all()                 # the ranks load what the parent built
+    tmp = Path(tempfile.mkdtemp(prefix="sol_mesh_backbone_"))
+    cases, refs = [], []
+    alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    try:
+        for i, (cfg, prompt, gen, seq) in enumerate(mesh_backbone_runs()):
+            params = B.init_params(cfg,
+                                   torch.Generator("cuda").manual_seed(0))
+            batch = backbone_inputs(torch, cfg, MB_BATCH, prompt, seed=7)
+            ref = backbone_serve(torch, cfg, params, batch, gen,
+                                 plain=False)
+            with torch.inference_mode():
+                ref["prefill_logits"] = B.prefill(cfg, params, batch)[0][
+                    :, -MB_PREFILL_ROWS:].float().cpu()
+            tb = train_batches(torch, cfg, MB_BATCH, seq, 1)[0]
+            loss, grads = shard_mean_grads(torch, cfg, params, tb)
+            path = tmp / f"grads_{i}.pt"
+            torch.save({"/".join(map(str, k)): g.cpu()
+                        for k, g in grads.items()}, path)
+            del params, grads
+            gc.collect()
+            torch.cuda.empty_cache()
+            ref["loss"] = loss
+            refs.append(ref)
+            log(f"[mesh-backbone] {cfg.name}: one-process reference in "
+                f"{time.perf_counter() - t_phase:.1f} s")
+            cases.append({"cfg": cfg, "prompt": prompt, "gen": gen,
+                          "batch": _cpu_tree(batch),
+                          "train_batch": _cpu_tree(tb),
+                          "grads_file": str(path)})
+        ref_s = time.perf_counter() - t_phase
+        names = [c["cfg"].name for c in cases]
+        # (label, run, the models.layers function the fault makes the
+        # identity)
+        plant = [("the attention's row-parallel all-reduce left out",
+                  names.index("qwen2-1.5b-smoke"), "_reduce_attn"),
+                 ("the MoE combine's all-reduce left out",
+                  names.index("olmoe-1b-7b-smoke"), "_moe_combine")]
+        t0 = time.perf_counter()
+        # four ranks share the card: segments that grow in place keep
+        # their freed blocks usable across shapes
+        os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+        ranks = run_on_mesh(mesh_backbone_rank, *MESH, device="cuda",
+                            dist_backend="gloo", timeout_s=MB_TIMEOUT_S,
+                            args=(cases, ckpt_dir, plant))
+        ranks_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        if alloc is None:
+            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF", None)
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
+    rec: dict = {"runs": {}, "faults": {}, "reference_s": ref_s,
+                 "ranks_s": ranks_s}
+    for i, (case, ref) in enumerate(zip(cases, refs)):
+        cfg = case["cfg"]
+        per = [r["runs"][i] for r in ranks]
+        got = {}
+        for key in ("tokens", "logits", "prefill_logits"):
+            parts = [None, None]
+            for r, run in zip(ranks, per):
+                parts[r["coords"]["data"]] = run[key]
+            got[key] = torch.cat(parts, 0)
+        for r, run in zip(ranks, per):
+            d = r["coords"]["data"]
+            if not torch.equal(run["tokens"], got["tokens"][
+                    d * MB_BATCH // 2:(d + 1) * MB_BATCH // 2]):
+                fail(f"mesh backbone {cfg.name}: rank {r['rank']}'s tokens "
+                     f"differ from its data shard's")
+        rtol = BACKBONE_RTOL[cfg.dtype]
+        worst, ties = backbone_agreement(
+            f"mesh backbone {cfg.name} vs one process", got, ref, rtol)
+        pre = float((got["prefill_logits"] - ref["prefill_logits"]).abs()
+                    .max() / ref["prefill_logits"].abs().max())
+        if pre > rtol:
+            fail(f"mesh backbone {cfg.name}: prefill logits {pre:.3g} of "
+                 f"the scale from one process's")
+        loss_rel = max(abs(run["loss"] - ref["loss"]) / abs(ref["loss"])
+                       for run in per)
+        if not loss_rel <= BB_TRAIN_LOSS0_RTOL:
+            fail(f"mesh backbone {cfg.name}: step-0 loss {per[0]['loss']} "
+                 f"vs one process {ref['loss']} ({loss_rel:.3g})")
+        gap = max(run["grad_gap"] for run in per)
+        at = max(per, key=lambda run: run["grad_gap"])["grad_gap_at"]
+        if not gap <= BB_TRAIN_GRAD_TOL:
+            fail(f"mesh backbone {cfg.name}: gradient {at} differs by "
+                 f"{gap:.3g} of its norm from one process's")
+        if not all(run["finite"] for run in per) or not all(
+                math.isfinite(run["train_loss"]) for run in per):
+            fail(f"mesh backbone {cfg.name}: the train step's loss or new "
+                 f"parameters are not finite")
+        r0 = per[0]
+        p50 = statistics.median(r0["step_ms"]) if r0["step_ms"] else 0.0
+        launches = {k: sum(run["launches"][k] for run in per)
+                    for k in MB_KERNELS}
+        r = {"config": cfg.name, "prefill_rel_err": pre,
+             "logit_rel_err": worst, "near_ties": ties,
+             "loss_rel_err": loss_rel, "grad_gap": gap, "grad_gap_at": at,
+             "prefill_ms": r0["prefill_ms"], "decode_p50_ms": p50,
+             "ref_decode_p50_ms": statistics.median(ref["step_ms"]),
+             "train_step_ms": max(run["train_step_ms"] for run in per),
+             "all_reduce_per_decode_step": r0["all_reduce_per_step"][0]
+             if r0["all_reduce_per_step"] else 0,
+             "launches": launches,
+             "seconds": max(run["seconds"] for run in per)}
+        rec["runs"][cfg.name] = r
+        log(f"[mesh-backbone] {cfg.name} ({cfg.n_layers} layers, d "
+            f"{cfg.d_model}) on (2, 2): prefill {pre:.3g}, decode logits "
+            f"{worst:.3g} of the scale (rtol {rtol}), tokens equal"
+            + (f" except near ties {ties}" if ties else "")
+            + f"; step-0 loss {loss_rel:.3g}, gradients {gap:.3g} of the "
+            f"norm at {at}; prefill {r['prefill_ms']:.2f} ms, decode step "
+            f"p50 {p50:.2f} ms (one process {r['ref_decode_p50_ms']:.2f}),"
+            f" {r['all_reduce_per_decode_step']} all-reduces a decode "
+            f"step, train step {r['train_step_ms']:.2f} ms; launches "
+            f"{launches}; {r['seconds']:.1f} s")
+    for label, i, _ in plant:
+        case, ref = cases[i], refs[i]
+        parts = [None, None]
+        for rk in ranks:
+            parts[rk["coords"]["data"]] = rk["faults"][label][
+                "prefill_logits"]
+        pre = float((torch.cat(parts, 0) - ref["prefill_logits"]).abs()
+                    .max() / ref["prefill_logits"].abs().max())
+        gap = max(rk["faults"][label]["grad_gap"][0] for rk in ranks)
+        if pre <= BACKBONE_RTOL["float32"] or gap <= BB_TRAIN_GRAD_TOL:
+            fail(f"mesh backbone: {label} passed a gate (prefill {pre:.3g},"
+                 f" gradients {gap:.3g})")
+        rec["faults"][label] = {"config": case["cfg"].name,
+                                "prefill_rel_err": pre, "grad_gap": gap}
+        log(f"[mesh-backbone] planted: {label} on {case['cfg'].name}: "
+            f"prefill {pre:.3g}, gradients {gap:.3g} of the norm: caught")
+    for rk in ranks:
+        if not rk["restore"]["equal"]:
+            fail(f"mesh backbone: rank {rk['rank']} restored phase 15's "
+                 f"checkpoint into blocks that differ from its arrays")
+    rec["restore"] = ranks[0]["restore"]
+    rec["launches"] = {k: sum(rk["launches"][k] for rk in ranks)
+                       for k in MB_KERNELS}
+    for name in MB_KERNELS:
+        if rec["launches"][name] <= 0:
+            fail(f"mesh backbone: {name} was not launched on the ranks")
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log(f"[mesh-backbone] phase 15's driver checkpoint ({rec['restore']['leaves']}"
+        f" leaves) restored onto every rank's blocks equal; launches summed "
+        f"over the ranks {rec['launches']}; reference {ref_s:.1f} s, ranks "
+        f"{ranks_s:.1f} s; phase 16 took {rec['phase_s']:.1f} s (four "
+        f"ranks share the card: no scaling measured); {nvidia_smi()}")
+    return rec
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "__init__.py").is_file():
         print("chip_smoke: src/repro_torch not found next to this script; "
@@ -4835,6 +5256,14 @@ def main() -> int:
         {(c["key"], c["dtype"]) for c in kern["cases"]})
     mark("15 backbone train")
 
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh_backbone = phase_mesh_backbone(torch, train_backbone["cli"]
+                                        ["ckpt_dir"])
+    import shutil
+    shutil.rmtree(train_backbone["cli"]["ckpt_dir"], ignore_errors=True)
+    mark("16 mesh backbone")
+
     # launches per main path: the served set and one forward of each stack
     # and each CNN in f32; the bf16 paths' runs for the bf16 entries
     by_path = {"serve": serve["launches"]}
@@ -4851,6 +5280,7 @@ def main() -> int:
     by_path["backbone_smoke"] = backbone["launches"]["backbone_smoke"]
     for path in ("backbone_train_qwen2", "backbone_train_smoke"):
         by_path[path] = train_backbone["launches"][path]
+    by_path["mesh_backbone"] = mesh_backbone["launches"]
     bf16_by_path = {name: r["launches"] for name, r in bf16.items()}
     bf16_by_path["deploy_listing3_cnn"] = \
         deploy["legs"]["listing3_cnn_bf16"]["launches"]
@@ -4896,7 +5326,7 @@ def main() -> int:
          "measured_serve": measured, "sol": sol, "train": train,
          "deploy": deploy, "mesh_serve": mesh, "fleet": fleet,
          "backbone": backbone, "train_backbone": train_backbone,
-         "phase_seconds": phase_seconds,
+         "mesh_backbone": mesh_backbone, "phase_seconds": phase_seconds,
          "seconds": time.perf_counter() - t_start},
         indent=1, default=str))
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")

@@ -52,8 +52,8 @@ DEFAULT_TABLES = ("effort", "inference", "layouts", "matmul", "autotune",
                   "serving")
 # tables of the JAX harness whose modules are not ported yet, and the
 # ROADMAP §1 item each waits for
-LATER = {"roofline": "models/backbone, configs and the dry run (ROADMAP §1 "
-                     "item 7)"}
+LATER = {"roofline": "the dry run's results/dryrun.jsonl (ROADMAP §1 "
+                     "item 7.3)"}
 SIDE_FILES = (("matmul", "BENCH_torch_matmul.json"),
               ("serving", "BENCH_torch_serve.json"),
               ("sol", "BENCH_torch_sol.json"),

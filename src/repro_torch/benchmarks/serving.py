@@ -32,8 +32,8 @@ pass.
   serve_<backend>_fleet<R>_*     an open-loop replay through a SolFleet of
                                  R replicas with one injected kill
 
-The per-architecture backbone decode rows wait for a later slice of the
-port (``NotImplementedError``).
+  decode_<arch>_smoke             one backbone decode step of a reduced
+                                 config (``decode_bench``), with tokens/s
 
     PYTHONPATH=src python -m repro_torch.benchmarks.serving [--device cpu]
 """
@@ -356,10 +356,40 @@ def fleet_rows(backend: str = "h100", *, replicas: int = 3,
     ]
 
 
-def decode_bench(*args, **kwargs) -> List[Row]:
-    raise NotImplementedError(
-        "the per-architecture decode rows wait for models/backbone and the "
-        "configs (ROADMAP §1 item 7)")
+def decode_bench(archs=("qwen2-1.5b", "rwkv6-1.6b", "recurrentgemma-9b"),
+                 batch: int = 2, steps: int = 8,
+                 device: DeviceLike = None) -> List[Row]:
+    """Per-architecture backbone decode-step timings of the reduced
+    configs (``make_decode_step`` on a one-process mesh, a cache of 32
+    positions): one warm step, then ``steps`` timed ones; the attention,
+    RWKV6 and RG-LRU caches beside the ``SolServer`` rows."""
+    from ..configs import get_smoke
+    from ..distributed.steps import make_decode_step
+    from ..launch.mesh import make_debug_mesh
+    from ..models import backbone as B
+    dev = resolve_device(device)
+    rows = []
+    for arch in archs:
+        cfg = get_smoke(arch)
+        params = B.init_params(cfg, torch.Generator(dev).manual_seed(0), dev)
+        cache = B.init_cache(cfg, batch, 32, dev)
+        toks = torch.zeros((batch, 1), dtype=torch.long, device=dev)
+        decode = make_decode_step(make_debug_mesh(1, 1, device=dev), cfg)
+        logits, cache = decode(params, cache, toks, 0)
+        _sync(dev)
+        t0 = time.perf_counter()
+        for t in range(1, steps + 1):
+            logits, cache = decode(params, cache, toks, t)
+        _sync(dev)
+        us = (time.perf_counter() - t0) / steps * 1e6
+        rows.append((f"decode_{arch}_smoke", us,
+                     f"{batch * 1e6 / us:.0f}tok/s"))
+    return rows
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
 
 
 def csv_rows(device: DeviceLike = None) -> List[Row]:

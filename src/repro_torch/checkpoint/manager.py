@@ -17,6 +17,13 @@ the other:
 A tree is nested dicts, lists and tuples whose leaves are torch tensors,
 numpy arrays or numbers.  NumPy has no bfloat16: a bf16 tensor is written
 as its ``uint16`` bit pattern under dtype ``"bfloat16"``.
+
+On a mesh of ranks a checkpoint still holds global arrays: with
+``shardings`` (``distributed.sharding.named`` of the tree's specs)
+:func:`save_checkpoint` gathers every rank's blocks once and rank 0
+writes them, and :func:`restore_checkpoint` has each rank read the global
+arrays and keep its own block, so a checkpoint written on one process
+restores onto a (2, 2) mesh and back (JAX's elastic re-shard).
 """
 from __future__ import annotations
 
@@ -90,8 +97,15 @@ def _leaf_name(name: str) -> str:
     return hashlib.sha1(name.encode()).hexdigest()[:16] + ".npy"
 
 
-def save_checkpoint(ckpt_dir: str, step: int, tree: Any,
-                    keep: int = 3) -> str:
+def save_checkpoint(ckpt_dir: str, step: int, tree: Any, keep: int = 3,
+                    shardings: Any = None) -> str:
+    """Write ``tree`` as ``step_XXXXXXXX`` and keep the last ``keep``.
+    With ``shardings`` the leaves are this rank's blocks: every rank
+    calls, the global arrays are gathered and rank 0 writes them."""
+    if shardings is not None:
+        tree = _gather(tree, shardings)
+        if _rank_of(shardings) != 0:
+            return str(Path(ckpt_dir) / f"step_{step:08d}")
     base = Path(ckpt_dir)
     tmp = base / f"step_{step:08d}.tmp"
     final = base / f"step_{step:08d}"
@@ -144,28 +158,50 @@ def _like(arr: np.ndarray, dtype: str, leaf) -> Any:
                       and not isinstance(want, torch.dtype) else None)
 
 
+def _gather(tree, shardings):
+    placed = dict(_flatten(shardings))
+    return _unflatten(tree, {name: placed[name].gather(leaf)
+                             for name, leaf in _flatten(tree)})
+
+
+def _rank_of(shardings) -> int:
+    """The rank of the mesh a sharding tree places on."""
+    return _flatten(shardings)[0][1].mesh.rank
+
+
 def restore_checkpoint(ckpt_dir: str, tree_like: Any,
-                       step: Optional[int] = None) -> Any:
+                       step: Optional[int] = None,
+                       shardings: Any = None) -> Any:
     """Restore into the structure of ``tree_like``, whose leaves give each
-    array's shape (and its type, device and dtype); a shape that differs
-    from the stored one raises ``ValueError``."""
+    array's global shape (and its type, device and dtype); a shape that
+    differs from the stored one raises ``ValueError``.  With
+    ``shardings`` (a tree of ``NamedSharding``) each leaf is this rank's
+    block of the stored array, on the mesh's device."""
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
             raise FileNotFoundError(f"no checkpoint in {ckpt_dir}")
     d = Path(ckpt_dir) / f"step_{step:08d}"
     manifest = json.loads((d / "manifest.json").read_text())
+    placed = None if shardings is None else dict(_flatten(shardings))
     leaves = {}
     for name, leaf in _flatten(tree_like):
         if name not in manifest["arrays"]:
             raise KeyError(f"checkpoint missing array {name}")
         info = manifest["arrays"][name]
-        arr = np.load(d / info["file"])
+        arr = np.load(d / info["file"], mmap_mode="r")
         if list(arr.shape) != list(leaf.shape):
             raise ValueError(
                 f"{name}: checkpoint shape {arr.shape} != "
                 f"{tuple(leaf.shape)}")
-        leaves[name] = _like(arr, info["dtype"], leaf)
+        if placed is not None:
+            sh = placed[name]
+            t = torch.from_numpy(np.array(arr[sh.index(arr.shape)]))
+            if info["dtype"] == "bfloat16":
+                t = t.view(torch.bfloat16)
+            leaves[name] = t.to(device=sh.mesh.device, dtype=leaf.dtype)
+        else:
+            leaves[name] = _like(np.array(arr), info["dtype"], leaf)
     return _unflatten(tree_like, leaves)
 
 

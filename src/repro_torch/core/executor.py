@@ -334,8 +334,8 @@ def lower_graph(g: Graph, backend: "registry.Backend", *,
             if n.attrs.get("psum_axes")}
     if mesh is not None and differentiable:
         raise NotImplementedError(
-            "training on a mesh waits for the backbone stack's sharded "
-            "train step (ROADMAP §1 item 7)")
+            "training a sharded SOL graph (the differentiable lowering of "
+            "its row-parallel products) waits for ROADMAP §1 item 7.6")
     if psum and not hasattr(mesh, "all_reduce"):
         raise ValueError(
             f"{len(psum)} row-parallel products need a mesh with process "

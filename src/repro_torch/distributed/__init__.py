@@ -1,3 +1,3 @@
-"""Train steps over SOL models and the partition rules of sharded serving
-(counterpart of ``repro.distributed``; the backbone stack's sharded steps
-wait for it)."""
+"""Train and serve steps, the partition rules of sharded serving and of
+the backbone, and the collectives of the backbone's per-rank program
+(counterpart of ``repro.distributed``)."""

@@ -20,9 +20,11 @@ The backbone's rules (:func:`param_spec`, :func:`param_specs`,
 and rank with the same divisibility fallbacks: pure functions over
 (path, shape) that assign a :class:`P` to every leaf of a parameter,
 batch or cache tree (tensors, meta tensors included, or anything with a
-``shape``).  JAX's ``named`` (specs → ``NamedSharding``s for ``jit``) has
-no counterpart: it would place the trees on a mesh, and the sharded
-backbone's execution waits for ROADMAP §1 item 7.
+``shape``).  :func:`named` turns a spec tree into this rank's
+placements (:class:`NamedSharding`: the mesh, the spec, and the block of
+a global shape the rank holds); :func:`shard_tree` cuts a global tree to
+this rank's blocks and :func:`gather_tree` joins the blocks back, the
+per-rank counterparts of JAX's ``device_put`` under a sharding.
 
 A mesh here is anything with ``shape`` (axis name → size) and
 ``axis_names``: :class:`AbstractMesh` for decisions alone, or
@@ -31,7 +33,7 @@ A mesh here is anything with ``shape`` (axis name → size) and
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Mapping, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 from ..core.ir import OpKind
 from ..models.backbone import tree_map_with_path
@@ -503,3 +505,79 @@ def cache_specs(mesh, cfg, cache_tree) -> Any:
             return mk(bspec, shard_dim(mesh, shape[1], m), None, None)
         return mk(bspec, *(None,) * (len(shape) - 1))
     return tree_map_with_path(walk, cache_tree)
+
+
+# ---------------------------------------------------------------------------
+# placements: this rank's blocks of a tree
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A spec on a mesh (JAX's ``NamedSharding``): which block of a global
+    array this rank of ``mesh`` holds."""
+
+    mesh: Any
+    spec: P
+
+    def index(self, shape: Tuple[int, ...]) -> Tuple[slice, ...]:
+        """This rank's block of a global ``shape``."""
+        coords = getattr(self.mesh, "coords", None)
+        if coords is None:
+            raise ValueError(f"{self.mesh!r} has no ranks to place on")
+        return shard_slices(self.mesh, coords, tuple(shape), self.spec)
+
+    def shard(self, x):
+        """This rank's block of the global ``x`` (a copy of its own)."""
+        return x[self.index(x.shape)].clone()
+
+    def gather(self, x):
+        """The global array from every rank's block ``x``: each sharded
+        dim all-gathered over its axes (a collective: every rank of the
+        mesh calls it, in one order)."""
+        for dim in range(x.dim()):
+            axes = _axes_tuple(_entry(self.spec, dim, x.dim()))
+            if axes and axis_size(self.mesh, axes) > 1:
+                x = self.mesh.all_gather(x, axes, dim)
+        return x
+
+
+def named(mesh, spec_tree) -> Any:
+    """The :class:`NamedSharding` of every spec of ``spec_tree`` on
+    ``mesh``."""
+    if isinstance(spec_tree, P):
+        return NamedSharding(mesh, spec_tree)
+    if isinstance(spec_tree, dict):
+        return {k: named(mesh, v) for k, v in spec_tree.items()}
+    if isinstance(spec_tree, (tuple, list)):
+        return type(spec_tree)(named(mesh, v) for v in spec_tree)
+    raise TypeError(f"named: not a spec tree: {spec_tree!r}")
+
+
+def _zip_specs(fn, tree, spec_tree):
+    """``fn(leaf, spec)`` over a tree and its spec tree (a spec is a leaf
+    there, though it is a tuple)."""
+    if isinstance(spec_tree, P):
+        return fn(tree, spec_tree)
+    if isinstance(tree, dict):
+        return {k: _zip_specs(fn, v, spec_tree[k]) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_zip_specs(fn, v, s)
+                          for v, s in zip(tree, spec_tree))
+    raise TypeError(f"no spec for leaf {tree!r}")
+
+
+def shard_tree(mesh, tree, spec_tree, device: Optional[Any] = None) -> Any:
+    """This rank's block of every leaf of the global ``tree`` (tensors),
+    each a copy of its own, on ``device`` (default: the mesh's)."""
+    dev = device if device is not None else getattr(mesh, "device", None)
+
+    def cut(x, spec):
+        out = NamedSharding(mesh, spec).shard(x)
+        return out if dev is None else out.to(dev)
+    return _zip_specs(cut, tree, spec_tree)
+
+
+def gather_tree(mesh, tree, spec_tree) -> Any:
+    """The global tree from every rank's blocks (a collective)."""
+    return _zip_specs(lambda x, spec: NamedSharding(mesh, spec).gather(x),
+                      tree, spec_tree)

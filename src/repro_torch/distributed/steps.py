@@ -7,14 +7,25 @@
   over microbatches, optional bf16 gradient compression, then the cosine
   schedule and AdamW with moments in ``moment_dtype``.
   :func:`make_train_state_specs` gives the state's partition specs (ZeRO
-  moments with ``zero``).  The steps run on a one-process mesh, on its
-  device; a larger mesh raises ``NotImplementedError``: the sharded
-  backbone's execution waits for ROADMAP §1 item 7.
+  moments with ``zero``).
+* On a ``launch.mesh.Mesh`` of several ranks every step runs this rank's
+  program (``models.layers``) on its blocks of the state
+  (``sharding.shard_tree`` under :func:`make_train_state_specs`) and its
+  rows of the batch (``sharding.batch_specs``): the loss is the mean over
+  the data shards, the gradients are averaged over ``data``, the
+  clipping norm is global (squares summed over the model shards, a
+  replicated leaf counted once) and AdamW runs on local blocks; with
+  ``zero`` each moment lives on its ``zero_opt_specs`` block, the update
+  runs there and the new parameter is all-gathered over ``data``.  An
+  abstract mesh of several devices has no ranks to run on and raises
+  ``ValueError``.
 * :func:`make_sol_train_step` trains a ``SolModel`` compiled with
   ``training=True``: forward and backward ride the elected graph, where
   every node with a backward impl is a ``torch.autograd.Function``
   pairing its elected forward with its elected backward.
-* :func:`make_prefill_step` / :func:`make_decode_step` serve the backbone.
+* :func:`make_prefill_step` / :func:`make_decode_step` serve the backbone
+  (:func:`jit_serve_steps`: the decode step with the parameter and cache
+  specs).
 
 Every step is functional: it returns a new state and writes none of the
 tensors it was given.
@@ -100,14 +111,19 @@ def make_sol_train_step(model, opts: StepOptions,
 # ---------------------------------------------------------------------------
 
 def _mesh_device(mesh, what: str) -> Optional[torch.device]:
-    """The device of a one-process mesh (None for an abstract one: the
-    parameters' own); a larger mesh raises."""
-    if ctx.mesh_size(mesh) != 1:
-        raise NotImplementedError(
-            f"{what} on a mesh of {mesh.shape}: placing the backbone's "
-            f"trees by param_specs and cache_specs (the sharded "
-            f"backbone's execution) waits for ROADMAP §1 item 7")
+    """The device of a mesh with ranks (None for an abstract mesh of one
+    device: the parameters' own); an abstract mesh of several raises."""
+    if ctx.mesh_size(mesh) != 1 and not hasattr(mesh, "all_reduce"):
+        raise ValueError(
+            f"{what} on {mesh!r}: a sharded step runs on ranks, and an "
+            f"abstract mesh has no process groups (start them with "
+            f"launch.mesh.run_on_mesh and pass its Mesh)")
     return getattr(mesh, "device", None)
+
+
+def _ranks(mesh):
+    """``mesh`` when it has several ranks, else None."""
+    return mesh if hasattr(mesh, "all_reduce") and mesh.size > 1 else None
 
 
 def _on(dev: Optional[torch.device], params, *tensors):
@@ -170,15 +186,121 @@ def _split(batch: Dict[str, torch.Tensor], n: int) -> List[Dict]:
              for k, v in batch.items()} for i in range(n)]
 
 
-def make_train_step(mesh, cfg: ArchConfig, opts: StepOptions, *,
-                    plain: bool = False) -> Tuple[Callable, Any]:
-    """``(train_step, state_specs)`` on a one-process mesh.
-    ``train_step(state, batch)`` returns the new state and ``{"loss",
-    "ce", "aux", "grad_norm", "lr"}`` (with microbatches, the loss is their
-    mean and ``ce``/``aux`` the last one's, as in JAX).  ``plain`` forces
-    every attention and scan onto plain torch."""
+def _flat_collective(mesh, tensors: List[torch.Tensor], op: str,
+                     axes) -> List[torch.Tensor]:
+    """One collective over ``axes`` for many tensors: their flat
+    concatenation all-reduced (summed), or all-gathered into one row per
+    rank of the slice; returned cut back per tensor (gathered: (ranks,
+    *shape)), where the buffer was.  Over gloo the buffer is built on the
+    host, where gloo moves it anyway."""
+    host = mesh.backend == "gloo"
+    flat = torch.cat([t.reshape(-1).to("cpu" if host else t.device)
+                      for t in tensors])
+    n = mesh.span(axes)
+    if op == "all_reduce":
+        flat = mesh.all_reduce(flat, axes)
+    else:
+        flat = mesh.all_gather(flat, axes, 0).reshape(n, -1)
+    out, off = [], 0
+    for t in tensors:
+        size = t.numel()
+        if op == "all_reduce":
+            part = flat[off:off + size].reshape(t.shape)
+        else:
+            part = flat[:, off:off + size].reshape(n, *t.shape)
+        out.append(part.to(t.dtype))
+        off += size
+    return out
+
+
+def _data_mean(mesh, tree):
+    """The mean of every leaf of ``tree`` over the data-parallel ranks
+    (one all-reduce)."""
+    dp = S.dp_axes(mesh)
+    n = mesh.span(dp) if dp else 1
+    if n == 1:
+        return tree
+    leaves = [x for _, x in B.tree_leaves(tree)]
+    for leaf, total in zip(leaves, _flat_collective(mesh, leaves,
+                                                    "all_reduce", dp)):
+        leaf.copy_(total / n)          # in place: no second copy on the card
+    return tree
+
+
+def _model_sharded(spec) -> bool:
+    return any(e == "model" or (isinstance(e, tuple) and "model" in e)
+               for e in spec)
+
+
+def _global_norm(mesh, grads, pspecs) -> torch.Tensor:
+    """The L2 norm of the whole gradient from this rank's blocks: squares
+    of model-sharded leaves summed over ``model``, each replicated leaf
+    counted once."""
+    sharded = torch.zeros((), dtype=torch.float32, device=mesh.device)
+    whole = torch.zeros((), dtype=torch.float32, device=mesh.device)
+    specs = dict(B.tree_leaves(pspecs, leaf=S.P))
+    for path, g in B.tree_leaves(grads):
+        sq = torch.sum(torch.square(g.float()))
+        if _model_sharded(specs[path]):
+            sharded = sharded + sq
+        else:
+            whole = whole + sq
+    return torch.sqrt(mesh.all_reduce(sharded, "model") + whole)
+
+
+def _zero_dim(pspec, zspec) -> Optional[int]:
+    """The dim ZeRO adds the data-parallel axes to (None: the moment is
+    the parameter's block)."""
+    for i, z in enumerate(zspec):
+        if z is not None and (i >= len(pspec) or pspec[i] is None):
+            return i
+    return None
+
+
+def _zero_update(mesh, state, grads, specs, ocfg, lr, gnorm):
+    """AdamW on each leaf's ZeRO block (the moments' ``zero_opt_specs``),
+    the new parameters all-gathered over ``data``."""
+    dp = S.dp_axes(mesh)
+    pspecs = dict(B.tree_leaves(specs["params"], leaf=S.P))
+    zspecs = dict(B.tree_leaves(specs["opt"]["m"], leaf=S.P))
+    zdims = {path: _zero_dim(pspecs[path], zspecs[path]) for path in pspecs}
+
+    def block(path, x):
+        d = zdims[path]
+        if d is None:
+            return x
+        cut = [None] * x.dim()
+        cut[d] = dp if len(dp) > 1 else dp[0]
+        return x[S.shard_slices(mesh, mesh.coords, tuple(x.shape),
+                                S.P(*cut))]
+
+    params_z = B.tree_map_with_path(block, state["params"])
+    grads_z = B.tree_map_with_path(block, grads)
+    new_z, new_opt, om = adamw_update(params_z, grads_z, state["opt"], ocfg,
+                                      lr, gnorm=gnorm)
+    paths = [p for p, _ in B.tree_leaves(new_z) if zdims[p] is not None]
+    z_leaves = dict(B.tree_leaves(new_z))
+    gathered = dict(zip(paths, _flat_collective(
+        mesh, [z_leaves[p] for p in paths], "all_gather", dp)))
+
+    def whole(path, x):
+        if path not in gathered:
+            return x
+        return torch.cat(list(gathered.pop(path).unbind(0)),
+                         dim=zdims[path]).to(x.device)
+
+    return B.tree_map_with_path(whole, new_z), new_opt, om
+
+
+def make_grad_step(mesh, cfg: ArchConfig, opts: StepOptions, *,
+                   plain: bool = False) -> Callable:
+    """``grad_step(params, batch)``: ``(loss, {"ce", "aux"}, grads)`` of
+    ``backbone.loss_fn`` (microbatches accumulated in f32).  On a mesh of
+    ranks ``params`` and ``batch`` are this rank's blocks, the gradients
+    this rank's blocks of their mean over the data shards and the loss and
+    metrics their mean."""
     dev = _mesh_device(mesh, "make_train_step")
-    ocfg = _adamw(opts)
+    ranks = _ranks(mesh)
 
     def grads_of(leaves, params, batch):
         with torch.enable_grad():
@@ -186,18 +308,17 @@ def make_train_step(mesh, cfg: ArchConfig, opts: StepOptions, *,
                                        aux_weight=opts.aux_weight,
                                        plain=plain)
             grads = torch.autograd.grad(total, leaves, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g
+        grads = [torch.zeros_like(p) if g is None else g.contiguous()
                  for p, g in zip(leaves, grads)]
         return total.detach(), {k: v.detach() for k, v in metrics.items()}, \
             grads
 
-    def train_step(state: Dict[str, Any], batch: Dict[str, torch.Tensor]):
+    def grad_step(params, batch: Dict[str, torch.Tensor]):
         keys = sorted(batch)
-        batch = dict(zip(keys, _on(dev, state["params"],
-                                   *(batch[k] for k in keys))))
+        batch = dict(zip(keys, _on(dev, params, *(batch[k] for k in keys))))
         with ctx.use_mesh(mesh):
             live = B.tree_map(lambda p: p.detach().requires_grad_(True),
-                              state["params"])
+                              params)
             paths, leaves = zip(*B.tree_leaves(live))
             if opts.microbatch > 1:
                 acc = [torch.zeros(p.shape, dtype=torch.float32,
@@ -213,27 +334,61 @@ def make_train_step(mesh, cfg: ArchConfig, opts: StepOptions, *,
                 lval, metrics, grads = grads_of(leaves, live, batch)
             by_path = dict(zip(paths, grads))
             grads = B.tree_map_with_path(lambda path, _: by_path[path], live)
+        if ranks is not None:
             with torch.no_grad():
-                grads = C.decompress_grads(
-                    C.compress_grads(grads, opts.grad_compression),
-                    opts.grad_compression)
-                lr = cosine_schedule(state["step"], peak_lr=opts.lr,
-                                     warmup=opts.warmup,
-                                     total=opts.total_steps)
+                grads = _data_mean(ranks, grads)
+                lval, metrics = _data_mean(ranks, (lval, metrics))
+        return lval, metrics, grads
+
+    return grad_step
+
+
+def make_train_step(mesh, cfg: ArchConfig, opts: StepOptions, *,
+                    plain: bool = False) -> Tuple[Callable, Any]:
+    """``(train_step, state_specs)``.  ``train_step(state, batch)``
+    returns the new state and ``{"loss", "ce", "aux", "grad_norm", "lr"}``
+    (with microbatches, the loss is their mean and ``ce``/``aux`` the last
+    one's, as in JAX).  On a mesh of ranks ``state`` and ``batch`` are this
+    rank's blocks (``state_specs``; ``sharding.batch_specs``) and so is
+    the new state.  ``plain`` forces every attention and scan onto plain
+    torch."""
+    grad_step = make_grad_step(mesh, cfg, opts, plain=plain)
+    specs = make_train_state_specs(mesh, cfg, opts)
+    ranks = _ranks(mesh)
+    ocfg = _adamw(opts)
+
+    def train_step(state: Dict[str, Any], batch: Dict[str, torch.Tensor]):
+        lval, metrics, grads = grad_step(state["params"], batch)
+        with torch.no_grad():
+            grads = C.decompress_grads(
+                C.compress_grads(grads, opts.grad_compression),
+                opts.grad_compression)
+            lr = cosine_schedule(state["step"], peak_lr=opts.lr,
+                                 warmup=opts.warmup, total=opts.total_steps)
+            if ranks is None:
                 new_params, new_opt, om = adamw_update(
                     state["params"], grads, state["opt"], ocfg, lr)
+            else:
+                gnorm = _global_norm(ranks, grads, specs["params"])
+                if opts.zero:
+                    new_params, new_opt, om = _zero_update(
+                        ranks, state, grads, specs, ocfg, lr, gnorm)
+                else:
+                    new_params, new_opt, om = adamw_update(
+                        state["params"], grads, state["opt"], ocfg, lr,
+                        gnorm=gnorm)
         new_state = {"params": new_params, "opt": new_opt,
                      "step": state["step"] + 1}
         return new_state, {"loss": lval, **metrics, **om, "lr": lr}
 
-    return train_step, make_train_state_specs(mesh, cfg, opts)
+    return train_step, specs
 
 
 def jit_train_step(mesh, cfg: ArchConfig, opts: StepOptions,
                    batch_shapes) -> Tuple[Callable, Any, Any]:
     """``(step, state_specs, batch_specs)``.  JAX compiles the step here
-    under its shardings; the port runs it eagerly (nothing is compiled),
-    and the specs describe the placement a sharded run would take."""
+    under its shardings; the port runs it eagerly (nothing is compiled)
+    on the blocks those specs place on each rank."""
     step_fn, state_specs = make_train_step(mesh, cfg, opts)
     return step_fn, state_specs, S.batch_specs(mesh, cfg, batch_shapes)
 
@@ -242,37 +397,54 @@ def jit_train_step(mesh, cfg: ArchConfig, opts: StepOptions,
 # serving the backbone
 # ---------------------------------------------------------------------------
 
-def make_prefill_step(mesh, cfg: ArchConfig, *, plain: bool = False):
-    """``prefill_step(params, batch, cache=None)`` on a one-process mesh:
-    the prompt's logits, or with a fresh cache (``backbone.init_cache``)
-    ``(logits, the filled cache)``.  ``plain`` forces every attention and
-    scan onto plain torch."""
+def make_prefill_step(mesh, cfg: ArchConfig, *, plain: bool = False,
+                      cache_specs=None):
+    """``prefill_step(params, batch, cache=None)``: the prompt's logits,
+    or with a fresh cache (``backbone.init_cache``) ``(logits, the filled
+    cache)``.  On a mesh of ranks the arguments and results are this
+    rank's blocks (its rows of the batch, whole-vocab logits) and
+    ``cache_specs`` the cache's specs.  ``plain`` forces every attention
+    and scan onto plain torch."""
     dev = _mesh_device(mesh, "make_prefill_step")
 
     def prefill_step(params, batch: Dict[str, torch.Tensor], cache=None):
         keys = sorted(batch)
         moved = _on(dev, params, *(batch[k] for k in keys))
         batch = dict(zip(keys, moved))
-        with torch.inference_mode():
+        with torch.inference_mode(), ctx.use_mesh(mesh):
             if cache is None:
                 logits, _ = B.prefill(cfg, params, batch, plain=plain)
                 return logits
-            return B.prefill(cfg, params, batch, cache, plain=plain)
+            return B.prefill(cfg, params, batch, cache, plain=plain,
+                             specs=cache_specs)
 
     return prefill_step
 
 
-def make_decode_step(mesh, cfg: ArchConfig, *, plain: bool = False):
-    """``decode(params, cache, tokens, pos, enc_out=None)`` on a
-    one-process mesh: (logits (B, 1, V), the new cache) for the token at
-    position ``pos``."""
+def make_decode_step(mesh, cfg: ArchConfig, *, plain: bool = False,
+                     cache_specs=None):
+    """``decode(params, cache, tokens, pos, enc_out=None)``: (logits (B, 1,
+    V), the new cache) for the token at position ``pos``; on a mesh of
+    ranks each this rank's block, ``cache_specs`` the cache's specs."""
     dev = _mesh_device(mesh, "make_decode_step")
 
     def decode(params, cache, tokens: torch.Tensor, pos,
                enc_out: Optional[torch.Tensor] = None):
         tokens, enc_out = _on(dev, params, tokens, enc_out)
-        with torch.inference_mode():
+        with torch.inference_mode(), ctx.use_mesh(mesh):
             return B.decode_step(cfg, params, cache, tokens, pos, enc_out,
-                                 plain=plain)
+                                 plain=plain, specs=cache_specs)
 
     return decode
+
+
+def jit_serve_steps(mesh, cfg: ArchConfig, batch: int, max_seq: int,
+                    prefill_shapes=None, *, plain: bool = False):
+    """``(decode, param_specs, cache_specs)`` for a decode cache of
+    ``batch`` rows and ``max_seq`` positions: JAX compiles the decode step
+    under those shardings, the port runs it eagerly on each rank's
+    blocks (``sharding.shard_tree``)."""
+    pspecs = S.param_specs(mesh, cfg, B.param_specs(cfg))
+    cspecs = S.cache_specs(mesh, cfg, B.cache_specs(cfg, batch, max_seq))
+    decode = make_decode_step(mesh, cfg, plain=plain, cache_specs=cspecs)
+    return decode, pspecs, cspecs

@@ -3,9 +3,10 @@ moments sharded over the data-parallel axes on top of the parameters'
 tensor parallelism.
 
 For each moment the largest dim not already sharded whose size divides
-the data-parallel world takes the data-parallel axes.  These are specs
-only: on one process every spec places the whole tensor, and sharded
-execution of the update waits for ROADMAP §1 item 7.
+the data-parallel world takes the data-parallel axes.  On one process
+every spec places the whole tensor; on a mesh of ranks the train step
+(``distributed.steps``) runs each moment's update on its block and
+all-gathers the new parameter over the data-parallel axes.
 """
 from __future__ import annotations
 

@@ -13,9 +13,11 @@ checkpoints (``CheckpointManager``; a run resumes from the latest one in
 ``--ckpt-dir``) → the straggler monitor.  It prints the JAX driver's
 ``[train]`` lines and its closing verdict, "improved" when the mean of
 the last five losses is below the first five's.  ``--smoke`` takes the
-reduced config.  ``--production-mesh`` asks for the (data 16, model
-16) pod, whose sharded execution waits for ROADMAP §1 item 7 (the step
-factory raises ``NotImplementedError``).
+reduced config.  ``--production-mesh`` trains on the (data 16, model 16)
+pod of ``launch.mesh.make_production_mesh``, which needs a process group
+of world size 256 (it raises ``RuntimeError`` naming it otherwise); each
+rank then holds its blocks of the state and its rows of each batch, and
+a checkpoint holds the global arrays (gathered, written by rank 0).
 
 The SOL-pipeline path (``--sol``):
 
@@ -176,21 +178,23 @@ def _sol_main(args) -> None:
 
 def _backbone_main(args) -> Dict[str, Any]:
     """The backbone trainer; returns {"start", "steps", "losses"}."""
-    from ..checkpoint import CheckpointManager
+    from ..checkpoint import CheckpointManager, latest_step
+    from ..checkpoint import restore_checkpoint
     from ..configs import get_config, get_smoke
     from ..data import DataConfig, DataLoader, SyntheticTokenDataset
-    from ..distributed.sharding import AbstractMesh
+    from ..distributed import sharding as S
     from ..distributed.steps import (StepOptions, init_train_state,
-                                     make_train_step)
+                                     make_train_step, train_state_shapes)
     from ..frontends.offload import resolve_device
     from ..models import backbone as B
     from ..runtime.straggler import StragglerMonitor
-    from .mesh import make_debug_mesh
+    from .mesh import make_debug_mesh, make_production_mesh
 
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
     dev = resolve_device(args.device)
-    mesh = AbstractMesh((16, 16)) if args.production_mesh \
+    mesh = make_production_mesh(device=dev) if args.production_mesh \
         else make_debug_mesh(1, 1, device=dev)
+    sharded = mesh.size > 1
     opts = StepOptions(remat=not args.no_remat, microbatch=args.microbatch,
                        grad_compression=args.grad_compression,
                        zero=not args.no_zero, lr=args.lr,
@@ -199,16 +203,24 @@ def _backbone_main(args) -> Dict[str, Any]:
 
     print(f"[train] {cfg.name}: {B.count_params(cfg):,} params, "
           f"mesh {dict(mesh.shape)} on {dev}")
-    step_fn, _state_specs = make_train_step(mesh, cfg, opts)
+    step_fn, specs = make_train_step(mesh, cfg, opts)
     state = init_train_state(cfg, opts,
                              torch.Generator(dev).manual_seed(0), dev)
+    if sharded:
+        state = S.shard_tree(mesh, state, specs)
     dataset = SyntheticTokenDataset(DataConfig(
         seed=0, vocab=cfg.vocab, seq_len=args.seq, global_batch=args.batch))
     ckpt = CheckpointManager(args.ckpt_dir, interval=args.ckpt_interval)
     monitor = StragglerMonitor(n_hosts=1)
 
     start = 0
-    restored_step, restored = ckpt.restore_latest(state)
+    if sharded:
+        restored_step = latest_step(args.ckpt_dir)
+        restored = None if restored_step is None else restore_checkpoint(
+            args.ckpt_dir, train_state_shapes(cfg, opts), restored_step,
+            shardings=S.named(mesh, specs))
+    else:
+        restored_step, restored = ckpt.restore_latest(state)
     if restored is not None:
         state, start = restored, restored_step
         print(f"[train] resumed from step {start}")
@@ -219,12 +231,20 @@ def _backbone_main(args) -> Dict[str, Any]:
         t0 = time.time()
         for step in range(start, args.steps):
             batch = {k: torch.from_numpy(v) for k, v in next(loader).items()}
+            if sharded:
+                batch = S.shard_tree(mesh, batch,
+                                     S.batch_specs(mesh, cfg, batch))
             state, metrics = step_fn(state, batch)
             loss = float(metrics["loss"])
             losses.append(loss)
             monitor.record_step({0: time.time() - t0})
             t0 = time.time()
-            ckpt.maybe_save(step + 1, state)
+            if not sharded:
+                ckpt.maybe_save(step + 1, state)
+            elif (step + 1) % ckpt.interval == 0:
+                whole = S.gather_tree(mesh, state, specs)
+                if mesh.rank == 0:
+                    ckpt.maybe_save(step + 1, whole)
             if step % args.log_every == 0 or step == args.steps - 1:
                 print(f"[train] step {step:5d} loss {loss:.4f} "
                       f"lr {float(metrics['lr']):.2e} "

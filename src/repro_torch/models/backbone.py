@@ -20,6 +20,15 @@ make_train_step``).  With ``remat`` each macro block runs under
 backward, where JAX's scan body saves its products' outputs
 (``dots_with_no_batch_dims_saveable``); the values are the same, the
 memory is not.
+
+Under a mesh of ranks (``distributed.ctx.use_mesh`` with a
+``launch.mesh.Mesh``, as ``distributed.steps`` enters it) every function
+runs this rank's part of the program on its blocks of the parameter
+tree and its rows of the batch (``models.layers``): the embedding is
+vocab-sharded (masked rows, one all-reduce), the logits are all-gathered
+over the vocab, and a decode cache follows ``sharding.cache_specs``: KV
+heads on ``model`` where the axis divides them, else the sequence, whose
+blocks a decode step all-gathers (``specs``: the cache's spec tree).
 """
 from __future__ import annotations
 
@@ -30,6 +39,8 @@ from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..distributed import collectives as C
+from ..distributed import ctx as DC
 from ..frontends.offload import DeviceLike, resolve_device
 from . import layers as L
 from . import recurrent as R
@@ -69,15 +80,18 @@ def tree_map_with_path(fn: Callable, tree, prefix: Tuple = ()):
     return fn(prefix, tree)
 
 
-def tree_leaves(tree, prefix: Tuple = ()) -> List[Tuple[Tuple, Any]]:
+def tree_leaves(tree, prefix: Tuple = (), *,
+                leaf: Optional[type] = None) -> List[Tuple[Tuple, Any]]:
     """(path, leaf) pairs in key order, a path the keys and indices down to
-    the leaf."""
+    the leaf; an instance of ``leaf`` (a tuple type: a spec) is a leaf."""
+    if leaf is not None and isinstance(tree, leaf):
+        return [(prefix, tree)]
     if isinstance(tree, dict):
         return [x for k in sorted(tree) for x in
-                tree_leaves(tree[k], prefix + (k,))]
+                tree_leaves(tree[k], prefix + (k,), leaf=leaf)]
     if isinstance(tree, (tuple, list)):
         return [x for i, v in enumerate(tree) for x in
-                tree_leaves(v, prefix + (i,))]
+                tree_leaves(v, prefix + (i,), leaf=leaf)]
     return [(prefix, tree)]
 
 
@@ -331,11 +345,28 @@ def _route(cfg: ArchConfig, kind: str, mode: str, dtype, plain: bool,
     return L.attention_route(cfg, kind, mode, dtype, cache_len=cache_len)
 
 
+def _seq_sharded(cfg: ArchConfig, spec) -> bool:
+    """Whether a KV cache holds this rank's rows of every KV head (its
+    spec, JAX's ``cache_specs``, shards the sequence on ``model``): only
+    on a mesh whose model axis does not divide the KV heads."""
+    m = C.span("model")
+    if m == 1 or cfg.n_kv % m == 0:
+        return False
+    if spec is None:
+        raise ValueError(
+            f"{cfg.name}: a decode cache on a model axis of {m} that does "
+            f"not divide {cfg.n_kv} KV heads needs its specs "
+            f"(sharding.cache_specs) to read its layout")
+    return spec[0][1] == "model"
+
+
 def _attn_sublayer(cfg: ArchConfig, p, h, kind: str, positions,
                    kv_cache=None, decode_pos: Optional[int] = None,
-                   plain: bool = False):
+                   plain: bool = False, spec=None):
     """Returns (out, new_kv): new_kv is the updated cache in decode, the
-    prompt's (k, v) when ``kv_cache`` is "collect", else None."""
+    prompt's (k, v) when ``kv_cache`` is "collect", else None.  On a mesh
+    the cache is this rank's block (``spec``: its specs); a
+    sequence-sharded one is all-gathered for the step and cut back."""
     window = cfg.window if kind == "local" else 0
     q, k, v = L.attn_proj_qkv(p, h, cfg)
     q = L.apply_rope(q, positions, cfg.rope_theta)
@@ -344,14 +375,18 @@ def _attn_sublayer(cfg: ArchConfig, p, h, kind: str, positions,
     if kv_cache is not None and decode_pos is not None \
             and not isinstance(kv_cache, str):
         kc, vc = kv_cache
+        seq = _seq_sharded(cfg, spec)
+        if seq:
+            kc, vc = C.gather_model(kc, 1), C.gather_model(vc, 1)
         cache_len = kc.shape[1]
         ring = bool(window) and cache_len == window
         write_pos = decode_pos % window if ring else decode_pos
         route = _route(cfg, kind, "decode", q.dtype, plain, cache_len)
         if route == "kernel":
             # the kernel reads the cache before this step's write
-            o = L.decode_attention_kernel(q, kc, vc, k, v, decode_pos,
-                                          window=window,
+            o = L.decode_attention_kernel(q, *L.local_kv(kc, vc, cfg),
+                                          *L.local_kv(k, v, cfg),
+                                          decode_pos, window=window,
                                           cap=cfg.softcap_attn)
         kc, vc = kc.clone(), vc.clone()
         kc[:, write_pos] = k[:, 0]
@@ -360,43 +395,53 @@ def _attn_sublayer(cfg: ArchConfig, p, h, kind: str, positions,
             # ring caches hold exactly the last `window` tokens → no
             # distance mask; slots past decode_pos stay masked while the
             # ring fills
-            o = L.decode_attention(q, kc, vc, decode_pos,
+            o = L.decode_attention(q, *L.local_kv(kc, vc, cfg), decode_pos,
                                    window=0 if ring else window,
                                    cap=cfg.softcap_attn)
+        if seq:
+            kc, vc = C.scatter_model(kc, 1), C.scatter_model(vc, 1)
         new_kv = (kc, vc)
     else:
         o = L.multihead_attention(
-            q, k, v, causal=True, window=window, cap=cfg.softcap_attn,
+            q, *L.local_kv(k, v, cfg), causal=True, window=window,
+            cap=cfg.softcap_attn,
             route=_route(cfg, kind, "prefill", q.dtype, plain))
         if kv_cache == "collect":
             new_kv = (k, v)
-    return L.attn_out(p, o), new_kv
+    return L.attn_out(p, o, cfg), new_kv
 
 
 def _cross_sublayer(cfg: ArchConfig, p, h, enc_out):
-    b, s, _ = h.shape
-    q = (h @ p["xwq"]).reshape(b, s, cfg.n_heads, cfg.hd)
-    es = enc_out.shape[1]
-    ek = (enc_out @ p["xwk"]).reshape(b, es, cfg.n_kv, cfg.hd)
-    ev = (enc_out @ p["xwv"]).reshape(b, es, cfg.n_kv, cfg.hd)
-    o = L.multihead_attention(q, ek, ev, causal=False)
-    return o.reshape(b, s, -1) @ p["xwo"]
+    q, ek, ev = L.attn_proj_qkv(p, h, cfg, pre="x", kv_x=enc_out)
+    o = L.multihead_attention(q, *L.local_kv(ek, ev, cfg), causal=False)
+    return L.attn_out(p, o, cfg, pre="x")
+
+
+def _ffn_width(cfg: ArchConfig, layer_is_moe: bool) -> int:
+    """The global hidden width of a layer's FFN: a MoE config's dense
+    layers take ``d_ff_dense``."""
+    if cfg.moe is not None and not layer_is_moe:
+        return cfg.moe.d_ff_dense or cfg.d_ff
+    return cfg.d_ff
 
 
 def _ffn_sublayer(cfg: ArchConfig, p, h, layer_is_moe: bool,
                   plain: bool = False):
     if layer_is_moe:
         return L.moe_apply(p["moe"], h, cfg.moe, plain=plain)
-    return L.ffn_apply(p["ffn"], h, cfg.ffn), 0.0
+    return L.ffn_apply(p["ffn"], h, cfg.ffn,
+                       _ffn_width(cfg, layer_is_moe)), 0.0
 
 
 def apply_block(cfg: ArchConfig, kind: str, p, h, positions, *,
                 is_moe: bool, state=None, decode_pos: Optional[int] = None,
-                enc_kv=None, mode: str = "train", plain: bool = False):
+                enc_kv=None, mode: str = "train", plain: bool = False,
+                spec=None):
     """One full block.  ``mode``: "train" (a forward), "prefill_cached" (a
     forward that also returns the layer's state: the prompt's (k, v), or
     the recurrent carry from ``state``) or "decode" (one token from
-    ``state``).  Returns (h, aux_loss, new_state)."""
+    ``state``; ``spec``: its specs, read on a mesh).  Returns (h,
+    aux_loss, new_state)."""
     new_state: Any = None
     if kind == "rwkv":
         hn = L.apply_norm(cfg.norm, h, p["ln1"])
@@ -411,7 +456,7 @@ def apply_block(cfg: ArchConfig, kind: str, p, h, positions, *,
         hn = L.apply_norm(cfg.norm, h, p["ln2"])
         lastc = state["last_xc"] if (state is not None and mode == "decode") \
             else None
-        o, last_xc = R.rwkv_channel_mix_seq(p, hn, lastc)
+        o, last_xc = R.rwkv_channel_mix_seq(p, hn, lastc, width=cfg.d_ff)
         h = h + o
         if mode in ("decode", "prefill_cached"):
             new_state = {**st, "last_xc": last_xc}
@@ -420,11 +465,11 @@ def apply_block(cfg: ArchConfig, kind: str, p, h, positions, *,
     hn = L.apply_norm(cfg.norm, h, p["ln1"])
     if kind == "rglru":
         if mode == "decode":
-            o, new_state = R.rglru_block_step(p, hn, state)
+            o, new_state = R.rglru_block_step(p, hn, state, width=cfg.drnn)
         else:
             o, new_state = R.rglru_block_seq(
                 p, hn, state if mode == "prefill_cached" else None,
-                kernel=not plain)
+                kernel=not plain, width=cfg.drnn)
             if mode != "prefill_cached":
                 new_state = None
         attn_out = _maybe_post(cfg, p, "ln1p", o)
@@ -436,7 +481,8 @@ def apply_block(cfg: ArchConfig, kind: str, p, h, positions, *,
             kv_cache = "collect"
         o, new_state = _attn_sublayer(cfg, p, hn, kind, positions,
                                       kv_cache=kv_cache,
-                                      decode_pos=decode_pos, plain=plain)
+                                      decode_pos=decode_pos, plain=plain,
+                                      spec=spec)
         attn_out = _maybe_post(cfg, p, "ln1p", o)
 
     if cfg.parallel_block:
@@ -458,17 +504,26 @@ def apply_block(cfg: ArchConfig, kind: str, p, h, positions, *,
 # ---------------------------------------------------------------------------
 
 def embed_tokens(cfg: ArchConfig, params, tokens: Tensor) -> Tensor:
-    h = params["embed"][tokens] * math.sqrt(cfg.d_model)
+    """Token embeddings; with this rank's rows of a vocab-sharded table,
+    the rows it holds (others zero) summed over ``model``."""
+    emb = params["embed"]
+    v_loc = emb.shape[0]
+    if v_loc == cfg.vocab_padded:
+        h = emb[tokens] * math.sqrt(cfg.d_model)
+    else:
+        idx = tokens - C.coord("model") * v_loc
+        hit = ((idx >= 0) & (idx < v_loc)).to(emb.dtype)
+        rows = emb[idx.clamp(0, v_loc - 1)] * hit[..., None]
+        h = C.reduce_model(rows) * math.sqrt(cfg.d_model)
     return h.to(_dt(cfg))
 
 
 def lm_logits(cfg: ArchConfig, params, h: Tensor) -> Tensor:
+    """f32 logits over the whole vocab (a vocab-sharded head's blocks
+    all-gathered)."""
     h = L.apply_norm(cfg.norm, h, params["ln_f"])
-    if cfg.tie_embeddings:
-        logits = h @ params["embed"].T
-    else:
-        logits = h @ params["lm_head"]
-    logits = logits.float()
+    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    logits = L.col_full(h, w, cfg.vocab_padded).float()
     if cfg.softcap_final:
         logits = L.softcap(logits, cfg.softcap_final)
     return logits
@@ -490,12 +545,13 @@ def run_encoder(cfg: ArchConfig, params, frames: Tensor, *,
         p = params["encoder"][f"layer{i}"]
         hn = L.apply_norm(cfg.norm, h, p["ln1"])
         q, k, v = L.attn_proj_qkv(p, hn, cfg)
+        k, v = L.local_kv(k, v, cfg)
         if route == "kernel":
             o = L.multihead_attention(q, k, v, causal=False, route=route)
         else:
             o = L.multihead_attention(q, k, v, causal=False, q_pos=positions,
                                       kv_pos=positions)
-        h = h + L.attn_out(p, o)
+        h = h + L.attn_out(p, o, cfg)
         hn = L.apply_norm(cfg.norm, h, p["ln2"])
         f, _ = _ffn_sublayer(cfg, p, hn, False)
         h = h + f
@@ -523,50 +579,70 @@ def _index(tree, m: int):
     return tree_map(lambda x: x[m], tree)
 
 
+def _unstack_specs(specs):
+    """A macro spec tree without its stack dim (the lead entry)."""
+    from ..distributed.sharding import P
+    if specs is None:
+        return None
+    if isinstance(specs, P):
+        return P(*specs[1:])
+    if isinstance(specs, dict):
+        return {k: _unstack_specs(v) for k, v in specs.items()}
+    return type(specs)(_unstack_specs(v) for v in specs)
+
+
 def _macro_block(cfg: ArchConfig, period, h: Tensor, aux: Tensor, p_m,
                  positions: Tensor, enc_out: Optional[Tensor], first: int,
-                 plain: bool) -> Tuple[Tensor, Tensor]:
+                 plain: bool, mesh=None) -> Tuple[Tensor, Tensor]:
     """One macro block of a training forward: every position of the
-    pattern in turn.  Returns (h, aux)."""
-    for i, kind in enumerate(period):
-        h, a, _ = apply_block(cfg, kind, p_m[f"pos{i}"], h, positions,
-                              is_moe=_is_moe_layer(cfg, first + i, kind),
-                              enc_kv=enc_out, plain=plain)
-        aux = aux + a
+    pattern in turn, on ``mesh`` (a recompute under remat runs on
+    autograd's thread, which has no active mesh of its own).  Returns
+    (h, aux)."""
+    with DC.use_mesh(mesh):
+        for i, kind in enumerate(period):
+            h, a, _ = apply_block(cfg, kind, p_m[f"pos{i}"], h, positions,
+                                  is_moe=_is_moe_layer(cfg, first + i, kind),
+                                  enc_kv=enc_out, plain=plain)
+            aux = aux + a
     return h, aux
 
 
 def _run_layers(cfg: ArchConfig, params, h: Tensor, positions: Tensor,
                 enc_out: Optional[Tensor], *, mode: str = "train",
                 cache=None, decode_pos: Optional[int] = None,
-                plain: bool = False, remat: bool = False):
+                plain: bool = False, remat: bool = False, specs=None):
     """Every layer in order: head, the macro blocks (each pattern position
     in turn), tail.  Returns (h, aux_loss, new_cache); new_cache holds the
     layers' states (None outside "prefill_cached" and "decode").  With
     ``remat`` (mode "train") each macro block is recomputed in the
-    backward."""
+    backward.  ``specs``: the cache's spec tree (on a mesh)."""
     n_head, n_macro, n_tail = macro_split(cfg)
     period = cfg.layer_pattern
     kinds = layer_kinds(cfg)
     aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
     new_cache: Dict[str, Any] = {"head": {}, "tail": {}}
 
-    def block(kind, p, st, idx):
+    def block(kind, p, st, idx, spec=None):
         nonlocal h, aux_total
         h, aux, new = apply_block(
             cfg, kind, p, h, positions, is_moe=_is_moe_layer(cfg, idx, kind),
             state=st, decode_pos=decode_pos, enc_kv=enc_out, mode=mode,
-            plain=plain)
+            plain=plain, spec=spec)
         aux_total = aux_total + aux
         return new
 
     def state(part: str, key: str):
         return None if cache is None else cache[part][key]
 
+    def spec_of(part: str, key: str):
+        return None if specs is None else specs[part][key]
+
+    macro_specs = None if specs is None or "macro" not in specs \
+        else _unstack_specs(specs["macro"])
     for i in range(n_head):
         new_cache["head"][f"layer{i}"] = block(
             kinds[i], params["head"][f"layer{i}"],
-            state("head", f"layer{i}"), i)
+            state("head", f"layer{i}"), i, spec_of("head", f"layer{i}"))
     if n_macro:
         per_pos: Dict[str, List[Any]] = {f"pos{i}": [] for i in
                                           range(len(period))}
@@ -575,7 +651,7 @@ def _run_layers(cfg: ArchConfig, params, h: Tensor, positions: Tensor,
             if remat and mode == "train":
                 h, aux_total = checkpoint(
                     _macro_block, cfg, period, h, aux_total, p_m, positions,
-                    enc_out, n_head + m * len(period), plain,
+                    enc_out, n_head + m * len(period), plain, DC._mesh(),
                     use_reentrant=False)
                 continue
             c_m = None if cache is None else _index(cache["macro"], m)
@@ -583,14 +659,16 @@ def _run_layers(cfg: ArchConfig, params, h: Tensor, positions: Tensor,
                 per_pos[f"pos{i}"].append(block(
                     kind, p_m[f"pos{i}"],
                     None if c_m is None else c_m[f"pos{i}"],
-                    n_head + m * len(period) + i))
+                    n_head + m * len(period) + i,
+                    None if macro_specs is None else macro_specs[f"pos{i}"]))
         if mode in ("decode", "prefill_cached"):
             new_cache["macro"] = {k: _stack(v) for k, v in per_pos.items()}
     base = n_head + n_macro * len(period)
     for i in range(n_tail):
         new_cache["tail"][f"layer{i}"] = block(
             period[i], params["tail"][f"layer{i}"],
-            state("tail", f"layer{i}"), base + i)
+            state("tail", f"layer{i}"), base + i,
+            spec_of("tail", f"layer{i}"))
     return h, aux_total, new_cache
 
 
@@ -670,10 +748,19 @@ def cache_specs(cfg: ArchConfig, batch: int, max_seq: int
     return init_cache(cfg, batch, max_seq, device="meta")
 
 
-def _fill_kv(cfg: ArchConfig, kind: str, old, new):
+def _fill_kv(cfg: ArchConfig, kind: str, old, new, spec=None):
     """A layer's cache with the prompt's (k, v) written at their
     positions: rows [0, S), or, in a ring of ``window`` slots, the last
-    ``window`` positions t at slot t % window."""
+    ``window`` positions t at slot t % window.  A sequence-sharded cache
+    (on a mesh) is filled whole and cut back to this rank's rows."""
+    if _seq_sharded(cfg, spec):
+        whole = tuple(C.gather_model(t, 1) for t in old)
+        return tuple(C.scatter_model(t, 1)
+                     for t in _write_prompt(cfg, kind, whole, new))
+    return _write_prompt(cfg, kind, old, new)
+
+
+def _write_prompt(cfg: ArchConfig, kind: str, old, new):
     kc, vc = (t.clone() for t in old)
     k, v = new
     s, cache_len = k.shape[1], kc.shape[1]
@@ -693,26 +780,29 @@ def _fill_kv(cfg: ArchConfig, kind: str, old, new):
 
 def decode_step(cfg: ArchConfig, params, cache, tokens: Tensor,
                 pos: Union[int, Tensor], enc_out: Optional[Tensor] = None,
-                *, plain: bool = False) -> Tuple[Tensor, Dict[str, Any]]:
+                *, plain: bool = False, specs=None
+                ) -> Tuple[Tensor, Dict[str, Any]]:
     """One token for the whole batch.  tokens: (B, 1); ``pos``: the
     position of that token.  Returns (logits (B, 1, V), the new cache);
-    the cache given is not written."""
+    the cache given is not written.  On a mesh ``specs`` is the cache's
+    spec tree (``sharding.cache_specs``)."""
     pos = int(pos)
     h = embed_tokens(cfg, params, tokens)
     positions = torch.tensor([pos], device=h.device)
     h, _, new_cache = _run_layers(cfg, params, h, positions, enc_out,
                                   mode="decode", cache=cache, decode_pos=pos,
-                                  plain=plain)
+                                  plain=plain, specs=specs)
     return lm_logits(cfg, params, h), new_cache
 
 
 def prefill(cfg: ArchConfig, params, batch: Dict[str, Tensor], cache=None,
-            *, plain: bool = False):
+            *, plain: bool = False, specs=None):
     """Prefill forward.  With no ``cache``: (full-sequence logits,
     aux_loss), as JAX's ``prefill``.  With a fresh cache (``init_cache``):
     (logits, the cache filled from the same activations: every attention
     layer's (k, v) at the prompt's positions, every recurrent layer's
-    carry), ready for ``decode_step`` at position S."""
+    carry), ready for ``decode_step`` at position S.  On a mesh
+    ``specs`` is the cache's spec tree."""
     if cache is None:
         return forward(cfg, params, batch, plain=plain)
     h, enc_out = _stack_inputs(cfg, params, batch, plain)
@@ -723,22 +813,32 @@ def prefill(cfg: ArchConfig, params, batch: Dict[str, Tensor], cache=None,
     n_head, n_macro, _ = macro_split(cfg)
     period, kinds = cfg.layer_pattern, layer_kinds(cfg)
 
-    def merged(kind, old, new, stacked=False):
+    def merged(kind, old, new, spec, stacked=False):
         if kind in ("rglru", "rwkv"):
             return new
         if stacked:
-            return _stack([_fill_kv(cfg, kind, _index(old, m), _index(new, m))
+            return _stack([_fill_kv(cfg, kind, _index(old, m),
+                                    _index(new, m), spec)
                            for m in range(n_macro)])
-        return _fill_kv(cfg, kind, old, new)
+        return _fill_kv(cfg, kind, old, new, spec)
+
+    def spec_of(part, key):
+        if specs is None:
+            return None
+        if part == "macro":
+            return _unstack_specs(specs["macro"])[key]
+        return specs[part][key]
 
     out: Dict[str, Any] = {
         part: {f"layer{i}": merged(kind_of(i), cache[part][f"layer{i}"],
-                                   states[part][f"layer{i}"])
+                                   states[part][f"layer{i}"],
+                                   spec_of(part, f"layer{i}"))
                for i in range(len(cache[part]))}
         for part, kind_of in (("head", lambda i: kinds[i]),
                               ("tail", lambda i: period[i]))}
     if n_macro:
         out["macro"] = {f"pos{i}": merged(kind, cache["macro"][f"pos{i}"],
-                                          states["macro"][f"pos{i}"], True)
+                                          states["macro"][f"pos{i}"],
+                                          spec_of("macro", f"pos{i}"), True)
                         for i, kind in enumerate(period)}
     return lm_logits(cfg, params, h), out

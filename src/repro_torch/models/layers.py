@@ -10,12 +10,24 @@ a CUDA tensor, its plain version on a CPU tensor), "plain" the
 materialized or chunked attention below, the counterpart of the JAX
 package's jnp attention.
 
-The MoE is the dense single-device path.  Its dispatch gather and
-combine scatter are ``torch.autograd.Function``s whose backwards are each
-other's forwards (JAX's custom VJPs), carrying the same sharding
-constraints (``distributed.ctx.constrain``: the identity on one process).
-The expert-parallel ``_moe_apply_shard_map`` waits with the sharded
-backbone (ROADMAP §1 item 7).
+The MoE's dispatch gather and combine scatter are
+``torch.autograd.Function``s whose backwards are each other's forwards
+(JAX's custom VJPs), carrying the same sharding constraints
+(``distributed.ctx.constrain``).
+
+Under a mesh of ranks (``distributed.ctx.use_mesh`` with a
+``launch.mesh.Mesh``) every function here runs this rank's part of the
+program on this rank's parameter blocks (``distributed.sharding.
+param_specs``), with the collectives of ``distributed.collectives``:
+column-parallel products (:func:`col_local`, :func:`col_full`) and
+row-parallel ones ending in one all-reduce over ``model`` (:func:`row`).
+Attention runs on this rank's heads when the model axis divides the
+query heads, on its KV heads when it divides those too, and otherwise
+gathers q, k or v whole first (recurrentgemma's single KV head, whose
+``wk``/``wv`` are split inside the head).  With experts that the model
+axis divides, the MoE is :func:`_moe_apply_ep`, the counterpart of JAX's
+``_moe_apply_shard_map``.  With one process each collective is the
+identity and every function is the single-device one.
 """
 from __future__ import annotations
 
@@ -25,6 +37,8 @@ from typing import Dict, Optional, Tuple, Union
 import torch
 import torch.nn.functional as F
 
+from ..distributed import collectives as C
+from ..distributed import ctx as _ctx
 from ..distributed.ctx import constrain
 from ..kernels.decode_attention.kernel import HEAD_DIMS as DECODE_HEAD_DIMS
 from ..kernels.decode_attention.kernel import MAX_GROUP
@@ -299,34 +313,132 @@ def decode_attention_kernel(q: Tensor, k_cache: Tensor, v_cache: Tensor,
 # attention block (projections + rope + residual), parameterized
 # ---------------------------------------------------------------------------
 
-def attn_proj_qkv(p: Params, x: Tensor, cfg) -> Tuple[Tensor, Tensor, Tensor]:
+def attn_proj_qkv(p: Params, x: Tensor, cfg, *, pre: str = "",
+                  kv_x: Optional[Tensor] = None
+                  ) -> Tuple[Tensor, Tensor, Tensor]:
+    """q (B, S, H, hd) and k, v (B, Skv, KV, hd) from ``x`` (k and v from
+    ``kv_x`` when given: cross attention, weights ``pre + "wq"`` ...).
+    On a mesh q holds this rank's heads when the model axis divides H (else
+    all), and k, v this rank's KV heads when it divides KV (else all: the
+    cache's layout); :func:`local_kv` then fits k, v to q's heads."""
     b, s, _ = x.shape
-    q = x @ p["wq"]
-    k = x @ p["wk"]
-    v = x @ p["wv"]
-    if cfg.qkv_bias:
-        q = q + p["bq"]
-        k = k + p["bk"]
-        v = v + p["bv"]
-    q = q.reshape(b, s, cfg.n_heads, cfg.hd)
-    k = k.reshape(b, s, cfg.n_kv, cfg.hd)
-    v = v.reshape(b, s, cfg.n_kv, cfg.hd)
-    return q, k, v
+    kv_x = x if kv_x is None else kv_x
+    bias = cfg.qkv_bias and not pre
+    hd, m = cfg.hd, C.span("model")
+    if m == 1:
+        q = x @ p[pre + "wq"]
+        k = kv_x @ p[pre + "wk"]
+        v = kv_x @ p[pre + "wv"]
+        if bias:
+            q = q + p["bq"]
+            k = k + p["bk"]
+            v = v + p["bv"]
+        return (q.reshape(b, s, cfg.n_heads, hd),
+                k.reshape(b, kv_x.shape[1], cfg.n_kv, hd),
+                v.reshape(b, kv_x.shape[1], cfg.n_kv, hd))
+
+    def proj(src, name, heads):
+        w, bv = p[pre + "w" + name], p["b" + name] if bias else None
+        if heads % m == 0:            # whole heads here (w column-sharded)
+            y = C.copy_model(src) @ w
+            y = y if bv is None else y + bv
+            n = heads // m
+        else:
+            y, n = col_full(src, w, heads * hd, bv), heads
+        return y.reshape(b, src.shape[1], n, hd)
+    return (proj(x, "q", cfg.n_heads), proj(kv_x, "k", cfg.n_kv),
+            proj(kv_x, "v", cfg.n_kv))
 
 
-def attn_out(p: Params, o: Tensor) -> Tensor:
+def local_kv(k: Tensor, v: Tensor, cfg) -> Tuple[Tensor, Tensor]:
+    """k, v (B, S, KV', hd) as :func:`attn_proj_qkv` or the cache holds
+    them, fitted to the query heads this rank holds: as they are with one
+    process, when the model axis divides KV (this rank's KV heads) or not
+    H (every head here); else the KV heads this rank's query heads read,
+    in a group size GQA takes (each head apart where none fits)."""
+    h, kv, m = cfg.n_heads, cfg.n_kv, C.span("model")
+    if m == 1 or kv % m == 0 or h % m:
+        return k, v
+    hl, g, c = h // m, h // kv, C.coord("model")
+    ids = [(c * hl + i) // g for i in range(hl)]
+    lo, n = ids[0], ids[-1] - ids[0] + 1
+    k, v = C.copy_model(k), C.copy_model(v)
+    if hl % n == 0 and ids == [lo + i // (hl // n) for i in range(hl)]:
+        return k[:, :, lo:lo + n], v[:, :, lo:lo + n]
+    idx = torch.tensor(ids, device=k.device)
+    return k[:, :, idx], v[:, :, idx]
+
+
+def _reduce_attn(y: Tensor) -> Tensor:
+    """The all-reduce after the attention's row-parallel output
+    product."""
+    return C.reduce_model(y)
+
+
+def attn_out(p: Params, o: Tensor, cfg=None, *, pre: str = "") -> Tensor:
+    """The output product of attention ``o`` (B, S, H', hd); on a mesh
+    row-parallel over the heads (``cfg`` gives their global count)."""
     b, s = o.shape[:2]
-    y = o.reshape(b, s, -1) @ p["wo"]
-    if "bo" in p:
+    w = p[pre + "wo"]
+    if C.span("model") == 1:
+        y = o.reshape(b, s, -1) @ w
+    else:
+        y = row(o.reshape(b, s, -1), w, cfg.n_heads * cfg.hd, _reduce_attn)
+    if "bo" in p and not pre:
         y = y + p["bo"]
     return y
+
+
+# ---------------------------------------------------------------------------
+# products on a mesh: column- and row-parallel
+# ---------------------------------------------------------------------------
+
+def col_local(x: Tensor, w: Tensor, full: int) -> Tensor:
+    """``x`` (replicated over ``model``) times ``w`` of ``full`` output
+    features, this rank's block of them when ``w`` is column-sharded."""
+    if w.shape[-1] == full:
+        return x @ w
+    return C.copy_model(x) @ w
+
+
+def col_full(x: Tensor, w: Tensor, full: int,
+             bias: Optional[Tensor] = None) -> Tensor:
+    """``x @ w (+ bias)`` whole on every rank: a column-sharded product's
+    blocks all-gathered."""
+    if w.shape[-1] == full:
+        y = x @ w
+        return y if bias is None else y + bias
+    y = C.copy_model(x) @ w
+    return C.gather_model(y if bias is None else y + bias, -1)
+
+
+def row(h: Tensor, w: Tensor, full: int, reduce=None) -> Tensor:
+    """``h @ w`` over a contraction dim of ``full``: when ``w`` holds this
+    rank's rows, ``h`` this rank's block of that dim (cut here when whole)
+    and the partial sums all-reduced over ``model`` (``reduce``)."""
+    if w.shape[0] == full:
+        return h @ w
+    if h.shape[-1] == full:
+        h = C.scatter_model(h, -1)
+    return (reduce or C.reduce_model)(h @ w)
 
 
 # ---------------------------------------------------------------------------
 # FFN / MoE
 # ---------------------------------------------------------------------------
 
-def ffn_apply(p: Params, x: Tensor, kind: str) -> Tensor:
+def ffn_apply(p: Params, x: Tensor, kind: str,
+              width: Optional[int] = None) -> Tensor:
+    """The FFN of hidden width ``width`` (its global size: on a mesh the
+    hidden dim may be this rank's block)."""
+    if C.span("model") > 1:
+        if kind == "swiglu":
+            h = F.silu(col_local(x, p["wg"], width)) * \
+                col_local(x, p["wu"], width)
+            return row(h, p["wd"], width)
+        h = F.gelu(col_local(x, p["w1"], width) + p["b1"],
+                   approximate="tanh")
+        return row(h, p["w2"], width) + p["b2"]
     if kind == "swiglu":
         h = F.silu(x @ p["wg"]) * (x @ p["wu"])
         return h @ p["wd"]
@@ -337,10 +449,14 @@ def ffn_apply(p: Params, x: Tensor, kind: str) -> Tensor:
 
 def moe_apply(p: Params, x: Tensor, moe_cfg, *,
               plain: bool = False) -> Tuple[Tensor, Tensor]:
-    """Top-k MoE on one device (``_moe_apply_dense``); the expert-parallel
-    form waits with the sharded backbone.  ``plain`` lets autograd
-    differentiate the dispatch and combine instead of their explicit
-    backwards (the comparison route)."""
+    """Top-k MoE: expert-parallel (:func:`_moe_apply_ep`) on a mesh whose
+    model axis (above 1) divides the experts, as JAX's ``moe_apply``
+    routes to ``_moe_apply_shard_map``; else ``_moe_apply_dense``.
+    ``plain`` lets autograd differentiate the dispatch and combine
+    instead of their explicit backwards (the comparison route)."""
+    m = C.span("model")
+    if m > 1 and moe_cfg.n_experts % m == 0:
+        return _moe_apply_ep(p, x, moe_cfg, plain=plain)
     return _moe_apply_dense(p, x, moe_cfg, plain=plain)
 
 
@@ -401,15 +517,12 @@ def _moe_apply_dense(p: Params, x: Tensor, moe_cfg, *,
     xg = x.reshape(ng, gs, d)
     gates, topw, topi = moe_routing(p, x, moe_cfg)
 
-    # load-balancing auxiliary loss (Switch-style)
-    me = gates.mean(dim=(0, 1))
-    ce = torch.zeros((e,), dtype=torch.float32, device=x.device).index_add_(
-        0, topi.reshape(-1),
-        torch.full((topi.numel(),), 1.0 / (ng * gs * k), device=x.device))
-    aux = e * torch.sum(me * ce)
+    # load-balancing auxiliary loss (Switch-style); on a data-sharded
+    # mesh over the whole batch, as GSPMD computes it
+    me, ce = _balance(gates, topi, e, ng * gs * k)
+    aux = e * torch.sum(C.mean_data(me) * C.mean_data(ce))
 
-    cap = int(math.ceil(gs * k / e * moe_cfg.capacity_factor))
-    cap = max(8, ((cap + 7) // 8) * 8)
+    cap = _capacity(gs, k, e, moe_cfg.capacity_factor)
     slot_tok, slot_w = _slot_tables(topi, topw, ng, gs, k, e, cap)
 
     xg_pad = torch.cat([xg, torch.zeros((ng, 1, d), dtype=xg.dtype,
@@ -422,6 +535,68 @@ def _moe_apply_dense(p: Params, x: Tensor, moe_cfg, *,
     yw = y * slot_w[..., None].to(y.dtype)
     out = (_scatter_add(yw, slot_tok, gs + 1) if plain
            else moe_scatter(yw, slot_tok, gs))
+    return out[:, :gs].reshape(b, s, d), aux
+
+
+def _balance(gates: Tensor, topi: Tensor, e: int,
+             n: int) -> Tuple[Tensor, Tensor]:
+    """The balance loss's factors: the mean gate and the routed share of
+    each expert."""
+    me = gates.mean(dim=(0, 1))
+    ce = torch.zeros((e,), dtype=torch.float32,
+                     device=gates.device).index_add_(
+        0, topi.reshape(-1),
+        torch.full((topi.numel(),), 1.0 / n, device=gates.device))
+    return me, ce
+
+
+def _capacity(gs: int, k: int, e: int, factor: float) -> int:
+    cap = int(math.ceil(gs * k / e * factor))
+    return max(8, ((cap + 7) // 8) * 8)
+
+
+def _moe_combine(out: Tensor) -> Tensor:
+    """The expert-parallel combine: the ranks' partial scatters summed
+    over ``model``."""
+    return C.reduce_model(out)
+
+
+def _moe_apply_ep(p: Params, x: Tensor, moe_cfg, *,
+                  plain: bool = False) -> Tuple[Tensor, Tensor]:
+    """Expert parallelism as JAX's ``_moe_apply_shard_map`` writes it, on
+    this rank's experts ``p["wg"]`` ... (E / model of them): the router
+    and the slot tables over this rank's data shard (replicated over
+    ``model``), this rank's expert block ``e0 = coord(model)·E_loc`` of
+    the tables, the gather, experts and scatter on the local block, ONE
+    all-reduce over ``model`` for the combine, and the balance loss of
+    each data shard averaged over ``data``.  The kernel route keeps the
+    dispatch and combine Functions on the local block."""
+    b, s, d = x.shape
+    e, k = moe_cfg.n_experts, moe_cfg.top_k
+    e_loc = p["wg"].shape[0]
+    gs = min(moe_cfg.group_size, b * s)
+    ng = (b * s) // gs
+    xg = x.reshape(ng, gs, d)
+    gates, topw, topi = moe_routing(p, x, moe_cfg)
+    me, ce = _balance(gates, topi, e, ng * gs * k)
+    aux = C.mean_data(e * torch.sum(me * ce))
+
+    cap = _capacity(gs, k, e, moe_cfg.capacity_factor)
+    slot_tok, slot_w = _slot_tables(topi, topw, ng, gs, k, e, cap)
+    e0 = C.coord("model") * e_loc
+    st = slot_tok[:, e0:e0 + e_loc].contiguous()
+    sw = C.scatter_model(slot_w, 1)
+    xg_pad = C.copy_model(torch.cat(
+        [xg, torch.zeros((ng, 1, d), dtype=xg.dtype, device=x.device)], 1))
+    with _ctx.local():
+        xin = _gather(xg_pad, st) if plain else moe_gather(xg_pad, st)
+        g = torch.einsum("gecd,edf->gecf", xin, p["wg"])
+        u = torch.einsum("gecd,edf->gecf", xin, p["wu"])
+        y = torch.einsum("gecf,efd->gecd", F.silu(g) * u, p["wd"])
+        yw = y.to(x.dtype) * sw[..., None].to(x.dtype)
+        out = (_scatter_add(yw, st, gs + 1) if plain
+               else moe_scatter(yw, st, gs))
+    out = _moe_combine(out)
     return out[:, :gs].reshape(b, s, d), aux
 
 
@@ -450,18 +625,22 @@ def _gather(x: Tensor, slot_tok: Tensor) -> Tensor:
 
 
 class _MoEGather(torch.autograd.Function):
+    # each backward runs under the mesh its forward saw (none inside the
+    # expert-parallel local block), on whichever thread autograd takes
 
     @staticmethod
     def forward(ctx, xg_pad, slot_tok):
         ctx.save_for_backward(slot_tok)
         ctx.rows = xg_pad.shape[1]
+        ctx.mesh = _ctx._mesh()
         return _gather(xg_pad, slot_tok)
 
     @staticmethod
     def backward(ctx, ct):
         (slot_tok,) = ctx.saved_tensors
-        ct = constrain(ct, ("dp", "model", None, None))
-        return _scatter_add(ct, slot_tok, ctx.rows), None
+        with _ctx.use_mesh(ctx.mesh):
+            ct = constrain(ct, ("dp", "model", None, None))
+            return _scatter_add(ct, slot_tok, ctx.rows), None
 
 
 class _MoEScatter(torch.autograd.Function):
@@ -469,13 +648,15 @@ class _MoEScatter(torch.autograd.Function):
     @staticmethod
     def forward(ctx, yw, slot_tok, gs):
         ctx.save_for_backward(slot_tok)
+        ctx.mesh = _ctx._mesh()
         return _scatter_add(yw, slot_tok, gs + 1)
 
     @staticmethod
     def backward(ctx, ct):
         (slot_tok,) = ctx.saved_tensors
-        ct = constrain(ct, ("dp", None, None))
-        return _gather(ct, slot_tok), None, None
+        with _ctx.use_mesh(ctx.mesh):
+            ct = constrain(ct, ("dp", None, None))
+            return _gather(ct, slot_tok), None, None
 
 
 def moe_gather(xg_pad: Tensor, slot_tok: Tensor) -> Tensor:

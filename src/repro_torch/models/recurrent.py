@@ -27,6 +27,14 @@ are explicit (:func:`rglru_scan_kernel`, :func:`rwkv6_scan_kernel`): the
 RG-LRU's reverse-time recurrence runs on the same entry, RWKV6's is the
 chunk-checkpointed walk, the math the dispatch table's backward impls
 run (``kernels/*/grad.py``).
+
+On a mesh of ranks (``models.layers``) the blocks run on this rank's
+channels: the RG-LRU with ``d_rnn`` sharded on ``model`` (``w_in``,
+``w_gate``, ``conv_w``, ``conv_b``, ``lam`` and the gates' output columns
+``wa``, ``wx``, whose input is the branch all-gathered), RWKV6 on this
+rank's heads (its state ``S`` (B, H, hd, hd) sharded on the heads) when
+the axis divides them.  The scan kernels then run on the local channels or
+heads; the output products are row-parallel.
 """
 from __future__ import annotations
 
@@ -35,7 +43,9 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..distributed import collectives as C
 from ..kernels.rglru_scan.ref import rglru_scan_ref
+from .layers import col_full, col_local, row
 
 Tensor = torch.Tensor
 Params = Dict[str, Tensor]
@@ -50,9 +60,16 @@ GN_EPS = 64e-5         # RWKV6's per-head group-norm epsilon
 # ---------------------------------------------------------------------------
 
 def rglru_gates(p: Params, u: Tensor) -> Tuple[Tensor, Tensor]:
-    """(log a_t, b_t) from the branch input u: (B, S, dr), in f32."""
-    r = torch.sigmoid((u @ p["wa"]).float())
-    i = torch.sigmoid((u @ p["wx"]).float())
+    """(log a_t, b_t) from the branch input u: (B, S, dr), in f32.  On a
+    mesh ``u`` is this rank's channels and the gates' products, whose
+    weights hold this rank's output columns, read it all-gathered."""
+    if p["wa"].shape[0] != u.shape[-1]:
+        u_in = C.copy_model(C.gather_model(u, -1))
+        r = torch.sigmoid((u_in @ p["wa"]).float())
+        i = torch.sigmoid((u_in @ p["wx"]).float())
+    else:
+        r = torch.sigmoid((u @ p["wa"]).float())
+        i = torch.sigmoid((u @ p["wx"]).float())
     log_a = -RGLRU_C * F.softplus(p["lam"].float()) * r
     a = torch.exp(log_a)
     b = torch.sqrt(torch.clamp_min(1.0 - a * a, 1e-12)) * i * u.float()
@@ -129,15 +146,28 @@ def _gelu(x: Tensor) -> Tensor:
     return F.gelu(x, approximate="tanh")       # JAX's default gelu
 
 
+def _branch(p: Params, x: Tensor, width: Optional[int]):
+    """The Griffin block's two input products (this rank's channels on a
+    mesh, ``width`` the global d_rnn)."""
+    if C.span("model") > 1:
+        return col_local(x, p["w_in"], width), \
+            col_local(x, p["w_gate"], width)
+    return x @ p["w_in"], x @ p["w_gate"]
+
+
+def _out(y: Tensor, w: Tensor, width: Optional[int]) -> Tensor:
+    return row(y, w, width) if C.span("model") > 1 else y @ w
+
+
 def rglru_block_seq(p: Params, x: Tensor,
                     state: Optional[Dict[str, Tensor]] = None, *,
-                    kernel: bool = False) -> Tuple[Tensor, Dict[str, Tensor]]:
+                    kernel: bool = False, width: Optional[int] = None
+                    ) -> Tuple[Tensor, Dict[str, Tensor]]:
     """The Griffin recurrent block, sequence form.  x: (B, S, D) → (B, S,
     D), and the carry state {"h", "conv"} for a continuing segment.  The
     recurrence runs in f32 through the RG-LRU scan's entry (``kernel``)
-    or its plain version."""
-    u = x @ p["w_in"]
-    g = x @ p["w_gate"]
+    or its plain version.  ``width``: d_rnn (read on a mesh)."""
+    u, g = _branch(p, x, width)
     conv_state = None if state is None else state["conv"]
     u, conv_state = _causal_conv1d(u, p["conv_w"], p["conv_b"], conv_state)
     log_a, b = rglru_gates(p, u)
@@ -146,19 +176,20 @@ def rglru_block_seq(p: Params, x: Tensor,
           if state is None else state["h"].float())
     h, h_last = (rglru_scan_kernel if kernel else rglru_scan_ref)(a, b, h0)
     y = h.to(u.dtype) * _gelu(g)
-    return y @ p["w_out"], {"h": h_last.to(u.dtype), "conv": conv_state}
+    return _out(y, p["w_out"], width), {"h": h_last.to(u.dtype),
+                                        "conv": conv_state}
 
 
-def rglru_block_step(p: Params, x: Tensor, state: Dict[str, Tensor]
+def rglru_block_step(p: Params, x: Tensor, state: Dict[str, Tensor], *,
+                     width: Optional[int] = None
                      ) -> Tuple[Tensor, Dict[str, Tensor]]:
     """One decode step of the Griffin block.  x: (B, 1, D)."""
-    u = x @ p["w_in"]
-    g = x @ p["w_gate"]
+    u, g = _branch(p, x, width)
     u, conv_state = _causal_conv1d(u, p["conv_w"], p["conv_b"],
                                    state["conv"])
     h, h_last = rglru_step(p, u, state["h"])
     y = h * _gelu(g)
-    return y @ p["w_out"], {"h": h_last, "conv": conv_state}
+    return _out(y, p["w_out"], width), {"h": h_last, "conv": conv_state}
 
 
 def rglru_init_state(bsz: int, dr: int, conv_width: int, dtype,
@@ -206,14 +237,16 @@ def rwkv_time_mix_seq(p: Params, x: Tensor, n_heads: int,
     last_x = None if state is None else state["last_x"]
     s0 = None if state is None else state["S"]
     m = rwkv_mix_inputs(p, x, rwkv_shift(x, last_x))
-    r = (m["r"] @ p["wr"]).reshape(bsz, s, n_heads, hd)
-    k = (m["k"] @ p["wk"]).reshape(bsz, s, n_heads, hd)
-    v = (m["v"] @ p["wv"]).reshape(bsz, s, n_heads, hd)
-    g = F.silu(m["g"] @ p["wg"])
-    logw = -torch.exp((p["w0"] + _lora(m["w"], p["lora_a_w"],
-                                       p["lora_b_w"])).float())   # ≤ 0
+    proj, chan, n_heads = _rwkv_heads(d, n_heads)
+    d_loc = n_heads * hd
+    r = proj(m["r"], p["wr"]).reshape(bsz, s, n_heads, hd)
+    k = proj(m["k"], p["wk"]).reshape(bsz, s, n_heads, hd)
+    v = proj(m["v"], p["wv"]).reshape(bsz, s, n_heads, hd)
+    g = F.silu(proj(m["g"], p["wg"]))
+    logw = chan(-torch.exp((p["w0"] + _lora(m["w"], p["lora_a_w"],
+                                            p["lora_b_w"])).float()))  # ≤ 0
     logw = logw.reshape(bsz, s, n_heads, hd)
-    u = p["u"].reshape(n_heads, hd)
+    u = chan(p["u"]).reshape(n_heads, hd)
 
     if kernel:
         s0f = (torch.zeros(bsz, n_heads, hd, hd, device=x.device)
@@ -223,9 +256,9 @@ def rwkv_time_mix_seq(p: Params, x: Tensor, n_heads: int,
     else:
         o, s_last = _wkv_chunked(r, k, v, logw, u, s0)
     # per-head group norm, then gate
-    out = (_group_norm(o, bsz, s, d).to(x.dtype) * p["gn_gain"]
-           + p["gn_bias"])
-    out = (out * g) @ p["wo"]
+    out = (_group_norm(o, bsz, s, d_loc).to(x.dtype) * chan(p["gn_gain"])
+           + chan(p["gn_bias"]))
+    out = _out(out * g, p["wo"], d)
     if return_state:
         return out, {"last_x": x[:, -1], "S": s_last}
     return out
@@ -254,6 +287,20 @@ def rwkv6_scan_kernel(r: Tensor, k: Tensor, v: Tensor, logw: Tensor,
     return _RWKV6Scan.apply(r, k, v, logw, u, s0)
 
 
+def _rwkv_heads(d: int, n_heads: int):
+    """(product, channel cut, heads here) of the RWKV6 time mix: on a mesh
+    whose model axis divides the heads, this rank's heads (the products
+    column-parallel, per-channel tensors cut to this rank's block); else
+    every head (a column-sharded product's blocks all-gathered)."""
+    m = C.span("model")
+    if m == 1:
+        return (lambda x, w: x @ w), (lambda t: t), n_heads
+    if n_heads % m == 0:
+        return ((lambda x, w: col_local(x, w, d)),
+                (lambda t: C.scatter_model(t, -1)), n_heads // m)
+    return (lambda x, w: col_full(x, w, d)), (lambda t: t), n_heads
+
+
 def _group_norm(o: Tensor, *lead_and_d) -> Tensor:
     """RWKV6's per-head group norm of o (..., H, hd) in f32, reshaped to
     ``lead_and_d``."""
@@ -270,32 +317,42 @@ def rwkv_time_mix_step(p: Params, x: Tensor, n_heads: int,
     bsz, _, d = x.shape
     hd = d // n_heads
     m = rwkv_mix_inputs(p, x, rwkv_shift(x, state["last_x"]))
-    r = (m["r"] @ p["wr"]).reshape(bsz, n_heads, hd)
-    k = (m["k"] @ p["wk"]).reshape(bsz, n_heads, hd)
-    v = (m["v"] @ p["wv"]).reshape(bsz, n_heads, hd)
-    g = F.silu(m["g"] @ p["wg"])[:, 0]
-    logw = -torch.exp((p["w0"] + _lora(m["w"], p["lora_a_w"],
-                                       p["lora_b_w"])).float())[:, 0]
+    proj, chan, n_heads = _rwkv_heads(d, n_heads)
+    d_loc = n_heads * hd
+    r = proj(m["r"], p["wr"]).reshape(bsz, n_heads, hd)
+    k = proj(m["k"], p["wk"]).reshape(bsz, n_heads, hd)
+    v = proj(m["v"], p["wv"]).reshape(bsz, n_heads, hd)
+    g = F.silu(proj(m["g"], p["wg"]))[:, 0]
+    logw = chan(-torch.exp((p["w0"] + _lora(m["w"], p["lora_a_w"],
+                                            p["lora_b_w"])).float()))[:, 0]
     logw = logw.reshape(bsz, n_heads, hd)
-    u = p["u"].reshape(n_heads, hd).float()
+    u = chan(p["u"]).reshape(n_heads, hd).float()
     S = state["S"]
     rf, kf, vf = r.float(), k.float(), v.float()
     o = torch.einsum("bhk,bhkv->bhv", rf, S) + \
         torch.einsum("bhk,bhk,bhv->bhv", rf, u[None] * kf, vf)
     S_new = torch.exp(logw)[..., None] * S + \
         torch.einsum("bhk,bhv->bhkv", kf, vf)
-    og = _group_norm(o, bsz, d).to(x.dtype) * p["gn_gain"] + p["gn_bias"]
-    out = ((og * g) @ p["wo"])[:, None]
+    og = (_group_norm(o, bsz, d_loc).to(x.dtype) * chan(p["gn_gain"])
+          + chan(p["gn_bias"]))
+    out = _out(og * g, p["wo"], d)[:, None]
     return out, {"last_x": x[:, -1], "S": S_new}
 
 
 def rwkv_channel_mix_seq(p: Params, x: Tensor,
-                         last_x: Optional[Tensor] = None
+                         last_x: Optional[Tensor] = None, *,
+                         width: Optional[int] = None
                          ) -> Tuple[Tensor, Tensor]:
-    """RWKV6's channel mix.  x: (B, S, D) → (out, the last token's x)."""
+    """RWKV6's channel mix.  x: (B, S, D) → (out, the last token's x).
+    ``width``: its hidden width d_ff (read on a mesh)."""
     dx = rwkv_shift(x, last_x) - x
     xk = x + dx * p["mu_ck"]
     xr = x + dx * p["mu_cr"]
+    if C.span("model") > 1:
+        kk = torch.square(torch.clamp_min(col_local(xk, p["ck"], width),
+                                          0.0))
+        rr = torch.sigmoid(col_full(xr, p["cr"], x.shape[-1]))
+        return rr * row(kk, p["cv"], width), x[:, -1]
     kk = torch.square(torch.clamp_min(xk @ p["ck"], 0.0))
     rr = torch.sigmoid(xr @ p["cr"])
     return rr * (kk @ p["cv"]), x[:, -1]

@@ -14,7 +14,7 @@ partition specs.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -62,12 +62,15 @@ def global_norm(tree) -> Tensor:
 
 
 def adamw_update(params, grads, state: Dict[str, Any], ocfg: AdamWConfig,
-                 lr: Tensor) -> Tuple[Any, Dict[str, Any],
-                                      Dict[str, Tensor]]:
+                 lr: Tensor, gnorm: Optional[Tensor] = None
+                 ) -> Tuple[Any, Dict[str, Any], Dict[str, Tensor]]:
     """One AdamW step with global-norm clipping at ``ocfg.grad_clip`` and
-    bias correction: (new params, new state, {"grad_norm"})."""
+    bias correction: (new params, new state, {"grad_norm"}).  ``gnorm``:
+    the norm of the whole gradient when ``grads`` is one rank's blocks of
+    it (default: ``global_norm(grads)``)."""
     step = state["step"] + 1
-    gnorm = global_norm(grads)
+    if gnorm is None:
+        gnorm = global_norm(grads)
     scale = (torch.clamp(ocfg.grad_clip / (gnorm + 1e-9), max=1.0)
              if ocfg.grad_clip else 1.0)
     dt = getattr(torch, ocfg.moment_dtype)
