@@ -274,14 +274,19 @@ Phases, each failing loudly:
    4 decode steps; olmoe and kimi expert-parallel).  Gates against the
    one-process kernel route on the same weights, prompts and batches:
    greedy tokens equal (near ties reported), logits within
-   ``BACKBONE_RTOL``, the step-0 loss within ``BB_TRAIN_LOSS0_RTOL`` and
-   every gradient leaf within ``BB_TRAIN_GRAD_TOL`` of its norm (the
-   reference the mean of the two data shards' gradients); planted faults
-   (the attention's row-parallel all-reduce left out, the MoE combine's
-   all-reduce left out) must fail both gates; phase 15's driver
-   checkpoint restored onto every rank's blocks (``shardings=``) equal to
-   its arrays.  Logged: launches summed over the ranks, all-reduces a
-   decode step, decode p50 beside one process's, the phase's seconds.
+   ``BACKBONE_RTOL``, the train step's loss and gradient norm within
+   ``BB_TRAIN_LOSS0_RTOL`` and every gradient leaf within
+   ``BB_TRAIN_GRAD_TOL`` of its norm (the reference the mean of the two
+   data shards' gradients), every new parameter block within
+   ``BB_TRAIN_GRAD_TOL`` of a plain AdamW step on the rank's blocks;
+   planted faults (the attention's row-parallel all-reduce left out, the
+   MoE combine's all-reduce left out: the logits and gradients gates;
+   the ZeRO all-gather joined in reverse: the parameters gate) must be
+   caught; phase 15's trainer checkpoint restored onto every rank's
+   blocks (``shardings=``) equal to its arrays.  Logged: launches of the
+   serve and train step summed over the ranks, all-reduces a decode
+   step, decode p50 beside one process's, the ZeRO step's parts, the
+   phase's seconds.
 
 The second-to-last lines are the card's ``nvidia-smi`` line and a JSON
 ``kernels`` line (an entry per kernel in f32, and one per kernel in bf16
@@ -4763,7 +4768,8 @@ def _cpu_tree(tree):
 def shard_mean_grads(torch, cfg, params, batch) -> tuple:
     """The one-process kernel route's step-0 loss and gradients, each the
     mean over the two halves of ``batch`` (the data shards' rows, the
-    mean the mesh's train step takes)."""
+    mean the mesh's train step takes), and the gradients' global norm
+    (summed in f64)."""
     losses, total = [], None
     for d in range(2):
         half = {k: v[d * MB_BATCH // 2:(d + 1) * MB_BATCH // 2]
@@ -4773,20 +4779,72 @@ def shard_mean_grads(torch, cfg, params, batch) -> tuple:
         total = grads if total is None else {
             k: total[k] + g for k, g in grads.items()}
         del grads
-    return sum(losses) / 2, {k: g / 2 for k, g in total.items()}
+    grads = {k: g / 2 for k, g in total.items()}
+    norm = math.sqrt(sum(float(torch.sum(torch.square(g.double())))
+                         for g in grads.values()))
+    return sum(losses) / 2, grads, norm
+
+
+@contextlib.contextmanager
+def zero_step_split(torch, split: dict):
+    """The parts of a ZeRO train step timed into ``split`` (ms, each
+    between two ``cuda.synchronize``): the data-mean all-reduces of the
+    gradients and the loss (``steps._data_mean``, host copies included),
+    the whole ZeRO update (``steps._zero_update``), and inside it AdamW
+    on the blocks (``adamw_update``) and the flat all-gather of the new
+    blocks (``_flat_collective``, to the host)."""
+    from repro_torch.distributed import steps as ST
+
+    def timed(key, fn, when=lambda *a: True):
+        def run(*args, **kw):
+            if not when(*args):
+                return fn(*args, **kw)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            split[key] = split.get(key, 0.0) + 1e3 * (time.perf_counter()
+                                                      - t0)
+            return out
+        return run
+
+    with planted(ST, "_data_mean", timed("data_mean_all_reduce_ms",
+                                         ST._data_mean)), \
+            planted(ST, "_zero_update", timed("zero_update_ms",
+                                              ST._zero_update)), \
+            planted(ST, "adamw_update", timed("adamw_blocks_ms",
+                                              ST.adamw_update)), \
+            planted(ST, "_flat_collective", timed(
+                "all_gather_ms", ST._flat_collective,
+                lambda mesh, tensors, op, axes: op == "all_gather")):
+        yield
+
+
+def reversed_gather(fn):
+    """``steps._flat_collective`` with the all-gathered blocks joined in
+    reverse rank order (a planted fault of the ZeRO update)."""
+    def run(mesh, tensors, op, axes):
+        out = fn(mesh, tensors, op, axes)
+        return [t.flip(0) for t in out] if op == "all_gather" else out
+    return run
 
 
 def mesh_backbone_rank(mesh, cases, ckpt_dir, plant) -> dict:
     """One rank of phase 16 (run by ``run_on_mesh``): each run's weights
     drawn on the card from phase 14's seed and cut to this rank's blocks
-    (``jit_serve_steps``' specs), its rows of the batch served (prefill
-    into a sharded cache, greedy decode steps) and trained (one
-    ``make_train_step`` step with ZeRO), the kernels' counts zeroed just
-    before and read just after; the gradients' blocks held to the
-    one-process reference the parent saved.  ``plant``: (label, run
-    index, function) of the planted faults, each run again with that
-    collective of ``models.layers`` left out.  Then phase 15's driver checkpoint restored onto this rank's
-    blocks."""
+    (``jit_serve_steps``' specs).  First the gates' own passes: the
+    step-0 gradients' blocks (``make_grad_step``) held to the one-process
+    reference the parent saved, and from them the new parameters' blocks
+    a plain AdamW step (``adamw_update`` leaf by leaf, clipped by the
+    parent's global norm) gives.  Then the kernels' counts are zeroed,
+    this rank's rows of the batch served (prefill into a sharded cache,
+    greedy decode steps) and trained (one ``make_train_step`` step with
+    ZeRO, its parts timed), and the counts read; the step's new parameter
+    blocks are held to those AdamW blocks.  ``plant``: (label, run index,
+    "layers" or "steps", attribute) of the planted faults, each run again
+    with that function of ``models.layers`` the identity or that
+    collective of ``distributed.steps`` joining its blocks in reverse.
+    Then phase 15's trainer checkpoint restored onto this rank's blocks."""
     import torch
     from repro_torch.checkpoint import restore_checkpoint
     from repro_torch.distributed import ctx
@@ -4800,6 +4858,7 @@ def mesh_backbone_rank(mesh, cases, ckpt_dir, plant) -> dict:
     from repro_torch.kernels.rwkv6_scan.kernel import rwkv6_scan_cuda
     from repro_torch.models import backbone as B
     from repro_torch.models import layers as L
+    from repro_torch.optim import AdamWConfig, adamw_update, cosine_schedule
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4846,21 +4905,69 @@ def mesh_backbone_rank(mesh, cases, ckpt_dir, plant) -> dict:
                 "prefill_ms": prefill_ms, "step_ms": step_ms,
                 "all_reduce_per_step": reduces, "batch": b}
 
+    def worst_leaf(pairs):
+        """The largest (max |got - want| / ‖want‖, path) over the pairs; a
+        non-finite value is infinitely far."""
+        worst, at = 0.0, None
+        for path, got, want in pairs:
+            err = float((got.float() - want.float()).abs().max())
+            r = err / max(float(want.float().norm()), 1e-30)
+            if not math.isfinite(r):
+                r = math.inf
+            if r > worst or at is None:
+                worst, at = r, "/".join(map(str, path))
+        return worst, at
+
     def grad_gap(cfg, grads, ref_file):
         ref = torch.load(ref_file, mmap=True, weights_only=True)
         specs = dict(B.tree_leaves(S.param_specs(mesh, cfg,
                                                  B.param_specs(cfg)),
                                    leaf=S.P))
-        worst, at = 0.0, None
-        for path, g in B.tree_leaves(grads):
-            want = ref["/".join(map(str, path))]
-            block = want[S.NamedSharding(mesh, specs[path]).index(
-                want.shape)]
-            err = float((g.float().cpu() - block.float()).abs().max())
-            r = err / max(float(want.float().norm()), 1e-30)
-            if r > worst:
-                worst, at = r, "/".join(map(str, path))
-        return worst, at
+
+        def pairs():
+            for path, g in B.tree_leaves(grads):
+                want = ref["/".join(map(str, path))]
+                block = want[S.NamedSharding(mesh, specs[path]).index(
+                    want.shape)]
+                yield path, g.cpu(), block
+        return worst_leaf(pairs())
+
+    def adamw_blocks(params, grads, gnorm):
+        """{path: new block} (on the host) of one plain AdamW step from
+        zero moments on this rank's blocks."""
+        ocfg = AdamWConfig(lr=BB_TRAIN_LR)
+        lr = cosine_schedule(torch.zeros((), dtype=torch.int32, device=dev),
+                             peak_lr=BB_TRAIN_LR, warmup=0, total=1)
+        norm = torch.tensor(gnorm, dtype=torch.float32, device=dev)
+        out = {}
+        for (path, p), (_, g) in zip(B.tree_leaves(params),
+                                     B.tree_leaves(grads)):
+            z = torch.zeros(p.shape, dtype=torch.float32, device=dev)
+            new, _, _ = adamw_update(
+                {"w": p}, {"w": g}, {"m": {"w": z}, "v": {"w": z},
+                                     "step": torch.zeros(
+                                         (), dtype=torch.int32,
+                                         device=dev)}, ocfg, lr, gnorm=norm)
+            out[path] = new["w"].cpu()
+        return out
+
+    def param_gap(new_params, want):
+        return worst_leaf((path, p, want[path].to(dev))
+                          for path, p in B.tree_leaves(new_params))
+
+    def fresh_state(cfg, params, specs):
+        zeros = {k: B.tree_map(
+            lambda leaf, spec: torch.zeros(
+                S.local_shape(mesh, tuple(leaf.shape), spec), device=dev),
+            B.param_specs(cfg), specs["opt"][k]) for k in ("m", "v")}
+        return {"params": params, "opt": {**zeros, "step": torch.zeros(
+            (), dtype=torch.int32, device=dev)},
+            "step": torch.zeros((), dtype=torch.int32, device=dev)}
+
+    def fault(owner: str, name: str):
+        if owner == "steps":
+            return ST, name, reversed_gather(getattr(ST, name))
+        return L, name, (lambda y: y)
 
     out = {"rank": mesh.rank, "coords": dict(mesh.coords), "runs": [],
            "faults": {}}
@@ -4877,61 +4984,63 @@ def mesh_backbone_rank(mesh, cases, ckpt_dir, plant) -> dict:
         del full
         torch.cuda.empty_cache()
         batch, tbatch = cut(case["batch"]), cut(case["train_batch"])
-        zeros = {"m": None, "v": None}
-        for k in zeros:
-            zeros[k] = B.tree_map(
-                lambda leaf, spec: torch.zeros(
-                    S.local_shape(mesh, tuple(leaf.shape), spec),
-                    device=dev), B.param_specs(cfg), specs["opt"][k])
-        state = {"params": params, "opt": {**zeros, "step": torch.zeros(
-            (), dtype=torch.int32, device=dev)},
-            "step": torch.zeros((), dtype=torch.int32, device=dev)}
+        # the gates' own passes, outside the counted window
+        _, _, grads = ST.make_grad_step(mesh, cfg, opts)(params, tbatch)
+        gap, at = grad_gap(cfg, grads, case["grads_file"])
+        want = adamw_blocks(params, grads, case["grad_norm"])
+        del grads
+        torch.cuda.empty_cache()
+        state = fresh_state(cfg, params, specs)
         for c in counters.values():
             c.launches = 0
         served = serve(cfg, params, batch, gen, cspecs)
-        loss, _, grads = ST.make_grad_step(mesh, cfg, opts)(params, tbatch)
-        gap, at = grad_gap(cfg, grads, case["grads_file"])
-        del grads
+        split: dict = {}
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        new, metrics = step(state, tbatch)
+        with zero_step_split(torch, split):
+            new, metrics = step(state, tbatch)
         torch.cuda.synchronize()
         step_ms = 1e3 * (time.perf_counter() - t0)
-        print(f"[mesh-backbone] {cfg.name}: served (prefill "
-              f"{served['prefill_ms']:.1f} ms), gradients {gap:.3g} of the "
-              f"norm, train step {step_ms:.1f} ms, peak "
-              f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; "
-              f"{time.perf_counter() - t_run:.1f} s", flush=True)
         launches = {k: c.launches for k, c in counters.items()}
         for k, n in launches.items():
             total[k] += n
-        finite = all(bool(torch.isfinite(x).all())
-                     for _, x in B.tree_leaves(new["params"]))
+        pgap, pat = param_gap(new["params"], want)
+        print(f"[mesh-backbone] {cfg.name}: served (prefill "
+              f"{served['prefill_ms']:.1f} ms), gradients {gap:.3g} and new "
+              f"parameters {pgap:.3g} of the norm, train step "
+              f"{step_ms:.1f} ms {split}, peak "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; "
+              f"{time.perf_counter() - t_run:.1f} s", flush=True)
         del new, state
-        rec = {"config": cfg.name, "loss": float(loss),
-               "train_loss": float(metrics["loss"]), "grad_gap": gap,
-               "grad_gap_at": at, "finite": finite, "train_step_ms": step_ms,
+        rec = {"config": cfg.name, "train_loss": float(metrics["loss"]),
+               "grad_norm": float(metrics["grad_norm"]), "grad_gap": gap,
+               "grad_gap_at": at, "param_gap": pgap, "param_gap_at": pat,
+               "train_step_ms": step_ms, "step_split_ms": split,
                "launches": launches, **served,
                "seconds": time.perf_counter() - t_run}
-        for label, run, name in plant:
+        for label, run, owner, name, _ in plant:
             if run != i:
                 continue
-            with planted(L, name, lambda y: y):
+            with planted(*fault(owner, name)):
                 faulty = serve(cfg, params, batch, 0, cspecs)
                 _, _, fg = ST.make_grad_step(mesh, cfg, opts)(params,
                                                                tbatch)
+                fgap = grad_gap(cfg, fg, case["grads_file"])
+                del fg
+                fnew, _ = step(fresh_state(cfg, params, specs), tbatch)
             out["faults"][label] = {
                 "config": cfg.name,
                 "prefill_logits": faulty["prefill_logits"],
-                "grad_gap": grad_gap(cfg, fg, case["grads_file"])}
-            del fg
+                "grad_gap": fgap,
+                "param_gap": param_gap(fnew["params"], want)}
+            del fnew
         out["runs"].append(rec)
-        del params
+        del params, want
         gc.collect()
         torch.cuda.empty_cache()
         mesh.barrier()
     out["launches"] = total
-    # phase 15's driver checkpoint onto this rank's blocks
+    # phase 15's trainer checkpoint onto this rank's blocks
     from repro_torch.configs import get_smoke
     cfg = get_smoke("recurrentgemma-9b")
     opts = ST.StepOptions()
@@ -4959,14 +5068,20 @@ def phase_mesh_backbone(torch, ckpt_dir) -> dict:
     batches, computed here first: qwen2-1.5b at full width in f32 and the
     ten reduced configs.  Gates: greedy tokens equal (near ties
     reported) and logits within ``BACKBONE_RTOL`` of the scale; one train
-    step with ZeRO: the step-0 loss within ``BB_TRAIN_LOSS0_RTOL`` and
-    every gathered gradient leaf within ``BB_TRAIN_GRAD_TOL`` of its
-    norm, the new parameters finite; two planted faults (the attention's
-    row-parallel all-reduce left out on qwen2's reduced config, the MoE
-    combine's on olmoe's) failing both gates; phase 15's driver checkpoint
-    restored onto the ranks' blocks equal to its global arrays.  Logged:
-    launches summed over the ranks, all-reduces a decode step, the
-    phase's seconds."""
+    step with ZeRO: its loss and gradient norm within
+    ``BB_TRAIN_LOSS0_RTOL`` of the one-process step-0 values, every
+    gradient block (from the gate's own pass) within ``BB_TRAIN_GRAD_TOL``
+    of its leaf's norm, and every new parameter block within
+    ``BB_TRAIN_GRAD_TOL`` of a plain AdamW step on the rank's blocks;
+    three planted faults (the attention's row-parallel all-reduce left
+    out on qwen2's reduced config, the MoE combine's on olmoe's: the
+    logits and gradients gates; the ZeRO all-gather joined in reverse on
+    qwen2's reduced config: the parameters gate) caught; phase 15's
+    trainer checkpoint restored onto the ranks' blocks equal to its global
+    arrays.  Logged: launches summed over the ranks (serve and train step
+    alone), all-reduces a decode step, qwen2's train step split into its
+    data-mean all-reduce, AdamW on the blocks and all-gather, the phase's
+    seconds."""
     import os
     import shutil
     import statistics
@@ -4992,29 +5107,35 @@ def phase_mesh_backbone(torch, ckpt_dir) -> dict:
                 ref["prefill_logits"] = B.prefill(cfg, params, batch)[0][
                     :, -MB_PREFILL_ROWS:].float().cpu()
             tb = train_batches(torch, cfg, MB_BATCH, seq, 1)[0]
-            loss, grads = shard_mean_grads(torch, cfg, params, tb)
+            loss, grads, norm = shard_mean_grads(torch, cfg, params, tb)
             path = tmp / f"grads_{i}.pt"
             torch.save({"/".join(map(str, k)): g.cpu()
                         for k, g in grads.items()}, path)
             del params, grads
             gc.collect()
             torch.cuda.empty_cache()
-            ref["loss"] = loss
+            ref["loss"], ref["grad_norm"] = loss, norm
             refs.append(ref)
             log(f"[mesh-backbone] {cfg.name}: one-process reference in "
                 f"{time.perf_counter() - t_phase:.1f} s")
             cases.append({"cfg": cfg, "prompt": prompt, "gen": gen,
                           "batch": _cpu_tree(batch),
                           "train_batch": _cpu_tree(tb),
-                          "grads_file": str(path)})
+                          "grads_file": str(path), "grad_norm": norm})
         ref_s = time.perf_counter() - t_phase
         names = [c["cfg"].name for c in cases]
-        # (label, run, the models.layers function the fault makes the
-        # identity)
+        # (label, run, owner and function of the fault: a models.layers
+        # function made the identity, a distributed.steps collective
+        # joining its blocks in reverse; the gates that must catch it)
         plant = [("the attention's row-parallel all-reduce left out",
-                  names.index("qwen2-1.5b-smoke"), "_reduce_attn"),
+                  names.index("qwen2-1.5b-smoke"), "layers", "_reduce_attn",
+                  ("prefill", "gradients")),
                  ("the MoE combine's all-reduce left out",
-                  names.index("olmoe-1b-7b-smoke"), "_moe_combine")]
+                  names.index("olmoe-1b-7b-smoke"), "layers", "_moe_combine",
+                  ("prefill", "gradients")),
+                 ("the ZeRO all-gather's blocks joined in reverse",
+                  names.index("qwen2-1.5b-smoke"), "steps",
+                  "_flat_collective", ("parameters",))]
         t0 = time.perf_counter()
         # four ranks share the card: segments that grow in place keep
         # their freed blocks usable across shapes
@@ -5054,27 +5175,38 @@ def phase_mesh_backbone(torch, ckpt_dir) -> dict:
         if pre > rtol:
             fail(f"mesh backbone {cfg.name}: prefill logits {pre:.3g} of "
                  f"the scale from one process's")
-        loss_rel = max(abs(run["loss"] - ref["loss"]) / abs(ref["loss"])
+        loss_rel = max(abs(run["train_loss"] - ref["loss"]) / abs(ref["loss"])
                        for run in per)
         if not loss_rel <= BB_TRAIN_LOSS0_RTOL:
-            fail(f"mesh backbone {cfg.name}: step-0 loss {per[0]['loss']} "
-                 f"vs one process {ref['loss']} ({loss_rel:.3g})")
+            fail(f"mesh backbone {cfg.name}: the train step's loss "
+                 f"{per[0]['train_loss']} vs one process {ref['loss']} "
+                 f"({loss_rel:.3g})")
+        norm_rel = max(abs(run["grad_norm"] - ref["grad_norm"])
+                       / ref["grad_norm"] for run in per)
+        if not norm_rel <= BB_TRAIN_LOSS0_RTOL:
+            fail(f"mesh backbone {cfg.name}: the train step's gradient "
+                 f"norm {per[0]['grad_norm']} vs one process "
+                 f"{ref['grad_norm']} ({norm_rel:.3g})")
         gap = max(run["grad_gap"] for run in per)
         at = max(per, key=lambda run: run["grad_gap"])["grad_gap_at"]
         if not gap <= BB_TRAIN_GRAD_TOL:
             fail(f"mesh backbone {cfg.name}: gradient {at} differs by "
                  f"{gap:.3g} of its norm from one process's")
-        if not all(run["finite"] for run in per) or not all(
-                math.isfinite(run["train_loss"]) for run in per):
-            fail(f"mesh backbone {cfg.name}: the train step's loss or new "
-                 f"parameters are not finite")
+        pgap = max(run["param_gap"] for run in per)
+        pat = max(per, key=lambda run: run["param_gap"])["param_gap_at"]
+        if not pgap <= BB_TRAIN_GRAD_TOL:
+            fail(f"mesh backbone {cfg.name}: the train step's new parameter "
+                 f"{pat} differs by {pgap:.3g} of its norm from AdamW's on "
+                 f"the rank's blocks")
         r0 = per[0]
         p50 = statistics.median(r0["step_ms"]) if r0["step_ms"] else 0.0
         launches = {k: sum(run["launches"][k] for run in per)
                     for k in MB_KERNELS}
         r = {"config": cfg.name, "prefill_rel_err": pre,
              "logit_rel_err": worst, "near_ties": ties,
-             "loss_rel_err": loss_rel, "grad_gap": gap, "grad_gap_at": at,
+             "loss_rel_err": loss_rel, "grad_norm_rel_err": norm_rel,
+             "grad_gap": gap, "grad_gap_at": at, "param_gap": pgap,
+             "param_gap_at": pat, "train_step_split_ms": r0["step_split_ms"],
              "prefill_ms": r0["prefill_ms"], "decode_p50_ms": p50,
              "ref_decode_p50_ms": statistics.median(ref["step_ms"]),
              "train_step_ms": max(run["train_step_ms"] for run in per),
@@ -5087,28 +5219,42 @@ def phase_mesh_backbone(torch, ckpt_dir) -> dict:
             f"{cfg.d_model}) on (2, 2): prefill {pre:.3g}, decode logits "
             f"{worst:.3g} of the scale (rtol {rtol}), tokens equal"
             + (f" except near ties {ties}" if ties else "")
-            + f"; step-0 loss {loss_rel:.3g}, gradients {gap:.3g} of the "
-            f"norm at {at}; prefill {r['prefill_ms']:.2f} ms, decode step "
+            + f"; train step: loss {loss_rel:.3g}, gradient norm "
+            f"{norm_rel:.3g}, gradients {gap:.3g} of the norm at {at}, new "
+            f"parameters {pgap:.3g} at {pat}; prefill {r['prefill_ms']:.2f} ms, decode step "
             f"p50 {p50:.2f} ms (one process {r['ref_decode_p50_ms']:.2f}),"
             f" {r['all_reduce_per_decode_step']} all-reduces a decode "
-            f"step, train step {r['train_step_ms']:.2f} ms; launches "
+            f"step, train step {r['train_step_ms']:.2f} ms (rank 0: "
+            + ", ".join(f"{k} {v:.2f}" for k, v in
+                        sorted(r0["step_split_ms"].items()))
+            + "); launches "
             f"{launches}; {r['seconds']:.1f} s")
-    for label, i, _ in plant:
+    for label, i, _, _, must in plant:
         case, ref = cases[i], refs[i]
         parts = [None, None]
         for rk in ranks:
             parts[rk["coords"]["data"]] = rk["faults"][label][
                 "prefill_logits"]
-        pre = float((torch.cat(parts, 0) - ref["prefill_logits"]).abs()
-                    .max() / ref["prefill_logits"].abs().max())
-        gap = max(rk["faults"][label]["grad_gap"][0] for rk in ranks)
-        if pre <= BACKBONE_RTOL["float32"] or gap <= BB_TRAIN_GRAD_TOL:
-            fail(f"mesh backbone: {label} passed a gate (prefill {pre:.3g},"
-                 f" gradients {gap:.3g})")
-        rec["faults"][label] = {"config": case["cfg"].name,
-                                "prefill_rel_err": pre, "grad_gap": gap}
+        seen = {
+            "prefill": float((torch.cat(parts, 0) - ref["prefill_logits"])
+                             .abs().max() / ref["prefill_logits"].abs()
+                             .max()),
+            "gradients": max(rk["faults"][label]["grad_gap"][0]
+                             for rk in ranks),
+            "parameters": max(rk["faults"][label]["param_gap"][0]
+                              for rk in ranks)}
+        limit = {"prefill": BACKBONE_RTOL["float32"],
+                 "gradients": BB_TRAIN_GRAD_TOL,
+                 "parameters": BB_TRAIN_GRAD_TOL}
+        passed = [g for g in must if not seen[g] > limit[g]]
+        if passed:
+            fail(f"mesh backbone: {label} passed the {passed} gates "
+                 f"({seen})")
+        rec["faults"][label] = {"config": case["cfg"].name, **seen}
         log(f"[mesh-backbone] planted: {label} on {case['cfg'].name}: "
-            f"prefill {pre:.3g}, gradients {gap:.3g} of the norm: caught")
+            f"prefill {seen['prefill']:.3g}, gradients "
+            f"{seen['gradients']:.3g}, new parameters "
+            f"{seen['parameters']:.3g} of the norm: caught by {must}")
     for rk in ranks:
         if not rk["restore"]["equal"]:
             fail(f"mesh backbone: rank {rk['rank']} restored phase 15's "
@@ -5120,7 +5266,7 @@ def phase_mesh_backbone(torch, ckpt_dir) -> dict:
         if rec["launches"][name] <= 0:
             fail(f"mesh backbone: {name} was not launched on the ranks")
     rec["phase_s"] = time.perf_counter() - t_phase
-    log(f"[mesh-backbone] phase 15's driver checkpoint ({rec['restore']['leaves']}"
+    log(f"[mesh-backbone] phase 15's trainer checkpoint ({rec['restore']['leaves']}"
         f" leaves) restored onto every rank's blocks equal; launches summed "
         f"over the ranks {rec['launches']}; reference {ref_s:.1f} s, ranks "
         f"{ranks_s:.1f} s; phase 16 took {rec['phase_s']:.1f} s (four "

@@ -20,8 +20,9 @@ as its ``uint16`` bit pattern under dtype ``"bfloat16"``.
 
 On a mesh of ranks a checkpoint still holds global arrays: with
 ``shardings`` (``distributed.sharding.named`` of the tree's specs)
-:func:`save_checkpoint` gathers every rank's blocks once and rank 0
-writes them, and :func:`restore_checkpoint` has each rank read the global
+:meth:`CheckpointManager.maybe_save` gathers every rank's blocks once and
+rank 0 writes them, and :func:`restore_checkpoint` (and
+:meth:`CheckpointManager.restore_latest`) has each rank read the global
 arrays and keep its own block, so a checkpoint written on one process
 restores onto a (2, 2) mesh and back (JAX's elastic re-shard).
 """
@@ -97,15 +98,9 @@ def _leaf_name(name: str) -> str:
     return hashlib.sha1(name.encode()).hexdigest()[:16] + ".npy"
 
 
-def save_checkpoint(ckpt_dir: str, step: int, tree: Any, keep: int = 3,
-                    shardings: Any = None) -> str:
-    """Write ``tree`` as ``step_XXXXXXXX`` and keep the last ``keep``.
-    With ``shardings`` the leaves are this rank's blocks: every rank
-    calls, the global arrays are gathered and rank 0 writes them."""
-    if shardings is not None:
-        tree = _gather(tree, shardings)
-        if _rank_of(shardings) != 0:
-            return str(Path(ckpt_dir) / f"step_{step:08d}")
+def save_checkpoint(ckpt_dir: str, step: int, tree: Any,
+                    keep: int = 3) -> str:
+    """Write ``tree`` as ``step_XXXXXXXX`` and keep the last ``keep``."""
     base = Path(ckpt_dir)
     tmp = base / f"step_{step:08d}.tmp"
     final = base / f"step_{step:08d}"
@@ -158,17 +153,6 @@ def _like(arr: np.ndarray, dtype: str, leaf) -> Any:
                       and not isinstance(want, torch.dtype) else None)
 
 
-def _gather(tree, shardings):
-    placed = dict(_flatten(shardings))
-    return _unflatten(tree, {name: placed[name].gather(leaf)
-                             for name, leaf in _flatten(tree)})
-
-
-def _rank_of(shardings) -> int:
-    """The rank of the mesh a sharding tree places on."""
-    return _flatten(shardings)[0][1].mesh.rank
-
-
 def restore_checkpoint(ckpt_dir: str, tree_like: Any,
                        step: Optional[int] = None,
                        shardings: Any = None) -> Any:
@@ -215,10 +199,21 @@ class CheckpointManager:
         self._thread: Optional[threading.Thread] = None
         self.saved_steps: List[int] = []
 
-    def maybe_save(self, step: int, tree: Any, block: bool = False) -> bool:
+    def maybe_save(self, step: int, tree: Any, block: bool = False,
+                   shardings: Any = None) -> bool:
+        """Save ``tree`` at every ``interval``-th step.  With
+        ``shardings`` the leaves are this rank's blocks: every rank calls,
+        the global arrays are gathered on this thread (a collective) and
+        rank 0 writes them."""
         if step % self.interval:
             return False
         self.wait()
+        if shardings is not None:
+            placed = dict(_flatten(shardings))
+            tree = _unflatten(tree, {name: placed[name].gather(leaf)
+                                     for name, leaf in _flatten(tree)})
+            if next(iter(placed.values())).mesh.rank != 0:
+                return True
         # a consistent host snapshot on this thread; the files on another
         host = _unflatten(tree, {name: _snapshot(leaf)
                                  for name, leaf in _flatten(tree)})
@@ -238,8 +233,11 @@ class CheckpointManager:
             self._thread.join()
             self._thread = None
 
-    def restore_latest(self, tree_like: Any):
+    def restore_latest(self, tree_like: Any, shardings: Any = None):
+        """(step, tree) of the newest checkpoint, or (None, None); with
+        ``shardings`` this rank's blocks (:func:`restore_checkpoint`)."""
         step = latest_step(self.ckpt_dir)
         if step is None:
             return None, None
-        return step, restore_checkpoint(self.ckpt_dir, tree_like, step=step)
+        return step, restore_checkpoint(self.ckpt_dir, tree_like, step=step,
+                                        shardings=shardings)

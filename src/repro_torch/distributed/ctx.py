@@ -4,13 +4,13 @@ every layer.
 
 ``use_mesh(mesh)`` makes ``mesh`` the active one for the block it
 guards.  ``constrain(x, ("dp", None, "model"))`` is the identity with no
-active mesh or a one-process mesh, as JAX's is with no mesh.  On a
-``launch.mesh.Mesh`` of several ranks it places ``x``, a tensor of this
-rank's program, as the spec says: the rank already holds its rows of a
-``"dp"`` dim, and a ``"model"`` dim that the axis divides is cut to this
-rank's block (``collectives.scatter_model``, whose backward gathers).
-An abstract mesh of several devices has no process groups to place
-anything on and raises ``ValueError``.
+active mesh or a one-process mesh, as JAX's is with no mesh, and on a
+``launch.mesh.Mesh`` of several ranks too: each rank's program already
+holds its blocks, and the layers place their activations with the
+explicit collectives of ``distributed.collectives``, so a constraint
+never changes a value or a shape, as in JAX.  An abstract mesh of
+several devices has no process groups to run on and raises
+``ValueError``.
 """
 from __future__ import annotations
 
@@ -49,29 +49,13 @@ def mesh_size(mesh) -> int:
 
 def constrain(x: torch.Tensor, spec: Sequence) -> torch.Tensor:
     """``x`` placed as ``spec`` says on the active mesh: the identity with
-    no mesh or a mesh of one device; on a mesh of ranks each ``"model"``
-    dim that the axis divides is cut to this rank's block."""
+    no mesh, a mesh of one device or a mesh of ranks; an abstract mesh of
+    several devices raises ``ValueError``."""
     mesh: Optional[object] = _mesh()
-    if mesh is None or mesh_size(mesh) == 1:
-        return x
-    if not hasattr(mesh, "all_reduce"):
+    if mesh is not None and mesh_size(mesh) > 1 \
+            and not hasattr(mesh, "all_reduce"):
         raise ValueError(
             f"constrain on {mesh!r}: placing an activation needs a mesh "
             f"with process groups (launch.mesh.make_debug_mesh), not an "
             f"abstract one")
-    from .collectives import scatter_model
-    m = mesh.shape.get("model", 1)
-    for dim, name in enumerate(spec):
-        names = (name,) if isinstance(name, str) else tuple(name or ())
-        if "model" in names and m > 1 and x.shape[dim] % m == 0:
-            x = scatter_model(x, dim)
     return x
-
-
-@contextlib.contextmanager
-def local():
-    """No active mesh inside the block: a region that runs on this rank's
-    blocks alone (JAX's ``shard_map`` body), where ``constrain`` places
-    nothing."""
-    with use_mesh(None):
-        yield

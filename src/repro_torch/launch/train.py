@@ -178,8 +178,7 @@ def _sol_main(args) -> None:
 
 def _backbone_main(args) -> Dict[str, Any]:
     """The backbone trainer; returns {"start", "steps", "losses"}."""
-    from ..checkpoint import CheckpointManager, latest_step
-    from ..checkpoint import restore_checkpoint
+    from ..checkpoint import CheckpointManager
     from ..configs import get_config, get_smoke
     from ..data import DataConfig, DataLoader, SyntheticTokenDataset
     from ..distributed import sharding as S
@@ -213,14 +212,10 @@ def _backbone_main(args) -> Dict[str, Any]:
     ckpt = CheckpointManager(args.ckpt_dir, interval=args.ckpt_interval)
     monitor = StragglerMonitor(n_hosts=1)
 
+    placed = S.named(mesh, specs)
     start = 0
-    if sharded:
-        restored_step = latest_step(args.ckpt_dir)
-        restored = None if restored_step is None else restore_checkpoint(
-            args.ckpt_dir, train_state_shapes(cfg, opts), restored_step,
-            shardings=S.named(mesh, specs))
-    else:
-        restored_step, restored = ckpt.restore_latest(state)
+    restored_step, restored = ckpt.restore_latest(
+        train_state_shapes(cfg, opts), shardings=placed)
     if restored is not None:
         state, start = restored, restored_step
         print(f"[train] resumed from step {start}")
@@ -239,12 +234,7 @@ def _backbone_main(args) -> Dict[str, Any]:
             losses.append(loss)
             monitor.record_step({0: time.time() - t0})
             t0 = time.time()
-            if not sharded:
-                ckpt.maybe_save(step + 1, state)
-            elif (step + 1) % ckpt.interval == 0:
-                whole = S.gather_tree(mesh, state, specs)
-                if mesh.rank == 0:
-                    ckpt.maybe_save(step + 1, whole)
+            ckpt.maybe_save(step + 1, state, shardings=placed)
             if step % args.log_every == 0 or step == args.steps - 1:
                 print(f"[train] step {step:5d} loss {loss:.4f} "
                       f"lr {float(metrics['lr']):.2e} "

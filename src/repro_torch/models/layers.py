@@ -38,7 +38,6 @@ import torch
 import torch.nn.functional as F
 
 from ..distributed import collectives as C
-from ..distributed import ctx as _ctx
 from ..distributed.ctx import constrain
 from ..kernels.decode_attention.kernel import HEAD_DIMS as DECODE_HEAD_DIMS
 from ..kernels.decode_attention.kernel import MAX_GROUP
@@ -456,7 +455,7 @@ def moe_apply(p: Params, x: Tensor, moe_cfg, *,
     instead of their explicit backwards (the comparison route)."""
     m = C.span("model")
     if m > 1 and moe_cfg.n_experts % m == 0:
-        return _moe_apply_ep(p, x, moe_cfg, plain=plain)
+        return _moe_apply_ep(p, x, moe_cfg)
     return _moe_apply_dense(p, x, moe_cfg, plain=plain)
 
 
@@ -561,16 +560,16 @@ def _moe_combine(out: Tensor) -> Tensor:
     return C.reduce_model(out)
 
 
-def _moe_apply_ep(p: Params, x: Tensor, moe_cfg, *,
-                  plain: bool = False) -> Tuple[Tensor, Tensor]:
+def _moe_apply_ep(p: Params, x: Tensor, moe_cfg) -> Tuple[Tensor, Tensor]:
     """Expert parallelism as JAX's ``_moe_apply_shard_map`` writes it, on
     this rank's experts ``p["wg"]`` ... (E / model of them): the router
     and the slot tables over this rank's data shard (replicated over
     ``model``), this rank's expert block ``e0 = coord(model)·E_loc`` of
     the tables, the gather, experts and scatter on the local block, ONE
     all-reduce over ``model`` for the combine, and the balance loss of
-    each data shard averaged over ``data``.  The kernel route keeps the
-    dispatch and combine Functions on the local block."""
+    each data shard averaged over ``data``.  The dispatch and combine on
+    the local block are the direct indexing on both routes: no collective
+    sits inside them, so autograd's backward is theirs."""
     b, s, d = x.shape
     e, k = moe_cfg.n_experts, moe_cfg.top_k
     e_loc = p["wg"].shape[0]
@@ -588,14 +587,12 @@ def _moe_apply_ep(p: Params, x: Tensor, moe_cfg, *,
     sw = C.scatter_model(slot_w, 1)
     xg_pad = C.copy_model(torch.cat(
         [xg, torch.zeros((ng, 1, d), dtype=xg.dtype, device=x.device)], 1))
-    with _ctx.local():
-        xin = _gather(xg_pad, st) if plain else moe_gather(xg_pad, st)
-        g = torch.einsum("gecd,edf->gecf", xin, p["wg"])
-        u = torch.einsum("gecd,edf->gecf", xin, p["wu"])
-        y = torch.einsum("gecf,efd->gecd", F.silu(g) * u, p["wd"])
-        yw = y.to(x.dtype) * sw[..., None].to(x.dtype)
-        out = (_scatter_add(yw, st, gs + 1) if plain
-               else moe_scatter(yw, st, gs))
+    xin = _gather(xg_pad, st)
+    g = torch.einsum("gecd,edf->gecf", xin, p["wg"])
+    u = torch.einsum("gecd,edf->gecf", xin, p["wu"])
+    y = torch.einsum("gecf,efd->gecd", F.silu(g) * u, p["wd"])
+    yw = y.to(x.dtype) * sw[..., None].to(x.dtype)
+    out = _scatter_add(yw, st, gs + 1)
     out = _moe_combine(out)
     return out[:, :gs].reshape(b, s, d), aux
 
@@ -625,22 +622,18 @@ def _gather(x: Tensor, slot_tok: Tensor) -> Tensor:
 
 
 class _MoEGather(torch.autograd.Function):
-    # each backward runs under the mesh its forward saw (none inside the
-    # expert-parallel local block), on whichever thread autograd takes
 
     @staticmethod
     def forward(ctx, xg_pad, slot_tok):
         ctx.save_for_backward(slot_tok)
         ctx.rows = xg_pad.shape[1]
-        ctx.mesh = _ctx._mesh()
         return _gather(xg_pad, slot_tok)
 
     @staticmethod
     def backward(ctx, ct):
         (slot_tok,) = ctx.saved_tensors
-        with _ctx.use_mesh(ctx.mesh):
-            ct = constrain(ct, ("dp", "model", None, None))
-            return _scatter_add(ct, slot_tok, ctx.rows), None
+        ct = constrain(ct, ("dp", "model", None, None))
+        return _scatter_add(ct, slot_tok, ctx.rows), None
 
 
 class _MoEScatter(torch.autograd.Function):
@@ -648,15 +641,13 @@ class _MoEScatter(torch.autograd.Function):
     @staticmethod
     def forward(ctx, yw, slot_tok, gs):
         ctx.save_for_backward(slot_tok)
-        ctx.mesh = _ctx._mesh()
         return _scatter_add(yw, slot_tok, gs + 1)
 
     @staticmethod
     def backward(ctx, ct):
         (slot_tok,) = ctx.saved_tensors
-        with _ctx.use_mesh(ctx.mesh):
-            ct = constrain(ct, ("dp", None, None))
-            return _gather(ct, slot_tok), None, None
+        ct = constrain(ct, ("dp", None, None))
+        return _gather(ct, slot_tok), None, None
 
 
 def moe_gather(xg_pad: Tensor, slot_tok: Tensor) -> Tensor:

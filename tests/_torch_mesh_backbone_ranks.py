@@ -6,7 +6,7 @@ gathered trees, every rank its own rows of the logits."""
 import numpy as np
 import torch
 
-from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import get_smoke
 from repro_torch.convert import train_state_from_numpy
 from repro_torch.distributed import ctx
@@ -69,15 +69,16 @@ def train(mesh, name, state, batch, opts_kw):
     cfg = get_smoke(name)
     whole = train_state_from_numpy(cfg, state, "cpu")
     tb = _rows(mesh, {k: torch.from_numpy(v) for k, v in batch.items()})
-    out = {}
+    out, grads = {}, None
     for zero in (True, False):
         opts = ST.StepOptions(zero=zero, **opts_kw)
         step, specs = ST.make_train_step(mesh, cfg, opts)
         local = S.shard_tree(mesh, whole, specs)
         _check_blocks(mesh, local, whole, specs)
-        loss, _, grads = ST.make_grad_step(mesh, cfg, opts)(local["params"],
-                                                           tb)
-        grads = S.gather_tree(mesh, grads, specs["params"])
+        if grads is None:       # the parameters' blocks do not see ZeRO
+            loss, _, grads = ST.make_grad_step(mesh, cfg, opts)(
+                local["params"], tb)
+            grads = S.gather_tree(mesh, grads, specs["params"])
         new, metrics = step(local, tb)
         new = S.gather_tree(mesh, new, specs)
         rec = {"loss": float(loss),
@@ -121,17 +122,20 @@ def moe(mesh, p, x, w, moe_kw):
 
 def checkpoint(mesh, name, opts_kw, src, dst):
     """Restore the one-process checkpoint in ``src`` onto this rank's
-    blocks (``shardings=``), write it back to ``dst`` from the mesh, and
-    on rank 0 return the restored tree gathered."""
+    blocks and write it back to ``dst`` from the mesh, through the
+    trainer's path (``CheckpointManager`` with ``shardings=``), and on
+    rank 0 return the restored tree gathered."""
     cfg = get_smoke(name)
     opts = ST.StepOptions(**opts_kw)
     specs = ST.make_train_state_specs(mesh, cfg, opts)
     placed = S.named(mesh, specs)
-    local = restore_checkpoint(src, ST.train_state_shapes(cfg, opts),
-                               shardings=placed)
+    step, local = CheckpointManager(src).restore_latest(
+        ST.train_state_shapes(cfg, opts), shardings=placed)
+    assert step == 3, step
     _check_blocks(mesh, local, ST.train_state_shapes(cfg, opts), specs)
     gathered = S.gather_tree(mesh, local, specs)
-    save_checkpoint(dst, 7, local, shardings=placed)
+    assert CheckpointManager(dst, interval=7).maybe_save(
+        7, local, block=True, shardings=placed)
     mesh.barrier()
     return _np_tree(gathered) if mesh.rank == 0 else None
 

@@ -26,9 +26,11 @@ JAX references are computed while the ranks run.
 * the expert-parallel MoE alone against JAX's ``_moe_apply_dense`` on
   each data shard, on both routes, and the dense MoE (experts the model
   axis does not divide) against it on the whole batch, as GSPMD runs it;
-* a checkpoint written by this process restored onto the mesh
-  (``restore_checkpoint(shardings=)``), written back from it and restored
-  here.
+* a checkpoint written by this process restored onto the mesh and
+  written back from it through the trainer's path
+  (``CheckpointManager.restore_latest``/``maybe_save`` with
+  ``shardings=``, which reach ``restore_checkpoint(shardings=)``), and
+  restored here.
 
 The pytest process never joins a process group.
 """
