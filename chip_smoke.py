@@ -105,7 +105,8 @@ Phases, each failing loudly:
    of 3 forwards back to back (per forward) behind ``PROFILE_PAD`` pad
    kernels; for the Listing-3 CNN a gate: the profile shows both pools in
    every forward and spans at least ``PROFILE_SPAN_SHARE`` of the warm
-   forward.
+   forward (a profile that misses either is taken again, at most
+   ``PROFILE_TRIES`` times, and the last one must pass).
 7. bf16 — the phase-3 model's 28 blocks and head, the phase-5 stacks and
    the Listing-3 CNN with their weights cast to bf16, through
    ``optimize(..., dtype="bfloat16", backend="h100")`` on bf16 inputs: the
@@ -1367,8 +1368,10 @@ FAMILIES = (("tc_kernel", "matmul"), ("tc16_kernel", "matmul"),
 # phases 11-25 of them; none in a fresh process), whatever the host waits
 # first, and the profiled Listing-3 forward then showed part of its span
 # and one of its two pools or none.  Only events after the last pad count.
-# Now and then the loss runs past every pad and into the measured calls:
-# a profile that recorded no pad is taken again, at most PROFILE_TRIES times.
+# Now and then the loss runs past every pad and into the measured calls, or
+# events go missing among the measured calls with the pads recorded: a
+# profile that recorded no pad, or that its caller finds incomplete, is
+# taken again, at most PROFILE_TRIES times.
 PROFILE_PAD = 256
 PROFILE_TRIES = 3
 PAD_KERNEL = "spin_kernel"      # torch.cuda._sleep's kernel
@@ -1392,25 +1395,35 @@ def profile_events(torch, run, calls: int) -> list:
             for e in prof.events() if e.device_type == DeviceType.CUDA]
 
 
-def device_breakdown(torch, run, calls: int = 1) -> dict:
+def device_breakdown(torch, run, calls: int = 1, complete=None) -> dict:
     """Profile ``calls`` calls of ``run()`` behind the pads
-    (``profile_events``), taken again while no pad was recorded, and
-    return per call the device time and launches per family of the events
-    after the last pad, the span from the first of them to the last, and
-    the device's busy share over it: the union of device events over that
-    span.  ``pad_events_lost``: the pads the kept profile did not record;
-    ``retakes``: the profiles dropped because they recorded no pad."""
+    (``profile_events``), taken again while no pad was recorded or, given
+    ``complete``, while ``complete(breakdown)`` is false (events of the
+    measured calls were lost), and return per call the device time and
+    launches per family of the events after the last pad, the span from the
+    first of them to the last, and the device's busy share over it: the
+    union of device events over that span.  ``pad_events_lost``: the pads
+    the kept profile did not record; ``retakes``: the profiles dropped."""
     for take in range(1, PROFILE_TRIES + 1):
         events = profile_events(torch, run, calls)
         pads = [e for e in events if PAD_KERNEL in e[2]]
-        if pads or take == PROFILE_TRIES:
-            break
-        log(f"[profile] none of the {PROFILE_PAD} pad kernels was recorded: "
-            f"events of the measured calls may be lost too, profiling again")
-    retakes = take - 1
-    if not pads:
-        log(f"[profile] {PROFILE_TRIES} profiles recorded no pad kernel: the "
-            f"kept one may lack the first events of the measured calls")
+        breakdown = _breakdown(events, pads, calls, take - 1)
+        if not pads:
+            why = (f"none of the {PROFILE_PAD} pad kernels was recorded: "
+                   f"events of the measured calls may be lost too")
+        elif complete is not None and not complete(breakdown):
+            why = "events of the measured calls were lost"
+        else:
+            return breakdown
+        if take < PROFILE_TRIES:
+            log(f"[profile] {why}, profiling again")
+    log(f"[profile] {PROFILE_TRIES} profiles lost events: {why}; the last "
+        f"one is kept")
+    return breakdown
+
+
+def _breakdown(events: list, pads: list, calls: int, retakes: int) -> dict:
+    """``device_breakdown``'s summary of one profile's ``events``."""
     cut = max((e[1] for e in pads), default=float("-inf"))
     spans = sorted(e for e in events
                    if PAD_KERNEL not in e[2] and e[0] >= cut)
@@ -1442,10 +1455,10 @@ def device_breakdown(torch, run, calls: int = 1) -> dict:
 
 
 def profiled(torch, label: str, run, digits: int = 2,
-             calls: int = 1) -> dict:
+             calls: int = 1, complete=None) -> dict:
     """``device_breakdown`` of ``calls`` calls of ``run()``, logged under
     ``label`` per call."""
-    breakdown = device_breakdown(torch, run, calls)
+    breakdown = device_breakdown(torch, run, calls, complete)
     if breakdown["measured"]:
         fams = ", ".join(f"{k} {v:.{digits}f}" for k, v in
                          breakdown["device_ms_by_family"].items())
@@ -1496,12 +1509,19 @@ def dfp_in_path(sol, breakdown: dict, label: str) -> dict:
 PROFILE_SPAN_SHARE = 0.75
 
 
-def check_pools_profiled(name: str, breakdown: dict, forward_ms: float):
+def pools_profiled(breakdown: dict, forward_ms: float) -> bool:
     """The Listing-3 forward's profile shows both pools in every call and
-    spans most of the forward: nothing was lost at its start."""
+    spans most of the forward: none of its events was lost."""
     pools = breakdown.get("launches_by_family", {}).get("avgpool")
     span = breakdown.get("span_ms", 0.0)
-    if pools != 2 or span < PROFILE_SPAN_SHARE * forward_ms:
+    return pools == 2 and span >= PROFILE_SPAN_SHARE * forward_ms
+
+
+def check_pools_profiled(name: str, breakdown: dict, forward_ms: float):
+    """Fail unless ``pools_profiled``: every retake lost events."""
+    if not pools_profiled(breakdown, forward_ms):
+        pools = breakdown.get("launches_by_family", {}).get("avgpool")
+        span = breakdown.get("span_ms", 0.0)
         fail(f"{name}: the profiled forward shows {pools} avgpool launches "
              f"a call over {span:.3f} ms, the warm forward takes "
              f"{forward_ms:.3f} ms: events were lost")
@@ -2005,8 +2025,11 @@ def phase_cnn(torch, counters, dev, held) -> dict:
             f"{h_med:.3f} {[round(v, 3) for v in h_ms]}, torch_ref "
             f"{r_med:.3f} {[round(v, 3) for v in r_ms]}; an h100 call "
             f"returns to the host after {enqueue_ms:.3f} ms")
+        complete = ((lambda b: pools_profiled(b, h_med))
+                    if name == "listing3_cnn" else None)
         breakdown = profiled(torch, f"{name} h100 forward", lambda: sol(x),
-                             digits=3, calls=CNN_PROFILE_CALLS)
+                             digits=3, calls=CNN_PROFILE_CALLS,
+                             complete=complete)
         if name == "listing3_cnn":
             check_pools_profiled(name, breakdown, h_med)
         results[name] = {
@@ -2495,7 +2518,8 @@ def bf16_cnn(torch, counters, dev, f32_ms: float, held) -> dict:
         f"{[round(v, 3) for v in h_ms]}, torch_ref bf16 {med(r_ms):.3f}, "
         f"h100 f32 (phase 6) {f32_ms:.3f}")
     breakdown = profiled(torch, "listing3_cnn bf16 h100 forward",
-                         lambda: sol(x16), digits=3, calls=CNN_PROFILE_CALLS)
+                         lambda: sol(x16), digits=3, calls=CNN_PROFILE_CALLS,
+                         complete=lambda b: pools_profiled(b, med(h_ms)))
     check_pools_profiled("listing3_cnn bf16", breakdown, med(h_ms))
     out = {"shape": CNN_SHAPE, "elections": by_kind, "launches": launches,
            "device_breakdown": breakdown,
