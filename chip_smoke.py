@@ -16,8 +16,9 @@ with one replica killed mid-stream, serves the model-zoo backbone
 (qwen2-1.5b at full width in bf16 and f32, then the ten reduced configs)
 through its prefill and decode steps, trains it through its train step
 (the same configs) and its driver, serves and trains it again sharded on
-a (2, 2) mesh of four ranks, and checks every path against the plain
-path.
+a (2, 2) mesh of four ranks, trains a sharded SOL graph on that mesh,
+runs the ``host_cpu`` backend on the host, and checks every path against
+the plain path.
 
     python3 chip_smoke.py          # one CUDA card, run from the repo root
 
@@ -183,8 +184,9 @@ Phases, each failing loudly:
    planted product backward whose dw drops the last token must fail every
    one of these gates; (c) median fwd and fwd+bwd times (``train_bench``'s
    calls) and one profiled fwd+bwd; (d) ``python -m
-   repro_torch.launch.train --sol`` for each ``--sol-model`` (d 256):
-   the warm-up, both gates and the falling loss.
+   repro_torch.launch.train --sol`` for each ``--sol-model`` (d 256; the
+   three processes side by side): the warm-up, both gates and the
+   falling loss.
 11. deploy — ``export_artifacts()`` of phase 8's strict measured server
    (one ``torch.export`` artifact a bucket, ``frontends/deploy.py``), then
    ``SolServer(cfg, deployed=..., strict_provenance=True)`` on phase 3's
@@ -288,6 +290,32 @@ Phases, each failing loudly:
    serve and train step summed over the ranks, all-reduces a decode
    step, decode p50 beside one process's, the ZeRO step's parts, the
    phase's seconds.
+17. mesh SOL train — phase 10's transformer stack (4 blocks, d 1536,
+   12/2 heads, MLP ×4, f32, input (4, 512, 1536), its weights, batch and
+   lr) through ``optimize(..., training=True, mesh=)`` on ``h100``, on a
+   (2, 2) (data, model) mesh of four gloo ranks sharing the card (the
+   parent builds the kernels and computes the one-process ``h100``
+   references first), trained by ``make_sol_train_step`` on each rank's
+   blocks and rows.  Gates against the one-process run: step 0's loss
+   within ``BB_TRAIN_LOSS0_RTOL``, every gathered gradient leaf within
+   ``BB_TRAIN_GRAD_TOL`` of its norm, the global gradient norm within
+   1e-5, ``TRAIN_STEPS`` losses within ``TRAIN_LOSS_RTOL`` and falling,
+   the gathered parameters within ``TRAIN_PARAM_TOL``; phase 10's
+   backward impls elected and the matmul launched in a backward; two
+   model all-reduces a block in the forward and two in the backward, one
+   data mean and one norm all-reduce a step; every launch's (kernel,
+   shape) held by phase 2 (which holds ``mesh_sol_train_plan``'s keys).
+   Planted faults caught: the column-parallel inputs' backward
+   all-reduce left out (gradients), the data mean left out (gradients
+   and parameters), the row-parallel forward all-reduce left out (loss).
+   Logged: rank 0's step split into fwd+bwd (the model all-reduces
+   within it), the gradient mean and AdamW, one process's step, the
+   phase's seconds.
+18. host_cpu — the small CNN at (8, 3, 224, 224) and phase 3's first two
+   blocks at (2, 128, 1536) through ``optimize(..., backend="host_cpu")``
+   on the host: ``host_cpu.linear_oi`` and ``host_cpu.conv2d_nchw``
+   elected, outputs within 1e-5 of ``torch_ref`` on the host and within
+   ``LOGIT_RTOL`` of ``h100`` on the card, a CUDA device refused.
 
 The second-to-last lines are the card's ``nvidia-smi`` line and a JSON
 ``kernels`` line (an entry per kernel in f32, and one per kernel in bf16
@@ -299,8 +327,9 @@ over the ranks, path ``mesh_serve``), 13's (path ``fleet``) and 14's
 (paths ``backbone_qwen2``, ``backbone_smoke`` and, in bf16,
 ``backbone_qwen2_bf16``), 15's kernel-route train steps (paths
 ``backbone_train_qwen2``, ``backbone_train_smoke`` and, in bf16,
-``backbone_train_qwen2_bf16``) and 16's (summed over the ranks, path
-``mesh_backbone``).  The
+``backbone_train_qwen2_bf16``), 16's (summed over the ranks, path
+``mesh_backbone``) and 17's steps (summed over the ranks, path
+``mesh_sol_train``).  The
 full record goes to ``chiprun_out/chip_smoke.json``.  The script imports
 nothing of JAX or of the JAX package ``src/repro``; it exits non-zero,
 printing no result, without a CUDA card or without the package.
@@ -1037,6 +1066,9 @@ def phase_kernels(gen) -> dict:
     for dt in ("float32", bf):
         hold(dt, {key: ("train", None) for key, d in
                   train_plan_all() if d == dt}, " (backbone train)")
+    # and every one phase 17's ranks launch: the per-shard training graph's
+    # forward nodes and its products' dx and dw
+    hold("float32", mesh_sol_train_plan(torch), " (mesh SOL train)")
     configs += sweep_configs(torch, gen, bf, nodes16)
     log_configs(configs)
     f16 = "float16"
@@ -3409,29 +3441,58 @@ def train_stack(torch, counters, dev, index: int, name: str, cfg: dict,
     return out
 
 
-def train_cli(name: str) -> dict:
-    """``python -m repro_torch.launch.train --sol --sol-model name`` (d 256
-    on the card): warm-up, both gates, the loss falling; its backward
-    elections with their provenance are printed."""
+def train_clis(names) -> dict:
+    """``python -m repro_torch.launch.train --sol --sol-model name`` for
+    each name (d 256 on the card), the processes side by side: each
+    one's warm-up, both gates and the falling loss; its backward
+    elections with their provenance are printed.  The gates read
+    provenance and the loss, not times, so the runs may share the
+    card."""
     import os
-    t0 = time.perf_counter()
+    import tempfile
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    proc = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.train", "--sol",
-         "--sol-model", name], cwd=ROOT, env=env, capture_output=True,
-        text=True, timeout=TRAIN_CLI_TIMEOUT)
-    seconds = time.perf_counter() - t0
-    lines = [ln for ln in proc.stdout.splitlines()
-             if ln.startswith("[train --sol]")]
-    for ln in lines:
-        log(f"[train-cli] {ln}")
-    if proc.returncode != 0 or "strict provenance clean" not in proc.stdout \
-            or "(improved)" not in proc.stdout:
-        fail(f"launch.train --sol --sol-model {name} exited "
-             f"{proc.returncode}: {proc.stderr[-2000:]}")
-    log(f"[train-cli] {name}: both gates passed, the loss fell "
-        f"({seconds:.1f} s)")
-    return {"seconds": seconds, "lines": lines}
+    t0 = time.perf_counter()
+    runs = {}
+    try:
+        for name in names:
+            out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile(
+                "w+")
+            runs[name] = (subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.train", "--sol",
+                 "--sol-model", name], cwd=ROOT, env=env, stdout=out,
+                stderr=err, text=True), out, err)
+        rec = {}
+        for name, (proc, out, err) in runs.items():
+            left = TRAIN_CLI_TIMEOUT - (time.perf_counter() - t0)
+            try:
+                proc.wait(timeout=max(left, 1.0))
+            except subprocess.TimeoutExpired:
+                fail(f"launch.train --sol --sol-model {name} outlived "
+                     f"{TRAIN_CLI_TIMEOUT} s")
+            seconds = time.perf_counter() - t0
+            out.seek(0)
+            err.seek(0)
+            stdout, stderr = out.read(), err.read()
+            lines = [ln for ln in stdout.splitlines()
+                     if ln.startswith("[train --sol]")]
+            for ln in lines:
+                log(f"[train-cli] {ln}")
+            if proc.returncode != 0 \
+                    or "strict provenance clean" not in stdout \
+                    or "(improved)" not in stdout:
+                fail(f"launch.train --sol --sol-model {name} exited "
+                     f"{proc.returncode}: {stderr[-2000:]}")
+            log(f"[train-cli] {name}: both gates passed, the loss fell "
+                f"(done {seconds:.1f} s after they started)")
+            rec[name] = {"seconds": seconds, "lines": lines}
+        return rec
+    finally:
+        for proc, out, err in runs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            out.close()
+            err.close()
 
 
 def phase_train(torch, counters, dev) -> dict:
@@ -3444,7 +3505,7 @@ def phase_train(torch, counters, dev) -> dict:
     stacks = {name: train_stack(torch, counters, dev, i, name, cfg, backend)
               for i, (name, cfg) in enumerate(TRAIN_STACKS)}
     pool = avgpool_bwd_case(torch, gen, backend)
-    cli = {name: train_cli(name) for name, _ in TRAIN_STACKS}
+    cli = train_clis([name for name, _ in TRAIN_STACKS])
     log(f"[train] phase 10 took {time.perf_counter() - t0:.1f} s")
     return {"stacks": stacks, "avgpool_bwd": pool, "cli": cli}
 
@@ -3980,12 +4041,16 @@ def backbone_plan_all() -> list:
 
 
 @contextlib.contextmanager
-def kernel_shapes(seen: dict):
+def kernel_shapes(seen: dict, kinds=("flash_attention", "decode_attention",
+                                     "rglru_scan", "rwkv6_scan")):
     """Count each backbone kernel launch by (kernel key, dtype) in
-    ``seen`` while the block runs: the four kernel functions the public
-    entries call are wrapped (each still counts its own launches)."""
+    ``seen`` while the block runs: the kernel functions of ``kinds`` that
+    the public entries call are wrapped (each still counts its own
+    launches).  A matmul key is ``node_key``'s: (M, K, N, the right
+    operand a transposed view)."""
     from repro_torch.kernels.decode_attention import ops as dops
     from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.matmul import ops as mops
     from repro_torch.kernels.rglru_scan import ops as gops
     from repro_torch.kernels.rwkv6_scan import ops as wops
 
@@ -4004,7 +4069,11 @@ def kernel_shapes(seen: dict):
              (gops, "rglru_scan_cuda",
               lambda a, *_, **__: ("rglru_scan", *a.shape)),
              (wops, "rwkv6_scan_cuda",
-              lambda r, *_, **__: ("rwkv6_scan", *r.shape))]
+              lambda r, *_, **__: ("rwkv6_scan", *r.shape)),
+             (mops, "matmul_cuda",
+              lambda a, b, **__: ("matmul", *a.shape, b.shape[1],
+                                  not b.is_contiguous()))]
+    spied = [sp for sp in spied if sp[1][:-len("_cuda")] in kinds]
     saved = []
     for mod, name, key_of in spied:
         orig = getattr(mod, name)
@@ -5297,6 +5366,510 @@ def phase_mesh_backbone(torch, ckpt_dir) -> dict:
         f"ranks share the card: no scaling measured); {nvidia_smi()}")
     return rec
 
+# ---------------------------------------------------------------------------
+# phase 17: a sharded SOL graph trained on a (data, model) mesh, four ranks
+# on the one card
+# ---------------------------------------------------------------------------
+
+# phase 10's transformer stack (4 blocks, d 1536, 12/2 heads, MLP ×4) with
+# its weights and batch (phase 10's first generator, seed 300), its lr and
+# steps, through optimize(..., training=True, mesh=) on (2, 2): 2 rows a
+# data rank, heads 6 and KV heads 1, q 768 and k/v 128 features and an MLP
+# of 3072 a model rank
+MST_NAME = "transformer"
+MST_SEED = 300
+MST_TIMEOUT_S = 420
+MST_KERNELS = ("matmul", "matmul_tc", "matmul_skinny", "flash_attention",
+               "dfp_fused")
+# all-reduces a block: forward after the row-parallel o and down products,
+# backward where the replicated input enters the column-parallel q/k/v
+# and up products
+MST_REDUCES_A_BLOCK = 2
+
+
+def mesh_sol_train_inputs(torch, dev):
+    """Phase 10's transformer stack on ``dev``, its input and its target,
+    drawn from phase 10's generator."""
+    cfg = dict(TRAIN_STACKS)[MST_NAME]
+    shape = TRAIN_SHAPE_BT + (cfg["d_model"],)
+    gen = torch.Generator(dev).manual_seed(MST_SEED)
+    model = _train_stack(torch, MST_NAME, cfg, dev, gen)
+    x = torch.randn(shape, device=dev, generator=gen)
+    y = torch.randn(shape, device=dev, generator=gen)
+    return model, x, y
+
+
+def mesh_sol_train_plan(torch) -> dict:
+    """Key -> (path, node) of every kernel launch of phase 17's ranks, by
+    ``node_key``: the ``cuda.*`` forwards of the per-shard training graph
+    (decided by ``shard_graph`` on an abstract (2, 2) mesh, nothing
+    launched) and the dx and dw products of each ``cuda.linear_bwd`` and
+    ``cuda.matmul_bwd`` node, as ``kernels/matmul/grad._dx_dw`` runs them:
+    dx = ct @ wᵀ (a transposed view of a (K, N) weight), dw = xᵀ @ ct or
+    ctᵀ @ x in the weight's layout, each left operand copied contiguous."""
+    from repro_torch.backends import for_device, get_backend
+    from repro_torch.core import passes
+    from repro_torch.core.ir import OpKind
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.frontends.extract import extract
+
+    cfg = dict(TRAIN_STACKS)[MST_NAME]
+    model = _train_stack(torch, MST_NAME, cfg, "meta", None)
+    shape = TRAIN_SHAPE_BT + (cfg["d_model"],)
+    am = shd.AbstractMesh(MESH)
+    bk = shd.mesh_backend(for_device(get_backend("h100"),
+                                     torch.device("cuda")), am)
+    g = passes.run_pipeline(shd.shard_graph(extract(model, shape), am), bk,
+                            training=True)
+    out: dict = {}
+    for n in g.topo():
+        if (n.impl or "").startswith("cuda."):
+            out.setdefault(node_key(n), ("mesh_sol_train", n))
+        if n.impl_bwd in ("cuda.linear_bwd", "cuda.matmul_bwd"):
+            x, w = n.inputs[0].spec.shape, n.inputs[1].spec.shape
+            m, k, nout = math.prod(x[:-1]), x[-1], n.spec.shape[-1]
+            kn = n.op is OpKind.MATMUL or w[0] != n.attrs["out_features"]
+            dw = (("matmul", k, m, nout, False) if kn
+                  else ("matmul", nout, m, k, False))
+            for key in (("matmul", m, nout, k, kn), dw):
+                out.setdefault(key, ("mesh_sol_train backward", None))
+    return out
+
+
+@contextlib.contextmanager
+def all_reduce_tally(torch, mesh, counts: dict, ms: dict, where: dict):
+    """Count (``counts``) and time (``ms``, between two ``cuda.
+    synchronize``) each all-reduce of ``mesh`` that crosses ranks by
+    (``where["part"]``, axes) while the block runs."""
+    real = mesh.all_reduce
+
+    def counted(t, axes):
+        names = (axes,) if isinstance(axes, str) else tuple(axes)
+        if mesh.span(names) == 1:
+            return real(t, axes)
+        key = (where["part"], "+".join(a for a in mesh.axis_names
+                                       if a in names))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(t, axes)
+        torch.cuda.synchronize()
+        counts[key] = counts.get(key, 0) + 1
+        ms[key] = ms.get(key, 0.0) + 1e3 * (time.perf_counter() - t0)
+        return out
+    mesh.all_reduce = counted
+    try:
+        yield
+    finally:
+        del mesh.all_reduce
+
+
+@contextlib.contextmanager
+def sol_step_parts(torch, split: dict, where: dict):
+    """A mesh SOL train step's parts timed into ``split`` (ms, each between
+    two ``cuda.synchronize``): the one all-reduce of the gradients and the
+    loss over ``data`` (``steps._data_mean``, host copies included) and
+    the update (``steps._global_norm``, whose all-reduce over ``model``
+    it includes, and ``adamw_update`` on the blocks); ``where["part"]``
+    names the part running, for ``all_reduce_tally``."""
+    from repro_torch.distributed import steps as ST
+
+    def timed(key, fn):
+        def run(*args, **kw):
+            torch.cuda.synchronize()
+            where["part"], t0 = key, time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                torch.cuda.synchronize()
+                where["part"] = "graph"
+                split[key] = split.get(key, 0.0) + 1e3 * (
+                    time.perf_counter() - t0)
+        return run
+
+    with planted(ST, "_data_mean", timed("data_mean", ST._data_mean)), \
+            planted(ST, "_global_norm", timed("update", ST._global_norm)), \
+            planted(ST, "adamw_update", timed("update", ST.adamw_update)):
+        yield
+
+
+def mesh_sol_train_rank(mesh, ref_file, ref, held) -> dict:
+    """One rank of phase 17 (run by ``run_on_mesh``): phase 10's stack and
+    batch drawn on the card, compiled for training on the mesh, this
+    rank's rows cut from the batch.  The gates' own passes first: step 0's
+    loss and gradients (``make_sol_grad_step``), gathered
+    (``gather_sol_tree``) and held on rank 0 to the one-process reference
+    in ``ref_file``, the global gradient norm, and one forward and its
+    backward with their all-reduces counted and the backward's launches.
+    Then the counts are zeroed, ``TRAIN_STEPS`` steps of
+    ``make_sol_train_step`` run (each step's parts timed, its all-reduces
+    counted, every kernel launch recorded by key) and the counts read; the
+    gathered parameters are held on rank 0 to the reference.  Then three
+    planted faults, each run again through the gate it must fail."""
+    import torch
+    from repro_torch.distributed import collectives
+    from repro_torch.distributed import sharding as S
+    from repro_torch.distributed import steps as ST
+    from repro_torch.frontends.optimize import optimize
+    from repro_torch.kernels.dfp_fused.kernel import dfp_fused_triton
+    from repro_torch.kernels.flash_attention.kernel import \
+        flash_attention_cuda
+    from repro_torch.kernels.matmul.kernel import KERNELS, matmul_cuda
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    counters = {"matmul": matmul_cuda, "matmul_tc": KERNELS["tensor_core"],
+                "matmul_skinny": KERNELS["skinny"],
+                "flash_attention": flash_attention_cuda,
+                "dfp_fused": dfp_fused_triton}
+    name = f"mesh SOL train rank {mesh.rank}"
+    t_rank = time.perf_counter()
+    model, x, y = mesh_sol_train_inputs(torch, mesh.device)
+    sol = optimize(model, tuple(x.shape), backend="h100", training=True,
+                   mesh=mesh)
+    del model
+    by_kind = check_train_elections(sol, MST_NAME)
+    check_held(sol, name, held, "float32")
+    batch = S.shard_tree(mesh, {"x": x, "y": y}, ST.sol_batch_specs(sol))
+    del x, y
+    params = sol._params_for_call()
+    lr = TRAIN_LR[MST_NAME]
+    opts = ST.StepOptions(lr=lr, warmup=1, total_steps=TRAIN_STEPS)
+    want = (torch.load(ref_file, mmap=True, weights_only=True)
+            if mesh.rank == 0 else None)
+    out = {"rank": mesh.rank, "coords": dict(mesh.coords),
+           "elections": by_kind, "faults": {}}
+
+    def grad_gate() -> dict:
+        """Step 0's loss, the global gradient norm and (rank 0) the worst
+        gathered gradient leaf's max |Δ| over its reference's norm."""
+        loss, grads = ST.make_sol_grad_step(sol)(params, batch)
+        norm = float(ST._global_norm(mesh, grads, sol.graph.param_specs))
+        whole = ST.gather_sol_tree(sol, grads)
+        del grads
+        rec = {"loss": float(loss), "grad_norm": norm}
+        if want is not None:
+            rec["grad_gap"], rec["grad_gap_at"] = leaf_gap(
+                {k: v.cpu() for k, v in whole.items()}, want["grads"])
+        return rec
+
+    def train(counts=None, ms=None, split=None):
+        """``TRAIN_STEPS`` steps from the model's blocks: the losses, each
+        step's ms, and on rank 0 ``train_gap`` against the reference."""
+        step, init = ST.make_sol_train_step(sol, opts)
+        state, losses, step_ms = init(), [], []
+        where = {"part": "graph"}
+        tally = (all_reduce_tally(torch, mesh, counts, ms, where)
+                 if counts is not None else contextlib.nullcontext())
+        parts = (sol_step_parts(torch, split, where)
+                 if split is not None else contextlib.nullcontext())
+        with tally, parts:
+            for _ in range(TRAIN_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, metrics = step(state, batch)
+                torch.cuda.synchronize()
+                step_ms.append(1e3 * (time.perf_counter() - t0))
+                losses.append(float(metrics["loss"]))
+        whole = ST.gather_sol_tree(sol, state["params"])
+        del state
+        rec = {"losses": losses, "step_ms": step_ms}
+        if want is not None:
+            rec["gap"] = train_gap(losses, {k: v.cpu() for k, v in
+                                            whole.items()},
+                                   ref["losses"], want["params"])
+        return rec
+
+    out["gate"] = grad_gate()
+    # one forward and its backward: their all-reduces, the backward's
+    # launches
+    live = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+    counts, ms = {}, {}
+    where = {"part": "forward"}
+    with all_reduce_tally(torch, mesh, counts, ms, where):
+        loss = ST.mse(sol._fn(live, batch["x"]), batch)
+        for c in counters.values():
+            c.launches = 0
+        where["part"] = "backward"
+        torch.autograd.grad(loss, list(live.values()))
+        torch.cuda.synchronize()
+    del loss, live
+    out["bwd_launches"] = {k: c.launches for k, c in counters.items()}
+    out["fwd_bwd_reduces"] = counts
+    for kernel in BWD_KERNELS[MST_NAME]:
+        if out["bwd_launches"][kernel] <= 0:
+            fail(f"{name}: {kernel} did not launch during backward")
+
+    # the main path's run: counts from 0, the steps, counts read
+    for c in counters.values():
+        c.launches = 0
+    keys: dict = {}
+    counts, ms, split = {}, {}, {}
+    with kernel_shapes(keys, kinds=("matmul", "flash_attention")):
+        run = train(counts, ms, split)
+    out["launches"] = {k: c.launches for k, c in counters.items()}
+    check_matmul_kernels(name, out["launches"], ("matmul_tc",))
+    missing = sorted({k for k, dt in keys if k not in held}, key=repr)
+    if missing:
+        fail(f"{name}: phase 2 held no float32 row at {missing}")
+    out.update(train=run, keys={repr(k): n for k, n in keys.items()},
+               step_reduces=counts, reduce_ms=ms, split_ms=split)
+    print(f"[mesh-sol-train] losses {[round(v, 6) for v in run['losses']]},"
+          f" step ms {[round(v, 1) for v in run['step_ms']]}, parts "
+          f"{ {k: round(v, 1) for k, v in split.items()} }, all-reduces "
+          f"{counts} in { {k: round(v, 1) for k, v in ms.items()} } ms; "
+          f"{time.perf_counter() - t_rank:.1f} s", flush=True)
+
+    # the planted faults, each through its gate
+    with planted(collectives, "copy_over", lambda t, mesh_, axes: t):
+        out["faults"]["copy"] = grad_gate()
+    with planted(ST, "_data_mean", lambda mesh_, tree: tree):
+        out["faults"]["data_mean"] = {**grad_gate(), **train()}
+    with planted(collectives, "reduce_over", lambda t, mesh_, axes: t):
+        out["faults"]["reduce"] = grad_gate()
+    out["seconds"] = time.perf_counter() - t_rank
+    return out
+
+
+def phase_mesh_sol_train(torch, held, dev) -> dict:
+    """Phase 17: phase 10's transformer stack trained as a sharded SOL
+    graph on a (2, 2) mesh, four ranks on the one card (``run_on_mesh``,
+    gloo), held to the one-process ``h100`` kernel route on the same
+    weights and batch, computed here first.  Gates: step 0's loss within
+    ``BB_TRAIN_LOSS0_RTOL``, every gathered gradient leaf within
+    ``BB_TRAIN_GRAD_TOL`` of its norm and the global gradient norm within
+    1e-5; ``TRAIN_STEPS`` AdamW steps at ``TRAIN_LR`` each within
+    ``TRAIN_LOSS_RTOL`` and falling, the gathered parameters within
+    ``TRAIN_PARAM_TOL``; phase 10's backward impls elected and the matmul
+    launched in a backward; two model all-reduces a block in the forward
+    and two in the backward, one data mean and one norm all-reduce a
+    step; every launch's key held by phase 2.  Planted faults: the
+    column-parallel inputs' backward all-reduce left out (the gradients
+    gate), the data mean left out (gradients and parameters), the
+    row-parallel forward all-reduce left out (the loss).  Logged: rank 0's
+    step split into fwd+bwd (the model all-reduces within it), the data
+    mean and AdamW, beside one process's step, and the phase's
+    seconds."""
+    import os
+    import shutil
+    import statistics
+    import tempfile
+
+    from repro_torch.distributed import steps as ST
+    from repro_torch.frontends.optimize import optimize
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import run_on_mesh
+
+    t_phase = time.perf_counter()
+    build.build_all()                 # the ranks load what the parent built
+    model, x, y = mesh_sol_train_inputs(torch, dev)
+    sol = optimize(model, tuple(x.shape), backend="h100", training=True,
+                   device=dev)
+    loss0, grads = ST.make_sol_grad_step(sol)(sol._params_for_call(),
+                                              {"x": x, "y": y})
+    norm = math.sqrt(sum(float(torch.sum(torch.square(g.double())))
+                         for g in grads.values()))
+    losses, step_ms, final = train_run(torch, sol, x, y, TRAIN_STEPS,
+                                       TRAIN_LR[MST_NAME])
+    tmp = Path(tempfile.mkdtemp(prefix="sol_mesh_train_"))
+    ref_file = tmp / "reference.pt"
+    torch.save({"grads": {k: g.cpu() for k, g in grads.items()},
+                "params": {k: p.cpu() for k, p in final.items()}}, ref_file)
+    del model, x, y, sol, grads, final
+    gc.collect()
+    torch.cuda.empty_cache()
+    ref_s = time.perf_counter() - t_phase
+    ref = {"loss": float(loss0), "grad_norm": norm, "losses": losses}
+    try:
+        t0 = time.perf_counter()
+        ranks = run_on_mesh(mesh_sol_train_rank, *MESH, device=dev.type,
+                            dist_backend="gloo", timeout_s=MST_TIMEOUT_S,
+                            args=(str(ref_file), ref, held))
+        ranks_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    r0 = ranks[0]
+    blocks = TRAIN_BLOCKS[MST_NAME]
+
+    def loss_rel(v):
+        return abs(v - ref["loss"]) / abs(ref["loss"])
+
+    # gradients, loss and norm (every rank's loss and norm: the global ones)
+    gate = r0["gate"]
+    worst_loss = max(loss_rel(rk["gate"]["loss"]) for rk in ranks)
+    worst_norm = max(abs(rk["gate"]["grad_norm"] - norm) / norm
+                     for rk in ranks)
+    if not worst_loss <= BB_TRAIN_LOSS0_RTOL:
+        fail(f"mesh SOL train: step 0's loss {gate['loss']!r} vs one "
+             f"process {ref['loss']!r} ({worst_loss:.3g})")
+    if not gate["grad_gap"] <= BB_TRAIN_GRAD_TOL:
+        fail(f"mesh SOL train: gradient {gate['grad_gap_at']} differs by "
+             f"{gate['grad_gap']:.3g} of its norm from one process's")
+    if not worst_norm <= 1e-5:
+        fail(f"mesh SOL train: global gradient norm {gate['grad_norm']!r} "
+             f"vs one process {norm!r} ({worst_norm:.3g})")
+    # the steps
+    run = r0["train"]
+    if run["gap"]["violations"]:
+        fail(f"mesh SOL train: {run['gap']['violations'][:4]}")
+    if not run["losses"][-1] < run["losses"][0]:
+        fail(f"mesh SOL train: loss did not fall: {run['losses']}")
+    for rk in ranks:
+        if rk["train"]["losses"] != run["losses"]:
+            fail(f"mesh SOL train: rank {rk['rank']}'s losses "
+                 f"{rk['train']['losses']} differ from rank 0's")
+    # the all-reduces
+    per_block = {("forward", "model"): MST_REDUCES_A_BLOCK * blocks,
+                 ("backward", "model"): MST_REDUCES_A_BLOCK * blocks}
+    per_step = {("graph", "model"): 2 * MST_REDUCES_A_BLOCK * blocks,
+                ("data_mean", "data"): 1, ("update", "model"): 1}
+    for rk in ranks:
+        if rk["fwd_bwd_reduces"] != per_block:
+            fail(f"mesh SOL train: rank {rk['rank']}'s forward and backward "
+                 f"all-reduce {rk['fwd_bwd_reduces']}, not {per_block}")
+        steps_seen = {k: v / TRAIN_STEPS for k, v in
+                      rk["step_reduces"].items()}
+        if steps_seen != per_step:
+            fail(f"mesh SOL train: rank {rk['rank']}'s steps all-reduce "
+                 f"{steps_seen} a step, not {per_step}")
+    # the planted faults
+    f = r0["faults"]
+    seen = {"the backward all-reduce left out: gradients":
+            (f["copy"]["grad_gap"], BB_TRAIN_GRAD_TOL),
+            "the data mean left out: gradients":
+            (f["data_mean"]["grad_gap"], BB_TRAIN_GRAD_TOL),
+            "the data mean left out: parameters":
+            (float(len(f["data_mean"]["gap"]["violations"])), 0.0),
+            "the forward all-reduce left out: loss":
+            (max(loss_rel(rk["faults"]["reduce"]["loss"]) for rk in ranks),
+             BB_TRAIN_LOSS0_RTOL)}
+    for label, (value, limit) in seen.items():
+        if not value > limit:
+            fail(f"mesh SOL train: {label} passed its gate ({value:.3g}, "
+                 f"limit {limit})")
+    launches = {k: sum(rk["launches"][k] for rk in ranks)
+                for k in MST_KERNELS}
+    for kernel in ("matmul", "flash_attention", "dfp_fused"):
+        if launches[kernel] <= 0:
+            fail(f"mesh SOL train: {kernel} was not launched on the ranks")
+    split = r0["split_ms"]
+    step_total = sum(r0["train"]["step_ms"])
+    model_ms = r0["reduce_ms"].get(("graph", "model"), 0.0)
+    parts = {"step_ms": step_total / TRAIN_STEPS,
+             "fwd_bwd_ms": (step_total - split["data_mean"]
+                            - split["update"]) / TRAIN_STEPS,
+             "model_all_reduce_ms": model_ms / TRAIN_STEPS,
+             "data_mean_ms": split["data_mean"] / TRAIN_STEPS,
+             "adamw_ms": split["update"] / TRAIN_STEPS}
+    phase_s = time.perf_counter() - t_phase
+    rec = {"loss_rel_err": worst_loss, "grad_gap": gate["grad_gap"],
+           "grad_gap_at": gate["grad_gap_at"], "grad_norm_rel_err": worst_norm,
+           "losses": run["losses"], "ref_losses": losses,
+           "train_gap": run["gap"], "faults": {k: v for k, (v, _) in
+                                               seen.items()},
+           "elections": r0["elections"], "bwd_launches": r0["bwd_launches"],
+           "reduces_a_step": {"+".join(k): v / TRAIN_STEPS for k, v in
+                              r0["step_reduces"].items()},
+           "launches": launches, "keys": r0["keys"],
+           "rank0_step_ms": r0["train"]["step_ms"], "rank0_parts": parts,
+           "ref_step_ms": step_ms, "reference_s": ref_s, "ranks_s": ranks_s,
+           "rank_s": [rk["seconds"] for rk in ranks], "phase_s": phase_s}
+    cfg = dict(TRAIN_STACKS)[MST_NAME]
+    log(f"[mesh-sol-train] {blocks} x transformer_block({cfg['d_model']}, "
+        f"{cfg['n_heads']}/{cfg['n_kv_heads']}) on {MESH}, input "
+        f"{TRAIN_SHAPE_BT + (cfg['d_model'],)}: step 0 loss "
+        f"{worst_loss:.3g}, gradients {gate['grad_gap']:.3g} of the norm at "
+        f"{gate['grad_gap_at']}, norm {worst_norm:.3g}; losses "
+        f"{[round(v, 6) for v in run['losses']]} (one process "
+        f"{[round(v, 6) for v in losses]}, worst {run['gap']['loss_rel']:.3g}),"
+        f" final parameters within max |Δ| {run['gap']['max_abs']:.3g} "
+        f"({run['gap']['worst']}); all-reduces a step "
+        f"{rec['reduces_a_step']}; faults caught: "
+        + ", ".join(f"{k} {v:.3g}" for k, v in rec["faults"].items()))
+    log(f"[mesh-sol-train] rank 0 step {parts['step_ms']:.2f} ms (mean of "
+        f"{TRAIN_STEPS}): fwd+bwd {parts['fwd_bwd_ms']:.2f} (of which model "
+        f"all-reduces {parts['model_all_reduce_ms']:.2f}), gradient mean "
+        f"{parts['data_mean_ms']:.2f}, AdamW with the norm "
+        f"{parts['adamw_ms']:.2f}; one process {statistics.median(step_ms):.2f}"
+        f" ms (median); launches summed over the ranks {launches}; reference "
+        f"{ref_s:.1f} s, ranks {ranks_s:.1f} s; phase 17 took {phase_s:.1f} s"
+        f" (four ranks share the card: no scaling measured); {nvidia_smi()}")
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# phase 18: the host_cpu backend on the card machine's host
+# ---------------------------------------------------------------------------
+
+HOST_CNN_SHAPE = (8, 3, 224, 224)
+HOST_LM_SHAPE = (2, 128, 1536)
+HOST_RTOL = 1e-5            # against torch_ref on the host: the f32 row
+HOST_IMPLS = {"host_cpu.linear_oi", "host_cpu.conv2d_nchw"}
+
+
+def phase_host_cpu(torch, dev) -> dict:
+    """Phase 18: the small CNN (seeded on the card, ``HOST_CNN_SHAPE``) and
+    phase 3's first two blocks (its generator, drawn in its order) through
+    ``optimize(..., backend="host_cpu")`` with no device: on the host.
+    Gates: both tier-0 impls elected, every output within ``HOST_RTOL`` of
+    ``torch_ref`` on the host and within ``LOGIT_RTOL`` of ``h100`` on the
+    card (of the output's scale), and a CUDA device refused."""
+    import copy
+
+    from repro_torch.frontends import nn
+    from repro_torch.frontends.optimize import optimize
+    from torch import nn as tnn
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(dev).manual_seed(0)
+    d, heads, kvh = FULL["d_model"], FULL["n_heads"], FULL["n_kv_heads"]
+    blocks = tnn.Sequential(*[nn.transformer_block(d, heads, kvh, device=dev,
+                                                   generator=gen)
+                              for _ in range(2)])
+    cnn = nn.small_cnn(device=dev, generator=gen).eval()
+    rec, elected = {}, set()
+    for name, module, shape in (("small_cnn", cnn, HOST_CNN_SHAPE),
+                                ("transformer_2_blocks", blocks,
+                                 HOST_LM_SHAPE)):
+        x = torch.randn(shape, device=dev, generator=gen)
+        on_host = copy.deepcopy(module).to("cpu")
+        host = optimize(on_host, shape, backend="host_cpu")
+        if host.device.type != "cpu":
+            fail(f"host_cpu {name} compiled for {host.device}")
+        t0 = time.perf_counter()
+        got = host(x.cpu())
+        host_ms = 1e3 * (time.perf_counter() - t0)
+        want = optimize(on_host, shape, backend="torch_ref",
+                        device="cpu")(x.cpu())
+        card = optimize(module, shape, backend="h100", device=dev)(x).cpu()
+        err_ref, err_card = rel_err(got, want), rel_err(got, card)
+        if not err_ref <= HOST_RTOL:
+            fail(f"host_cpu {name}: {err_ref:.3g} of the scale from "
+                 f"torch_ref on the host")
+        if not err_card <= LOGIT_RTOL:
+            fail(f"host_cpu {name}: {err_card:.3g} of the scale from h100 "
+                 f"on the card")
+        report = host.impl_report()
+        elected |= set(report)
+        rec[name] = {"shape": shape, "elections": report,
+                     "vs_torch_ref": err_ref, "vs_h100": err_card,
+                     "host_ms": host_ms}
+        log(f"[host_cpu] {name} {shape}: {report}; {err_ref:.3g} of the scale "
+            f"from torch_ref (host), {err_card:.3g} from h100 (card); one "
+            f"host forward {host_ms:.1f} ms")
+    if not HOST_IMPLS <= elected:
+        fail(f"host_cpu elected {sorted(elected)}, not {sorted(HOST_IMPLS)}")
+    try:
+        optimize(cnn, HOST_CNN_SHAPE, backend="host_cpu", device="cuda")
+    except ValueError as err:
+        rec["refused"] = str(err)
+    else:
+        fail("host_cpu compiled for the card")
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log(f"[host_cpu] the card refused ({rec['refused']}); phase 18 took "
+        f"{rec['phase_s']:.1f} s")
+    return rec
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "__init__.py").is_file():
         print("chip_smoke: src/repro_torch not found next to this script; "
@@ -5433,6 +6006,13 @@ def main() -> int:
     import shutil
     shutil.rmtree(train_backbone["cli"]["ckpt_dir"], ignore_errors=True)
     mark("16 mesh backbone")
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh_sol_train = phase_mesh_sol_train(torch, held32,
+                                          torch.device("cuda"))
+    mark("17 mesh SOL train")
+    host_cpu = phase_host_cpu(torch, torch.device("cuda"))
+    mark("18 host_cpu")
 
     # launches per main path: the served set and one forward of each stack
     # and each CNN in f32; the bf16 paths' runs for the bf16 entries
@@ -5451,6 +6031,7 @@ def main() -> int:
     for path in ("backbone_train_qwen2", "backbone_train_smoke"):
         by_path[path] = train_backbone["launches"][path]
     by_path["mesh_backbone"] = mesh_backbone["launches"]
+    by_path["mesh_sol_train"] = mesh_sol_train["launches"]
     bf16_by_path = {name: r["launches"] for name, r in bf16.items()}
     bf16_by_path["deploy_listing3_cnn"] = \
         deploy["legs"]["listing3_cnn_bf16"]["launches"]
@@ -5496,7 +6077,8 @@ def main() -> int:
          "measured_serve": measured, "sol": sol, "train": train,
          "deploy": deploy, "mesh_serve": mesh, "fleet": fleet,
          "backbone": backbone, "train_backbone": train_backbone,
-         "mesh_backbone": mesh_backbone, "phase_seconds": phase_seconds,
+         "mesh_backbone": mesh_backbone, "mesh_sol_train": mesh_sol_train,
+         "host_cpu": host_cpu, "phase_seconds": phase_seconds,
          "seconds": time.perf_counter() - t_start},
         indent=1, default=str))
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")

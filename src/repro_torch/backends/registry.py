@@ -13,9 +13,11 @@ executor resolves ``node → impl`` through a fallback chain:
   tier 2  PyTorch reference         (``register_reference_impl`` — always
                                      available; registered by core.executor)
 
-Two backends: ``torch_ref`` (capabilities ``{"torch"}``, the reference tier
-only — the counterpart of ``xla``; it runs wherever its tensors are) and
-``h100`` (``{"torch", "cuda"}`` — the counterpart of ``pallas_tpu``).
+Three backends: ``torch_ref`` (capabilities ``{"torch"}``, the reference
+tier only — the counterpart of ``xla``; it runs wherever its tensors are),
+``h100`` (``{"torch", "cuda"}`` — the counterpart of ``pallas_tpu``) and
+``host_cpu`` (``backends/host_cpu.py``: two tier-0 impls on the host,
+registered through this table alone).
 
 Backward (grad) tables sit beside the forward ones, with the same
 :class:`Impl`, tiers and capability gating; a grad impl's ``fn`` follows
@@ -106,6 +108,19 @@ H100_PCIE = HardwareSpec(
     name="h100_pcie", peak_flops_bf16=756e12, peak_flops_f32=51e12,
     peak_flops_tf32=378e12, hbm_bandwidth=2.0e12, link_bandwidth=300e9,
     hbm_bytes=80 * 1024 ** 3, smem_bytes=227 * 1024, sms=114)
+
+
+# The host, as the JAX package's ``HOST_CPU`` describes it
+# (``repro/backends/registry.py``): ~0.2 TFLOP/s, 40 GB/s DRAM, 64 GiB; its
+# VMEM slice (the last-level cache share, 32 MiB) stands where a block's
+# shared memory does, its 16-wide tile, 16 lanes and one sublane where the
+# wgmma tile, the warp and the SM count do.  It has no tensor cores, so
+# every unit runs at the one peak (the 3xTF32 unit's third of it included).
+HOST_CPU = HardwareSpec(
+    name="host_cpu", peak_flops_bf16=0.2e12, peak_flops_f32=0.2e12,
+    peak_flops_tf32=3 * 0.2e12, hbm_bandwidth=40e9, link_bandwidth=10e9,
+    hbm_bytes=64 * 1024 ** 3, smem_bytes=32 * 1024 ** 2, mma_dim=16,
+    warp=16, sms=1)
 
 
 def h100_spec(device_name: str) -> HardwareSpec:
@@ -430,6 +445,9 @@ class Backend:
     capabilities: frozenset = frozenset({"torch"})
     # mesh qualifier for the autotune cache (set by the mesh slice)
     shard_tag: str = ""
+    # the one device type the backend runs on (None: wherever its
+    # tensors are); ``compile_graph`` places a model there by default
+    device_type: Optional[str] = None
 
     @property
     def cache_name(self) -> str:

@@ -325,21 +325,30 @@ def lower_graph(g: Graph, backend: "registry.Backend", *,
 
     A sharded graph (``distributed.sharding.shard_graph``) runs one rank's
     shard: a row-parallel product marked with ``psum_axes`` yields partial
-    sums, and their all-reduce over the mesh's groups of those axes lowers
-    right after the node, before any downstream bias add (BIAS_ADD is its
-    own node)."""
+    sums, and their all-reduce over the mesh's groups of those axes
+    (``collectives.reduce_over``, whose backward is the identity) lowers
+    right after the node, outside its ``_NodeFunction``, before any
+    downstream bias add (BIAS_ADD is its own node).  Differentiable, each
+    input of the column-parallel products (``sharding.column_parallel``)
+    reaches them through one ``collectives.copy_over`` per input and call,
+    whose backward all-reduces the partial gradient that products leave:
+    one all-reduce where a replicated tensor enters a sharded region, not
+    one per product."""
     order = g.topo()
     mesh = getattr(g, "mesh", None)
     psum = {id(n): tuple(n.attrs["psum_axes"]) for n in order
             if n.attrs.get("psum_axes")}
+    copy: Dict[int, tuple] = {}
     if mesh is not None and differentiable:
-        raise NotImplementedError(
-            "training a sharded SOL graph (the differentiable lowering of "
-            "its row-parallel products) waits for ROADMAP §1 item 7.6")
-    if psum and not hasattr(mesh, "all_reduce"):
+        from ..distributed.sharding import column_parallel
+        copy = column_parallel(g)
+    if (psum or copy) and not hasattr(mesh, "all_reduce"):
         raise ValueError(
-            f"{len(psum)} row-parallel products need a mesh with process "
-            f"groups (launch.mesh.make_debug_mesh), not {mesh!r}")
+            f"{len(psum)} row-parallel and {len(copy)} column-parallel "
+            f"products need a mesh with process groups (launch.mesh."
+            f"make_debug_mesh), not {mesh!r}")
+    if psum or copy:
+        from ..distributed import collectives
     input_ids = [id(i) for i in g.inputs]
     param_items = sorted(g.params.items())
     impls: Dict[int, registry.Impl] = {
@@ -371,6 +380,7 @@ def lower_graph(g: Graph, backend: "registry.Backend", *,
                                       dtype=TORCH_DTYPES[n.spec.dtype],
                                       device=dev) for n in consts}
         env: Dict[int, Tensor] = dict(const_cache[dev])
+        copied: Dict[tuple, Tensor] = {}
         for nid, x in zip(input_ids, inputs):
             env[nid] = x
         for name, node in param_items:
@@ -381,11 +391,18 @@ def lower_graph(g: Graph, backend: "registry.Backend", *,
             if n.op in (OpKind.INPUT, OpKind.PARAM):
                 raise ValueError(f"unbound source node {n}")
             vals = [env[id(i)] for i in n.inputs]
+            if id(n) in copy:
+                key = (id(n.inputs[0]), copy[id(n)])
+                if key not in copied:
+                    copied[key] = collectives.copy_over(vals[0], mesh,
+                                                        copy[id(n)])
+                vals[0] = copied[key]
             call = calls.get(id(n))
             env[id(n)] = (call(*vals) if call is not None
                           else impls[id(n)].fn(n, vals, backend))
             if id(n) in psum:
-                env[id(n)] = mesh.all_reduce(env[id(n)], psum[id(n)])
+                env[id(n)] = collectives.reduce_over(env[id(n)], mesh,
+                                                     psum[id(n)])
         outs = tuple(env[id(o)] for o in g.outputs)
         return outs[0] if len(outs) == 1 else outs
 

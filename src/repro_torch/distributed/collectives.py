@@ -26,6 +26,13 @@ Each reads the active mesh (``ctx.use_mesh``) when it runs forward and
 keeps it for its backward, which may run on autograd's device thread.
 With no such mesh (one process, or an axis of size one) each is the
 identity.
+
+A sharded SOL graph (``core.executor.lower_graph`` on a graph that
+``sharding.shard_graph`` partitioned) has its mesh and axes in hand, so
+it calls the same collectives with both given: :func:`reduce_over` after
+a row-parallel product (``psum_axes``), :func:`copy_over` where a
+replicated tensor enters column-parallel products, and
+:func:`gather_over` on a sharded output.
 """
 from __future__ import annotations
 
@@ -62,10 +69,14 @@ def coord(axis: str) -> int:
     return mesh.coords[axis]
 
 
-def _block(x: Tensor, mesh, axis: str, dim: int) -> Tensor:
-    n = mesh.shape[axis]
+def _block(x: Tensor, mesh, axes, dim: int) -> Tensor:
+    """This rank's block of ``x`` along ``dim``, cut over ``axes`` (a name
+    or names) row-major, the order ``Mesh.all_gather`` joins them in."""
+    n, i = 1, 0
+    for a in ((axes,) if isinstance(axes, str) else axes):
+        n, i = n * mesh.shape[a], i * mesh.shape[a] + mesh.coords[a]
     size = x.shape[dim] // n
-    return x.narrow(dim, mesh.coords[axis] * size, size).contiguous()
+    return x.narrow(dim, i * size, size).contiguous()
 
 
 class _AllReduce(torch.autograd.Function):
@@ -124,25 +135,43 @@ def _on(axis: str):
     return mesh
 
 
+def reduce_over(x: Tensor, mesh, axes) -> Tensor:
+    """The sum of ``x`` over the ranks of this rank's ``axes`` slice of
+    ``mesh`` (partial sums); backward the identity."""
+    return _AllReduce.apply(x, mesh, axes, 1.0)
+
+
+def copy_over(x: Tensor, mesh, axes) -> Tensor:
+    """``x`` (replicated over ``axes``) entering a region sharded over
+    them: the identity, whose backward sums the ranks' partial
+    gradients."""
+    return _Copy.apply(x, mesh, axes)
+
+
+def gather_over(x: Tensor, mesh, axes, dim: int) -> Tensor:
+    """The blocks of ``x`` of this rank's ``axes`` slice joined along
+    ``dim``; backward keeps this rank's block."""
+    return _Gather.apply(x, mesh, axes, dim % x.dim())
+
+
 def reduce_model(x: Tensor) -> Tensor:
     """The sum of ``x`` over the ``model`` ranks (a row-parallel
     product's partial sums)."""
     mesh = _on("model")
-    return x if mesh is None else _AllReduce.apply(x, mesh, "model", 1.0)
+    return x if mesh is None else reduce_over(x, mesh, "model")
 
 
 def copy_model(x: Tensor) -> Tensor:
     """``x`` (replicated over ``model``) entering a model-sharded region:
     the identity, whose backward sums the ranks' partial gradients."""
     mesh = _on("model")
-    return x if mesh is None else _Copy.apply(x, mesh, "model")
+    return x if mesh is None else copy_over(x, mesh, "model")
 
 
 def gather_model(x: Tensor, dim: int) -> Tensor:
     """The ``model`` ranks' blocks of ``x`` joined along ``dim``."""
     mesh = _on("model")
-    return x if mesh is None else _Gather.apply(x, mesh, "model",
-                                                dim % x.dim())
+    return x if mesh is None else gather_over(x, mesh, "model", dim)
 
 
 def scatter_model(x: Tensor, dim: int) -> Tensor:

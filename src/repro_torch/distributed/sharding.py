@@ -10,7 +10,9 @@ then rewrites every ``node.spec`` (and RESHAPE ``shape``, LINEAR
 ``out_features``) to the per-shard LOCAL shape, and marks row-parallel
 LINEAR/MATMUL nodes with ``attrs['psum_axes']``: the all-reduce the
 executor lowers right after the partial product, before any downstream
-bias add.  Because the rewrite happens before ``passes.run_pipeline``,
+bias add; :func:`column_parallel` reads the column-parallel products back
+from the specs, whose inputs' gradients the differentiable lowering
+all-reduces.  Because the rewrite happens before ``passes.run_pipeline``,
 elections, autotune lookups, Tunable pinning and strict provenance all see
 per-shard shapes; :func:`mesh_backend` qualifies the autotune-cache key so
 mesh timings and single-device timings never alias.
@@ -387,6 +389,31 @@ def shard_graph(g, mesh):
     g.param_specs = {name: pspec(node) for name, node in g.params.items()}
     g.validate()
     return g
+
+
+def column_parallel(g) -> Dict[int, Tuple[str, ...]]:
+    """{id(product): axes} of the column-parallel products of a graph
+    that :func:`shard_graph` partitioned, read from its ``param_specs``: a
+    LINEAR or MATMUL with no ``psum_axes`` whose weight is sharded on its
+    output dim (a LINEAR's (out, in) weight on dim 0, a MATMUL's (in, out)
+    one on its last, as ``shard_graph`` lays them out), over ``axes`` (those
+    of span one left out).  Its input is whole over ``axes`` and its
+    output sharded over them, so the gradient each rank computes for
+    that input through it is a partial sum over ``axes``."""
+    name_of = {id(n): name for name, n in g.params.items()}
+    out: Dict[int, Tuple[str, ...]] = {}
+    for n in g.topo():
+        if n.op not in (OpKind.LINEAR, OpKind.MATMUL) or len(n.inputs) < 2 \
+                or n.attrs.get("psum_axes") or id(n.inputs[1]) not in name_of:
+            continue
+        w = n.inputs[1]
+        rank = len(w.spec.shape)
+        spec = g.param_specs[name_of[id(w)]]
+        e = _entry(spec, 0 if n.op is OpKind.LINEAR else rank - 1, rank)
+        axes = tuple(a for a in _axes_tuple(e) if axis_size(g.mesh, a) > 1)
+        if axes:
+            out[id(n)] = axes
+    return out
 
 
 def shard_slices(mesh, coords: Mapping[str, int], shape: Tuple[int, ...],

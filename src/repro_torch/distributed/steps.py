@@ -22,7 +22,16 @@
 * :func:`make_sol_train_step` trains a ``SolModel`` compiled with
   ``training=True``: forward and backward ride the elected graph, where
   every node with a backward impl is a ``torch.autograd.Function``
-  pairing its elected forward with its elected backward.
+  pairing its elected forward with its elected backward.  Compiled on a
+  mesh of ranks (``compile_graph(mesh=...)``), it follows the backbone's
+  sharded steps: the state holds this rank's blocks
+  (``graph.param_specs``), the batch is this rank's rows
+  (:func:`sol_batch_specs`), the loss is the global batch's (the mean
+  over ``data``, an output sharded over ``model`` read whole), the
+  gradients are averaged over ``data`` in one all-reduce, the clip reads
+  the global norm and AdamW updates the rank's blocks
+  (:func:`make_sol_grad_step` is its gradient pass, and
+  :func:`gather_sol_tree` joins blocks back into whole tensors).
 * :func:`make_prefill_step` / :func:`make_decode_step` serve the backbone
   (:func:`jit_serve_steps`: the decode step with the parameter and cache
   specs).
@@ -41,7 +50,8 @@ from ..models import backbone as B
 from ..models.config import ArchConfig
 from ..optim import AdamWConfig, adamw_update, cosine_schedule, \
     init_opt_state, opt_state_specs
-from . import compress as C
+from . import collectives as C
+from . import compress
 from . import ctx
 from . import sharding as S
 from . import zero as Z
@@ -66,6 +76,77 @@ def mse(out: torch.Tensor, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
     return ((out.float() - batch["y"].float()) ** 2).mean()
 
 
+def sol_batch_specs(model) -> Dict[str, Any]:
+    """``{"x", "y"}`` partition specs of a batch for a mesh-compiled
+    ``SolModel``: the input's (``graph.input_specs``) and the output's
+    rows, whole over every other axis (the loss reads the output
+    joined over ``model``)."""
+    graph, mesh = model.graph, model.mesh
+    dp = set(S.dp_axes(mesh))
+    out = graph.output_specs[0]
+    return {"x": graph.input_specs[0],
+            "y": S.P(*(e if set(S._axes_tuple(e)) & dp else None
+                       for e in out))}
+
+
+def _whole_output(mesh, out: torch.Tensor, spec) -> torch.Tensor:
+    """The rank's rows of ``out`` with every dim sharded over other axes
+    than the data axes all-gathered (differentiably: the backward keeps
+    the rank's block)."""
+    dp = set(S.dp_axes(mesh))
+    for dim in range(out.dim()):
+        axes = S._axes_tuple(S._entry(spec, dim, out.dim()))
+        if axes and not set(axes) & dp and mesh.span(axes) > 1:
+            out = C.gather_over(out, mesh, axes, dim)
+    return out
+
+
+def make_sol_grad_step(model, loss_fn: Optional[Callable] = None
+                       ) -> Callable:
+    """``grad_step(params, batch)``: ``(loss, grads)`` of ``loss_fn``
+    (default :func:`mse`) through a ``SolModel`` compiled with
+    ``training=True``, ``grads`` a dict like ``params``.  On a mesh of
+    ranks ``params`` and ``batch`` are this rank's blocks and rows, the
+    gradients this rank's blocks of their mean over ``data`` and the
+    loss its mean (one all-reduce for both)."""
+    lf = loss_fn or mse
+    ranks = _ranks(getattr(model, "mesh", None))
+
+    def grad_step(params: Dict[str, torch.Tensor],
+                  batch: Dict[str, torch.Tensor]):
+        keys = sorted(params)
+        live = {k: params[k].detach().requires_grad_(True) for k in keys}
+        with torch.enable_grad():
+            out = model._fn(live, batch["x"])
+            if ranks is not None:
+                out = _whole_output(ranks, out, model.graph.output_specs[0])
+            loss = lf(out, batch)
+            grads = torch.autograd.grad(loss, [live[k] for k in keys],
+                                        allow_unused=True)
+        grads = {k: g if g is not None else torch.zeros_like(live[k])
+                 for k, g in zip(keys, grads)}
+        loss = loss.detach()
+        if ranks is not None:
+            with torch.no_grad():
+                grads, loss = _data_mean(ranks, (grads, loss))
+        return loss, grads
+
+    return grad_step
+
+
+def gather_sol_tree(model, tree: Dict[str, torch.Tensor]
+                    ) -> Dict[str, torch.Tensor]:
+    """The whole tensors of ``tree`` (``{parameter name: this rank's
+    block}``: parameters, gradients or moments of a mesh-compiled
+    ``SolModel``) under ``graph.param_specs``; a collective every rank
+    calls.  Off a mesh of ranks, ``tree`` itself."""
+    mesh = _ranks(getattr(model, "mesh", None))
+    if mesh is None:
+        return dict(tree)
+    return S.gather_tree(mesh, dict(tree),
+                         {k: model.graph.param_specs[k] for k in tree})
+
+
 def make_sol_train_step(model, opts: StepOptions,
                         loss_fn: Optional[Callable] = None
                         ) -> Tuple[Callable, Callable]:
@@ -74,9 +155,16 @@ def make_sol_train_step(model, opts: StepOptions,
     {"x": ..., "y": ...}`` on the model's device, returns the new state
     and ``{"loss", "lr", "grad_norm"}``; it writes none of ``state``'s
     tensors.  ``init_state(params=None)`` starts from the model's own
-    parameters (``_params_for_call``) with zero moments."""
+    parameters (``_params_for_call``) with zero moments.  On a mesh of
+    ranks the state holds this rank's blocks and the batch is this
+    rank's rows (``sol_batch_specs``); the loss is the global batch's,
+    the gradients their mean over ``data``, the clip reads their global
+    norm (a model-sharded leaf's blocks summed over ``model``, a
+    replicated leaf counted once), and AdamW updates the blocks, as the
+    one-process step updates the whole tensors."""
     ocfg = AdamWConfig(lr=opts.lr, moment_dtype=opts.moment_dtype)
-    lf = loss_fn or mse
+    grad_step = make_sol_grad_step(model, loss_fn)
+    ranks = _ranks(getattr(model, "mesh", None))
 
     def init_state(params: Optional[Dict[str, torch.Tensor]] = None
                    ) -> Dict[str, Any]:
@@ -87,21 +175,17 @@ def make_sol_train_step(model, opts: StepOptions,
                                     device=model.device)}
 
     def train_step(state: Dict[str, Any], batch: Dict[str, torch.Tensor]):
-        keys = sorted(state["params"])
-        params = {k: state["params"][k].detach().requires_grad_(True)
-                  for k in keys}
-        loss = lf(model._fn(params, batch["x"]), batch)
-        grads = torch.autograd.grad(loss, [params[k] for k in keys],
-                                    allow_unused=True)
-        grads = {k: g if g is not None else torch.zeros_like(params[k])
-                 for k, g in zip(keys, grads)}
+        loss, grads = grad_step(state["params"], batch)
         with torch.no_grad():
             lr = cosine_schedule(state["step"], peak_lr=opts.lr,
                                  warmup=opts.warmup, total=opts.total_steps)
+            gnorm = None if ranks is None else _global_norm(
+                ranks, grads, model.graph.param_specs)
             new_p, new_opt, om = adamw_update(state["params"], grads,
-                                              state["opt"], ocfg, lr)
+                                              state["opt"], ocfg, lr,
+                                              gnorm=gnorm)
         return ({"params": new_p, "opt": new_opt, "step": state["step"] + 1},
-                {"loss": loss.detach(), "lr": lr, **om})
+                {"loss": loss, "lr": lr, **om})
 
     return train_step, init_state
 
@@ -360,8 +444,8 @@ def make_train_step(mesh, cfg: ArchConfig, opts: StepOptions, *,
     def train_step(state: Dict[str, Any], batch: Dict[str, torch.Tensor]):
         lval, metrics, grads = grad_step(state["params"], batch)
         with torch.no_grad():
-            grads = C.decompress_grads(
-                C.compress_grads(grads, opts.grad_compression),
+            grads = compress.decompress_grads(
+                compress.compress_grads(grads, opts.grad_compression),
                 opts.grad_compression)
             lr = cosine_schedule(state["step"], peak_lr=opts.lr,
                                  warmup=opts.warmup, total=opts.total_steps)

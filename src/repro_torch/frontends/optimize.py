@@ -212,10 +212,23 @@ def compile_graph(model: tnn.Module, graph, backend: str | Backend = "h100",
     holds this rank's parameter shards, slices each input by the graph's
     input specs, lowers the row-parallel all-reduces inside the program
     and all-gathers every output, so each rank returns the whole output.
-    ``device=None`` is then the mesh's device."""
+    With ``training=True`` its ``_fn`` takes this rank's parameter blocks
+    and rows and is differentiable across the ranks
+    (``distributed.steps.make_sol_train_step`` trains it).
+    ``device=None`` is then the mesh's device.  A backend bound to one
+    device type (``Backend.device_type``: ``host_cpu``'s is the CPU)
+    runs there when no device is given and refuses any other."""
     bk = backend if isinstance(backend, Backend) else get_backend(backend)
     if mesh is not None and device is None:
         device = getattr(mesh, "device", None)
+    if device is None:
+        device = bk.device_type
+    if bk.device_type is not None and \
+            torch.device(device).type != bk.device_type:
+        raise ValueError(
+            f"backend {bk.name!r} runs on the {bk.device_type} device (the "
+            f"host), not on {device}: compile for that device with another "
+            f"backend")
     dev = resolve_device(device)
     bk = for_device(bk, dev)            # a PCIe card's spec on a PCIe card
     if mesh is not None:

@@ -217,15 +217,21 @@ def test_matmul_rows_on_the_cpu_run_the_plain_version():
 
 
 def test_layouts_apply_writes_the_winners_into_the_registry():
+    """Body rewritten, name kept: ``host_cpu`` is registered at import
+    beside ``torch_ref`` and ``h100``, so the winners are written into
+    its preferences too (its NCHW conv becomes NHWC)."""
     rows, winners = layouts.bench(device="cpu")
     assert len(rows) == 8 and set(winners) == {"linear", "conv"}
     before = {n: registry.get_backend(n)
               for n in registry.available_backends()}
+    assert set(before) >= {"torch_ref", "h100", "host_cpu"}
     try:
         changes = layouts.apply_measured({"linear": "oi", "conv": "nhwc"})
         assert get_backend("h100").linear_weight_layout == "oi"
         assert get_backend("torch_ref").conv_layout == "nhwc"
+        assert get_backend("host_cpu").conv_layout == "nhwc"
         assert changes == {"h100": "linear:io→oi",
+                           "host_cpu": "conv:nchw→nhwc",
                            "torch_ref": "conv:nchw→nhwc"}
     finally:
         for b in before.values():

@@ -388,15 +388,25 @@ def test_serve_cli_mesh_smoke():
 
 
 def test_sharded_graph_needs_process_groups_and_no_training():
+    """Body rewritten, name kept: a sharded graph now trains on a mesh of
+    ranks (``tests/test_torch_mesh_sol_train.py``), so an abstract mesh,
+    which has no process groups, is refused for training as it is for
+    serving: its row-parallel all-reduces and, for training, its
+    column-parallel inputs' backward all-reduces have no ranks to run
+    on."""
     _, sd = _weights()
     tm = R.lm(sd, *DIMS)
     am = tshd.AbstractMesh((1, 2))
     with pytest.raises(ValueError, match="process groups"):
         compile_graph(tm, extract_prefill(tm, (2, 8, D)), "h100",
                       device="cpu", mesh=am)
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(ValueError, match="process groups") as err:
         compile_graph(tm, extract_prefill(tm, (2, 8, D)), "h100",
                       device="cpu", mesh=am, training=True)
+    # 4 column-parallel products (q, k, v, up) and 2 row-parallel (o, down)
+    # a block, and the vocab-parallel head
+    assert f"{2 * LAYERS} row-parallel and {4 * LAYERS + 1} " \
+        "column-parallel" in str(err.value)
 
 
 # ---------------------------------------------------------------------------
