@@ -161,7 +161,7 @@ Phases, each failing loudly:
    serving and sol, into ``chiprun_out/BENCH_torch*.json``) must return 0,
    and ``serve_rows`` serves phase 3's model at full width: phase 3's four
    prompts and three more sets of their lengths, ``GEN`` tokens each.
-10. training — three f32 stacks at full width, 4 blocks each (RWKV6 2:
+10. training — three f32 stacks at full width, 4 blocks each (RWKV6 1:
    the serve model's transformer block, d 1536 with 12/2 heads; Griffin d
    4096; RWKV6 d 2048 with 32 heads; MLPs ×4, ×3, ×3) on (4, 512, d) through
    ``optimize(..., training=True)``: (a) every backward impl of each
@@ -272,8 +272,8 @@ Phases, each failing loudly:
    each rank draws the weights from phase 14's seed and keeps its blocks
    (``jit_serve_steps``' specs), serves its rows (a prefill into a
    sharded cache, greedy decode steps) and takes one ZeRO train step.
-   qwen2-1.5b at full width in f32 (batch 4, a 128-token prompt, 8 decode
-   steps, train seq 128), then the ten reduced configs (batch 4, seq 64,
+   qwen2-1.5b at full width in f32, 8 of its 28 layers (batch 4, a
+   128-token prompt, 8 decode steps, train seq 128), then the ten reduced configs (batch 4, seq 64,
    4 decode steps; olmoe and kimi expert-parallel).  Gates against the
    one-process kernel route on the same weights, prompts and batches:
    greedy tokens equal (near ties reported), logits within
@@ -2938,7 +2938,7 @@ def phase_sol(torch, dev, state) -> dict:
 # RecurrentGemma-9B's (src/repro/configs/recurrentgemma_9b.py) and
 # RWKV6-1.6B's (src/repro/configs/rwkv6_1_6b.py), as in phases 3 and 5,
 # each cut to its TRAIN_BLOCKS blocks so that two backends' training runs
-# of all three fit the script's time limit: RWKV6 to 2, whose torch-op
+# of all three fit the script's time limit: RWKV6 to 1, whose torch-op
 # scan backward (ckpt.rwkv6_scan_bwd) holds the host ≈ 0.6 s a layer
 TRAIN_STACKS = (
     ("transformer", dict(d_model=1536, n_heads=12, n_kv_heads=2,
@@ -2946,7 +2946,7 @@ TRAIN_STACKS = (
     ("griffin", dict(d_model=4096, mlp_mult=3)),
     ("rwkv6", dict(d_model=2048, n_heads=32, mlp_mult=3)),
 )
-TRAIN_BLOCKS = {"transformer": 4, "griffin": 4, "rwkv6": 2}
+TRAIN_BLOCKS = {"transformer": 4, "griffin": 4, "rwkv6": 1}
 TRAIN_SHAPE_BT = (4, 512)
 TRAIN_STEPS = 6
 # h100 against torch_ref from the same weights: each step's loss, relative;
@@ -3441,58 +3441,29 @@ def train_stack(torch, counters, dev, index: int, name: str, cfg: dict,
     return out
 
 
-def train_clis(names) -> dict:
-    """``python -m repro_torch.launch.train --sol --sol-model name`` for
-    each name (d 256 on the card), the processes side by side: each
-    one's warm-up, both gates and the falling loss; its backward
-    elections with their provenance are printed.  The gates read
-    provenance and the loss, not times, so the runs may share the
-    card."""
+def train_cli(name: str) -> dict:
+    """``python -m repro_torch.launch.train --sol --sol-model name`` (d 256
+    on the card): warm-up, both gates, the loss falling; its backward
+    elections with their provenance are printed."""
     import os
-    import tempfile
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     t0 = time.perf_counter()
-    runs = {}
-    try:
-        for name in names:
-            out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile(
-                "w+")
-            runs[name] = (subprocess.Popen(
-                [sys.executable, "-m", "repro_torch.launch.train", "--sol",
-                 "--sol-model", name], cwd=ROOT, env=env, stdout=out,
-                stderr=err, text=True), out, err)
-        rec = {}
-        for name, (proc, out, err) in runs.items():
-            left = TRAIN_CLI_TIMEOUT - (time.perf_counter() - t0)
-            try:
-                proc.wait(timeout=max(left, 1.0))
-            except subprocess.TimeoutExpired:
-                fail(f"launch.train --sol --sol-model {name} outlived "
-                     f"{TRAIN_CLI_TIMEOUT} s")
-            seconds = time.perf_counter() - t0
-            out.seek(0)
-            err.seek(0)
-            stdout, stderr = out.read(), err.read()
-            lines = [ln for ln in stdout.splitlines()
-                     if ln.startswith("[train --sol]")]
-            for ln in lines:
-                log(f"[train-cli] {ln}")
-            if proc.returncode != 0 \
-                    or "strict provenance clean" not in stdout \
-                    or "(improved)" not in stdout:
-                fail(f"launch.train --sol --sol-model {name} exited "
-                     f"{proc.returncode}: {stderr[-2000:]}")
-            log(f"[train-cli] {name}: both gates passed, the loss fell "
-                f"(done {seconds:.1f} s after they started)")
-            rec[name] = {"seconds": seconds, "lines": lines}
-        return rec
-    finally:
-        for proc, out, err in runs.values():
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-            out.close()
-            err.close()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--sol",
+         "--sol-model", name], cwd=ROOT, env=env, capture_output=True,
+        text=True, timeout=TRAIN_CLI_TIMEOUT)
+    seconds = time.perf_counter() - t0
+    lines = [ln for ln in proc.stdout.splitlines()
+             if ln.startswith("[train --sol]")]
+    for ln in lines:
+        log(f"[train-cli] {ln}")
+    if proc.returncode != 0 or "strict provenance clean" not in proc.stdout \
+            or "(improved)" not in proc.stdout:
+        fail(f"launch.train --sol --sol-model {name} exited "
+             f"{proc.returncode}: {proc.stderr[-2000:]}")
+    log(f"[train-cli] {name}: both gates passed, the loss fell "
+        f"({seconds:.1f} s)")
+    return {"seconds": seconds, "lines": lines}
 
 
 def phase_train(torch, counters, dev) -> dict:
@@ -3505,7 +3476,7 @@ def phase_train(torch, counters, dev) -> dict:
     stacks = {name: train_stack(torch, counters, dev, i, name, cfg, backend)
               for i, (name, cfg) in enumerate(TRAIN_STACKS)}
     pool = avgpool_bwd_case(torch, gen, backend)
-    cli = train_clis([name for name, _ in TRAIN_STACKS])
+    cli = {name: train_cli(name) for name, _ in TRAIN_STACKS}
     log(f"[train] phase 10 took {time.perf_counter() - t0:.1f} s")
     return {"stacks": stacks, "avgpool_bwd": pool, "cli": cli}
 
@@ -4041,13 +4012,11 @@ def backbone_plan_all() -> list:
 
 
 @contextlib.contextmanager
-def kernel_shapes(seen: dict, kinds=("flash_attention", "decode_attention",
-                                     "rglru_scan", "rwkv6_scan")):
-    """Count each backbone kernel launch by (kernel key, dtype) in
-    ``seen`` while the block runs: the kernel functions of ``kinds`` that
-    the public entries call are wrapped (each still counts its own
-    launches).  A matmul key is ``node_key``'s: (M, K, N, the right
-    operand a transposed view)."""
+def kernel_shapes(seen: dict):
+    """Count each kernel launch by (kernel key, dtype) in ``seen`` while
+    the block runs: the five kernel functions the public entries call are
+    wrapped (each still counts its own launches).  A matmul key is
+    ``node_key``'s: (M, K, N, the right operand a transposed view)."""
     from repro_torch.kernels.decode_attention import ops as dops
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.matmul import ops as mops
@@ -4073,7 +4042,6 @@ def kernel_shapes(seen: dict, kinds=("flash_attention", "decode_attention",
              (mops, "matmul_cuda",
               lambda a, b, **__: ("matmul", *a.shape, b.shape[1],
                                   not b.is_contiguous()))]
-    spied = [sp for sp in spied if sp[1][:-len("_cuda")] in kinds]
     saved = []
     for mod, name, key_of in spied:
         orig = getattr(mod, name)
@@ -4830,13 +4798,15 @@ def phase_train_backbone(torch, counters: dict, held: set) -> dict:
 # one card
 # ---------------------------------------------------------------------------
 
-# qwen2-1.5b as published in f32 (phase 14's config, 12 heads and 2 KV
-# heads: whole heads on each model rank), batch 4 (2 rows a data rank), a
-# 128-token prompt and 8 greedy decode steps, one train step at seq 128;
-# the ten reduced configs at batch 4, seq 64 (patches included), 4 decode
-# steps, one train step
+# qwen2-1.5b at its published widths in f32 (phase 14's config, 12 heads
+# and 2 KV heads: whole heads on each model rank) cut to MB_QWEN_LAYERS of
+# its 28 layers so that the script fits its time limit, batch 4 (2 rows a
+# data rank), a 128-token prompt and 8 greedy decode steps, one train step
+# at seq 128; the ten reduced configs at batch 4, seq 64 (patches
+# included), 4 decode steps, one train step
 MB_BATCH = 4
 MB_QWEN = (128, 8)
+MB_QWEN_LAYERS = 8
 MB_SMOKE = (64, 4)
 MB_KERNELS = ("flash_attention", "decode_attention", "rglru_scan",
               "rwkv6_scan")
@@ -4848,7 +4818,8 @@ MB_PREFILL_ROWS = 8
 def mesh_backbone_runs() -> list:
     """(config, prompt, decode steps, train seq) of every phase-16 run."""
     from repro_torch.configs import ARCH_IDS, get_config, get_smoke
-    qwen = dataclasses.replace(get_config(BACKBONE_ARCH), dtype="float32")
+    qwen = dataclasses.replace(get_config(BACKBONE_ARCH), dtype="float32",
+                               n_layers=MB_QWEN_LAYERS)
     return ([(qwen, *MB_QWEN, MB_QWEN[0])]
             + [(get_smoke(a), *MB_SMOKE, MB_SMOKE[0]) for a in ARCH_IDS])
 
@@ -5158,8 +5129,8 @@ def phase_mesh_backbone(torch, ckpt_dir) -> dict:
     """Phase 16: the backbone's sharded steps on a (2, 2) mesh, four ranks
     on the one card (``run_on_mesh``, gloo), held to the one-process
     kernel route on the same weights (phase 14's seed), prompts and
-    batches, computed here first: qwen2-1.5b at full width in f32 and the
-    ten reduced configs.  Gates: greedy tokens equal (near ties
+    batches, computed here first: qwen2-1.5b at full width in f32 (8 of
+    its 28 layers) and the ten reduced configs.  Gates: greedy tokens equal (near ties
     reported) and logits within ``BACKBONE_RTOL`` of the scale; one train
     step with ZeRO: its loss and gradient norm within
     ``BB_TRAIN_LOSS0_RTOL`` of the one-process step-0 values, every
@@ -5604,7 +5575,7 @@ def mesh_sol_train_rank(mesh, ref_file, ref, held) -> dict:
         c.launches = 0
     keys: dict = {}
     counts, ms, split = {}, {}, {}
-    with kernel_shapes(keys, kinds=("matmul", "flash_attention")):
+    with kernel_shapes(keys):
         run = train(counts, ms, split)
     out["launches"] = {k: c.launches for k, c in counters.items()}
     check_matmul_kernels(name, out["launches"], ("matmul_tc",))

@@ -123,6 +123,12 @@ def _axes_tuple(e) -> Tuple[str, ...]:
     return (e,) if isinstance(e, str) else tuple(e)
 
 
+def spec_axes(spec, dim: int, rank: int) -> Tuple[str, ...]:
+    """The mesh axes that dim ``dim`` of a ``rank``-dim tensor is sharded
+    over under ``spec`` (none where it is whole)."""
+    return _axes_tuple(_entry(spec, dim, rank))
+
+
 def local_shape(mesh, shape: Tuple[int, ...], spec) -> Tuple[int, ...]:
     return tuple(d // axis_size(mesh, _entry(spec, i, len(shape)))
                  for i, d in enumerate(shape))
@@ -409,8 +415,9 @@ def column_parallel(g) -> Dict[int, Tuple[str, ...]]:
         w = n.inputs[1]
         rank = len(w.spec.shape)
         spec = g.param_specs[name_of[id(w)]]
-        e = _entry(spec, 0 if n.op is OpKind.LINEAR else rank - 1, rank)
-        axes = tuple(a for a in _axes_tuple(e) if axis_size(g.mesh, a) > 1)
+        dim = 0 if n.op is OpKind.LINEAR else rank - 1
+        axes = tuple(a for a in spec_axes(spec, dim, rank)
+                     if axis_size(g.mesh, a) > 1)
         if axes:
             out[id(n)] = axes
     return out

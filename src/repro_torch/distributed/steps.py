@@ -50,9 +50,9 @@ from ..models import backbone as B
 from ..models.config import ArchConfig
 from ..optim import AdamWConfig, adamw_update, cosine_schedule, \
     init_opt_state, opt_state_specs
-from . import collectives as C
-from . import compress
+from . import compress as C
 from . import ctx
+from .collectives import gather_over
 from . import sharding as S
 from . import zero as Z
 
@@ -85,8 +85,8 @@ def sol_batch_specs(model) -> Dict[str, Any]:
     dp = set(S.dp_axes(mesh))
     out = graph.output_specs[0]
     return {"x": graph.input_specs[0],
-            "y": S.P(*(e if set(S._axes_tuple(e)) & dp else None
-                       for e in out))}
+            "y": S.P(*(e if set(S.spec_axes(out, i, len(out))) & dp
+                       else None for i, e in enumerate(out)))}
 
 
 def _whole_output(mesh, out: torch.Tensor, spec) -> torch.Tensor:
@@ -95,9 +95,9 @@ def _whole_output(mesh, out: torch.Tensor, spec) -> torch.Tensor:
     the rank's block)."""
     dp = set(S.dp_axes(mesh))
     for dim in range(out.dim()):
-        axes = S._axes_tuple(S._entry(spec, dim, out.dim()))
+        axes = S.spec_axes(spec, dim, out.dim())
         if axes and not set(axes) & dp and mesh.span(axes) > 1:
-            out = C.gather_over(out, mesh, axes, dim)
+            out = gather_over(out, mesh, axes, dim)
     return out
 
 
@@ -444,8 +444,8 @@ def make_train_step(mesh, cfg: ArchConfig, opts: StepOptions, *,
     def train_step(state: Dict[str, Any], batch: Dict[str, torch.Tensor]):
         lval, metrics, grads = grad_step(state["params"], batch)
         with torch.no_grad():
-            grads = compress.decompress_grads(
-                compress.compress_grads(grads, opts.grad_compression),
+            grads = C.decompress_grads(
+                C.compress_grads(grads, opts.grad_compression),
                 opts.grad_compression)
             lr = cosine_schedule(state["step"], peak_lr=opts.lr,
                                  warmup=opts.warmup, total=opts.total_steps)

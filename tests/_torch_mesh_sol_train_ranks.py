@@ -49,12 +49,13 @@ def _np_tree(tree):
     return {k: v.detach().numpy() for k, v in tree.items()}
 
 
-def job(mesh, sd, dims, x, y, opts_kw, steps):
+def job(mesh, sd, dims, x, y, opts_kw, steps, head=None):
     """On ``mesh``: the gathered step-0 gradients and loss
     (``make_sol_grad_step``), the all-reduces of one forward, of its
     backward and of one train step by axes, ``steps`` train steps' losses
     and gathered parameters, and the gathered gradients again with the
-    column-parallel inputs' backward all-reduce left out."""
+    column-parallel inputs' backward all-reduce left out; with ``head``
+    (:func:`head_job`'s arguments after the mesh) also its results."""
     d, heads, layers = dims
     sm = optimize(stack(sd, d, heads, layers), x.shape, backend="h100",
                   training=True, device="cpu", mesh=mesh)
@@ -95,6 +96,8 @@ def job(mesh, sd, dims, x, y, opts_kw, steps):
     finally:
         collectives.copy_over = real
     out["fault_grads"] = _np_tree(ST.gather_sol_tree(sm, bad))
+    if head is not None:
+        out["head"] = head_job(mesh, *head)
     return out
 
 

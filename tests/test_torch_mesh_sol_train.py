@@ -111,25 +111,40 @@ def ref():
     tloss, tgrads = TST.make_sol_grad_step(tsm)(
         tsm._params_for_call(), {"x": torch.from_numpy(x),
                                  "y": torch.from_numpy(y)})
+    # the stack with a Linear(D, VOCAB) head, for the (2, 2) job
+    hjm, hsd = _weights(head=True)
+    hy = np.random.default_rng(8).standard_normal((B, S, VOCAB)).astype(
+        np.float32)
+    hjsm = j_optimize(hjm, (B, S, D), backend="xla", training=True)
+    hloss, hgrads = jax.value_and_grad(
+        lambda p: _mse(hjsm._fn(p, jnp.asarray(x)), jnp.asarray(hy)))(
+            {k: jnp.asarray(hsd[k]) for k in hjsm.graph.params})
     return {"sd": sd, "x": x, "y": y, "jax_loss": float(jloss),
             "jax_grads": {k: np.asarray(v) for k, v in jgrads.items()},
             "jax_losses": losses,
             "jax_params": {k: np.asarray(v)
                            for k, v in state["params"].items()},
             "port_loss": float(tloss),
-            "port_grads": {k: v.numpy() for k, v in tgrads.items()}}
+            "port_grads": {k: v.numpy() for k, v in tgrads.items()},
+            "head": {"sd": hsd, "y": hy, "jax_loss": float(hloss),
+                     "jax_grads": {k: np.asarray(v)
+                                   for k, v in hgrads.items()}}}
 
 
 _JOBS = {}
 
 
 def _job(ref, mesh):
-    """The ranks' results on ``mesh``, run once per module."""
+    """The ranks' results on ``mesh``, run once per module; the (2, 2)
+    job also runs the stack with the vocab-parallel head."""
     if mesh not in _JOBS:
+        h = ref["head"]
+        head = ((h["sd"], (D, HEADS, LAYERS, VOCAB), ref["x"], h["y"])
+                if mesh == (2, 2) else None)
         _JOBS[mesh] = tmesh.run_on_mesh(
             R.job, *mesh, device="cpu", dist_backend="gloo", timeout_s=120,
             args=(ref["sd"], (D, HEADS, LAYERS), ref["x"], ref["y"], OPTS,
-                  STEPS))
+                  STEPS, head))
     return _JOBS[mesh]
 
 
@@ -215,29 +230,20 @@ def test_ranks_hold_their_blocks_and_agree(ref, mesh):
             assert shapes["1.3.weight"] == (D, 4 * D // model)
 
 
-def test_model_sharded_output_is_gathered_for_the_loss():
+def test_model_sharded_output_is_gathered_for_the_loss(ref):
     """A vocab-parallel head leaves the output sharded over ``model``: the
     loss reads it joined (``gather_over``, whose backward keeps the rank's
     block) against the target's rows, and the gradients still equal
     ``jax.grad`` on one device."""
-    jm, sd = _weights(head=True)
-    x, _ = _data()
-    y = np.random.default_rng(8).standard_normal((B, S, VOCAB)).astype(
-        np.float32)
-    jsm = j_optimize(jm, (B, S, D), backend="xla", training=True)
-    jloss, jgrads = jax.value_and_grad(
-        lambda p: _mse(jsm._fn(p, jnp.asarray(x)), jnp.asarray(y)))(
-            {k: jnp.asarray(sd[k]) for k in jsm.graph.params})
-    res = tmesh.run_on_mesh(
-        R.head_job, 2, 2, device="cpu", dist_backend="gloo", timeout_s=120,
-        args=(sd, (D, HEADS, LAYERS, VOCAB), x, y))
-    for r in res:
-        assert r["out_spec"] == ("data", None, "model")
-        assert r["y_spec"] == ("data", None, None)
-        np.testing.assert_allclose(r["loss"], float(jloss), rtol=1e-5)
-        for k, want in jgrads.items():
-            np.testing.assert_allclose(r["grads"][k], np.asarray(want),
-                                       **GRAD_TOL, err_msg=f"grad {k}")
+    want = ref["head"]
+    for r in _job(ref, (2, 2)):
+        h = r["head"]
+        assert h["out_spec"] == ("data", None, "model")
+        assert h["y_spec"] == ("data", None, None)
+        np.testing.assert_allclose(h["loss"], want["jax_loss"], rtol=1e-5)
+        for k, g in want["jax_grads"].items():
+            np.testing.assert_allclose(h["grads"][k], g, **GRAD_TOL,
+                                       err_msg=f"grad {k}")
 
 
 @pytest.mark.parametrize("mesh", MESHES, ids=str)
